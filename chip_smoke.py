@@ -1,0 +1,498 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line; any failure raises, so the exit code
+is non-zero and no result line is printed:
+
+1. env     — the card (``nvidia-smi`` name and power limit), torch and CUDA
+             versions, the TF32 flags (both must be off).
+2. build   — compiles ``src/repro_torch/csrc/*.cu`` with nvcc into build/.
+3. kernels — every kernel of the main path against its plain PyTorch
+             version on the card at the main path's shapes (rtol 1e-5,
+             atol 1e-5 · max|ref|), with kernel, plain-version and library
+             device times (torch.profiler over 100 calls after warm-up),
+             their per-call times with host overhead (CUDA events), and
+             the card's bound for the same work.
+4. map     — the epochs=0 Map → Reduce at full width (cnn_elm_6c12c, 60,000
+             synthetic extended-MNIST images, 10,000 held out, k = 4, batch
+             200) on the card, stacked and sequential, held against the
+             same run on the port's CPU path; then the held-out set scored.
+5. serve   — a bucketed scorer answering requests of 1, 3, 17 and 64
+             images, checked against the ensemble surface; one hot swap.
+6. the kernels line, the card line, and the last line
+   ``{"ok": true, "device": {...}}``.
+
+The launch counters are set to 0 just before each path runs and read just
+after it: the main path (stacked Map → Reduce → scoring of the held-out
+set), the sequential Map, and serving.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+# per-card peaks from NVIDIA's data sheets: (f32 FLOP/s on CUDA cores,
+# device-memory bytes/s); the SXM part unless nvidia-smi names another
+PEAKS = {"H100 PCIe": (51.2e12, 2.0e12), "H100 NVL": (60e12, 3.9e12),
+         "H100": (67e12, 3.35e12)}
+TOL = 1e-5          # kernel vs plain version: rtol, and atol · max|ref|
+REPS = 100
+
+
+def emit(phase, **fields):
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def check(ok, what):
+    if not ok:
+        raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def card_line():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def peaks(name):
+    for key, val in PEAKS.items():
+        if key in name:
+            return key, val
+    raise RuntimeError(f"no peak rates on record for {name!r}")
+
+
+def call_ms(torch, fn, reps=REPS):
+    """Mean ms per call of ``fn`` over ``reps`` calls after warm-up, by CUDA
+    events: host overhead included wherever it outlasts the device work."""
+    for _ in range(10):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_activity(torch, prof):
+    """(device µs, name, count) of every device activity (kernels, copies)
+    a profiler saw; the CPU ops that launched them are left out, since they
+    carry the same device time again."""
+    return [(evt.self_device_time_total, evt.key, evt.count)
+            for evt in prof.key_averages()
+            if evt.device_type == torch.autograd.DeviceType.CUDA
+            and evt.self_device_time_total > 0]
+
+
+def device_ms(torch, fn, reps=REPS):
+    """Mean device time per call of ``fn`` (all its kernels and copies) over
+    ``reps`` calls after warm-up, from torch.profiler's device trace: the
+    kernel's own time, whatever the host spends launching it."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(us for us, _, _ in device_activity(torch, prof))
+    check(total_us > 0, "the profiler saw no device time")
+    return total_us / reps / 1e3
+
+
+def bound_ms(nbytes, flops, rates):
+    flop_rate, byte_rate = rates
+    t_bytes, t_ops = nbytes / byte_rate, flops / flop_rate
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_kernels(torch, dev, rates):
+    """Each kernel vs its plain version at the main path's shapes; returns
+    per-kernel measurements for the kernels line."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.conv2d import ops as conv_ops, ref as conv_ref
+    from repro_torch.kernels.elm_stats import ops as st_ops, ref as st_ref
+
+    gen = torch.Generator().manual_seed(0)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen).to(dev)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(dev)
+
+    def compare(got, ref):
+        got, ref = got.float(), ref.float()
+        err = float((got - ref).abs().max())
+        top = float(ref.abs().max())
+        ok = bool(((got - ref).abs() <= TOL * top + TOL * ref.abs()).all())
+        return err, top, ok
+
+    def same_function(lib, ref):
+        # a layout check on the library yardstick, which may pick an
+        # algorithm (Winograd, split-K) with other rounding than ours
+        return float((lib - ref).abs().max()) <= 1e-3 * float(
+            ref.abs().max())
+
+    out = {}
+    conv_cases = [("stage1", (4, 200, 28, 28, 1), (4, 5, 5, 1, 6)),
+                  ("stage2", (4, 200, 12, 12, 6), (4, 5, 5, 6, 12))]
+    for tag, xs, ws in conv_cases:
+        x, w = rand(*xs), randn(*ws) * 0.2
+        k, B, H, W, Cin = xs
+        _, kh, kw, _, Cout = ws
+        y = conv_ops.conv2d_valid(x, w)
+        err, top, ok = compare(y, conv_ref.conv2d_valid_ref(x, w))
+        check(ok, f"conv2d {tag}: max|err| {err} at max|ref| {top}")
+        # the library yardstick: cuDNN's grouped conv on NCHW copies made
+        # outside the timed region (TF32 off at package import)
+        xn = x.permute(1, 0, 4, 2, 3).reshape(B, k * Cin, H, W).contiguous()
+        wn = w.permute(0, 4, 3, 1, 2).reshape(k * Cout, Cin, kh, kw
+                                              ).contiguous()
+        lib = F.conv2d(xn, wn, groups=k)
+        check(same_function(lib.reshape(B, k, Cout, *lib.shape[2:])
+                            .permute(1, 0, 3, 4, 2), y),
+              "the cuDNN yardstick computes another function")
+        nbytes = 4 * (x.numel() + w.numel() + y.numel())
+        flops = 2 * y.numel() * kh * kw * Cin
+        b_ms, b_by = bound_ms(nbytes, flops, rates)
+        kernel = lambda: conv_ops.conv2d_valid(x, w)          # noqa: E731
+        plain = lambda: conv_ref.conv2d_valid_ref(x, w)       # noqa: E731
+        library = lambda: F.conv2d(xn, wn, groups=k)          # noqa: E731
+        rec = dict(shape=f"x{xs} w{ws}", max_abs_err=err, max_abs_ref=top,
+                   ms=device_ms(torch, kernel),
+                   plain_ms=device_ms(torch, plain, reps=20),
+                   library_ms=device_ms(torch, library),
+                   call_ms=call_ms(torch, kernel),
+                   plain_call_ms=call_ms(torch, plain, reps=20),
+                   library_call_ms=call_ms(torch, library),
+                   bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
+        emit("kernel", name="conv2d", case=tag, **rec)
+        out[("conv2d", tag)] = rec
+
+    stats_cases = [("unmasked", 4, 200, 192, 10, False),
+                   ("fractional_mask", 4, 200, 192, 10, True),
+                   ("ragged", 4, 137, 144, 20, True)]
+    for tag, k, n, L, C, masked in stats_cases:
+        h = torch.tanh(randn(k, n, L))
+        t = F.one_hot(torch.randint(0, C, (k, n), generator=gen),
+                      C).float().to(dev)
+        m = rand(k, n) if masked else None
+        u, v = st_ops.elm_stats(h, t, mask=m)
+        ref = st_ref.elm_stats_ref(h, t, m)
+        got = torch.cat([u, v], dim=-1)
+        err, top, ok = compare(got, ref)
+        check(ok, f"elm_stats {tag}: max|err| {err} at max|ref| {top}")
+        hm = h if m is None else h * m[..., None]
+        hmt = hm.transpose(1, 2).contiguous()
+        ht = torch.cat([h, t], dim=-1).contiguous()
+        check(same_function(torch.matmul(hmt, ht), ref),
+              "the cuBLAS yardstick computes another function")
+        nbytes = 4 * (h.numel() + t.numel() + ref.numel()
+                      + (m.numel() if masked else 0))
+        flops = 2 * k * n * L * (L + C) + (k * n * L if masked else 0)
+        b_ms, b_by = bound_ms(nbytes, flops, rates)
+        kernel = lambda: st_ops.elm_stats(h, t, mask=m)       # noqa: E731
+        plain = lambda: st_ref.elm_stats_ref(h, t, m)         # noqa: E731
+        library = lambda: torch.matmul(hmt, ht)               # noqa: E731
+        rec = dict(shape=f"k{k} n{n} L{L} C{C}", max_abs_err=err,
+                   max_abs_ref=top,
+                   ms=device_ms(torch, kernel),
+                   plain_ms=device_ms(torch, plain, reps=20),
+                   library_ms=device_ms(torch, library),
+                   call_ms=call_ms(torch, kernel),
+                   plain_call_ms=call_ms(torch, plain, reps=20),
+                   library_call_ms=call_ms(torch, library),
+                   bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
+        emit("kernel", name="elm_stats", case=tag, **rec)
+        out[("elm_stats", tag)] = rec
+    return out
+
+
+def expected_launches(parts, batch):
+    """Launches the epochs=0 Map must make: per batch index, one conv per
+    stage and one elm_stats — member-batched on the stacked path, per member
+    on the sequential one."""
+    nbs = [len(p.x) // batch for p in parts]
+    return ({"conv2d": 2 * max(nbs), "elm_stats": max(nbs)},
+            {"conv2d": 2 * sum(nbs), "elm_stats": sum(nbs)})
+
+
+def phase_map(torch, dev, n_per_class=1500, n_test=10_000, k=4, batch=200):
+    """Map → Reduce at full width on ``dev`` and on the CPU; the held-out
+    set scored. Returns what the serve phase and the kernels line need."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.runner import AveragingRun, MapConfig, ReduceConfig
+    from repro_torch.data.partition import partition_iid
+    from repro_torch.data.synthetic import make_extended_mnist
+    from repro_torch.layers.norms import optimal_tanh
+    from repro_torch.models import cnn
+
+    cfg = get_config("cnn_elm_6c12c")
+    t0 = time.perf_counter()
+    ds = make_extended_mnist(n_per_class=n_per_class, seed=0)
+    train, test = ds.split(n_test)
+    parts = partition_iid(train.x, train.y, k)
+    init = cnn.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    emit("data", images=len(ds.x), train=len(train.x), test=len(test.x),
+         members=k, rows_per_member=len(parts[0].x), batch=batch,
+         seconds=time.perf_counter() - t0)
+
+    def run(backend, device):
+        return AveragingRun(cfg, MapConfig(batch_size=batch,
+                                           backend=backend),
+                            ReduceConfig()).run(parts, init_params=init,
+                                                device=device)
+
+    want_stacked, want_seq = expected_launches(parts, batch)
+    # the main path: stacked Map → Reduce → scoring of the held-out set
+    kernels.reset_launches()
+    stacked = run("stacked", dev)
+    map_launches = dict(kernels.LAUNCHES)
+    ens = stacked.ensemble()
+    scores = ens.member_scores(test.x)
+    main_launches = dict(kernels.LAUNCHES)
+    check(map_launches == want_stacked,
+          f"stacked Map launches {map_launches} != {want_stacked}")
+    blocks = -(-len(test.x) // 512)
+    check(main_launches["conv2d"] == want_stacked["conv2d"] + 2 * blocks
+          and main_launches["elm_stats"] == want_stacked["elm_stats"],
+          f"main-path launches {main_launches}")
+
+    kernels.reset_launches()
+    seq = run("sequential", dev)
+    seq_launches = dict(kernels.LAUNCHES)
+    check(seq_launches == want_seq,
+          f"sequential Map launches {seq_launches} != {want_seq}")
+
+    n_images = sum(len(p.x) // batch * batch for p in parts)
+    walls = {}
+    for backend in ("stacked", "sequential"):
+        first = stacked if backend == "stacked" else seq
+        again = [run(backend, dev).wall_time_s for _ in range(3)]
+        walls[backend] = again
+        emit("map", backend=backend, device=str(dev),
+             wall_s_first=first.wall_time_s, wall_s=again,
+             images_per_s=n_images / sorted(again)[1],
+             launches=map_launches if backend == "stacked" else seq_launches)
+
+    cpu = run("stacked", "cpu")
+    emit("map", backend="stacked", device="cpu (the port's plain path, "
+         "host clock)", wall_s=cpu.wall_time_s)
+
+    def exact(res):
+        """The f64 solution of ``res``'s own ridge systems and its f64
+        held-out scores: how far an f32 solve of these ill-conditioned
+        systems (cond ~1e5) lands from exact."""
+        u, v = res.stats.u.cpu().double(), res.stats.v.cpu().double()
+        eye = torch.eye(u.shape[-1], dtype=torch.float64)
+        beta = torch.linalg.solve(u + eye / cfg.elm_lambda, v)
+        params = {"stages": tuple({n: a.cpu() for n, a in st.items()}
+                                  for st in res.stacked.cnn_params["stages"])}
+        scores = []
+        for i in range(0, len(test.x), 512):
+            xb = torch.from_numpy(test.x[i:i + 512])
+            h = cnn.features_members(cfg, params,
+                                     xb[None].expand(k, *xb.shape))
+            scores.append(optimal_tanh(h).double() @ beta)
+        return beta.numpy(), torch.cat(scores, dim=1).numpy()
+
+    def agree(a, b, what):
+        """``a`` against ``b``: β within 1e-3 · max|β|, scores within
+        1e-4 · max|score| — or within twice ``b``'s own f32 distance from
+        the f64 solution of its systems, where that is larger — and
+        predictions equal on >= 99.9% of the held-out rows."""
+        ba, bb = a.stacked.beta.cpu().numpy(), b.stacked.beta.cpu().numpy()
+        check(np.isfinite(ba).all() and ba.shape == (k, 192, 10),
+              f"{what}: beta {ba.shape} finite={np.isfinite(ba).all()}")
+        sa = a.ensemble().member_scores(test.x)
+        sb = b.ensemble().member_scores(test.x)
+        check(np.isfinite(sa).all() and sa.shape == sb.shape,
+              f"{what}: scores {sa.shape}")
+        beta_x, scores_x = exact(b)
+        d_beta, d_score = np.abs(ba - bb).max(), np.abs(sa - sb).max()
+        bar_beta = max(1e-3 * np.abs(bb).max(), 2 * np.abs(bb - beta_x).max())
+        bar_score = max(1e-4 * np.abs(sb).max(),
+                        2 * np.abs(sb - scores_x).max())
+        same = float((sa.mean(0).argmax(-1) == sb.mean(0).argmax(-1)).mean())
+        emit("agree", pair=what, max_abs_dbeta=float(d_beta),
+             max_abs_beta=float(np.abs(bb).max()), bar_beta=float(bar_beta),
+             f32_solve_err_beta=float(np.abs(bb - beta_x).max()),
+             max_abs_dscore=float(d_score),
+             max_abs_score=float(np.abs(sb).max()),
+             bar_score=float(bar_score),
+             f32_solve_err_score=float(np.abs(sb - scores_x).max()),
+             prediction_agreement=same)
+        check(d_beta <= bar_beta, f"{what}: beta {d_beta} > {bar_beta}")
+        check(d_score <= bar_score, f"{what}: scores {d_score} > {bar_score}")
+        check(same >= 0.999, f"{what}: predictions agree on {same}")
+
+    agree(stacked, cpu, "card stacked vs CPU stacked")
+    agree(seq, stacked, "card sequential vs card stacked")
+    check(np.isfinite(scores).all() and scores.shape == (k, len(test.x), 10),
+          "held-out scores")
+
+    from repro_torch.core.runner import evaluate_model, kappa_model
+    preds = ens.member_predictions(test.x)
+    emit("accuracy", averaged=evaluate_model(cfg, stacked.averaged, test.x,
+                                             test.y, device=dev),
+         averaged_kappa=kappa_model(cfg, stacked.averaged, test.x, test.y,
+                                    device=dev),
+         members=ens.evaluate(test.x, test.y, preds=preds).tolist(),
+         ensemble_mean=ens.accuracy(test.x, test.y))
+    return dict(cfg=cfg, test=test, parts=parts, batch=batch, init=init,
+                stacked=stacked, seq=seq, ens=ens,
+                scores=scores, launches=main_launches,
+                seq_launches=seq_launches)
+
+
+def phase_serve(torch, m):
+    import numpy as np
+    from repro_torch import kernels
+
+    ens, test = m["ens"], m["test"]
+    sizes = (1, 3, 17, 64)
+    want = {n: ens.predict(test.x[:n]) for n in sizes}
+    scorer = ens.bucketed_scorer(max_batch=64).warmup()
+    reps = 30
+    kernels.reset_launches()
+    lat = {}
+    for n in sizes:
+        x = test.x[:n]
+        got = scorer.score_block(x)
+        ref = m["scores"][:, :n]
+        check(np.allclose(got, ref, rtol=1e-5, atol=1e-6 * np.abs(ref).max())
+              and np.array_equal(got.argmax(-1), ref.argmax(-1)),
+              f"served scores for {n} images")
+        check(np.array_equal(scorer.predict_block(x), want[n]),
+              f"served predictions for {n} images")
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            scorer.score_block(x)
+            times.append((time.perf_counter() - t0) * 1e3)
+        times.sort()
+        lat[n] = {"p50_ms": times[reps // 2], "p90_ms": times[reps * 9 // 10],
+                  "bucket": scorer.ladder.bucket_for(n)}
+    serve_launches = dict(kernels.LAUNCHES)
+    # per request size: one checked score, one prediction, the timed reps;
+    # each scoring pass is one conv launch per stage
+    check(serve_launches["conv2d"] == 2 * len(sizes) * (reps + 2) and
+          serve_launches["elm_stats"] == 0,
+          f"serve launches {serve_launches}")
+    scorer.swap_members(m["seq"].stacked)
+    swapped = scorer.score_block(test.x[:17])
+    ref = m["seq"].ensemble().member_scores(test.x[:17])
+    check(np.allclose(swapped, ref, rtol=1e-5,
+                      atol=1e-6 * np.abs(ref).max()), "scores after swap")
+    emit("serve", latency_ms=lat, launches=serve_launches,
+         swap="ok", requests=list(sizes))
+
+
+def phase_profile(torch, m):
+    """One stacked Map under torch.profiler: device time by kernel against
+    the wall, so the host's share of the Map shows."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.runner import AveragingRun, MapConfig
+
+    dev = m["stacked"].device
+    run = AveragingRun(m["cfg"], MapConfig(batch_size=m["batch"]))
+    run.run(m["parts"], init_params=m["init"], device=dev)       # warm
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = run.run(m["parts"], init_params=m["init"], device=dev)
+    rows = sorted(device_activity(torch, prof), reverse=True)
+    device_ms = sum(us for us, _, _ in rows) / 1e3
+    wall_ms = res.wall_time_s * 1e3
+    emit("profile", what=f"stacked Map, "
+         f"{sum(len(p.x) for p in m['parts'])} images",
+         wall_ms=wall_ms, device_busy_ms=device_ms if rows else
+         "not measured",
+         idle_share=1 - device_ms / wall_ms if rows else "not measured",
+         top=[{"name": name[:60], "ms": us / 1e3, "count": count}
+              for us, name, count in rows[:10]])
+
+
+def main():
+    import torch
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
+    import repro_torch  # noqa: F401  (sets the TF32 flags)
+    from repro_torch import kernels
+
+    card = card_line()
+    peak_name, rates = peaks(card)
+    emit("env", card=card, peaks_from=peak_name, f32_flops=rates[0],
+         mem_bytes_per_s=rates[1], torch=torch.__version__,
+         cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count(),
+         tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
+         tf32_cudnn=torch.backends.cudnn.allow_tf32)
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32, "TF32 must be off")
+    dev = torch.device("cuda")
+
+    t0 = time.perf_counter()
+    kernels.library()
+    emit("build", seconds=time.perf_counter() - t0,
+         ptxas=[line.strip() for line in kernels.build_log.splitlines()
+                if "registers" in line or "Compiling entry" in line])
+
+    per_case = phase_kernels(torch, dev, rates)
+    m = phase_map(torch, dev)
+    phase_serve(torch, m)
+    phase_profile(torch, m)
+
+    main_launches = m["launches"]
+    check(all(main_launches[name] > 0 for name in ("conv2d", "elm_stats")),
+          f"main path did not launch every kernel: {main_launches}")
+    conv = [per_case[("conv2d", "stage1")], per_case[("conv2d", "stage2")]]
+    stats = per_case[("elm_stats", "unmasked")]
+    stats_err = max(per_case[("elm_stats", c)]["max_abs_err"]
+                    for c in ("unmasked", "fractional_mask", "ragged"))
+    line = {"kernels": [
+        {"name": "conv2d", "route": "cuda",
+         "source": "src/repro_torch/csrc/conv2d.cu",
+         "replaces": "src/repro/kernels/conv2d/kernel.py:28",
+         "launches": main_launches["conv2d"],
+         "max_abs_err": max(c["max_abs_err"] for c in conv),
+         # one stacked Map step runs stage 1 and stage 2 once each
+         "ms": sum(c["ms"] for c in conv),
+         "plain_ms": sum(c["plain_ms"] for c in conv),
+         "bound_ms": sum(c["bound_ms"] for c in conv),
+         "bound_by": "bytes" if sum(c["bytes"] for c in conv) / rates[1]
+         >= sum(c["flops"] for c in conv) / rates[0] else "operations",
+         "library_ms": sum(c["library_ms"] for c in conv)},
+        {"name": "elm_stats", "route": "cuda",
+         "source": "src/repro_torch/csrc/elm_stats.cu",
+         "replaces": "src/repro/kernels/elm_stats/kernel.py:36",
+         "launches": main_launches["elm_stats"],
+         "max_abs_err": stats_err, "ms": stats["ms"],
+         "plain_ms": stats["plain_ms"], "bound_ms": stats["bound_ms"],
+         "bound_by": stats["bound_by"], "library_ms": stats["library_ms"]},
+    ]}
+    print(json.dumps(line), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

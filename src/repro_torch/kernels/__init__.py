@@ -1,0 +1,128 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+Every kernel lives in ``repro_torch/csrc/*.cu`` behind a plain C interface.
+``library()`` compiles them with ``nvcc`` for ``sm_90a`` at first use — one
+``nvcc -c`` per source, all started together, then one link into a single
+shared library — and loads it with ``ctypes``. The build lands in the
+repository's ``build/`` directory under a name that hashes the sources, so
+an edited kernel is rebuilt and a finished build is reused.
+
+Each kernel's ``ops.py`` routes by device: a CPU tensor goes to the plain
+PyTorch version in ``ref.py``, a CUDA tensor to the kernel. Nothing falls
+back from one to the other: a failed build or launch raises.
+
+``LAUNCHES`` counts kernel launches per kernel name; each wrapper adds one
+where it launches, and nowhere else, so a run can show that its main path
+went through the kernels (``reset_launches`` before, read after).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# kernel name -> (C entry point, its argument types); every entry point
+# returns cudaGetLastError() as an int
+_ENTRIES = {
+    # x, w, y, k, B, H, W, Cin, kh, kw, Cout, stream
+    "conv2d": ("conv2d_valid_f32",
+               (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P)),
+    # h, t, mask (NULL = unmasked), out, k, n, L, C, stream
+    "elm_stats": ("elm_stats_f32", (_P, _P, _P, _P, _I, _I, _I, _I, _P)),
+}
+
+LAUNCHES = {name: 0 for name in _ENTRIES}
+
+_lock = threading.Lock()
+_lib = None
+build_log = ""
+
+
+def reset_launches():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                       "repro_torch/csrc at first use and need the CUDA "
+                       "toolkit")
+
+
+def _build(target: Path) -> str:
+    sources = sorted(CSRC.glob("*.cu"))
+    nvcc = _nvcc()
+    target.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=target.parent) as tmp:
+        objs, procs = [], []
+        for src in sources:
+            obj = Path(tmp) / (src.stem + ".o")
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = [p.communicate()[0] for p in procs]
+        for src, p, log in zip(sources, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name}:\n{log}")
+        so = Path(tmp) / target.name
+        link = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", *map(str, objs), "-o", str(so)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(so, target)      # atomic: concurrent builds agree
+    return "".join(logs)
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib, build_log
+    with _lock:
+        if _lib is None:
+            digest = hashlib.sha256()
+            for src in sorted(CSRC.glob("*.cu")):
+                digest.update(src.name.encode() + src.read_bytes())
+            digest.update(" ".join(NVCC_FLAGS).encode())
+            target = BUILD_DIR / f"libkernels-{digest.hexdigest()[:16]}.so"
+            if not target.exists():
+                build_log = _build(target)
+            lib = ctypes.CDLL(str(target))
+            for fn_name, argtypes in _ENTRIES.values():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def launch(name: str, *args):
+    """Launch kernel ``name`` on the current stream with ``args`` and count
+    one launch; raise if CUDA reports an error."""
+    fn_name = _ENTRIES[name][0]
+    err = getattr(library(), fn_name)(
+        *args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1

@@ -72,3 +72,9 @@ except ImportError:
     _hyp.assume = lambda cond: bool(cond)
     sys.modules["hypothesis"] = _hyp
     sys.modules["hypothesis.strategies"] = _st
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc (the port's CUDA "
+        "kernels); skipped where there is none")

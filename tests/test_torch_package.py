@@ -1,0 +1,115 @@
+"""The port stands alone: ``repro_torch`` imports neither JAX nor ``repro``,
+runs on the card unless asked for the CPU, and refuses what later slices
+of the port will bring instead of doing it wrongly."""
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.configs import get_reduced_config
+from repro_torch.core import cnn_elm, executor
+from repro_torch.core.runner import (AveragingRun, Ensemble, MapConfig,
+                                     ReduceConfig)
+from repro_torch.data.partition import Partition
+from repro_torch.models import cnn
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+PKG = os.path.join(ROOT, "src", "repro_torch")
+CFG = get_reduced_config("cnn_elm_6c12c")
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, "repro_torch."))
+
+
+def test_every_module_imports_without_jax_or_repro():
+    mods = _modules()
+    assert "repro_torch.kernels.conv2d.ops" in mods
+    assert "repro_torch.serve.engine" in mods
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "print(bad)\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_no_source_imports_jax_or_repro():
+    pattern = re.compile(r"^\s*(import\s+(jax|jaxlib|repro)\b"
+                         r"|from\s+(jax|jaxlib|repro)(\.|\s))", re.M)
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(PKG):
+        files += [os.path.join(dirpath, n) for n in names
+                  if n.endswith(".py")]
+    assert len(files) > 20
+    offenders = [f for f in files if pattern.search(open(f).read())]
+    assert offenders == []
+
+
+def test_tf32_is_off():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Without a CUDA device, an entry point called without device= raises
+    instead of quietly running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cnn.init_params(CFG, gen)
+    params = cnn.init_params(CFG, gen, device="cpu")
+    x = np.zeros((80, 28, 28), np.float32)
+    parts = [Partition(x, np.zeros(80, np.int32))]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AveragingRun(CFG, MapConfig(batch_size=40)).run(parts,
+                                                        init_params=params)
+    res = AveragingRun(CFG, MapConfig(batch_size=40)).run(
+        parts, init_params=params, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Ensemble(CFG, res.stacked)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        from repro_torch.serve import BucketedScorer
+        BucketedScorer(CFG, res.stacked)
+    with pytest.raises(ValueError):
+        repro_torch.resolve_device("meta")
+
+
+@pytest.mark.parametrize("make", [
+    lambda: MapConfig(epochs=1),
+    lambda: MapConfig(backend="mesh"),
+    lambda: ReduceConfig(strategy="gossip"),
+    lambda: ReduceConfig(rounds=2),
+    lambda: executor.make_executor("mesh"),
+    lambda: cnn_elm.train_member(CFG, None, None, epochs=2, batch_size=8),
+])
+def test_later_slices_raise_not_implemented(make):
+    with pytest.raises(NotImplementedError):
+        make()
+
+
+def test_boosted_raises_not_implemented():
+    from repro_torch.core.reduce_strategies import Boosted
+    with pytest.raises(NotImplementedError, match="later slice"):
+        ReduceConfig(strategy=Boosted())
+
+
+def test_unknown_backend_and_strategy_are_value_errors():
+    with pytest.raises(ValueError):
+        MapConfig(backend="tpu")
+    with pytest.raises(ValueError):
+        ReduceConfig(strategy="median")
+    with pytest.raises(ValueError):
+        executor.make_executor("tpu")
