@@ -9,24 +9,34 @@ is non-zero and no result line is printed:
 1. env     — the card (``nvidia-smi`` name and power limit), torch and CUDA
              versions, the TF32 flags (both must be off).
 2. build   — compiles ``src/repro_torch/csrc/*.cu`` with nvcc into build/.
-3. kernels — every kernel of the main path against its plain PyTorch
-             version on the card at the main path's shapes (rtol 1e-5,
-             atol 1e-5 · max|ref|), with kernel, plain-version and library
-             device times (torch.profiler over 100 calls after warm-up),
-             their per-call times with host overhead (CUDA events), and
-             the card's bound for the same work.
+3. kernels — every kernel against its plain PyTorch version on the card
+             at its path's shapes (f32: rtol 1e-5, atol 1e-5 · max|ref|;
+             bf16 outputs: one bf16 ulp, rtol 2⁻⁷, atol 1e-5 · max|ref|),
+             with kernel, plain-version and library device times
+             (torch.profiler over 100 calls after warm-up), their per-call
+             times with host overhead (CUDA events), and the card's bound
+             for the same work.
 4. map     — the epochs=0 Map → Reduce at full width (cnn_elm_6c12c, 60,000
              synthetic extended-MNIST images, 10,000 held out, k = 4, batch
              200) on the card, stacked and sequential, held against the
              same run on the port's CPU path; then the held-out set scored.
 5. serve   — a bucketed scorer answering requests of 1, 3, 17 and 64
              images, checked against the ensemble surface; one hot swap.
-6. the kernels line, the card line, and the last line
+6. profile — one stacked Map under torch.profiler.
+7. lm      — the LM serving path (``repro_torch.launch.serve``): (a) qwen3_8b
+             at full width cut to 2 layers, f32, the card against the port's
+             CPU path on the same params (prefill and 4 greedy decode steps
+             within 1e-4 · max|logit|, equal tokens); (b) the full 36-layer
+             qwen3_8b in bf16 through ``run_lm`` at batch 4, prompt 128,
+             gen 32: prefill ms, decode tokens/s, peak device memory, the
+             gap between the prefill's and the replay's last logits, and the
+             device-idle share of one decode step (torch.profiler).
+8. the kernels line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 The launch counters are set to 0 just before each path runs and read just
-after it: the main path (stacked Map → Reduce → scoring of the held-out
-set), the sequential Map, and serving.
+after it: the CNN main path (stacked Map → Reduce → scoring of the
+held-out set), the sequential Map, serving, and the LM path (b).
 """
 from __future__ import annotations
 
@@ -40,10 +50,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # per-card peaks from NVIDIA's data sheets: (f32 FLOP/s on CUDA cores,
-# device-memory bytes/s); the SXM part unless nvidia-smi names another
-PEAKS = {"H100 PCIe": (51.2e12, 2.0e12), "H100 NVL": (60e12, 3.9e12),
-         "H100": (67e12, 3.35e12)}
+# device-memory bytes/s, dense bf16 tensor-core FLOP/s); the SXM part
+# unless nvidia-smi names another
+PEAKS = {"H100 PCIe": (51.2e12, 2.0e12, 756e12),
+         "H100 NVL": (60e12, 3.9e12, 835e12),
+         "H100": (67e12, 3.35e12, 989e12)}
 TOL = 1e-5          # kernel vs plain version: rtol, and atol · max|ref|
+BF16_RTOL = 2.0 ** -7   # one bf16 ulp, for bf16 outputs
 REPS = 100
 
 
@@ -113,9 +126,13 @@ def device_ms(torch, fn, reps=REPS):
     return total_us / reps / 1e3
 
 
-def bound_ms(nbytes, flops, rates):
-    flop_rate, byte_rate = rates
-    t_bytes, t_ops = nbytes / byte_rate, flops / flop_rate
+def bound_ms(nbytes, flops, rates, bf16=False):
+    """The least time for the work: bytes over the memory rate, or the
+    operations over the peak rate of their type (bf16 tensor cores for bf16
+    operands, the f32 CUDA cores otherwise), whichever is larger."""
+    flop_rate, byte_rate, bf16_rate = rates
+    t_bytes = nbytes / byte_rate
+    t_ops = flops / (bf16_rate if bf16 else flop_rate)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -126,6 +143,9 @@ def phase_kernels(torch, dev, rates):
     import torch.nn.functional as F
     from repro_torch.kernels.conv2d import ops as conv_ops, ref as conv_ref
     from repro_torch.kernels.elm_stats import ops as st_ops, ref as st_ref
+    from repro_torch.kernels.rmsnorm import ops as rms_ops, ref as rms_ref
+    from repro_torch.kernels.swa_attention import ops as swa_ops
+    from repro_torch.kernels.swa_attention import ref as swa_ref
 
     gen = torch.Generator().manual_seed(0)
 
@@ -136,16 +156,17 @@ def phase_kernels(torch, dev, rates):
         return torch.randn(shape, generator=gen).to(dev)
 
     def compare(got, ref):
+        rtol = BF16_RTOL if got.dtype == torch.bfloat16 else TOL
         got, ref = got.float(), ref.float()
         err = float((got - ref).abs().max())
         top = float(ref.abs().max())
-        ok = bool(((got - ref).abs() <= TOL * top + TOL * ref.abs()).all())
+        ok = bool(((got - ref).abs() <= TOL * top + rtol * ref.abs()).all())
         return err, top, ok
 
-    def same_function(lib, ref):
+    def same_function(lib, ref, rel=1e-3):
         # a layout check on the library yardstick, which may pick an
         # algorithm (Winograd, split-K) with other rounding than ours
-        return float((lib - ref).abs().max()) <= 1e-3 * float(
+        return float((lib - ref).abs().max()) <= rel * float(
             ref.abs().max())
 
     out = {}
@@ -220,6 +241,86 @@ def phase_kernels(torch, dev, rates):
                    bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
         emit("kernel", name="elm_stats", case=tag, **rec)
         out[("elm_stats", tag)] = rec
+
+    # the LM serving path's shapes, bf16: ln1/ln2/final norm over the B·S
+    # rows of a batch-4, prompt-128 prefill (f32 scale), and q_norm over its
+    # B·S·32 heads (bf16 scale)
+    rms_cases = [("ln_d4096", (512, 4096), torch.float32),
+                 ("qk_norm_d128", (16384, 128), torch.bfloat16)]
+    for tag, shape, scale_dtype in rms_cases:
+        x = (randn(*shape) * 3).to(torch.bfloat16)
+        scale = (1 + 0.1 * randn(shape[-1])).to(scale_dtype)
+        y = rms_ops.rmsnorm(x, scale, eps=1e-6)
+        err, top, ok = compare(y, rms_ref.rmsnorm_ref(x, scale, 1e-6))
+        check(ok, f"rmsnorm {tag}: max|err| {err} at max|ref| {top}")
+        w_lib = scale.to(x.dtype)
+        check(same_function(F.rms_norm(x, (shape[-1],), w_lib, 1e-6).float(),
+                            y.float(), 1e-2),
+              "the rms_norm yardstick computes another function")
+        nbytes = 2 * x.element_size() * x.numel() + scale.element_size() * \
+            scale.numel()
+        flops = 4 * x.numel()
+        b_ms, b_by = bound_ms(nbytes, flops, rates)
+        kernel = lambda: rms_ops.rmsnorm(x, scale, eps=1e-6)        # noqa
+        plain = lambda: rms_ref.rmsnorm_ref(x, scale, 1e-6)         # noqa
+        library = lambda: F.rms_norm(x, (shape[-1],), w_lib, 1e-6)  # noqa
+        rec = dict(shape=f"x{shape} bf16, scale {str(scale_dtype)[6:]}",
+                   max_abs_err=err, max_abs_ref=top,
+                   ms=device_ms(torch, kernel),
+                   plain_ms=device_ms(torch, plain),
+                   library_ms=device_ms(torch, library),
+                   call_ms=call_ms(torch, kernel),
+                   plain_call_ms=call_ms(torch, plain),
+                   library_call_ms=call_ms(torch, library),
+                   bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
+        emit("kernel", name="rmsnorm", case=tag, **rec)
+        out[("rmsnorm", tag)] = rec
+
+    # the prefill's attention (B 4, S 128, 32 heads over 8 kv heads, hd 128,
+    # window = S) and one windowed case
+    swa_cases = [("prefill_causal", 4, 128, 32, 8, 128, 128),
+                 ("window256_s1024", 1, 1024, 32, 8, 128, 256)]
+    for tag, B, S, H, KV, hd, W in swa_cases:
+        q = randn(B, S, H, hd).to(torch.bfloat16)
+        k = randn(B, S, KV, hd).to(torch.bfloat16)
+        v = randn(B, S, KV, hd).to(torch.bfloat16)
+        y = swa_ops.swa_attention(q, k, v, window=W)
+        err, top, ok = compare(y, swa_ref.swa_attention_ref(q, k, v,
+                                                            window=W))
+        check(ok, f"swa_attention {tag}: max|err| {err} at max|ref| {top}")
+        # the library yardstick: SDPA on (B, H, S, hd) copies made outside
+        # the timed region, causal or with the window's boolean mask
+        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+        i = torch.arange(S, device=dev)
+        mask = None if W >= S else ((i[None] <= i[:, None])
+                                    & (i[:, None] - i[None] < W))
+
+        def library(qt=qt, kt=kt, vt=vt, mask=mask):
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=True)
+        check(same_function(library().transpose(1, 2).float(), y.float(),
+                            2e-2),
+              "the SDPA yardstick computes another function")
+        pairs = B * H * sum(min(t + 1, W) for t in range(S))
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        flops = 4 * hd * pairs
+        b_ms, b_by = bound_ms(nbytes, flops, rates, bf16=True)
+        kernel = lambda: swa_ops.swa_attention(q, k, v, window=W)  # noqa
+        plain = lambda: swa_ref.swa_attention_ref(q, k, v,           # noqa
+                                                  window=W)
+        rec = dict(shape=f"B{B} S{S} H{H} KV{KV} hd{hd} W{W} bf16",
+                   max_abs_err=err, max_abs_ref=top,
+                   ms=device_ms(torch, kernel),
+                   plain_ms=device_ms(torch, plain, reps=20),
+                   library_ms=device_ms(torch, library),
+                   call_ms=call_ms(torch, kernel),
+                   plain_call_ms=call_ms(torch, plain, reps=20),
+                   library_call_ms=call_ms(torch, library),
+                   bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops,
+                   pairs_in_mask=pairs)
+        emit("kernel", name="swa_attention", case=tag, **rec)
+        out[("swa_attention", tag)] = rec
     return out
 
 
@@ -228,8 +329,9 @@ def expected_launches(parts, batch):
     stage and one elm_stats — member-batched on the stacked path, per member
     on the sequential one."""
     nbs = [len(p.x) // batch for p in parts]
-    return ({"conv2d": 2 * max(nbs), "elm_stats": max(nbs)},
-            {"conv2d": 2 * sum(nbs), "elm_stats": sum(nbs)})
+    lm = {"rmsnorm": 0, "swa_attention": 0}
+    return ({"conv2d": 2 * max(nbs), "elm_stats": max(nbs), **lm},
+            {"conv2d": 2 * sum(nbs), "elm_stats": sum(nbs), **lm})
 
 
 def phase_map(torch, dev, n_per_class=1500, n_test=10_000, k=4, batch=200):
@@ -395,7 +497,8 @@ def phase_serve(torch, m):
     # per request size: one checked score, one prediction, the timed reps;
     # each scoring pass is one conv launch per stage
     check(serve_launches["conv2d"] == 2 * len(sizes) * (reps + 2) and
-          serve_launches["elm_stats"] == 0,
+          serve_launches["elm_stats"] == 0 and
+          serve_launches["rmsnorm"] == serve_launches["swa_attention"] == 0,
           f"serve launches {serve_launches}")
     scorer.swap_members(m["seq"].stacked)
     swapped = scorer.score_block(test.x[:17])
@@ -430,6 +533,140 @@ def phase_profile(torch, m):
               for us, name, count in rows[:10]])
 
 
+def phase_lm_parity(torch, dev, batch=2, prompt=16, steps=4):
+    """(a) qwen3_8b at full width cut to 2 layers, f32: prefill and greedy
+    decode on the card against the port's CPU path on the same params."""
+    from repro_torch.configs import get_config, replace
+    from repro_torch.models import api
+    from repro_torch.tree import tree_map
+
+    cfg = replace(get_config("qwen3_8b"), num_layers=2)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    card = api.init_params(cfg, gen, torch.float32, device=dev)
+    host = tree_map(lambda a: a.cpu(), card)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                            generator=gen, device=dev)
+    max_len = prompt + steps
+    lg_c, cache_c = api.prefill(cfg, card, {"tokens": prompts}, max_len)
+    lg_h, cache_h = api.prefill(cfg, host, {"tokens": prompts.cpu()},
+                                max_len)
+    errs, tops, tokens = [], [], []
+    for t in range(steps + 1):
+        c, h = lg_c.cpu(), lg_h
+        check(bool(torch.isfinite(c).all()), f"lm (a): card logits at {t}")
+        errs.append(float((c - h).abs().max()))
+        tops.append(float(h.abs().max()))
+        check(errs[-1] <= 1e-4 * tops[-1],
+              f"lm (a) step {t}: card vs CPU logits {errs[-1]} > "
+              f"1e-4 * {tops[-1]}")
+        tc, th = c.argmax(-1), h.argmax(-1)
+        check(torch.equal(tc, th), f"lm (a) step {t}: greedy tokens "
+              f"{tc.tolist()} (card) != {th.tolist()} (CPU)")
+        tokens.append(tc[:, 0].tolist())
+        if t == steps:
+            break
+        pos = prompt + t
+        lg_c, cache_c = api.decode_step(cfg, card, cache_c, tc.to(dev), pos)
+        lg_h, cache_h = api.decode_step(cfg, host, cache_h, th, pos)
+    emit("lm_parity", arch=f"{cfg.name}, 2 of 36 layers, full width, f32",
+         batch=batch, prompt=prompt, decode_steps=steps,
+         max_abs_err=errs, max_abs_logit=tops,
+         bar=[1e-4 * top for top in tops], tokens=tokens)
+    del card, host, cache_c, cache_h
+    torch.cuda.empty_cache()
+    return max(errs)
+
+
+def phase_lm(torch, dev, batch=4, prompt=128, gen=32):
+    """(b) the slice itself: the full qwen3_8b in bf16 through the port's
+    ``launch.serve.run_lm``, as a user calls it; then a warm run and one
+    profiled prefill and decode step."""
+    import argparse
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+
+    args = argparse.Namespace(arch="qwen3_8b", reduced=False, seed=0,
+                              device=str(dev), batch=batch, prompt_len=prompt,
+                              gen=gen, greedy=True)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    first = serve.run_lm(args)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    cfg = get_config("qwen3_8b")
+    L = cfg.num_layers
+    steps = 1 + prompt + gen - 1       # the prefill, the replay, the decode
+    want = {"rmsnorm": steps * (4 * L + 1), "swa_attention": L,
+            "conv2d": 0, "elm_stats": 0}
+    check(launches == want, f"lm launches {launches} != {want}")
+    toks = first["tokens"]
+    check(first["logits_finite"], "lm: logits are not finite")
+    check(toks.shape == (batch, gen) and (toks >= 0).all()
+          and (toks < cfg.vocab_size).all(), f"lm: token ids {toks.shape}")
+    warm = serve.run_lm(args)
+
+    # one prefill and one decode step of the same model under the profiler
+    gen_ = torch.Generator(device=dev).manual_seed(args.seed)
+    params = api.init_params(cfg, gen_, device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                            generator=gen_, device=dev)
+    api.prefill(cfg, params, {"tokens": prompts})                 # warm
+    cache = api.init_cache(cfg, batch, prompt + gen, device=dev)
+    tok = prompts[:, :1]
+    for t in range(3):
+        _, cache = api.decode_step(cfg, params, cache, tok, t)     # warm
+    torch.cuda.synchronize()
+
+    def profiled(fn):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        rows = sorted(device_activity(torch, prof), reverse=True)
+        busy = sum(us for us, _, _ in rows) / 1e3
+        return dict(wall_ms=wall, device_busy_ms=busy if rows else
+                    "not measured",
+                    idle_share=1 - busy / wall if rows else "not measured",
+                    top=[{"name": name[:60], "ms": us / 1e3, "count": count}
+                         for us, name, count in rows[:8]])
+
+    prof_prefill = profiled(lambda: api.prefill(cfg, params,
+                                                {"tokens": prompts}))
+    prof_decode = profiled(lambda: api.decode_step(cfg, params, cache, tok,
+                                                   3))
+    # the same step without the profiler's own host cost: host clock over
+    # 10 steps that end in a synchronise
+    t0 = time.perf_counter()
+    for t in range(4, 14):
+        api.decode_step(cfg, params, cache, tok, t)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / 10
+    prof_decode["step_ms_unprofiled"] = step_ms
+    if isinstance(prof_decode["device_busy_ms"], float):
+        prof_decode["idle_share_unprofiled"] = 1 - min(
+            prof_decode["device_busy_ms"] / step_ms, 1.0)
+    emit("lm", arch=cfg.name, dtype="bfloat16", batch=batch, prompt=prompt,
+         gen=gen, launches=launches, peak_memory_bytes=peak,
+         prefill_ms_first=first["prefill_ms"],
+         tokens_per_s_first=first["tokens_per_s"],
+         prefill_ms=warm["prefill_ms"], tokens_per_s=warm["tokens_per_s"],
+         prefill_replay_gap=first["prefill_replay_gap"],
+         max_abs_logit=first["max_abs_logit"],
+         tokens=toks[0, :16].tolist(),
+         same_tokens_warm=bool(np.array_equal(toks, warm["tokens"])),
+         profile_prefill=prof_prefill, profile_decode_step=prof_decode)
+    del params, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
@@ -458,6 +695,8 @@ def main():
     m = phase_map(torch, dev)
     phase_serve(torch, m)
     phase_profile(torch, m)
+    phase_lm_parity(torch, dev)
+    lm_launches = phase_lm(torch, dev)
 
     main_launches = m["launches"]
     check(all(main_launches[name] > 0 for name in ("conv2d", "elm_stats")),
@@ -487,6 +726,32 @@ def main():
          "plain_ms": stats["plain_ms"], "bound_ms": stats["bound_ms"],
          "bound_by": stats["bound_by"], "library_ms": stats["library_ms"]},
     ]}
+    # rmsnorm: one ln (512 x 4096) and one q_norm (16384 x 128) launch of
+    # the prefill; swa_attention: one layer's prefill attention
+    rms = [per_case[("rmsnorm", c)] for c in ("ln_d4096", "qk_norm_d128")]
+    swa = per_case[("swa_attention", "prefill_causal")]
+    line["kernels"] += [
+        {"name": "rmsnorm", "route": "cuda",
+         "source": "src/repro_torch/csrc/rmsnorm.cu",
+         "replaces": "src/repro/kernels/rmsnorm/kernel.py:23",
+         "launches": lm_launches["rmsnorm"],
+         "max_abs_err": max(c["max_abs_err"] for c in rms),
+         "ms": sum(c["ms"] for c in rms),
+         "plain_ms": sum(c["plain_ms"] for c in rms),
+         "bound_ms": sum(c["bound_ms"] for c in rms),
+         "bound_by": "bytes" if sum(c["bytes"] for c in rms) / rates[1]
+         >= sum(c["flops"] for c in rms) / rates[0] else "operations",
+         "library_ms": sum(c["library_ms"] for c in rms)},
+        {"name": "swa_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/swa_attention.cu",
+         "replaces": "src/repro/kernels/swa_attention/kernel.py:28",
+         "launches": lm_launches["swa_attention"],
+         "max_abs_err": max(per_case[("swa_attention", c)]["max_abs_err"]
+                            for c in ("prefill_causal", "window256_s1024")),
+         "ms": swa["ms"], "plain_ms": swa["plain_ms"],
+         "bound_ms": swa["bound_ms"], "bound_by": swa["bound_by"],
+         "library_ms": swa["library_ms"]},
+    ]
     print(json.dumps(line), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

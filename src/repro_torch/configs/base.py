@@ -1,8 +1,9 @@
 """Configuration system — the port's copy of ``repro.configs.base``.
 
 Each architecture has a module ``repro_torch/configs/<id>.py`` exporting
-``CONFIG`` and ``reduced()``. This slice of the port carries the paper's two
-CNN-ELM architectures; the LM configs come with the LM slice.
+``CONFIG`` and ``reduced()``. The port carries the paper's two CNN-ELM
+architectures and the LM zoo's dense decoder ``qwen3_8b``; the other LM
+configs come with their model families.
 
 Configs are frozen dataclasses so they are hashable and can be shared
 between members and threads as static data.
@@ -168,6 +169,8 @@ ARCH_IDS = [
     # the paper's own CNN-ELM architectures
     "cnn_elm_6c12c",
     "cnn_elm_3c9c",
+    # the LM zoo's dense decoder, served by ``launch.serve``
+    "qwen3_8b",
 ]
 
 _ALIAS = {a.replace("_", "-"): a for a in ARCH_IDS}

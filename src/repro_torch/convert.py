@@ -1,10 +1,13 @@
 """Parameter trees between the reference and the port, through numpy.
 
 The reference's CNN tree is ``{"stages": ({"w", "b"}, ...)}`` with HWIO
-kernels and an (F, C) β — the port keeps the same layout, so converting is
-a leaf-wise copy, never a transpose. This module takes and returns numpy
-arrays only (e.g. ``jax.tree.map(np.asarray, tree)`` on the reference's
-side) and never imports JAX.
+kernels and an (F, C) β, and its LM tree has (in, out) weights stacked
+with a leading layer dim and a (L, B, T, KV, hd) KV cache — the port keeps
+the same layouts, so converting is a leaf-wise copy, never a transpose.
+CNN trees become f32 (``params_from_numpy``); LM trees keep each leaf's
+dtype (``lm_tree_from_numpy``). This module takes and returns numpy arrays
+only (e.g. ``jax.tree.map(np.asarray, tree)`` on the reference's side) and
+never imports JAX.
 """
 from __future__ import annotations
 
@@ -23,6 +26,23 @@ def params_from_numpy(tree, device="cuda"):
                                            device=dev), tree)
 
 
+def _keep_dtype(a, dev):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        # ml_dtypes' bfloat16 (what JAX hands numpy) has no torch twin;
+        # widening to f32 and narrowing back is exact
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=dev, dtype=torch.bfloat16)
+    return torch.tensor(a, device=dev)
+
+
+def lm_tree_from_numpy(tree, device="cuda"):
+    """A tree of numpy arrays (an LM's params or KV cache) -> the same tree
+    of tensors on ``device``, each leaf in its own dtype (bf16 stays bf16)."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: _keep_dtype(a, dev), tree)
+
+
 def model_from_numpy(cnn_params, beta, device="cuda") -> CNNELMModel:
     """One reference model's (cnn_params, β) -> a ``CNNELMModel``."""
     return CNNELMModel(params_from_numpy(cnn_params, device),
@@ -37,7 +57,13 @@ def stacked_from_numpy(cnn_params_k, beta_k, device="cuda") -> StackedMembers:
 
 def to_numpy(tree):
     """A tree of tensors (or a ``CNNELMModel``/``StackedMembers``, as its
-    ``(cnn_params, beta)`` pair) -> the same tree of numpy arrays."""
+    ``(cnn_params, beta)`` pair) -> the same tree of numpy arrays; bf16
+    leaves come back as f32 (numpy has no bfloat16 of its own)."""
     if isinstance(tree, (CNNELMModel, StackedMembers)):
         tree = (tree.cnn_params, tree.beta)
-    return tree_map(lambda a: a.detach().cpu().numpy(), tree)
+
+    def leaf(a):
+        a = a.detach().cpu()
+        return (a.float() if a.dtype == torch.bfloat16 else a).numpy()
+
+    return tree_map(leaf, tree)

@@ -36,6 +36,7 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # kernel name -> (C entry point, its argument types); every entry point
 # returns cudaGetLastError() as an int
 _ENTRIES = {
@@ -44,6 +45,11 @@ _ENTRIES = {
                (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P)),
     # h, t, mask (NULL = unmasked), out, k, n, L, C, stream
     "elm_stats": ("elm_stats_f32", (_P, _P, _P, _P, _I, _I, _I, _I, _P)),
+    # x, scale, out, n, D, eps, x is bf16, scale is bf16, stream
+    "rmsnorm": ("rmsnorm_fwd", (_P, _P, _P, _I, _I, _F, _I, _I, _P)),
+    # q, k, v, out, B, S, H, KV, hd, window, scale, bf16, stream
+    "swa_attention": ("swa_attention_fwd",
+                      (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P)),
 }
 
 LAUNCHES = {name: 0 for name in _ENTRIES}

@@ -1,9 +1,16 @@
-"""Activations of the ELM head (f32 math, cast back to the input dtype).
-The port's counterpart of ``repro.layers.norms``; the LM norms come with
-the LM slice."""
+"""Normalisation layers and the ELM activation (f32 math, cast back to the
+input dtype) — the port's counterpart of ``repro.layers.norms``."""
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels.rmsnorm import ops as rms_ops
+
+
+def rms_norm(x, scale, eps: float = 1e-5):
+    """x · 1/sqrt(mean(x²) + eps) · scale over the last dim, in f32, the
+    result in x's dtype; through the rmsnorm kernel on the card."""
+    return rms_ops.rmsnorm(x, scale, eps=eps)
 
 
 def optimal_tanh(h):

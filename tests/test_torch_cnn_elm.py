@@ -24,6 +24,9 @@ from repro_torch.core import averaging, elm
 from repro_torch.layers.norms import optimal_tanh
 from repro_torch.models import cnn
 
+# the reference's threaded tests share the CPU with these workers
+torch.set_num_threads(2)
+
 ARCHS = ["cnn_elm_6c12c", "cnn_elm_3c9c"]
 
 

@@ -1,5 +1,7 @@
 """The hand-written CUDA kernels on the card, held against their plain
-PyTorch versions on the same inputs (rtol 1e-5, atol 1e-5 · max|ref|).
+PyTorch versions on the same inputs: f32 at rtol 1e-5, atol 1e-5 · max|ref|;
+bf16 outputs (both sides compute in f32 and round once) at one bf16 ulp,
+rtol 2⁻⁷, with atol 1e-5 · max|ref| for outputs that cancel to near zero.
 
 Every test here is marked ``cuda`` and skips where there is no CUDA
 device. This file imports neither JAX nor the reference package, so it
@@ -12,12 +14,19 @@ import pytest
 import torch
 
 from repro_torch import kernels
-from repro_torch.configs import get_reduced_config
+from repro_torch.configs import get_reduced_config, replace
 from repro_torch.core.runner import AveragingRun, MapConfig
 from repro_torch.data.partition import partition_iid, partition_unequal
 from repro_torch.data.synthetic import make_extended_mnist
 from repro_torch.kernels.conv2d import ops as conv_ops, ref as conv_ref
 from repro_torch.kernels.elm_stats import ops as stats_ops, ref as stats_ref
+from repro_torch.kernels.rmsnorm import ops as rms_ops, ref as rms_ref
+from repro_torch.kernels.swa_attention import ops as swa_ops, ref as swa_ref
+from repro_torch.models import api
+from repro_torch.tree import tree_map
+
+# the reference's threaded tests share the CPU with these workers
+torch.set_num_threads(2)
 
 
 def _close(got, ref):
@@ -114,3 +123,109 @@ def test_map_on_card_matches_cpu(cuda, backend, split):
     sc = card.ensemble().member_scores(test.x)
     sp = cpu.ensemble().member_scores(test.x)
     assert np.abs(sc - sp).max() <= 1e-4 * np.abs(sp).max()
+
+
+def _dt(name):
+    return {"f32": torch.float32, "bf16": torch.bfloat16}[name]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dt,s_dt", [("f32", "f32"), ("bf16", "f32"),
+                                       ("bf16", "bf16"), ("f32", "bf16")])
+@pytest.mark.parametrize("shape", [(512, 4096), (16384, 128), (3, 17, 128),
+                                   (1, 96), (5, 3000)])
+def test_rmsnorm_kernel_matches_plain_on_card(cuda, shape, x_dt, s_dt):
+    x, s = _data(sum(shape), shape, shape[-1:])
+    xd = (torch.from_numpy(x) * 3).to(cuda, _dt(x_dt))
+    sd = torch.from_numpy(s).to(cuda, _dt(s_dt))
+    before = kernels.LAUNCHES["rmsnorm"]
+    got = rms_ops.rmsnorm(xd, sd, eps=1e-6)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["rmsnorm"] == before + 1
+    ref = rms_ref.rmsnorm_ref(xd, sd, 1e-6)
+    assert got.dtype == xd.dtype
+    if x_dt == "bf16":
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   ref.float().cpu().numpy(), rtol=2.0 ** -7,
+                                   atol=1e-5 * float(ref.abs().max()))
+    else:
+        _close(got.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,KV,hd,window", [
+    (4, 128, 32, 8, 128, 128),     # the serving path's prefill
+    (1, 1024, 32, 8, 128, 256),    # windowed
+    (2, 37, 4, 2, 64, 37),         # ragged
+    (2, 200, 4, 1, 64, 33),        # ragged, windowed, 4 heads per kv head
+    (1, 70, 2, 2, 16, 8),
+    (3, 1, 2, 1, 32, 1)])
+def test_swa_kernel_matches_plain_on_card(cuda, dt, B, S, H, KV, hd, window):
+    q, k, v = _data(S + window, (B, S, H, hd), (B, S, KV, hd),
+                    (B, S, KV, hd))
+    qd, kd, vd = (torch.from_numpy(a).to(cuda, _dt(dt)) for a in (q, k, v))
+    before = kernels.LAUNCHES["swa_attention"]
+    got = swa_ops.swa_attention(qd, kd, vd, window=window)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["swa_attention"] == before + 1
+    ref = swa_ref.swa_attention_ref(qd, kd, vd, window=window)
+    assert got.dtype == qd.dtype
+    if dt == "bf16":
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   ref.float().cpu().numpy(), rtol=2.0 ** -7,
+                                   atol=1e-5 * float(ref.abs().max()))
+    else:
+        _close(got.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_lm_kernels_refuse_bad_operands_on_card(cuda):
+    with pytest.raises(TypeError):
+        rms_ops.rmsnorm(torch.zeros((4, 8), device=cuda, dtype=torch.float16),
+                        torch.ones(8, device=cuda))
+    with pytest.raises(ValueError):
+        rms_ops.rmsnorm(torch.zeros((4, 8), device=cuda),
+                        torch.ones(16, device=cuda)[::2])
+    q = torch.zeros((1, 8, 2, 256), device=cuda)
+    k = torch.zeros((1, 8, 1, 256), device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        swa_ops.swa_attention(q, k, k, window=8)
+    q = torch.zeros((1, 8, 4, 16), device=cuda)
+    k = torch.zeros((1, 2, 8, 16), device=cuda).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        swa_ops.swa_attention(q, k, k, window=8)
+    with pytest.raises(TypeError):
+        swa_ops.swa_attention(q.bfloat16(), k.contiguous(), k.contiguous(),
+                              window=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 8])
+def test_lm_serving_on_card_matches_cpu(cuda, window):
+    """Reduced qwen3_8b, f32: prefill and three decode steps on the card
+    through the kernels equal the port's CPU path (1e-4 · max|logit|)."""
+    cfg = replace(get_reduced_config("qwen3_8b"), sliding_window=window)
+    params = api.init_params(cfg, torch.Generator().manual_seed(0),
+                             torch.float32, device="cpu")
+    on_card = tree_map(lambda a: a.to(cuda), params)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 19)))
+    kernels.reset_launches()
+    lg_c, cache_c = api.prefill(cfg, on_card,
+                                {"tokens": toks[:, :16].to(cuda)}, max_len=20)
+    lg_p, cache_p = api.prefill(cfg, params, {"tokens": toks[:, :16]},
+                                max_len=20)
+    outs = [(lg_c, lg_p)]
+    for pos in (16, 17, 18):
+        tok = toks[:, pos:pos + 1]
+        lg_c, cache_c = api.decode_step(cfg, on_card, cache_c, tok.to(cuda),
+                                        pos)
+        lg_p, cache_p = api.decode_step(cfg, params, cache_p, tok, pos)
+        outs.append((lg_c, lg_p))
+    assert kernels.LAUNCHES["swa_attention"] == cfg.num_layers
+    assert kernels.LAUNCHES["rmsnorm"] == 4 * (4 * cfg.num_layers + 1)
+    for c, p in outs:
+        c, p = c.cpu().numpy(), p.numpy()
+        assert np.abs(c - p).max() <= 1e-4 * np.abs(p).max()
+        assert np.array_equal(c.argmax(-1), p.argmax(-1))

@@ -1,4 +1,5 @@
-"""The port's two kernels against the reference's.
+"""The port's conv2d and elm_stats wrappers against the reference's (the LM
+kernels' are held in ``test_torch_lm_kernels.py``).
 
 On the CPU each wrapper runs its plain PyTorch version; it is held against
 the reference's Pallas kernel (interpret mode) and its jnp oracle on the
@@ -19,6 +20,11 @@ from repro.kernels.elm_stats import ops as jstats
 from repro_torch import kernels
 from repro_torch.kernels.conv2d import ops as conv_ops, ref as conv_ref
 from repro_torch.kernels.elm_stats import ops as stats_ops
+from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.kernels.swa_attention import ops as swa_ops
+
+# the reference's threaded tests share the CPU with these workers
+torch.set_num_threads(2)
 
 
 def _close(got, ref):
@@ -179,4 +185,8 @@ def test_plain_versions_launch_nothing():
     kernels.reset_launches()
     conv_ops.conv2d_valid(torch.zeros((1, 8, 8, 1)), torch.zeros((3, 3, 1, 2)))
     stats_ops.elm_stats(torch.zeros((5, 3)), torch.zeros((5, 2)))
-    assert kernels.LAUNCHES == {"conv2d": 0, "elm_stats": 0}
+    rms_ops.rmsnorm(torch.zeros((4, 8)), torch.ones(8))
+    q = torch.zeros((1, 4, 2, 8))
+    swa_ops.swa_attention(q, q, q, window=2)
+    assert kernels.LAUNCHES == {"conv2d": 0, "elm_stats": 0, "rmsnorm": 0,
+                                "swa_attention": 0}

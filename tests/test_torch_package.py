@@ -12,16 +12,22 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch.configs import get_reduced_config
+from repro_torch.configs import get_reduced_config, replace
 from repro_torch.core import cnn_elm, executor
 from repro_torch.core.runner import (AveragingRun, Ensemble, MapConfig,
                                      ReduceConfig)
 from repro_torch.data.partition import Partition
-from repro_torch.models import cnn
+from repro_torch.core import trainer
+from repro_torch.launch import serve
+from repro_torch.models import api, cnn
+
+# the reference's threaded tests share the CPU with these workers
+torch.set_num_threads(2)
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 PKG = os.path.join(ROOT, "src", "repro_torch")
 CFG = get_reduced_config("cnn_elm_6c12c")
+LM = get_reduced_config("qwen3_8b")
 
 
 def _modules():
@@ -33,6 +39,8 @@ def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
     assert "repro_torch.kernels.conv2d.ops" in mods
     assert "repro_torch.serve.engine" in mods
+    assert "repro_torch.kernels.swa_attention.ops" in mods
+    assert "repro_torch.launch.serve" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -85,6 +93,15 @@ def test_entry_points_default_to_the_card(monkeypatch):
         BucketedScorer(CFG, res.stacked)
     with pytest.raises(ValueError):
         repro_torch.resolve_device("meta")
+    # the LM serving path
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.init_params(LM, gen)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.init_cache(LM, 1, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--reduced", "--prompt-len", "4", "--gen", "2"])
+    lm = api.init_params(LM, gen, device="cpu")
+    assert lm["embed"].device.type == "cpu"
 
 
 @pytest.mark.parametrize("make", [
@@ -94,6 +111,13 @@ def test_entry_points_default_to_the_card(monkeypatch):
     lambda: ReduceConfig(rounds=2),
     lambda: executor.make_executor("mesh"),
     lambda: cnn_elm.train_member(CFG, None, None, epochs=2, batch_size=8),
+    lambda: api.module_of(replace(LM, family="moe")),
+    lambda: api.module_of(replace(LM, family="ssm_rwkv6")),
+    lambda: api.init_params(replace(LM, family="encoder",
+                                    is_encoder_only=True), None),
+    lambda: trainer.make_prefill_step(replace(LM, is_encoder_only=True))(
+        None, {"tokens": torch.zeros((1, 4), dtype=torch.int64)}),
+    lambda: serve.main(["--ensemble"]),
 ])
 def test_later_slices_raise_not_implemented(make):
     with pytest.raises(NotImplementedError):

@@ -32,6 +32,9 @@ from repro_torch.core.runner import (AveragingRun, Ensemble, MapConfig,
                                      kappa_model)
 from repro_torch.data.partition import Partition
 
+# the reference's threaded tests share the CPU with these workers
+torch.set_num_threads(2)
+
 BATCH = 40
 SEED = 1000
 

@@ -15,6 +15,9 @@ from repro_torch.data.synthetic import make_extended_mnist
 from repro_torch.serve import (BucketLadder, BucketedScorer, SwapRejected,
                                combine_block)
 
+# the reference's threaded tests share the CPU with these workers
+torch.set_num_threads(2)
+
 CFG = get_reduced_config("cnn_elm_6c12c")
 
 
