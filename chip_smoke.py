@@ -8,14 +8,16 @@ is non-zero and no result line is printed:
 
 1. env     — the card (``nvidia-smi`` name and power limit), torch and CUDA
              versions, the TF32 flags (both must be off).
-2. build   — compiles ``src/repro_torch/csrc/*.cu`` with nvcc into build/.
+2. build   — compiles ``src/repro_torch/csrc/*.cu`` with nvcc into build/;
+             ptxas's registers, shared memory and spills per kernel.
 3. kernels — every kernel against its plain PyTorch version on the card
              at its path's shapes (f32: rtol 1e-5, atol 1e-5 · max|ref|;
              bf16 outputs: one bf16 ulp, rtol 2⁻⁷, atol 1e-5 · max|ref|),
              with kernel, plain-version and library device times
              (torch.profiler over 100 calls after warm-up), their per-call
-             times with host overhead (CUDA events), and the card's bound
-             for the same work.
+             times with host overhead (CUDA events), the card's bound for
+             the same work, and ``vs_library`` = kernel ms / library ms;
+             elm_stats's U must equal its transpose bitwise.
 4. map     — the epochs=0 Map → Reduce at full width (cnn_elm_6c12c, 60,000
              synthetic extended-MNIST images, 10,000 held out, k = 4, batch
              200) on the card, stacked and sequential, held against the
@@ -30,7 +32,9 @@ is non-zero and no result line is printed:
              qwen3_8b in bf16 through ``run_lm`` at batch 4, prompt 128,
              gen 32: prefill ms, decode tokens/s, peak device memory, the
              gap between the prefill's and the replay's last logits, and the
-             device-idle share of one decode step (torch.profiler).
+             device-idle share of a decode step: its device busy time
+             (torch.profiler, one step) over the mean step of 10 unprofiled
+             steps and over the mean step of run_lm's own decode loop.
 8. the kernels line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -170,6 +174,12 @@ def phase_kernels(torch, dev, rates):
             ref.abs().max())
 
     out = {}
+
+    def keep(name, tag, rec):
+        rec["vs_library"] = rec["ms"] / rec["library_ms"]
+        emit("kernel", name=name, case=tag, **rec)
+        out[(name, tag)] = rec
+
     conv_cases = [("stage1", (4, 200, 28, 28, 1), (4, 5, 5, 1, 6)),
                   ("stage2", (4, 200, 12, 12, 6), (4, 5, 5, 6, 12))]
     for tag, xs, ws in conv_cases:
@@ -202,12 +212,14 @@ def phase_kernels(torch, dev, rates):
                    plain_call_ms=call_ms(torch, plain, reps=20),
                    library_call_ms=call_ms(torch, library),
                    bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
-        emit("kernel", name="conv2d", case=tag, **rec)
-        out[("conv2d", tag)] = rec
+        keep("conv2d", tag, rec)
 
+    # the stacked Map's batch (k 4, n 200), masked, ragged, and one whole
+    # shard of 12,500 rows
     stats_cases = [("unmasked", 4, 200, 192, 10, False),
                    ("fractional_mask", 4, 200, 192, 10, True),
-                   ("ragged", 4, 137, 144, 20, True)]
+                   ("ragged", 4, 137, 144, 20, True),
+                   ("shard", 4, 12_500, 192, 10, False)]
     for tag, k, n, L, C, masked in stats_cases:
         h = torch.tanh(randn(k, n, L))
         t = F.one_hot(torch.randint(0, C, (k, n), generator=gen),
@@ -218,6 +230,8 @@ def phase_kernels(torch, dev, rates):
         got = torch.cat([u, v], dim=-1)
         err, top, ok = compare(got, ref)
         check(ok, f"elm_stats {tag}: max|err| {err} at max|ref| {top}")
+        check(torch.equal(u, u.transpose(1, 2)),
+              f"elm_stats {tag}: U is not bitwise symmetric")
         hm = h if m is None else h * m[..., None]
         hmt = hm.transpose(1, 2).contiguous()
         ht = torch.cat([h, t], dim=-1).contiguous()
@@ -225,7 +239,9 @@ def phase_kernels(torch, dev, rates):
               "the cuBLAS yardstick computes another function")
         nbytes = 4 * (h.numel() + t.numel() + ref.numel()
                       + (m.numel() if masked else 0))
-        flops = 2 * k * n * L * (L + C) + (k * n * L if masked else 0)
+        # U is symmetric: the function needs its pairs i <= j and all of V
+        flops = k * n * (L * (L + 1) + 2 * L * C) + (k * n * L if masked
+                                                       else 0)
         b_ms, b_by = bound_ms(nbytes, flops, rates)
         kernel = lambda: st_ops.elm_stats(h, t, mask=m)       # noqa: E731
         plain = lambda: st_ref.elm_stats_ref(h, t, m)         # noqa: E731
@@ -239,8 +255,7 @@ def phase_kernels(torch, dev, rates):
                    plain_call_ms=call_ms(torch, plain, reps=20),
                    library_call_ms=call_ms(torch, library),
                    bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
-        emit("kernel", name="elm_stats", case=tag, **rec)
-        out[("elm_stats", tag)] = rec
+        keep("elm_stats", tag, rec)
 
     # the LM serving path's shapes, bf16: ln1/ln2/final norm over the B·S
     # rows of a batch-4, prompt-128 prefill (f32 scale), and q_norm over its
@@ -273,15 +288,17 @@ def phase_kernels(torch, dev, rates):
                    plain_call_ms=call_ms(torch, plain),
                    library_call_ms=call_ms(torch, library),
                    bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
-        emit("kernel", name="rmsnorm", case=tag, **rec)
-        out[("rmsnorm", tag)] = rec
+        keep("rmsnorm", tag, rec)
 
     # the prefill's attention (B 4, S 128, 32 heads over 8 kv heads, hd 128,
-    # window = S) and one windowed case
-    swa_cases = [("prefill_causal", 4, 128, 32, 8, 128, 128),
-                 ("window256_s1024", 1, 1024, 32, 8, 128, 256)]
-    for tag, B, S, H, KV, hd, W in swa_cases:
-        q = randn(B, S, H, hd).to(torch.bfloat16)
+    # window = S), one windowed case, and the prefill with q scaled by 8:
+    # scores of large magnitude stress the online rescale and the hi/lo
+    # split of p
+    swa_cases = [("prefill_causal", 4, 128, 32, 8, 128, 128, 1.0),
+                 ("window256_s1024", 1, 1024, 32, 8, 128, 256, 1.0),
+                 ("prefill_large_scores", 4, 128, 32, 8, 128, 128, 8.0)]
+    for tag, B, S, H, KV, hd, W, q_scale in swa_cases:
+        q = (randn(B, S, H, hd) * q_scale).to(torch.bfloat16)
         k = randn(B, S, KV, hd).to(torch.bfloat16)
         v = randn(B, S, KV, hd).to(torch.bfloat16)
         y = swa_ops.swa_attention(q, k, v, window=W)
@@ -309,7 +326,8 @@ def phase_kernels(torch, dev, rates):
         kernel = lambda: swa_ops.swa_attention(q, k, v, window=W)  # noqa
         plain = lambda: swa_ref.swa_attention_ref(q, k, v,           # noqa
                                                   window=W)
-        rec = dict(shape=f"B{B} S{S} H{H} KV{KV} hd{hd} W{W} bf16",
+        rec = dict(shape=f"B{B} S{S} H{H} KV{KV} hd{hd} W{W} bf16"
+                   + (f", q x {q_scale:g}" if q_scale != 1.0 else ""),
                    max_abs_err=err, max_abs_ref=top,
                    ms=device_ms(torch, kernel),
                    plain_ms=device_ms(torch, plain, reps=20),
@@ -319,8 +337,7 @@ def phase_kernels(torch, dev, rates):
                    library_call_ms=call_ms(torch, library),
                    bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops,
                    pairs_in_mask=pairs)
-        emit("kernel", name="swa_attention", case=tag, **rec)
-        out[("swa_attention", tag)] = rec
+        keep("swa_attention", tag, rec)
     return out
 
 
@@ -649,9 +666,13 @@ def phase_lm(torch, dev, batch=4, prompt=128, gen=32):
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / 10
     prof_decode["step_ms_unprofiled"] = step_ms
+    # and the mean step of the warm run_lm's own decode loop
+    loop_ms = 1e3 * batch / warm["tokens_per_s"]
+    prof_decode["step_ms_run_lm_loop"] = loop_ms
     if isinstance(prof_decode["device_busy_ms"], float):
-        prof_decode["idle_share_unprofiled"] = 1 - min(
-            prof_decode["device_busy_ms"] / step_ms, 1.0)
+        busy = prof_decode["device_busy_ms"]
+        prof_decode["idle_share_unprofiled"] = 1 - min(busy / step_ms, 1.0)
+        prof_decode["idle_share_run_lm_loop"] = 1 - min(busy / loop_ms, 1.0)
     emit("lm", arch=cfg.name, dtype="bfloat16", batch=batch, prompt=prompt,
          gen=gen, launches=launches, peak_memory_bytes=peak,
          prefill_ms_first=first["prefill_ms"],
@@ -689,7 +710,8 @@ def main():
     kernels.library()
     emit("build", seconds=time.perf_counter() - t0,
          ptxas=[line.strip() for line in kernels.build_log.splitlines()
-                if "registers" in line or "Compiling entry" in line])
+                if "registers" in line or "Compiling entry" in line
+                or "spill" in line])
 
     per_case = phase_kernels(torch, dev, rates)
     m = phase_map(torch, dev)
@@ -704,7 +726,8 @@ def main():
     conv = [per_case[("conv2d", "stage1")], per_case[("conv2d", "stage2")]]
     stats = per_case[("elm_stats", "unmasked")]
     stats_err = max(per_case[("elm_stats", c)]["max_abs_err"]
-                    for c in ("unmasked", "fractional_mask", "ragged"))
+                    for c in ("unmasked", "fractional_mask", "ragged",
+                              "shard"))
     line = {"kernels": [
         {"name": "conv2d", "route": "cuda",
          "source": "src/repro_torch/csrc/conv2d.cu",
@@ -747,7 +770,8 @@ def main():
          "replaces": "src/repro/kernels/swa_attention/kernel.py:28",
          "launches": lm_launches["swa_attention"],
          "max_abs_err": max(per_case[("swa_attention", c)]["max_abs_err"]
-                            for c in ("prefill_causal", "window256_s1024")),
+                            for c in ("prefill_causal", "window256_s1024",
+                                      "prefill_large_scores")),
          "ms": swa["ms"], "plain_ms": swa["plain_ms"],
          "bound_ms": swa["bound_ms"], "bound_by": swa["bound_by"],
          "library_ms": swa["library_ms"]},

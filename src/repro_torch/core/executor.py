@@ -19,11 +19,12 @@ with later slices of the port and raise here.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core import elm
 from repro_torch.core.averaging import broadcast_member_dim
 from repro_torch.core.cnn_elm import (CNNELMModel, StackedMembers,
@@ -32,6 +33,7 @@ from repro_torch.core.cnn_elm import (CNNELMModel, StackedMembers,
 from repro_torch.data.partition import Partition, padded_stacked_epoch_batches
 from repro_torch.data.synthetic import one_hot
 from repro_torch.models import cnn
+from repro_torch.tree import tree_map
 
 BACKENDS = ("sequential", "stacked")
 MESH_SLICE = ("backend 'mesh' runs on torch.distributed and comes with the "
@@ -42,11 +44,14 @@ MESH_SLICE = ("backend 'mesh' runs on torch.distributed and comes with the "
 class ExecutionPlan:
     """What one epochs=0 Map execution needs: batch size, the member seed
     rule (member i's stream = ``default_rng(seed + i)``), the static
-    Reduce weights (None = uniform), and the device the members run on."""
+    Reduce weights (None = uniform), and the device the members run on —
+    the card unless the caller asks for ``"cpu"``; both executors resolve
+    it through ``repro_torch.resolve_device`` and move ``init_params``
+    onto it."""
     batch_size: int = 32
     seed: int = 1000
     reduce_weights: Optional[Sequence[float]] = None
-    device: torch.device = torch.device("cpu")
+    device: Union[str, torch.device] = "cuda"
 
 
 @dataclass
@@ -58,6 +63,12 @@ class MapOutcome:
     stacked: StackedMembers
     averaged: CNNELMModel
     stats: elm.ELMStats
+
+
+def _on_device(init_params, plan: ExecutionPlan):
+    """(the plan's device, ``init_params`` as f32 on it)."""
+    dev = resolve_device(plan.device)
+    return dev, tree_map(lambda a: a.to(dev, torch.float32), init_params)
 
 
 def make_executor(backend: str):
@@ -79,6 +90,7 @@ class SequentialExecutor:
 
     def execute(self, cfg, init_params, partitions: Sequence[Partition],
                 plan: ExecutionPlan) -> MapOutcome:
+        _, init_params = _on_device(init_params, plan)
         members, stats = [], []
         for i, p in enumerate(partitions):
             model, s = train_member(cfg, init_params, p, epochs=0,
@@ -103,7 +115,7 @@ class StackedExecutor:
                 plan: ExecutionPlan) -> MapOutcome:
         k = len(partitions)
         F, C = cnn.feature_dim(cfg), cfg.num_classes
-        dev = plan.device
+        dev, init_params = _on_device(init_params, plan)
         rngs = [np.random.default_rng(plan.seed + i) for i in range(k)]
         xs, ys, mk = padded_stacked_epoch_batches(partitions,
                                                   plan.batch_size, rngs)

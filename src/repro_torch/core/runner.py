@@ -39,7 +39,6 @@ from repro_torch.core.executor import (BACKENDS, MESH_SLICE, ExecutionPlan,
 from repro_torch.core.reduce_strategies import ReduceContext, ReduceStrategy
 from repro_torch.data.partition import Partition
 from repro_torch.models import cnn
-from repro_torch.tree import tree_map
 
 COMBINES = ("mean", "vote")
 
@@ -150,15 +149,14 @@ class AveragingRun:
                 raise ValueError("pass generator= (a seeded torch.Generator) "
                                  "or init_params=")
             init_params = cnn.init_params(self.cfg, generator, dev)
-        init = tree_map(lambda a: a.to(dev, torch.float32), init_params)
         m = self.map_cfg
         plan = ExecutionPlan(
             batch_size=m.batch_size, seed=m.seed,
             reduce_weights=self.reduce_cfg.resolve_weights(partitions),
             device=dev)
         t0 = time.perf_counter()
-        out = make_executor(m.backend).execute(self.cfg, init, partitions,
-                                               plan)
+        out = make_executor(m.backend).execute(self.cfg, init_params,
+                                               partitions, plan)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         return RunResult(self.cfg, out.members, out.averaged, out.stacked,

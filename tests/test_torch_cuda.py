@@ -69,13 +69,25 @@ def test_conv2d_kernel_matches_plain_on_card(cuda, k, b, h, w, cin, kk, cout):
     _close(got.cpu().numpy(), conv_ref.conv2d_valid_ref(xd, wd).cpu().numpy())
 
 
+ELM_SHAPES = [(4, 200, 192, 10), (1, 137, 144, 20), (3, 17, 7, 2),
+              (2, 64, 64, 10),
+              (2, 50, 40, 3),            # L 40: a ragged 32-wide tile
+              (2, 33, 24, 1),            # C 1
+              (3, 1, 16, 4),             # one row
+              (2, 12_500, 192, 10)]      # a whole shard of the Map
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("mask_kind", [None, "binary", "fractional"])
-@pytest.mark.parametrize("k,n,L,C", [(4, 200, 192, 10), (1, 137, 144, 20),
-                                     (3, 17, 7, 2), (2, 64, 64, 10)])
+@pytest.mark.parametrize("mask_kind", [None, "binary", "fractional",
+                                       "zero_rows"])
+@pytest.mark.parametrize("k,n,L,C", ELM_SHAPES)
 def test_elm_stats_kernel_matches_plain_on_card(cuda, k, n, L, C, mask_kind):
     h, t = _data(n + L, (k, n, L), (k, n, C))
-    m = None if mask_kind is None else _mask(mask_kind, k * n, n).reshape(k, n)
+    if mask_kind == "zero_rows":    # padded shards: the last rows weigh 0
+        m = np.tile((np.arange(n) < n - n // 3).astype(np.float32), (k, 1))
+    else:
+        m = (None if mask_kind is None else
+             _mask(mask_kind, k * n, n).reshape(k, n))
     hd, td = torch.from_numpy(h).to(cuda), torch.from_numpy(t).to(cuda)
     md = None if m is None else torch.from_numpy(m).to(cuda)
     before = kernels.LAUNCHES["elm_stats"]
@@ -85,6 +97,25 @@ def test_elm_stats_kernel_matches_plain_on_card(cuda, k, n, L, C, mask_kind):
     ref = stats_ref.elm_stats_ref(hd, td, md).cpu().numpy()
     _close(u.cpu().numpy(), ref[..., :L])
     _close(v.cpu().numpy(), ref[..., L:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("k,n,L,C", ELM_SHAPES)
+def test_elm_stats_u_is_symmetric_and_deterministic_on_card(cuda, k, n, L, C,
+                                                            masked):
+    """U is computed once per pair and written to both halves, so it equals
+    its transpose bitwise; every output sums its rows in order, without
+    atomics, so two launches agree bitwise."""
+    h, t = _data(n + L + 1, (k, n, L), (k, n, C))
+    hd, td = torch.from_numpy(h).to(cuda), torch.from_numpy(t).to(cuda)
+    md = (torch.from_numpy(_mask("fractional", k * n, n).reshape(k, n)
+                           ).to(cuda) if masked else None)
+    u, v = stats_ops.elm_stats(hd, td, mask=md)
+    u2, v2 = stats_ops.elm_stats(hd, td, mask=md)
+    torch.cuda.synchronize()
+    assert torch.equal(u, u.transpose(1, 2))
+    assert torch.equal(u, u2) and torch.equal(v, v2)
 
 
 @pytest.mark.cuda
@@ -160,7 +191,15 @@ def test_rmsnorm_kernel_matches_plain_on_card(cuda, shape, x_dt, s_dt):
     (2, 37, 4, 2, 64, 37),         # ragged
     (2, 200, 4, 1, 64, 33),        # ragged, windowed, 4 heads per kv head
     (1, 70, 2, 2, 16, 8),
-    (3, 1, 2, 1, 32, 1)])
+    (3, 1, 2, 1, 32, 1),
+    (2, 64, 4, 2, 40, 64),         # hd 40 and 72: zero-padded to 48, 80
+    (2, 64, 4, 2, 72, 64),
+    (2, 15, 4, 2, 64, 15),         # S 15 and 65: ragged 64-row tiles
+    (2, 65, 4, 2, 64, 65),
+    (1, 200, 4, 2, 64, 1),         # window 1: the diagonal alone
+    (1, 200, 4, 2, 64, 17),        # window 17: inside a tile, and across two
+    (2, 96, 8, 1, 128, 96),        # G = 8: eight query heads per kv head
+    (1, 50, 2, 1, 20, 50)])        # hd 20: rows staged 2 bytes at a time
 def test_swa_kernel_matches_plain_on_card(cuda, dt, B, S, H, KV, hd, window):
     q, k, v = _data(S + window, (B, S, H, hd), (B, S, KV, hd),
                     (B, S, KV, hd))
@@ -171,6 +210,26 @@ def test_swa_kernel_matches_plain_on_card(cuda, dt, B, S, H, KV, hd, window):
     assert kernels.LAUNCHES["swa_attention"] == before + 1
     ref = swa_ref.swa_attention_ref(qd, kd, vd, window=window)
     assert got.dtype == qd.dtype
+    if dt == "bf16":
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   ref.float().cpu().numpy(), rtol=2.0 ** -7,
+                                   atol=1e-5 * float(ref.abs().max()))
+    else:
+        _close(got.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("window", [128, 40])
+def test_swa_kernel_large_scores_on_card(cuda, dt, window):
+    """q scaled by 8: scores of large magnitude stress the online rescale
+    (alpha far from 1) and, in bf16, the hi/lo split of p."""
+    q, k, v = _data(7, (2, 128, 8, 128), (2, 128, 2, 128), (2, 128, 2, 128))
+    qd, kd, vd = (torch.from_numpy(a).to(cuda, _dt(dt))
+                  for a in (q * 8, k, v))
+    got = swa_ops.swa_attention(qd, kd, vd, window=window)
+    ref = swa_ref.swa_attention_ref(qd, kd, vd, window=window)
+    torch.cuda.synchronize()
     if dt == "bf16":
         np.testing.assert_allclose(got.float().cpu().numpy(),
                                    ref.float().cpu().numpy(), rtol=2.0 ** -7,

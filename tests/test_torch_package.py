@@ -57,7 +57,8 @@ def test_every_module_imports_without_jax_or_repro():
 def test_no_source_imports_jax_or_repro():
     pattern = re.compile(r"^\s*(import\s+(jax|jaxlib|repro)\b"
                          r"|from\s+(jax|jaxlib|repro)(\.|\s))", re.M)
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "tools", "kernel_variants.py")]
     for dirpath, _, names in os.walk(PKG):
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith(".py")]
@@ -102,6 +103,28 @@ def test_entry_points_default_to_the_card(monkeypatch):
         serve.main(["--reduced", "--prompt-len", "4", "--gen", "2"])
     lm = api.init_params(LM, gen, device="cpu")
     assert lm["embed"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("backend", ["sequential", "stacked"])
+def test_executors_run_on_the_plan_device(monkeypatch, backend):
+    """An executor called directly runs on ``plan.device``, which defaults
+    to the card: without one it raises with the ``device='cpu'`` hint, and
+    a CPU plan gives the β of the runner's CPU run."""
+    x = np.random.default_rng(0).random((160, 28, 28), dtype=np.float32)
+    parts = [Partition(x[:80], np.arange(80) % 10),
+             Partition(x[80:], np.arange(80) % 10)]
+    params = cnn.init_params(CFG, torch.Generator().manual_seed(0),
+                             device="cpu")
+    ex = executor.make_executor(backend)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ex.execute(CFG, params, parts, executor.ExecutionPlan(batch_size=40))
+    got = ex.execute(CFG, params, parts, executor.ExecutionPlan(
+        batch_size=40, device=torch.device("cpu")))
+    want = AveragingRun(CFG, MapConfig(batch_size=40, backend=backend)).run(
+        parts, init_params=params, device="cpu")
+    assert got.stacked.beta.device.type == "cpu"
+    assert torch.equal(got.stacked.beta, want.stacked.beta)
 
 
 @pytest.mark.parametrize("make", [

@@ -151,7 +151,8 @@ def test_full_width_6c12c_end_to_end(data):
     from repro_torch.core.executor import (ExecutionPlan as TPlan,
                                            StackedExecutor as TStacked)
     tstats = TStacked().execute(tcfg, convert.params_from_numpy(init, "cpu"),
-                                tparts, TPlan(batch_size=BATCH, seed=SEED)
+                                tparts, TPlan(batch_size=BATCH, seed=SEED,
+                                              device=torch.device("cpu"))
                                 ).stats
     ju, jv = np.asarray(ref.stats.u), np.asarray(ref.stats.v)
     for a, b in ((tstats.u, ju), (tstats.v, jv)):
