@@ -11,7 +11,8 @@ is non-zero and no result line is printed:
 2. build   — compiles ``src/repro_torch/csrc/*.cu`` with nvcc into build/;
              ptxas's registers, shared memory and spills per kernel.
 3. kernels — every kernel against its plain PyTorch version on the card
-             at its path's shapes (f32: rtol 1e-5, atol 1e-5 · max|ref|;
+             at its path's shapes (conv2d also at a one-image scoring
+             request) (f32: rtol 1e-5, atol 1e-5 · max|ref|;
              bf16 outputs: one bf16 ulp, rtol 2⁻⁷, atol 1e-5 · max|ref|),
              with kernel, plain-version and library device times
              (torch.profiler over 100 calls after warm-up), their per-call
@@ -59,6 +60,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 PEAKS = {"H100 PCIe": (51.2e12, 2.0e12, 756e12),
          "H100 NVL": (60e12, 3.9e12, 835e12),
          "H100": (67e12, 3.35e12, 989e12)}
+SERVE_MAX_BATCH = 64    # the bucketed scorer's largest request
 TOL = 1e-5          # kernel vs plain version: rtol, and atol · max|ref|
 BF16_RTOL = 2.0 ** -7   # one bf16 ulp, for bf16 outputs
 REPS = 100
@@ -113,21 +115,29 @@ def device_activity(torch, prof):
             and evt.self_device_time_total > 0]
 
 
-def device_ms(torch, fn, reps=REPS):
+def device_ms(torch, fn, reps=REPS, attempts=3):
     """Mean device time per call of ``fn`` (all its kernels and copies) over
     ``reps`` calls after warm-up, from torch.profiler's device trace: the
-    kernel's own time, whatever the host spends launching it."""
+    kernel's own time, whatever the host spends launching it. Now and then
+    a profiled window comes back with its launches but none of its kernels
+    (the profiler asked for a new activity buffer inside it, and the
+    kernels' records were not delivered before it closed); such a window
+    is profiled again after a pause, up to ``attempts`` windows in all."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(10):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(us for us, _, _ in device_activity(torch, prof))
-    check(total_us > 0, "the profiler saw no device time")
-    return total_us / reps / 1e3
+    for attempt in range(attempts):
+        if attempt:
+            time.sleep(0.5)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(us for us, _, _ in device_activity(torch, prof))
+        if total_us > 0:
+            return total_us / reps / 1e3
+    check(False, f"the profiler saw no device time in {attempts} windows")
 
 
 def bound_ms(nbytes, flops, rates, bf16=False):
@@ -150,6 +160,7 @@ def phase_kernels(torch, dev, rates):
     from repro_torch.kernels.rmsnorm import ops as rms_ops, ref as rms_ref
     from repro_torch.kernels.swa_attention import ops as swa_ops
     from repro_torch.kernels.swa_attention import ref as swa_ref
+    from repro_torch.serve import BucketLadder
 
     gen = torch.Generator().manual_seed(0)
 
@@ -180,8 +191,13 @@ def phase_kernels(torch, dev, rates):
         emit("kernel", name=name, case=tag, **rec)
         out[(name, tag)] = rec
 
+    # the stacked Map's batch (k 4, B 200), and a scoring request of one
+    # image at its bucket
+    b1 = BucketLadder(SERVE_MAX_BATCH).bucket_for(1)
     conv_cases = [("stage1", (4, 200, 28, 28, 1), (4, 5, 5, 1, 6)),
-                  ("stage2", (4, 200, 12, 12, 6), (4, 5, 5, 6, 12))]
+                  ("stage2", (4, 200, 12, 12, 6), (4, 5, 5, 6, 12)),
+                  ("score1_stage1", (4, b1, 28, 28, 1), (4, 5, 5, 1, 6)),
+                  ("score1_stage2", (4, b1, 12, 12, 6), (4, 5, 5, 6, 12))]
     for tag, xs, ws in conv_cases:
         x, w = rand(*xs), randn(*ws) * 0.2
         k, B, H, W, Cin = xs
@@ -489,7 +505,7 @@ def phase_serve(torch, m):
     ens, test = m["ens"], m["test"]
     sizes = (1, 3, 17, 64)
     want = {n: ens.predict(test.x[:n]) for n in sizes}
-    scorer = ens.bucketed_scorer(max_batch=64).warmup()
+    scorer = ens.bucketed_scorer(max_batch=SERVE_MAX_BATCH).warmup()
     reps = 30
     kernels.reset_launches()
     lat = {}
@@ -724,6 +740,9 @@ def main():
     check(all(main_launches[name] > 0 for name in ("conv2d", "elm_stats")),
           f"main path did not launch every kernel: {main_launches}")
     conv = [per_case[("conv2d", "stage1")], per_case[("conv2d", "stage2")]]
+    conv_err = max(per_case[("conv2d", c)]["max_abs_err"]
+                   for c in ("stage1", "stage2", "score1_stage1",
+                             "score1_stage2"))
     stats = per_case[("elm_stats", "unmasked")]
     stats_err = max(per_case[("elm_stats", c)]["max_abs_err"]
                     for c in ("unmasked", "fractional_mask", "ragged",
@@ -733,7 +752,7 @@ def main():
          "source": "src/repro_torch/csrc/conv2d.cu",
          "replaces": "src/repro/kernels/conv2d/kernel.py:28",
          "launches": main_launches["conv2d"],
-         "max_abs_err": max(c["max_abs_err"] for c in conv),
+         "max_abs_err": conv_err,
          # one stacked Map step runs stage 1 and stage 2 once each
          "ms": sum(c["ms"] for c in conv),
          "plain_ms": sum(c["plain_ms"] for c in conv),

@@ -17,6 +17,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.kernels.elm_stats import ops as stats_ops
 from repro_torch.layers.norms import optimal_tanh
 
@@ -28,7 +29,10 @@ class ELMStats(NamedTuple):
     n: torch.Tensor  # () f32 row count, or (k,)
 
 
-def zero_stats(num_features: int, num_classes: int, device="cpu") -> ELMStats:
+def zero_stats(num_features: int, num_classes: int,
+               device="cuda") -> ELMStats:
+    """Zero stats of one member, on the card unless ``device="cpu"``."""
+    device = resolve_device(device)
     return ELMStats(
         torch.zeros((num_features, num_features), device=device),
         torch.zeros((num_features, num_classes), device=device),
@@ -36,8 +40,10 @@ def zero_stats(num_features: int, num_classes: int, device="cpu") -> ELMStats:
 
 
 def zero_stats_stacked(k: int, num_features: int, num_classes: int,
-                       device="cpu") -> ELMStats:
-    """Zero stats for k members stacked on a leading dim."""
+                       device="cuda") -> ELMStats:
+    """Zero stats for k members stacked on a leading dim, on the card unless
+    ``device="cpu"``."""
+    device = resolve_device(device)
     return ELMStats(
         torch.zeros((k, num_features, num_features), device=device),
         torch.zeros((k, num_features, num_classes), device=device),

@@ -12,8 +12,9 @@ import torch
 from repro_torch import kernels
 from repro_torch.kernels.conv2d import ref
 
-# the kernel stages one member's weights in shared memory without opting in
-# to more than the default 48 KB a block may take
+# the kernel stages one member's weights in shared memory beside its image
+# tile; 48 KB of weights leave room for a tile of one output pixel (whose
+# input patch is no larger than the weights) in what a block may take
 MAX_WEIGHT_BYTES = 48 * 1024
 
 

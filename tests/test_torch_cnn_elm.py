@@ -182,7 +182,7 @@ def test_add_and_downdate_stats():
     assert s.u.tolist() == [[3.0, 3.0], [3.0, 3.0]] and float(s.n) == 4.0
     back = elm.downdate_stats(s, b)
     assert torch.equal(back.u, a.u) and float(back.n) == 3.0
-    z = elm.zero_stats_stacked(4, 6, 3)
+    z = elm.zero_stats_stacked(4, 6, 3, device="cpu")
     assert z.u.shape == (4, 6, 6) and z.v.shape == (4, 6, 3)
     assert z.n.shape == (4,)
 

@@ -58,7 +58,17 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,b,h,w,cin,kk,cout", [
     (4, 200, 28, 28, 1, 5, 6), (4, 200, 12, 12, 6, 5, 12),
-    (1, 3, 9, 9, 3, 5, 9), (3, 7, 12, 12, 2, 5, 4)])
+    (1, 3, 9, 9, 3, 5, 9), (3, 7, 12, 12, 2, 5, 4),
+    (4, 200, 28, 28, 1, 5, 3), (4, 200, 12, 12, 3, 5, 9),   # 3c-9c
+    (4, 200, 28, 28, 1, 5, 2), (4, 200, 12, 12, 2, 5, 4),   # reduced
+    (1, 200, 28, 28, 1, 5, 6), (1, 200, 12, 12, 6, 5, 12),  # sequential Map
+    (4, 1, 28, 28, 1, 5, 6), (4, 1, 12, 12, 6, 5, 12),      # one image
+    (4, 199, 12, 12, 6, 5, 12),    # 199 images: a ragged last image tile
+    (4, 1, 27, 28, 1, 5, 6),       # OH 23: a ragged last row band
+    (2, 600, 13, 13, 1, 5, 6),     # OW 9: a ragged group of 4 pixels
+    (2, 3, 10, 11, 2, 3, 5),       # generic: a 3x3 kernel
+    (1, 1, 30, 300, 40, 3, 2),     # generic, over 48 KB of shared memory
+    (1, 2, 40, 700, 16, 5, 3)])    # generic, rows cut into column bands
 def test_conv2d_kernel_matches_plain_on_card(cuda, k, b, h, w, cin, kk, cout):
     x, wt = _data(k * b, (k, b, h, w, cin), (k, kk, kk, cin, cout))
     xd, wd = torch.from_numpy(x).to(cuda), torch.from_numpy(wt).to(cuda)
@@ -67,6 +77,25 @@ def test_conv2d_kernel_matches_plain_on_card(cuda, k, b, h, w, cin, kk, cout):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["conv2d"] == before + 1
     _close(got.cpu().numpy(), conv_ref.conv2d_valid_ref(xd, wd).cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,cin,cout", [(28, 1, 6), (12, 6, 12), (28, 1, 3),
+                                        (12, 3, 9)])
+def test_conv2d_member_batched_equals_one_member_launches_on_card(
+        cuda, h, cin, cout):
+    """Every output is one fmaf chain over its patch in (kh, kw, Cin) order,
+    whatever the tiling: the Map's member-batched launch, k one-member
+    launches and a one-image launch (each tiled differently) agree
+    bitwise."""
+    k, b = 4, 200
+    x, wt = _data(h + cout, (k, b, h, h, cin), (k, 5, 5, cin, cout))
+    xd, wd = torch.from_numpy(x).to(cuda), torch.from_numpy(wt).to(cuda)
+    batched = conv_ops.conv2d_valid(xd, wd)
+    for i in range(k):
+        assert torch.equal(batched[i], conv_ops.conv2d_valid(xd[i], wd[i]))
+    assert torch.equal(batched[:, :1],
+                       conv_ops.conv2d_valid(xd[:, :1].contiguous(), wd))
 
 
 ELM_SHAPES = [(4, 200, 192, 10), (1, 137, 144, 20), (3, 17, 7, 2),

@@ -13,7 +13,7 @@ import torch
 
 import repro_torch
 from repro_torch.configs import get_reduced_config, replace
-from repro_torch.core import cnn_elm, executor
+from repro_torch.core import cnn_elm, elm, executor
 from repro_torch.core.runner import (AveragingRun, Ensemble, MapConfig,
                                      ReduceConfig)
 from repro_torch.data.partition import Partition
@@ -94,6 +94,13 @@ def test_entry_points_default_to_the_card(monkeypatch):
         BucketedScorer(CFG, res.stacked)
     with pytest.raises(ValueError):
         repro_torch.resolve_device("meta")
+    # the Map's zero statistics
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        elm.zero_stats(6, 3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        elm.zero_stats_stacked(4, 6, 3)
+    assert elm.zero_stats(6, 3, device="cpu").u.device.type == "cpu"
+    assert elm.zero_stats_stacked(4, 6, 3, device="cpu").n.shape == (4,)
     # the LM serving path
     with pytest.raises(RuntimeError, match="device='cpu'"):
         api.init_params(LM, gen)

@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""Variants of two of the port's CUDA kernels, timed beside the shipped ones.
+"""Variants of three of the port's CUDA kernels, timed beside the shipped ones.
 
-    python3 tools/kernel_variants.py
+    python3 tools/kernel_variants.py [--kernels conv2d ...] [--baseline DIR]
 
 Each variant is a copy of one source in ``src/repro_torch/csrc/`` with one
-edit - a tile constant of elm_stats, or swa_attention's copy loop for
-hd == HDP switched off - built alone with nvcc into ``build/variants/``.
-The shipped source is built the same way beside them, and all the nvcc
-processes run together; the port's own build is not touched. Every build
-is called through its C entry point on the same inputs, checked against
-the kernel's plain version at ``chip_smoke.py``'s bars (and elm_stats's U
-for bitwise symmetry), and timed by torch.profiler's device trace over 100
-launches after warm-up, in two rounds (the variants in order, then in
-reverse). The library call (cuBLAS bmm, SDPA) is timed once per shape.
+edit - a tile constant of elm_stats, swa_attention's copy loop for
+hd == HDP switched off, or conv2d's pixels per thread, tile size,
+instantiation or stores - built alone with nvcc into ``build/variants/``.
+``--baseline DIR`` adds, for each kernel, a build of the same-named source
+in DIR as it stands (an earlier checkout's ``src/repro_torch/csrc``: the
+same C entry point). The shipped source is built the same way beside them,
+and all the nvcc processes run together; the port's own build is not
+touched. Every build is called through its C entry point on the same
+inputs, checked against the kernel's plain version at ``chip_smoke.py``'s
+bars (and elm_stats's U for bitwise symmetry), and timed by
+torch.profiler's device trace over 100 launches after warm-up, in two
+rounds (the variants in order, then in reverse). The library call (cuBLAS
+bmm, SDPA, cuDNN's grouped conv) is timed once per shape.
 
 Prints one JSON line per build with its ptxas lines and its times per
 shape, one line of library times per kernel, then the card's name and
@@ -21,6 +25,7 @@ version. Needs a CUDA card and nvcc.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import os
@@ -37,6 +42,8 @@ import chip_smoke  # noqa: E402  (puts src/ on the path)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # kernel -> (source, C entry point, argument types)
 ENTRIES = {
+    "conv2d": ("conv2d.cu", "conv2d_valid_f32",
+               (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P)),
     "elm_stats": ("elm_stats.cu", "elm_stats_f32",
                   (_P, _P, _P, _P, _I, _I, _I, _I, _P)),
     "swa_attention": ("swa_attention.cu", "swa_attention_fwd",
@@ -45,6 +52,38 @@ ENTRIES = {
 # kernel -> [(variant, [(pattern, replacement), ...])]; every pattern must
 # match the shipped source exactly once
 VARIANTS = {
+    "conv2d": [
+        ("shipped", []),
+        # one pixel an item at every launch: no reuse along the row
+        ("pixels1", [(r"kWide = \d+;", "kWide = 1;")]),
+        # four (or two) pixels and all channels an item at every launch
+        ("pixels4_always", [(r"kWideItemsPerSm = \d+;",
+                             "kWideItemsPerSm = 0;")]),
+        ("pixels2_always", [(r"kWide = \d+;", "kWide = 2;"),
+                            (r"kWideItemsPerSm = \d+;",
+                             "kWideItemsPerSm = 0;")]),
+        # eight pixels an item on large launches
+        ("pixels8", [(r"kWide = \d+;", "kWide = 8;")]),
+        # four channels an item on large launches too
+        ("channels4", [(r"a\.CQ = a\.Cout;", "a.CQ = split;")]),
+        # every shape through the generic instantiation (runtime loops)
+        ("generic_only", [(r"if \(KH == 5 && KW == 5\) \{",
+                           "if (false) {")]),
+        # the output tile leaves in 4-byte stores
+        ("scalar_stores", [(r"(void store_rows\([^{]*\{\s*const int n = "
+                            r"nrows \* seg;\s*if \()", r"\1false && ")]),
+        # tiles cut until there are 4 blocks an SM: one image a block at
+        # stage 2
+        ("blocks4", [(r"kMinBlocksPerSm = \d+;", "kMinBlocksPerSm = 4;")]),
+        # one phase of the block run twice (the same values written again):
+        # the time over the shipped kernel's is what that phase costs
+        ("stage_twice", [(r"(?s)(  const int taps = .*?cp_async_wait\(\);)",
+                          r"{\1}\n{\1}")]),
+        ("compute_twice", [(r"(compute_fixed<KH, KW, CIN, COUT, P, CQ>"
+                            r"\(t, ws, xs, ys\);)", r"{ \1 \1 }")]),
+        ("store_twice", [(r"(  store_rows\(a\.y \+ t\.yoff[^;]*;)",
+                          r"\1\n\1")]),
+    ],
     "elm_stats": [
         ("shipped", []),
         ("tile32_kc64_st2", [(r"kKC = \d+;", "kKC = 64;"),
@@ -61,6 +100,13 @@ VARIANTS = {
                             "if (false) {")]),
     ],
 }
+# (case, k, B, H, Cin, Cout): the stacked and sequential Maps' batches and
+# a scoring request of one image, 5x5 kernels
+CONV_SHAPES = [("stage1", 4, 200, 28, 1, 6), ("stage2", 4, 200, 12, 6, 12),
+               ("seq_stage1", 1, 200, 28, 1, 6),
+               ("seq_stage2", 1, 200, 12, 6, 12),
+               ("score1_stage1", 4, 1, 28, 1, 6),
+               ("score1_stage2", 4, 1, 12, 6, 12)]
 # (case, k, n, L, C, masked)
 ELM_SHAPES = [("unmasked", 4, 200, 192, 10, False),
               ("fractional_mask", 4, 200, 192, 10, True),
@@ -86,22 +132,33 @@ def patched(text, edits):
     return text
 
 
-def build_all():
+def variants_of(name, baseline):
+    """[(tag, source text)] of kernel ``name``: the shipped source patched
+    by each variant's edits, then the baseline directory's source."""
+    from repro_torch import kernels
+    src_name = ENTRIES[name][0]
+    with open(kernels.CSRC / src_name) as f:
+        text = f.read()
+    out = [(tag, patched(text, edits)) for tag, edits in VARIANTS[name]]
+    if baseline:
+        with open(os.path.join(baseline, src_name)) as f:
+            out.append(("baseline", f.read()))
+    return out
+
+
+def build_all(names, baseline):
     """{(kernel, variant): (ctypes function, ptxas lines)}, built in
     parallel."""
     from repro_torch import kernels
     out = os.path.join(ROOT, "build", "variants")
     os.makedirs(out, exist_ok=True)
     procs = {}
-    for name, variants in VARIANTS.items():
-        src_name, _, _ = ENTRIES[name]
-        with open(kernels.CSRC / src_name) as f:
-            text = f.read()
-        for tag, edits in variants:
+    for name in names:
+        for tag, text in variants_of(name, baseline):
             cu = os.path.join(out, f"{name}_{tag}.cu")
             so = cu[:-3] + ".so"
             with open(cu, "w") as f:
-                f.write(patched(text, edits))
+                f.write(text)
             procs[(name, tag)] = (so, subprocess.Popen(
                 [nvcc(), *kernels.NVCC_FLAGS, "-shared", cu, "-o", so],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -135,6 +192,30 @@ def close(got, ref, rtol):
     return (bool(((got - ref).abs() <= chip_smoke.TOL * top
                   + rtol * ref.abs()).all()),
             float((got - ref).abs().max()))
+
+
+def conv_cases(torch, dev, gen):
+    import torch.nn.functional as F
+    from repro_torch.kernels.conv2d import ref
+    cases = {}
+    for case, k, B, H, Cin, Cout in CONV_SHAPES:
+        x = torch.rand((k, B, H, H, Cin), generator=gen).to(dev)
+        w = (torch.randn((k, 5, 5, Cin, Cout), generator=gen) * 0.2).to(dev)
+        want = ref.conv2d_valid_ref(x, w)
+        out = torch.empty_like(want)
+        xn = x.permute(1, 0, 4, 2, 3).reshape(B, k * Cin, H, H).contiguous()
+        wn = w.permute(0, 4, 3, 1, 2).reshape(k * Cout, Cin, 5, 5
+                                              ).contiguous()
+
+        def call(fn, x=x, w=w, out=out, k=k, B=B, H=H, Cin=Cin, Cout=Cout):
+            return launcher(fn, x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                            k, B, H, H, Cin, 5, 5, Cout)
+
+        def verdict(out=out, want=want):
+            return close(out, want, chip_smoke.TOL)
+        cases[case] = (call, verdict,
+                       lambda xn=xn, wn=wn, k=k: F.conv2d(xn, wn, groups=k))
+    return cases
 
 
 def elm_cases(torch, dev, gen):
@@ -197,20 +278,27 @@ def swa_cases(torch, dev, gen):
     return cases
 
 
-def main():
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--kernels", nargs="+", choices=sorted(VARIANTS),
+                        default=sorted(VARIANTS))
+    parser.add_argument("--baseline", metavar="DIR",
+                        help="also build each kernel's source from DIR")
+    args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         sys.exit("kernel_variants needs a CUDA card")
     import repro_torch  # noqa: F401  (sets the TF32 flags)
     dev = torch.device("cuda")
     card = chip_smoke.card_line()
-    built = build_all()
+    built = build_all(args.kernels, args.baseline)
     gen = torch.Generator().manual_seed(0)
-    shapes = {"elm_stats": elm_cases(torch, dev, gen),
-              "swa_attention": swa_cases(torch, dev, gen)}
+    make = {"conv2d": conv_cases, "elm_stats": elm_cases,
+            "swa_attention": swa_cases}
+    shapes = {name: make[name](torch, dev, gen) for name in args.kernels}
     failed = []
     for name, cases in shapes.items():
-        tags = [tag for tag, _ in VARIANTS[name]]
+        tags = [tag for tag, _ in variants_of(name, args.baseline)]
         recs = {tag: {"kernel": name, "variant": tag,
                       "ptxas": built[(name, tag)][1]} for tag in tags}
         for case, (call, verdict, _) in cases.items():
