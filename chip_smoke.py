@@ -18,15 +18,32 @@ is non-zero and no result line is printed:
              (torch.profiler over 100 calls after warm-up), their per-call
              times with host overhead (CUDA events), the card's bound for
              the same work, and ``vs_library`` = kernel ms / library ms;
-             elm_stats's U must equal its transpose bitwise.
+             elm_stats's U must equal its transpose bitwise. The conv's
+             backward at the SGD Map's shapes — dW (conv2d_wgrad) at both
+             stages, dX (conv2d on padded dY) at stage 2 — is held against
+             the f64 plain version: within twice the f32 plain version's
+             own distance from it, or 1e-5 · max|ref|, whichever is larger;
+             its library is cuDNN's grouped backward.
 4. map     — the epochs=0 Map → Reduce at full width (cnn_elm_6c12c, 60,000
              synthetic extended-MNIST images, 10,000 held out, k = 4, batch
              200) on the card, stacked and sequential, held against the
              same run on the port's CPU path; then the held-out set scored.
-5. serve   — a bucketed scorer answering requests of 1, 3, 17 and 64
+5. sgd     — the paper's Table 5 setting on the same shards: two SGD
+             epochs at dynamic_paper(0.05), batch 200, stacked with one
+             round, sequential, and stacked with two rounds: wall,
+             images/s (epochs × images / wall) and launches (per step: 3
+             conv2d, 2 stages × 2 passes of conv2d_wgrad, 1 elm_stats);
+             card sequential vs card stacked (CNN weights within
+             1e-4 · max|w| per leaf, and β, scores and predictions as in
+             ``map``); card vs the port's CPU path on the first 2,500 rows
+             of each shard at full width, one epoch and the two-round run,
+             under the same gates; the averaged model's accuracy must stay
+             above the epochs=0 model's less 0.05.
+6. serve   — a bucketed scorer answering requests of 1, 3, 17 and 64
              images, checked against the ensemble surface; one hot swap.
-6. profile — one stacked Map under torch.profiler.
-7. lm      — the LM serving path (``repro_torch.launch.serve``): (a) qwen3_8b
+7. profile — one stacked Map and one stacked SGD epoch under
+             torch.profiler: device busy, wall, idle share, top operations.
+8. lm      — the LM serving path (``repro_torch.launch.serve``): (a) qwen3_8b
              at full width cut to 2 layers, f32, the card against the port's
              CPU path on the same params (prefill and 4 greedy decode steps
              within 1e-4 · max|logit|, equal tokens); (b) the full 36-layer
@@ -36,12 +53,14 @@ is non-zero and no result line is printed:
              device-idle share of a decode step: its device busy time
              (torch.profiler, one step) over the mean step of 10 unprofiled
              steps and over the mean step of run_lm's own decode loop.
-8. the kernels line, the card line, and the last line
+9. the kernels line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 The launch counters are set to 0 just before each path runs and read just
 after it: the CNN main path (stacked Map → Reduce → scoring of the
-held-out set), the sequential Map, serving, and the LM path (b).
+held-out set), the sequential Map, each SGD Map (the stacked one-round run
+is the SGD main path, whose conv2d_wgrad count the kernels line reports),
+serving, and the LM path (b).
 """
 from __future__ import annotations
 
@@ -230,6 +249,72 @@ def phase_kernels(torch, dev, rates):
                    bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
         keep("conv2d", tag, rec)
 
+    # the conv's backward at the stacked SGD Map's shapes: dW at both
+    # stages, dX at stage 2 (stage 1's input is the images). Held against
+    # the f64 plain version: within twice the f32 plain version's own
+    # distance from it, or 1e-5 · max|ref|, whichever is larger (dW sums
+    # 115,200 terms of mixed sign at stage 1). The library yardstick: cuDNN's
+    # grouped backward on NCHW copies made outside the timed region.
+    from torch.nn import grad as nn_grad
+    grad_cases = [("dw_stage1", (4, 200, 28, 28, 1), (4, 5, 5, 1, 6)),
+                  ("dw_stage2", (4, 200, 12, 12, 6), (4, 5, 5, 6, 12)),
+                  ("dx_stage2", (4, 200, 12, 12, 6), (4, 5, 5, 6, 12))]
+    for tag, xs, ws in grad_cases:
+        k, B, H, W, Cin = xs
+        _, kh, kw, _, Cout = ws
+        OH, OW = H - kh + 1, W - kw + 1
+        x, w, dy = rand(*xs), randn(*ws) * 0.2, randn(k, B, OH, OW, Cout)
+        xn = x.permute(1, 0, 4, 2, 3).reshape(B, k * Cin, H, W).contiguous()
+        wn = w.permute(0, 4, 3, 1, 2).reshape(k * Cout, Cin, kh, kw
+                                              ).contiguous()
+        dyn = dy.permute(1, 0, 4, 2, 3).reshape(B, k * Cout, OH, OW
+                                                ).contiguous()
+        if tag.startswith("dw"):
+            name = "conv2d_wgrad"
+            kernel = lambda: conv_ops.conv2d_weight_grad(      # noqa: E731
+                x, dy, kh, kw)
+            plain = lambda: conv_ref.conv2d_weight_grad_ref(    # noqa: E731
+                x, dy, kh, kw)
+            truth = conv_ref.conv2d_weight_grad_ref(x.double(), dy.double(),
+                                                    kh, kw)
+            library = lambda: nn_grad.conv2d_weight(            # noqa: E731
+                xn, wn.shape, dyn, groups=k)
+            as_port = lambda a: a.reshape(k, Cout, Cin, kh, kw).permute(
+                0, 3, 4, 2, 1)                                  # noqa: E731
+            nbytes = 4 * (x.numel() + dy.numel() + w.numel())
+        else:
+            name = "conv2d"
+            kernel = lambda: conv_ops.conv2d_input_grad(dy, w)  # noqa: E731
+            plain = lambda: conv_ref.conv2d_input_grad_ref(dy, w)  # noqa
+            truth = conv_ref.conv2d_input_grad_ref(dy.double(), w.double())
+            library = lambda: nn_grad.conv2d_input(             # noqa: E731
+                xn.shape, wn, dyn, groups=k)
+            as_port = lambda a: a.reshape(B, k, Cin, H, W).permute(
+                1, 0, 3, 4, 2)                                  # noqa: E731
+            nbytes = 4 * (dy.numel() + w.numel() + x.numel())
+        got, ref = kernel(), plain()
+        err = float((got.double() - truth).abs().max())
+        top = float(truth.abs().max())
+        bar = max(2 * float((ref.double() - truth).abs().max()), TOL * top)
+        check(err <= bar, f"{tag}: max|err| {err} > {bar} (f64 rule)")
+        check(same_function(as_port(library()), ref),
+              "the cuDNN backward yardstick computes another function")
+        flops = 2 * dy.numel() * kh * kw * Cin        # the true products
+        b_ms, b_by = bound_ms(nbytes, flops, rates)
+        rec = dict(shape=f"x{xs} w{ws}", max_abs_err=err, max_abs_ref=top,
+                   bar_f64_rule=bar,
+                   ms=device_ms(torch, kernel),
+                   plain_ms=device_ms(torch, plain, reps=20),
+                   library_ms=device_ms(torch, library),
+                   call_ms=call_ms(torch, kernel),
+                   plain_call_ms=call_ms(torch, plain, reps=20),
+                   library_call_ms=call_ms(torch, library),
+                   bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
+        if name == "conv2d":
+            # the route convolves dY padded to (H+kh-1) x (W+kw-1)
+            rec["padded_flops"] = 2 * x.numel() * kh * kw * Cout
+        keep(name, tag, rec)
+
     # the stacked Map's batch (k 4, n 200), masked, ragged, and one whole
     # shard of 12,500 rows
     stats_cases = [("unmasked", 4, 200, 192, 10, False),
@@ -362,9 +447,94 @@ def expected_launches(parts, batch):
     stage and one elm_stats — member-batched on the stacked path, per member
     on the sequential one."""
     nbs = [len(p.x) // batch for p in parts]
-    lm = {"rmsnorm": 0, "swa_attention": 0}
+    lm = {"rmsnorm": 0, "swa_attention": 0, "conv2d_wgrad": 0}
     return ({"conv2d": 2 * max(nbs), "elm_stats": max(nbs), **lm},
             {"conv2d": 2 * sum(nbs), "elm_stats": sum(nbs), **lm})
+
+
+def expected_sgd_launches(parts, batch, epochs, backend):
+    """Launches an SGD Map must make: per step (a batch index on the
+    stacked path, a member's batch on the sequential one) the two conv
+    forwards and stage 2's dX on the conv kernel, dW of both stages (each
+    ``WGRAD_PASSES`` launches) and one elm_stats."""
+    from repro_torch.kernels.conv2d.ops import WGRAD_PASSES
+    nbs = [len(p.x) // batch for p in parts]
+    steps = epochs * (max(nbs) if backend == "stacked" else sum(nbs))
+    return {"conv2d": 3 * steps, "conv2d_wgrad": 2 * WGRAD_PASSES * steps,
+            "elm_stats": steps, "rmsnorm": 0, "swa_attention": 0}
+
+
+def exact(torch, cfg, test, res):
+    """The f64 solution of ``res``'s own ridge systems and its f64 held-out
+    scores: how far an f32 solve of these ill-conditioned systems (cond
+    ~1e5) lands from exact."""
+    from repro_torch.layers.norms import optimal_tanh
+    from repro_torch.models import cnn
+    k = res.stacked.k
+    u, v = res.stats.u.cpu().double(), res.stats.v.cpu().double()
+    eye = torch.eye(u.shape[-1], dtype=torch.float64)
+    beta = torch.linalg.solve(u + eye / cfg.elm_lambda, v)
+    params = {"stages": tuple({n: a.cpu() for n, a in st.items()}
+                              for st in res.stacked.cnn_params["stages"])}
+    scores = []
+    with torch.no_grad():
+        for i in range(0, len(test.x), 512):
+            xb = torch.from_numpy(test.x[i:i + 512])
+            h = cnn.features_members(cfg, params,
+                                     xb[None].expand(k, *xb.shape))
+            scores.append(optimal_tanh(h).double() @ beta)
+    return beta.numpy(), torch.cat(scores, dim=1).numpy()
+
+
+def agree(torch, cfg, test, a, b, what, twin=None):
+    """``a`` against ``b``: β within 1e-3 · max|β|, scores within
+    1e-4 · max|score| — or within twice ``b``'s own f32 distance from
+    the f64 solution of its systems, where that is larger — and
+    predictions equal on >= 99.9% of the held-out rows.
+
+    ``twin``: ``b``'s path run again from initial weights one f32 ulp away
+    (SGD runs, whose f32 trajectories no two implementations can share):
+    the bars then also accept twice ``b``'s distance from its twin, and the
+    predictions as many equal rows as ``b`` shares with its twin, less
+    0.1 %."""
+    import numpy as np
+    k = b.stacked.k
+    ba, bb = a.stacked.beta.cpu().numpy(), b.stacked.beta.cpu().numpy()
+    check(np.isfinite(ba).all() and ba.shape == (k, 192, 10),
+          f"{what}: beta {ba.shape} finite={np.isfinite(ba).all()}")
+    sa = a.ensemble().member_scores(test.x)
+    sb = b.ensemble().member_scores(test.x)
+    check(np.isfinite(sa).all() and sa.shape == sb.shape,
+          f"{what}: scores {sa.shape}")
+    beta_x, scores_x = exact(torch, cfg, test, b)
+    d_beta, d_score = np.abs(ba - bb).max(), np.abs(sa - sb).max()
+    bar_beta = max(1e-3 * np.abs(bb).max(), 2 * np.abs(bb - beta_x).max())
+    bar_score = max(1e-4 * np.abs(sb).max(),
+                    2 * np.abs(sb - scores_x).max())
+    same = float((sa.mean(0).argmax(-1) == sb.mean(0).argmax(-1)).mean())
+    need_same, extra = 0.999, {}
+    if twin is not None:
+        st = twin.ensemble().member_scores(test.x)
+        bt = twin.stacked.beta.cpu().numpy()
+        extra = dict(
+            twin_dbeta=float(np.abs(bt - bb).max()),
+            twin_dscore=float(np.abs(st - sb).max()),
+            twin_agreement=float((st.mean(0).argmax(-1)
+                                  == sb.mean(0).argmax(-1)).mean()))
+        bar_beta = max(bar_beta, 2 * extra["twin_dbeta"])
+        bar_score = max(bar_score, 2 * extra["twin_dscore"])
+        need_same = min(need_same, extra["twin_agreement"] - 0.001)
+    emit("agree", pair=what, max_abs_dbeta=float(d_beta),
+         max_abs_beta=float(np.abs(bb).max()), bar_beta=float(bar_beta),
+         f32_solve_err_beta=float(np.abs(bb - beta_x).max()),
+         max_abs_dscore=float(d_score),
+         max_abs_score=float(np.abs(sb).max()),
+         bar_score=float(bar_score),
+         f32_solve_err_score=float(np.abs(sb - scores_x).max()),
+         prediction_agreement=same, bar_agreement=need_same, **extra)
+    check(d_beta <= bar_beta, f"{what}: beta {d_beta} > {bar_beta}")
+    check(d_score <= bar_score, f"{what}: scores {d_score} > {bar_score}")
+    check(same >= need_same, f"{what}: predictions agree on {same}")
 
 
 def phase_map(torch, dev, n_per_class=1500, n_test=10_000, k=4, batch=200):
@@ -376,7 +546,6 @@ def phase_map(torch, dev, n_per_class=1500, n_test=10_000, k=4, batch=200):
     from repro_torch.core.runner import AveragingRun, MapConfig, ReduceConfig
     from repro_torch.data.partition import partition_iid
     from repro_torch.data.synthetic import make_extended_mnist
-    from repro_torch.layers.norms import optimal_tanh
     from repro_torch.models import cnn
 
     cfg = get_config("cnn_elm_6c12c")
@@ -432,55 +601,8 @@ def phase_map(torch, dev, n_per_class=1500, n_test=10_000, k=4, batch=200):
     emit("map", backend="stacked", device="cpu (the port's plain path, "
          "host clock)", wall_s=cpu.wall_time_s)
 
-    def exact(res):
-        """The f64 solution of ``res``'s own ridge systems and its f64
-        held-out scores: how far an f32 solve of these ill-conditioned
-        systems (cond ~1e5) lands from exact."""
-        u, v = res.stats.u.cpu().double(), res.stats.v.cpu().double()
-        eye = torch.eye(u.shape[-1], dtype=torch.float64)
-        beta = torch.linalg.solve(u + eye / cfg.elm_lambda, v)
-        params = {"stages": tuple({n: a.cpu() for n, a in st.items()}
-                                  for st in res.stacked.cnn_params["stages"])}
-        scores = []
-        for i in range(0, len(test.x), 512):
-            xb = torch.from_numpy(test.x[i:i + 512])
-            h = cnn.features_members(cfg, params,
-                                     xb[None].expand(k, *xb.shape))
-            scores.append(optimal_tanh(h).double() @ beta)
-        return beta.numpy(), torch.cat(scores, dim=1).numpy()
-
-    def agree(a, b, what):
-        """``a`` against ``b``: β within 1e-3 · max|β|, scores within
-        1e-4 · max|score| — or within twice ``b``'s own f32 distance from
-        the f64 solution of its systems, where that is larger — and
-        predictions equal on >= 99.9% of the held-out rows."""
-        ba, bb = a.stacked.beta.cpu().numpy(), b.stacked.beta.cpu().numpy()
-        check(np.isfinite(ba).all() and ba.shape == (k, 192, 10),
-              f"{what}: beta {ba.shape} finite={np.isfinite(ba).all()}")
-        sa = a.ensemble().member_scores(test.x)
-        sb = b.ensemble().member_scores(test.x)
-        check(np.isfinite(sa).all() and sa.shape == sb.shape,
-              f"{what}: scores {sa.shape}")
-        beta_x, scores_x = exact(b)
-        d_beta, d_score = np.abs(ba - bb).max(), np.abs(sa - sb).max()
-        bar_beta = max(1e-3 * np.abs(bb).max(), 2 * np.abs(bb - beta_x).max())
-        bar_score = max(1e-4 * np.abs(sb).max(),
-                        2 * np.abs(sb - scores_x).max())
-        same = float((sa.mean(0).argmax(-1) == sb.mean(0).argmax(-1)).mean())
-        emit("agree", pair=what, max_abs_dbeta=float(d_beta),
-             max_abs_beta=float(np.abs(bb).max()), bar_beta=float(bar_beta),
-             f32_solve_err_beta=float(np.abs(bb - beta_x).max()),
-             max_abs_dscore=float(d_score),
-             max_abs_score=float(np.abs(sb).max()),
-             bar_score=float(bar_score),
-             f32_solve_err_score=float(np.abs(sb - scores_x).max()),
-             prediction_agreement=same)
-        check(d_beta <= bar_beta, f"{what}: beta {d_beta} > {bar_beta}")
-        check(d_score <= bar_score, f"{what}: scores {d_score} > {bar_score}")
-        check(same >= 0.999, f"{what}: predictions agree on {same}")
-
-    agree(stacked, cpu, "card stacked vs CPU stacked")
-    agree(seq, stacked, "card sequential vs card stacked")
+    agree(torch, cfg, test, stacked, cpu, "card stacked vs CPU stacked")
+    agree(torch, cfg, test, seq, stacked, "card sequential vs card stacked")
     check(np.isfinite(scores).all() and scores.shape == (k, len(test.x), 10),
           "held-out scores")
 
@@ -496,6 +618,121 @@ def phase_map(torch, dev, n_per_class=1500, n_test=10_000, k=4, batch=200):
                 stacked=stacked, seq=seq, ens=ens,
                 scores=scores, launches=main_launches,
                 seq_launches=seq_launches)
+
+
+def phase_sgd(torch, dev, m, epochs=2, lr_c=0.05, cut=2500):
+    """The paper's Table 5 SGD setting on the card: ``epochs`` epochs at
+    dynamic_paper(lr_c), batch 200, on the Map's shards — stacked with one
+    round (the SGD main path), sequential, and stacked with two rounds;
+    launches checked per run, the backends held against each other, the
+    card against the port's CPU path on a cut of ``cut`` rows a member, and
+    the averaged model's accuracy against the epochs=0 model's."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.core.runner import (AveragingRun, MapConfig,
+                                         ReduceConfig, evaluate_model)
+    from repro_torch.data.partition import Partition
+    from repro_torch.optim.schedules import dynamic_paper
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg, parts, test, init = m["cfg"], m["parts"], m["test"], m["init"]
+    batch = m["batch"]
+
+    def run(backend, device, rounds=1, shards=parts, n_epochs=epochs,
+            init_params=init):
+        return AveragingRun(cfg, MapConfig(
+            epochs=n_epochs, lr_schedule=dynamic_paper(lr_c),
+            batch_size=batch, backend=backend),
+            ReduceConfig(rounds=rounds)).run(shards, init_params=init_params,
+                                             device=device)
+
+    def weights_agree(a, b, what, twin=None):
+        """CNN weights of ``a`` within 1e-4 · max|w| of ``b``'s, per leaf —
+        or, with ``twin`` (``b``'s path from initial weights one f32 ulp
+        away), within twice ``b``'s distance from its twin, where that is
+        larger."""
+        worst, report = 0.0, []
+        leaves_t = (tree_leaves(twin.stacked.cnn_params) if twin is not None
+                    else [None] * len(tree_leaves(a.stacked.cnn_params)))
+        for la, lb, lt in zip(tree_leaves(a.stacked.cnn_params),
+                              tree_leaves(b.stacked.cnn_params), leaves_t):
+            la, lb = la.cpu(), lb.cpu()
+            check(bool(torch.isfinite(la).all()), f"{what}: weights finite")
+            top = float(lb.abs().max())
+            d = float((la - lb).abs().max())
+            bar = 1e-4 * top
+            if lt is not None:
+                bar = max(bar, 2 * float((lt.cpu() - lb).abs().max()))
+            worst = max(worst, d / top)
+            report.append({"max_abs_dw": d, "max_abs_w": top, "bar": bar})
+            check(d <= bar, f"{what}: weights {d} > {bar}")
+        emit("agree_weights", pair=what, max_rel_dw=worst,
+             bitwise=all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(
+                 tree_leaves(a.stacked.cnn_params),
+                 tree_leaves(b.stacked.cnn_params))),
+             leaves=report)
+
+    n_images = sum(len(p.x) // batch * batch for p in parts)
+    out = {}
+    for backend, rounds in (("stacked", 1), ("sequential", 1),
+                            ("stacked", 2)):
+        want = expected_sgd_launches(parts, batch, epochs, backend)
+        kernels.reset_launches()
+        first = run(backend, dev, rounds)
+        launches = dict(kernels.LAUNCHES)
+        check(launches == want, f"SGD {backend} rounds={rounds} launches "
+              f"{launches} != {want}")
+        check(sum(r.launches["conv2d_wgrad"] for r in first.rounds)
+              == want["conv2d_wgrad"], "round records' launches")
+        again = [run(backend, dev, rounds).wall_time_s
+                 for _ in range(2 if backend == "stacked" else 1)]
+        out[(backend, rounds)] = first
+        if (backend, rounds) == ("stacked", 1):
+            main_launches = launches        # the SGD main path
+        emit("sgd", backend=backend, rounds=rounds, epochs=epochs,
+             lr=f"dynamic_paper({lr_c})", batch=batch, device=str(dev),
+             wall_s_first=first.wall_time_s, wall_s=again,
+             images_per_s=epochs * n_images / min(again),
+             launches=launches,
+             round_wall_s=[r.wall_time_s for r in first.rounds],
+             round_syncs=first.round_syncs)
+    stacked, seq = out[("stacked", 1)], out[("sequential", 1)]
+    weights_agree(seq, stacked, "SGD card sequential vs card stacked")
+    agree(torch, cfg, test, seq, stacked,
+          "SGD card sequential vs card stacked")
+
+    # the card against the port's CPU path, on the first `cut` rows of each
+    # shard at full width: one epoch, and the two-round run. These f32 SGD
+    # trajectories are ill-conditioned (I/λ + U from a few batches): one
+    # ulp of the initial weights moves the CPU's own weights by 10-50 %
+    # within an epoch, so the bars take the CPU's twin, run from initial
+    # weights one ulp up, as the measure of what f32 can hold
+    cut_parts = [Partition(p.x[:cut], p.y[:cut]) for p in parts]
+    twin_init = tree_map(lambda a: torch.nextafter(
+        a, torch.full_like(a, float("inf"))), init)
+    for rounds, n_epochs in ((1, 1), (2, 2)):
+        t0 = time.perf_counter()
+        cpu = run("stacked", "cpu", rounds, cut_parts, n_epochs)
+        cpu_s = time.perf_counter() - t0
+        twin = run("stacked", "cpu", rounds, cut_parts, n_epochs, twin_init)
+        card = run("stacked", dev, rounds, cut_parts, n_epochs)
+        what = (f"SGD card vs CPU, {cut} rows a member, epochs={n_epochs}, "
+                f"rounds={rounds}")
+        weights_agree(card, cpu, what, twin)
+        agree(torch, cfg, test, card, cpu, what, twin)
+        emit("sgd_cpu", rounds=rounds, epochs=n_epochs, rows=cut,
+             cpu_wall_s_host_clock=cpu_s)
+
+    a_0 = evaluate_model(cfg, m["stacked"].averaged, test.x, test.y,
+                         device=dev)
+    a_sgd = evaluate_model(cfg, stacked.averaged, test.x, test.y, device=dev)
+    a_r2 = evaluate_model(cfg, out[("stacked", 2)].averaged, test.x, test.y,
+                          device=dev)
+    emit("sgd_accuracy", epochs0=a_0, sgd=a_sgd, sgd_rounds2=a_r2,
+         members=stacked.ensemble().evaluate(test.x, test.y).tolist())
+    check(np.isfinite(a_sgd) and a_sgd > a_0 - 0.05,
+          f"SGD accuracy {a_sgd} collapsed against epochs=0's {a_0}")
+    return dict(stacked=stacked, launches=main_launches)
 
 
 def phase_serve(torch, m):
@@ -543,27 +780,35 @@ def phase_serve(torch, m):
 
 
 def phase_profile(torch, m):
-    """One stacked Map under torch.profiler: device time by kernel against
-    the wall, so the host's share of the Map shows."""
+    """One stacked Map, epochs=0, and one stacked SGD epoch under
+    torch.profiler: device time by kernel against the wall, so the host's
+    share of each shows."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.runner import AveragingRun, MapConfig
+    from repro_torch.optim.schedules import dynamic_paper
 
     dev = m["stacked"].device
-    run = AveragingRun(m["cfg"], MapConfig(batch_size=m["batch"]))
-    run.run(m["parts"], init_params=m["init"], device=dev)       # warm
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        res = run.run(m["parts"], init_params=m["init"], device=dev)
-    rows = sorted(device_activity(torch, prof), reverse=True)
-    device_ms = sum(us for us, _, _ in rows) / 1e3
-    wall_ms = res.wall_time_s * 1e3
-    emit("profile", what=f"stacked Map, "
-         f"{sum(len(p.x) for p in m['parts'])} images",
-         wall_ms=wall_ms, device_busy_ms=device_ms if rows else
-         "not measured",
-         idle_share=1 - device_ms / wall_ms if rows else "not measured",
-         top=[{"name": name[:60], "ms": us / 1e3, "count": count}
-              for us, name, count in rows[:10]])
+    images = sum(len(p.x) for p in m["parts"])
+    for what, map_cfg in (
+            (f"stacked Map, {images} images",
+             MapConfig(batch_size=m["batch"])),
+            (f"stacked SGD epoch, dynamic_paper(0.05), {images} images",
+             MapConfig(epochs=1, lr_schedule=dynamic_paper(0.05),
+                       batch_size=m["batch"]))):
+        run = AveragingRun(m["cfg"], map_cfg)
+        run.run(m["parts"], init_params=m["init"], device=dev)   # warm
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            res = run.run(m["parts"], init_params=m["init"], device=dev)
+        rows = sorted(device_activity(torch, prof), reverse=True)
+        device_ms = sum(us for us, _, _ in rows) / 1e3
+        wall_ms = res.wall_time_s * 1e3
+        emit("profile", what=what,
+             wall_ms=wall_ms, device_busy_ms=device_ms if rows else
+             "not measured",
+             idle_share=1 - device_ms / wall_ms if rows else "not measured",
+             top=[{"name": name[:60], "ms": us / 1e3, "count": count}
+                  for us, name, count in rows[:12]])
 
 
 def phase_lm_parity(torch, dev, batch=2, prompt=16, steps=4):
@@ -635,7 +880,7 @@ def phase_lm(torch, dev, batch=4, prompt=128, gen=32):
     L = cfg.num_layers
     steps = 1 + prompt + gen - 1       # the prefill, the replay, the decode
     want = {"rmsnorm": steps * (4 * L + 1), "swa_attention": L,
-            "conv2d": 0, "elm_stats": 0}
+            "conv2d": 0, "elm_stats": 0, "conv2d_wgrad": 0}
     check(launches == want, f"lm launches {launches} != {want}")
     toks = first["tokens"]
     check(first["logits_finite"], "lm: logits are not finite")
@@ -731,6 +976,7 @@ def main():
 
     per_case = phase_kernels(torch, dev, rates)
     m = phase_map(torch, dev)
+    sgd = phase_sgd(torch, dev, m)
     phase_serve(torch, m)
     phase_profile(torch, m)
     phase_lm_parity(torch, dev)
@@ -739,10 +985,14 @@ def main():
     main_launches = m["launches"]
     check(all(main_launches[name] > 0 for name in ("conv2d", "elm_stats")),
           f"main path did not launch every kernel: {main_launches}")
+    sgd_launches = sgd["launches"]
+    check(all(sgd_launches[name] > 0 for name in
+              ("conv2d", "conv2d_wgrad", "elm_stats")),
+          f"SGD main path did not launch every kernel: {sgd_launches}")
     conv = [per_case[("conv2d", "stage1")], per_case[("conv2d", "stage2")]]
     conv_err = max(per_case[("conv2d", c)]["max_abs_err"]
                    for c in ("stage1", "stage2", "score1_stage1",
-                             "score1_stage2"))
+                             "score1_stage2", "dx_stage2"))
     stats = per_case[("elm_stats", "unmasked")]
     stats_err = max(per_case[("elm_stats", c)]["max_abs_err"]
                     for c in ("unmasked", "fractional_mask", "ragged",
@@ -768,6 +1018,22 @@ def main():
          "plain_ms": stats["plain_ms"], "bound_ms": stats["bound_ms"],
          "bound_by": stats["bound_by"], "library_ms": stats["library_ms"]},
     ]}
+    # conv2d_wgrad: one SGD step's dW of both stages; its launches from the
+    # SGD main path (the stacked two-epoch Map)
+    dw = [per_case[("conv2d_wgrad", c)] for c in ("dw_stage1", "dw_stage2")]
+    line["kernels"].append(
+        {"name": "conv2d_wgrad", "route": "cuda",
+         "source": "src/repro_torch/csrc/conv2d_wgrad.cu",
+         "replaces": "src/repro/kernels/conv2d/kernel.py:28 (the conv2d "
+                     "TPU kernel; it has no Pallas backward)",
+         "launches": sgd_launches["conv2d_wgrad"],
+         "max_abs_err": max(c["max_abs_err"] for c in dw),
+         "ms": sum(c["ms"] for c in dw),
+         "plain_ms": sum(c["plain_ms"] for c in dw),
+         "bound_ms": sum(c["bound_ms"] for c in dw),
+         "bound_by": "bytes" if sum(c["bytes"] for c in dw) / rates[1]
+         >= sum(c["flops"] for c in dw) / rates[0] else "operations",
+         "library_ms": sum(c["library_ms"] for c in dw)})
     # rmsnorm: one ln (512 x 4096) and one q_norm (16384 x 128) launch of
     # the prefill; swa_attention: one layer's prefill attention
     rms = [per_case[("rmsnorm", c)] for c in ("ln_d4096", "qk_norm_d128")]

@@ -82,27 +82,56 @@ def downdate_stats(a: ELMStats, b: ELMStats) -> ELMStats:
     return ELMStats(a.u - b.u, a.v - b.v, a.n - b.n)
 
 
-def _cho_solve_beta(u, v, lam: float):
+def _cho_solve_beta(u, v, lam: float, infos=None):
     """β = (I/λ + U)⁻¹ V: one Cholesky factorisation, reused for both
     triangular solves. Accepts unbatched (L, L)/(L, C) or member-stacked
-    (k, L, L)/(k, L, C) operands, and always solves batched (a unit batch
-    dim is added when unbatched), as the reference does, so the sequential
-    and stacked paths run one lowering."""
+    (k, L, L)/(k, L, C) operands.
+
+    Each member is solved on its own, as a batch of one: the library picks
+    its batched factorisation by the batch size, and at cond(I/λ + U) ~1e5
+    the two roundings put β 2.6e-3 apart (measured on the H100), which the
+    SGD epochs carry into the weights. One member at a time, a member's β
+    is the same bits whether k members ride beside it (the stacked Map) or
+    none (the sequential one).
+
+    The factorisation's ``info`` (nonzero where a matrix is not positive
+    definite) is checked at once, which makes the host wait for the
+    device; or, where ``infos`` is a list, appended to it for the caller
+    to check later with ``check_factorisations``, so the SGD epochs, which
+    solve once a batch, wait once an epoch."""
     L = u.shape[-1]
-    a = u + torch.eye(L, dtype=torch.float32, device=u.device) / lam
-    batched = a.dim() == 3
+    eye = torch.eye(L, dtype=torch.float32, device=u.device) / lam
+    batched = u.dim() == 3
     if not batched:
-        a, v = a[None], v[None]
-    f = torch.linalg.cholesky(a)
-    y = torch.linalg.solve_triangular(f, v, upper=False)
-    b = torch.linalg.solve_triangular(f.mT, y, upper=True)
+        u, v = u[None], v[None]
+    out, found = [], []
+    for i in range(u.shape[0]):
+        f, info = torch.linalg.cholesky_ex((u[i] + eye)[None])
+        found.append(info)
+        y = torch.linalg.solve_triangular(f, v[i:i + 1], upper=False)
+        out.append(torch.linalg.solve_triangular(f.mT, y, upper=True))
+    if infos is None:
+        check_factorisations(found)
+    else:
+        infos.extend(found)
+    b = torch.cat(out)
     return b if batched else b[0]
 
 
-def solve_beta(stats: ELMStats, lam: float):
+def check_factorisations(infos):
+    """Raise ``torch.linalg.LinAlgError`` if any of the Cholesky ``info``
+    tensors is nonzero (one wait for the device for all of them)."""
+    if infos and bool(torch.stack([i.reshape(-1) for i in infos]).any()):
+        raise torch.linalg.LinAlgError(
+            "I/λ + U is not positive definite: its Cholesky factorisation "
+            "failed")
+
+
+def solve_beta(stats: ELMStats, lam: float, infos=None):
     """Reduce step, Eq. 5: β = (I/λ + U)⁻¹ V via Cholesky (SPD for λ>0).
-    Member-stacked stats give member-stacked β in one batched solve."""
-    return _cho_solve_beta(stats.u, stats.v, lam)
+    Member-stacked stats give member-stacked β, one solve per member.
+    ``infos``: see ``_cho_solve_beta``."""
+    return _cho_solve_beta(stats.u, stats.v, lam, infos)
 
 
 def elm_loss(h, beta, t, *, activation: bool = True):
@@ -111,6 +140,20 @@ def elm_loss(h, beta, t, *, activation: bool = True):
         h = optimal_tanh(h)
     r = h.float() @ beta - t.float()
     return 0.5 * torch.mean(torch.sum(r * r, dim=-1))
+
+
+def member_losses(h, beta, t, *, activation: bool = True):
+    """``elm_loss`` of each member at once: h (k, n, L), β (k, L, C), t (k,
+    n, C) -> (k,), member i's mean over its own n rows — so the gradient of
+    the sum is each member's own gradient. Hβ is one matrix product per
+    member, forward and backward: a batched product may round by the
+    batch size, and the SGD epochs amplify one rounding into the weights,
+    so a member's gradient is the same bits for any k."""
+    if activation:
+        h = optimal_tanh(h)
+    h = h.float()
+    r = torch.stack([h[i] @ beta[i] for i in range(h.shape[0])]) - t.float()
+    return 0.5 * torch.mean(torch.sum(r * r, dim=-1), dim=-1)
 
 
 def predict(h, beta, *, activation: bool = True):

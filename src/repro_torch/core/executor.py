@@ -1,36 +1,52 @@
 """The Map-phase execution layer — how Algorithm 2's k members run. The
 port's counterpart of ``repro.core.executor``.
 
-``core.cnn_elm`` owns the math; this module owns the orchestration:
+``core.cnn_elm`` owns the math; this module owns the orchestration: the
+epoch/round loop, host→device staging of the epochs, inter-round syncs and
+the Reduce.
 
 * ``SequentialExecutor`` (``backend="sequential"``) — the faithful
   reference: one ``cnn_elm.train_member`` loop per member, one batch of
-  one member per kernel launch.
+  one member per kernel launch. No sync point between members, so no
+  ``rounds > 1`` and no gossip.
 * ``StackedExecutor`` (``backend="stacked"``) — all k members on a leading
-  member dim: each batch index is one member-batched launch per kernel,
-  the epoch's batches moved to the device in one copy. Unequal shards pad
-  to the longest member's batch count with a per-batch validity mask
-  (``data.partition.padded_stacked_epoch_batches``).
+  member dim: each batch index is one member-batched launch per kernel.
+  Unequal shards pad to the longest member's batch count with a per-batch
+  validity mask (``data.partition.padded_stacked_epoch_batches``).
+  ``rounds = r > 1`` splits the epochs into r blocks with an average +
+  broadcast sync (or, under the gossip combine, a ring-mixing sync) after
+  each block but the last. An epoch reaches the device in one copy, or,
+  with ``chunk_batches``, in chunks staged in pinned host memory and
+  copied on a side stream one chunk ahead of the one being computed.
 
-This slice runs the epochs=0 closed-form pass. The mesh backend, chunked
-epochs, multi-round syncs, checkpoints, gossip and validation scoring come
-with later slices of the port and raise here.
+Both resolve the Reduce weights lazily per round: the static
+``plan.reduce_weights``, or ``plan.weight_fn`` over the round's trained
+members, whose ``val_errors()`` scores the held-out ``plan.validation``
+with the member-batched scoring pass (argmax on the device, the error
+rates on the host in f64).
+
+The mesh backend, checkpoints and resume, elastic membership and per-member
+inits come with later slices of the port.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Union
+from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import elm
-from repro_torch.core.averaging import broadcast_member_dim
+from repro_torch.core.averaging import (average_member_dim,
+                                        broadcast_member_dim,
+                                        gossip_member_dim)
 from repro_torch.core.cnn_elm import (CNNELMModel, StackedMembers,
-                                      average_models, stack_models,
-                                      stacked_epoch_pass, train_member)
-from repro_torch.data.partition import Partition, padded_stacked_epoch_batches
+                                      average_models, scores_stacked,
+                                      stack_models, stacked_epoch_pass,
+                                      train_member)
+from repro_torch.data.partition import (Partition, chunk_scan_major,
+                                        padded_stacked_epoch_batches)
 from repro_torch.data.synthetic import one_hot
 from repro_torch.models import cnn
 from repro_torch.tree import tree_map
@@ -38,31 +54,52 @@ from repro_torch.tree import tree_map
 BACKENDS = ("sequential", "stacked")
 MESH_SLICE = ("backend 'mesh' runs on torch.distributed and comes with the "
               "multi-device slice of the port")
+_VAL_BATCH = 512       # validation slices score in bounded device batches
 
 
 @dataclass(frozen=True)
 class ExecutionPlan:
-    """What one epochs=0 Map execution needs: batch size, the member seed
-    rule (member i's stream = ``default_rng(seed + i)``), the static
-    Reduce weights (None = uniform), and the device the members run on —
-    the card unless the caller asks for ``"cpu"``; both executors resolve
-    it through ``repro_torch.resolve_device`` and move ``init_params``
-    onto it."""
+    """Everything one Map/Reduce execution needs.
+
+    ``epochs``/``lr_schedule`` (rate of global epoch e), ``batch_size``,
+    the member seed rule (member i's stream = ``default_rng(seed + i)``),
+    ``chunk_batches`` (stacked: stage each epoch in chunks of that many
+    batch indices), ``rounds`` (stacked: averaging events),
+    ``reduce_weights`` (static Reduce weights, None = uniform) or
+    ``weight_fn(r, snapshot, val_errors)`` (weights from round r's trained
+    members; ``validation`` is the (x, y) slice ``val_errors()`` scores),
+    ``gossip_rounds`` (the ring-mixing combine in every sync and Reduce),
+    and the device — the card unless the caller asks for ``"cpu"``.
+
+    ``on_round(r, snapshot, averaged)`` fires after each round's epochs and
+    its sync with two lazy, cached zero-arg closures: ``snapshot()`` → the
+    round's pre-sync ``StackedMembers`` (β solved on first call),
+    ``averaged()`` → the round's averaged ``CNNELMModel``."""
+    epochs: int = 0
+    lr_schedule: Optional[Callable[[int], float]] = None
     batch_size: int = 32
     seed: int = 1000
+    chunk_batches: Optional[int] = None
+    rounds: int = 1
     reduce_weights: Optional[Sequence[float]] = None
+    on_round: Optional[Callable] = None
+    weight_fn: Optional[Callable] = None
+    validation: Optional[tuple] = None      # (x, y) held-out slice
+    gossip_rounds: Optional[int] = None
     device: Union[str, torch.device] = "cuda"
 
 
 @dataclass
 class MapOutcome:
     """What an executor hands back: the k trained members, the live
-    ``StackedMembers``, the averaged model under the plan's Reduce weights,
-    and every member's ``ELMStats`` (member-stacked) β was solved from."""
+    ``StackedMembers``, the final round's averaged model, every member's
+    final-epoch ``ELMStats`` (member-stacked) β was solved from, and the
+    number of inter-round syncs run."""
     members: List[CNNELMModel]
     stacked: StackedMembers
     averaged: CNNELMModel
     stats: elm.ELMStats
+    round_syncs: int = 0
 
 
 def _on_device(init_params, plan: ExecutionPlan):
@@ -82,6 +119,55 @@ def make_executor(backend: str):
     raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
 
 
+def val_error_rates(cfg, members: StackedMembers, validation) -> np.ndarray:
+    """(k,) misclassification rates of every member on the held-out
+    ``validation = (x, y)``: member-batched scoring passes of ``_VAL_BATCH``
+    images, argmax on the device, the means on the host in f64."""
+    xv, yv = validation
+    dev = members.beta.device
+    preds = []
+    with torch.no_grad():
+        for i in range(0, len(xv), _VAL_BATCH):
+            x = torch.from_numpy(np.asarray(xv[i:i + _VAL_BATCH],
+                                            np.float32)).to(dev)
+            preds.append(scores_stacked(cfg, members.cnn_params, members.beta,
+                                        x).argmax(-1).cpu().numpy())
+    return np.asarray(np.concatenate(preds, axis=1) != np.asarray(yv)[None],
+                      np.float64).mean(axis=1)
+
+
+def _round_closures(cfg, plan: ExecutionPlan, r: int, snapshot, reduce):
+    """Lazy, cached ``averaged`` and ``weights`` over round r's
+    ``snapshot``: ``weights()`` is the static ``plan.reduce_weights`` or
+    ``plan.weight_fn``'s answer (scoring ``plan.validation`` at most once),
+    ``averaged()`` is ``reduce(weights())``."""
+    cache: dict = {}
+
+    def val_errors():
+        if "err" not in cache:
+            if plan.validation is None:
+                raise ValueError(
+                    "per-member validation errors need a held-out slice — "
+                    "set plan.validation (the runner wires "
+                    "ReduceConfig.validation through)")
+            cache["err"] = val_error_rates(cfg, snapshot(), plan.validation)
+        return cache["err"]
+
+    def weights():
+        if "w" not in cache:
+            cache["w"] = (plan.weight_fn(r, snapshot, val_errors)
+                          if plan.weight_fn is not None
+                          else plan.reduce_weights)
+        return cache["w"]
+
+    def averaged():
+        if "avg" not in cache:
+            cache["avg"] = reduce(weights())
+        return cache["avg"]
+
+    return averaged, weights
+
+
 class SequentialExecutor:
     """One ``cnn_elm.train_member`` loop per member — the Algorithm 2
     reference every fast path is held against."""
@@ -90,45 +176,176 @@ class SequentialExecutor:
 
     def execute(self, cfg, init_params, partitions: Sequence[Partition],
                 plan: ExecutionPlan) -> MapOutcome:
+        if plan.rounds > 1:
+            raise ValueError(
+                "rounds > 1 needs the stacked layout — the sequential "
+                "reference has no sync point between members")
+        if plan.gossip_rounds is not None:
+            raise ValueError(
+                "the gossip combine mixes a member ring — the sequential "
+                "reference has no stacked member dim to mix over; use "
+                "backend='stacked'")
         _, init_params = _on_device(init_params, plan)
         members, stats = [], []
         for i, p in enumerate(partitions):
-            model, s = train_member(cfg, init_params, p, epochs=0,
+            model, s = train_member(cfg, init_params, p, epochs=plan.epochs,
+                                    lr_schedule=plan.lr_schedule,
                                     batch_size=plan.batch_size,
                                     seed=plan.seed + i, return_stats=True)
             members.append(model)
             stats.append(s)
         stats_k = elm.ELMStats(*(torch.stack(a) for a in zip(*stats)))
-        return MapOutcome(members, stack_models(members),
-                          average_models(members, plan.reduce_weights),
-                          stats_k)
+        sm = stack_models(members)
+        averaged, _ = _round_closures(
+            cfg, plan, 0, lambda: sm,
+            lambda w: average_models(members, w))
+        if plan.on_round is not None:
+            plan.on_round(0, lambda: sm, averaged)
+        return MapOutcome(members, sm, averaged(), stats_k)
 
 
 class StackedExecutor:
     """All k members stacked on a leading member dim: per batch index, one
-    member-batched conv launch per stage and one elm_stats launch, then one
-    batched β solve for all members."""
+    member-batched conv launch per stage and one elm_stats launch (and,
+    with SGD, the conv's backward launches), the β solves batched over the
+    members; rounds of epochs between syncs."""
 
     name = "stacked"
 
     def execute(self, cfg, init_params, partitions: Sequence[Partition],
                 plan: ExecutionPlan) -> MapOutcome:
+        if plan.chunk_batches is not None and plan.chunk_batches < 1:
+            raise ValueError(
+                f"chunk_batches must be >= 1, got {plan.chunk_batches}")
+        if plan.rounds < 1:
+            raise ValueError(f"rounds must be >= 1, got {plan.rounds}")
+        if plan.rounds > 1 and plan.epochs == 0:
+            raise ValueError(
+                "rounds > 1 needs SGD epochs to interleave with averaging; "
+                "epochs=0 is the single closed-form pass")
+        if plan.rounds > 1 and plan.epochs % plan.rounds:
+            raise ValueError(f"epochs ({plan.epochs}) must split evenly "
+                             f"into rounds ({plan.rounds})")
+        if plan.gossip_rounds is not None and plan.gossip_rounds < 1:
+            raise ValueError(f"gossip_rounds must be >= 1, "
+                             f"got {plan.gossip_rounds}")
+        if plan.epochs > 0 and plan.lr_schedule is None:
+            raise ValueError("epochs > 0 needs an lr_schedule")
+        k = len(partitions)
+        dev, init_params = _on_device(init_params, plan)
+        per_round = plan.epochs // plan.rounds
+        # one live stream per member: each epoch draws its next permutation
+        rngs = [np.random.default_rng(plan.seed + i) for i in range(k)]
+        params_k = broadcast_member_dim(init_params, k)
+        round_rates = [[None]] if plan.epochs == 0 else [
+            [float(plan.lr_schedule(r * per_round + e))
+             for e in range(per_round)] for r in range(plan.rounds)]
+        syncs = 0
+        for r, rates in enumerate(round_rates):
+            for lr in rates:
+                params_k, stats_k = self._epoch(cfg, params_k, partitions,
+                                                plan, rngs, dev, lr)
+            snapshot, averaged, weights = self._closures(
+                cfg, plan, r, params_k, stats_k)
+            last = r == len(round_rates) - 1
+            if last:
+                sm = snapshot()
+            else:
+                params_k = self._sync(params_k, weights(), plan.gossip_rounds)
+                syncs += 1
+            if plan.on_round is not None:
+                plan.on_round(r, snapshot, averaged)
+        return MapOutcome(sm.unstack(), sm, averaged(), stats_k, syncs)
+
+    def _epoch(self, cfg, params_k, partitions, plan, rngs, dev, lr):
+        """One epoch of all members (``lr=None``: the epochs=0 pass). The
+        host builds the epoch's padded batch-major arrays (each member's
+        stream draws one permutation), stages them on the device whole or
+        chunk by chunk, and the batch indices run in order; the β solves'
+        factorisations are checked once, at the end."""
         k = len(partitions)
         F, C = cnn.feature_dim(cfg), cfg.num_classes
-        dev, init_params = _on_device(init_params, plan)
-        rngs = [np.random.default_rng(plan.seed + i) for i in range(k)]
-        xs, ys, mk = padded_stacked_epoch_batches(partitions,
-                                                  plan.batch_size, rngs)
+        nb = max(len(p.x) // plan.batch_size for p in partitions)
+        chunk = nb
+        if plan.chunk_batches is not None and plan.chunk_batches < nb:
+            chunk = plan.chunk_batches
+        xs, ys, mk = padded_stacked_epoch_batches(
+            partitions, plan.batch_size, rngs,
+            num_batches=-(-nb // chunk) * chunk)
         tb = one_hot(ys.reshape(-1), C).reshape(*ys.shape, C)
-        # batch-major on the host, one copy to the device for the epoch
-        xb, tb, mb = (torch.from_numpy(np.ascontiguousarray(
-            np.swapaxes(a, 0, 1))).to(dev) for a in (xs, tb, mk))
+        arrays = tuple(np.swapaxes(a, 0, 1) for a in (xs, tb, mk))
         masked = bool(np.any(mk == 0.0))
-        params_k = broadcast_member_dim(init_params, k)
-        stats_k = stacked_epoch_pass(
-            cfg, params_k, elm.zero_stats_stacked(k, F, C, device=dev),
-            xb, tb, mb if masked else None)
-        sm = StackedMembers(params_k, elm.solve_beta(stats_k,
-                                                     cfg.elm_lambda))
-        return MapOutcome(sm.unstack(), sm,
-                          sm.averaged(plan.reduce_weights), stats_k)
+        stats_k = elm.zero_stats_stacked(k, F, C, device=dev)
+        infos = []
+        for xb, tb_, mb in _staged(chunk_scan_major(arrays, chunk), dev):
+            params_k, stats_k = stacked_epoch_pass(
+                cfg, params_k, stats_k, xb, tb_, mb if masked else None,
+                lr=lr, infos=infos)
+        elm.check_factorisations(infos)
+        return params_k, stats_k
+
+    def _closures(self, cfg, plan, r, params_k, stats_k):
+        """Round r's lazy snapshot/averaged/weights over its pre-sync
+        state; the β solve is shared and runs only if asked for."""
+        cache: dict = {}
+
+        def snapshot():
+            if "sm" not in cache:
+                cache["sm"] = StackedMembers(
+                    params_k, elm.solve_beta(stats_k, cfg.elm_lambda))
+            return cache["sm"]
+
+        def reduce(w):
+            sm = snapshot()
+            if plan.gossip_rounds is not None:
+                avg_cnn, avg_beta = gossip_member_dim(
+                    (sm.cnn_params, sm.beta), w, plan.gossip_rounds)[1]
+            else:
+                avg_cnn, avg_beta = average_member_dim(
+                    (sm.cnn_params, sm.beta), weights=w)
+            return CNNELMModel(avg_cnn, avg_beta)
+
+        averaged, weights = _round_closures(cfg, plan, r, snapshot, reduce)
+        return snapshot, averaged, weights
+
+    @staticmethod
+    def _sync(params_k, weights, gossip_rounds):
+        """The inter-round sync: every member reset to the (weighted)
+        average, or, under gossip, to its own consensus iterate."""
+        if gossip_rounds is not None:
+            return gossip_member_dim(params_k, weights, gossip_rounds)[0]
+        k = params_k["stages"][0]["w"].shape[0]
+        return broadcast_member_dim(
+            average_member_dim(params_k, weights=weights), k)
+
+
+def _staged(chunks, dev):
+    """Yield each chunk of host arrays as tensors on ``dev``. One chunk goes
+    in one pageable copy. Several go through pinned host memory, each
+    copied on a side stream while the chunk before it is computed; the
+    compute stream waits for a chunk's copy before its first use."""
+    if dev.type != "cuda" or len(chunks) == 1:
+        for chunk in chunks:
+            yield tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                        for a in chunk)
+        return
+    side = torch.cuda.Stream(dev)
+    compute = torch.cuda.current_stream(dev)
+
+    def put(chunk):
+        host = [torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
+                for a in chunk]
+        with torch.cuda.stream(side):
+            out = tuple(h.to(dev, non_blocking=True) for h in host)
+        done = torch.cuda.Event()
+        done.record(side)
+        return out, done
+
+    nxt = put(chunks[0])
+    for i in range(len(chunks)):
+        (cur, done), nxt = nxt, (put(chunks[i + 1]) if i + 1 < len(chunks)
+                                 else None)
+        compute.wait_event(done)
+        for t in cur:
+            t.record_stream(compute)
+        yield cur

@@ -1,39 +1,44 @@
 """Composable MapReduce runner — the paper's Algorithm 2 as config objects.
 The port's counterpart of ``repro.core.runner``.
 
-* ``MapConfig``    — epochs, batch size, backend (``"sequential"`` or
-                     ``"stacked"``, see ``core.executor``) and THE member
-                     seed rule. There is no kernel switch: the device
-                     decides (hand kernels on CUDA, plain versions on the
-                     CPU).
-* ``ReduceConfig`` — the Reduce strategy: ``uniform``, ``shard_weighted``
-                     or explicit weights (``core.reduce_strategies``).
+* ``MapConfig``    — epochs, lr schedule, batch size, backend
+                     (``"sequential"`` or ``"stacked"``, see
+                     ``core.executor``), epoch chunking and THE member seed
+                     rule. There is no kernel switch: the device decides
+                     (hand kernels on CUDA, plain versions on the CPU).
+* ``ReduceConfig`` — the Reduce strategy (``uniform``, ``shard_weighted``,
+                     explicit weights, ``boosted`` with a held-out
+                     ``validation`` slice, ``gossip``;
+                     ``core.reduce_strategies``) and ``rounds``: ``r > 1``
+                     splits the epochs into r blocks with a sync between
+                     blocks, the parallel-SGD regime (stacked only).
 * ``AveragingRun`` — binds a model config to the two phase configs;
-                     ``.run(partitions, ...)`` returns a ``RunResult``.
+                     ``.run(partitions, ...)`` returns a ``RunResult`` with
+                     one ``RoundRecord`` per round.
 * ``Ensemble``     — the k members behind one batched scoring surface:
                      every eval slice is one member-batched pass.
 
 Seed rule (shared by both backends): member ``i`` draws its batch
-permutations from ``np.random.default_rng(MapConfig.seed + i)``.
+permutations from ``np.random.default_rng(MapConfig.seed + i)``; epoch e's
+batch order is that stream's (e+1)-th permutation.
 
-This slice runs the epochs=0 closed-form Map. SGD epochs, ``rounds > 1``,
-the mesh backend, chunked epochs, checkpoints, elastic membership and the
-``boosted``/``gossip`` strategies come with later slices and raise
+The mesh backend, checkpoints and resume, ``sync="drift"`` (the streaming
+policy) and elastic membership come with later slices and raise
 ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Any, List, Optional, Sequence, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import kernels, resolve_device
 from repro_torch.core import elm, reduce_strategies
-from repro_torch.core.cnn_elm import (SGD_SLICE, CNNELMModel, StackedMembers,
-                                      stack_models)
+from repro_torch.core.cnn_elm import (CNNELMModel, StackedMembers,
+                                      scores_stacked, stack_models)
 from repro_torch.core.executor import (BACKENDS, MESH_SLICE, ExecutionPlan,
                                        make_executor)
 from repro_torch.core.reduce_strategies import ReduceContext, ReduceStrategy
@@ -41,14 +46,20 @@ from repro_torch.data.partition import Partition
 from repro_torch.models import cnn
 
 COMBINES = ("mean", "vote")
+SYNCS = ("rounds", "drift")
 
 
 @dataclass(frozen=True)
 class MapConfig:
-    """Map-phase configuration (Alg. 2 lines 4-17, one member per shard)."""
+    """Map-phase configuration (Alg. 2 lines 4-17, one member per shard).
+    ``chunk_batches`` stages each epoch on the stacked backend in chunks of
+    that many batch indices (pinned host memory, copied one chunk ahead);
+    the result is bit-identical to the whole-epoch copy."""
     epochs: int = 0
+    lr_schedule: Optional[Callable[[int], float]] = None
     batch_size: int = 32
     backend: str = "stacked"
+    chunk_batches: Optional[int] = None
     seed: int = 1000
 
     def __post_init__(self):
@@ -59,11 +70,15 @@ class MapConfig:
                              f"got {self.backend!r}")
         if self.epochs < 0:
             raise ValueError(f"epochs must be >= 0, got {self.epochs}")
-        if self.epochs > 0:
-            raise NotImplementedError(SGD_SLICE)
+        if self.epochs > 0 and self.lr_schedule is None:
+            raise ValueError("epochs > 0 needs an lr_schedule "
+                             "(e.g. optim.schedules.dynamic_paper)")
         if self.batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, "
                              f"got {self.batch_size}")
+        if self.chunk_batches is not None and self.chunk_batches < 1:
+            raise ValueError(f"chunk_batches must be >= 1, "
+                             f"got {self.chunk_batches}")
 
     def member_seed(self, i: int) -> int:
         """THE seed rule: member i's stream is ``default_rng(seed + i)``."""
@@ -74,26 +89,47 @@ class MapConfig:
 class ReduceConfig:
     """Reduce-phase configuration (Alg. 2 lines 18-20).
 
-    ``strategy`` — a registered name (``"uniform"``, ``"shard_weighted"``),
-    a ``ReduceStrategy`` instance (``ExplicitWeights((...,))``), or —
-    deprecated — a bare weight sequence. ``rounds`` is the number of
-    averaging events; this slice runs the paper's single final average."""
+    ``strategy`` — a registered name (``"uniform"``, ``"shard_weighted"``,
+    ``"boosted"``, ``"gossip"``), a ``ReduceStrategy`` instance
+    (``ExplicitWeights((...,))``, ``Boosted(floor=...)``,
+    ``Gossip(rounds=...)``), or — deprecated — a bare weight sequence.
+    ``validation`` — the held-out ``Partition`` that ``boosted`` scores
+    every member on after each round; required by such strategies and
+    refused by the others. ``rounds`` — how many averaging events the
+    epochs split into (``1``: the paper's single final average).
+    ``sync="drift"`` and ``elastic`` come with later slices."""
     strategy: Union[str, Sequence[float], ReduceStrategy] = "uniform"
     rounds: int = 1
+    validation: Optional[Partition] = None
+    sync: str = "rounds"
+    elastic: Any = None
 
     def __post_init__(self):
         strat = reduce_strategies.resolve(self.strategy, _warn_stacklevel=4)
         object.__setattr__(self, "_strategy_obj", strat)
-        if strat.requires_validation or strat.combine != "mean":
+        if self.sync not in SYNCS:
+            raise ValueError(f"sync must be one of {SYNCS}, "
+                             f"got {self.sync!r}")
+        if self.sync == "drift":
             raise NotImplementedError(
-                f"strategy {strat.name!r} scores members or mixes a ring; "
-                f"it comes with a later slice of the port")
+                "sync='drift' is the streaming policy; it comes with the "
+                "streaming slice of the port")
+        if self.elastic is not None:
+            raise NotImplementedError(
+                "elastic membership comes with the fault-tolerance slice "
+                "of the port")
         if self.rounds < 1:
             raise ValueError(f"rounds must be >= 1, got {self.rounds}")
-        if self.rounds > 1:
-            raise NotImplementedError(
-                "rounds > 1 interleaves SGD epochs with averaging — it "
-                "comes with the SGD-epochs slice")
+        if strat.requires_validation and self.validation is None:
+            raise ValueError(
+                f"strategy {strat.name!r} weighs members by held-out "
+                f"validation error — pass "
+                f"ReduceConfig(validation=Partition(xv, yv))")
+        if self.validation is not None and not strat.requires_validation:
+            raise ValueError(
+                f"strategy {strat.name!r} does not score a validation "
+                f"slice — drop ReduceConfig.validation (it would be "
+                f"silently ignored)")
 
     @property
     def strategy_obj(self) -> ReduceStrategy:
@@ -101,17 +137,35 @@ class ReduceConfig:
 
     def resolve_weights(self, partitions: Sequence[Partition]
                         ) -> Optional[List[float]]:
-        """Per-member weights for these partitions (None = uniform)."""
+        """The static per-member weights for these partitions (None =
+        uniform); strategies that weigh trained members (``boosted``)
+        resolve per round instead."""
         return self._strategy_obj.weights(ReduceContext(
             num_members=len(partitions),
             rows=tuple(len(p.x) for p in partitions)))
 
 
 @dataclass
+class RoundRecord:
+    """One averaging round: the global epoch span it covered, its wall
+    time (host clock to a synchronise), the kernel launches it made (the
+    change of ``kernels.LAUNCHES`` by kernel — the port's counterpart of the
+    reference's jit dispatch count), and what the caller's
+    ``round_hook(round, averaged)`` returned (None without one)."""
+    round: int
+    epoch_start: int
+    epoch_end: int
+    wall_time_s: float
+    launches: Dict[str, int]
+    hook: Any = None
+
+
+@dataclass
 class RunResult:
     """Everything a Map/Reduce run produced: the k members (also stacked),
-    the averaged model, and the member-stacked ``ELMStats`` every β was
-    solved from, on the run's device."""
+    the averaged model, the member-stacked ``ELMStats`` every β was solved
+    from (the final epoch's), on the run's device; one ``RoundRecord`` per
+    round and the number of inter-round syncs."""
     cfg: Any
     members: List[CNNELMModel]
     averaged: CNNELMModel
@@ -120,6 +174,8 @@ class RunResult:
     wall_time_s: float
     backend: str
     device: torch.device
+    rounds: List[RoundRecord] = field(default_factory=list)
+    round_syncs: int = 0
 
     def ensemble(self, combine: str = "mean") -> "Ensemble":
         """The k members as a batched scoring surface on the run's device."""
@@ -131,52 +187,87 @@ class RunResult:
 class AveragingRun:
     """One distributed-averaging experiment: model config + Map config +
     Reduce config. ``run`` executes Algorithm 2: init once, Map every
-    shard, Reduce by averaging."""
+    shard, Reduce by averaging — ``rounds`` times."""
     cfg: Any
     map_cfg: MapConfig = field(default_factory=MapConfig)
     reduce_cfg: ReduceConfig = field(default_factory=ReduceConfig)
 
     def run(self, partitions: Sequence[Partition], *,
             generator: Optional[torch.Generator] = None,
-            init_params=None, device="cuda") -> RunResult:
+            init_params=None, device="cuda",
+            round_hook: Optional[Callable[[int, CNNELMModel], Any]] = None
+            ) -> RunResult:
         """Run on ``device`` (default the card). The members start from
         ``init_params`` (a parameter tree, e.g. the reference's init through
         ``convert.params_from_numpy``; moved to ``device``) or, without one,
-        from ``cnn.init_params(cfg, generator, device)``."""
+        from ``cnn.init_params(cfg, generator, device)``.
+
+        ``round_hook(r, averaged)`` (optional) runs after every round's
+        Reduce with that round's averaged model — the model the members
+        were reset to; its return value lands in ``RunResult.rounds[r]``.
+        Rounds without a hook skip their β solve and Reduce."""
         dev = resolve_device(device)
         if init_params is None:
             if generator is None:
                 raise ValueError("pass generator= (a seeded torch.Generator) "
                                  "or init_params=")
             init_params = cnn.init_params(self.cfg, generator, dev)
-        m = self.map_cfg
-        plan = ExecutionPlan(
-            batch_size=m.batch_size, seed=m.seed,
-            reduce_weights=self.reduce_cfg.resolve_weights(partitions),
-            device=dev)
+        m, rc = self.map_cfg, self.reduce_cfg
+        if rc.rounds > 1 and m.backend == "sequential":
+            raise ValueError("rounds > 1 requires MapConfig(backend="
+                             "'stacked') — the sequential reference has no "
+                             "sync point between members")
+        strat = rc.strategy_obj
+        weights = weight_fn = None
+        if strat.requires_validation:
+            # weights from the trained members, resolved per round
+            k, rows = len(partitions), tuple(len(p.x) for p in partitions)
+
+            def weight_fn(r, snapshot, val_errors):
+                return strat.weights(ReduceContext(
+                    num_members=k, rows=rows, round=r,
+                    val_errors=val_errors))
+        else:
+            weights = rc.resolve_weights(partitions)
+        records: List[RoundRecord] = []
+        per_round = m.epochs // rc.rounds
         t0 = time.perf_counter()
+        state = {"t": t0, "launches": dict(kernels.LAUNCHES)}
+
+        def on_round(r: int, snapshot, averaged):
+            hooked = None if round_hook is None else round_hook(r, averaged())
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            now = time.perf_counter()
+            launches = {name: n - state["launches"][name]
+                        for name, n in kernels.LAUNCHES.items()}
+            records.append(RoundRecord(
+                r, r * per_round, (r + 1) * per_round if m.epochs else 0,
+                now - state["t"], launches, hooked))
+            state["t"], state["launches"] = now, dict(kernels.LAUNCHES)
+
+        plan = ExecutionPlan(
+            epochs=m.epochs, lr_schedule=m.lr_schedule,
+            batch_size=m.batch_size, seed=m.seed,
+            chunk_batches=m.chunk_batches, rounds=rc.rounds,
+            reduce_weights=weights, on_round=on_round, weight_fn=weight_fn,
+            validation=(None if rc.validation is None
+                        else (rc.validation.x, rc.validation.y)),
+            gossip_rounds=(strat.rounds if strat.combine == "gossip"
+                           else None),
+            device=dev)
         out = make_executor(m.backend).execute(self.cfg, init_params,
                                                partitions, plan)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         return RunResult(self.cfg, out.members, out.averaged, out.stacked,
-                         out.stats, time.perf_counter() - t0, m.backend, dev)
+                         out.stats, time.perf_counter() - t0, m.backend, dev,
+                         records, out.round_syncs)
 
 
 # ---------------------------------------------------------------------------
 # Batched ensemble scoring
 # ---------------------------------------------------------------------------
-
-def scores_stacked(cfg, cnn_params_k, beta_k, x):
-    """(k, B, C) ELM scores of ONE eval batch x (B, H, W[, C]) under ALL k
-    members: the batch is shared, each member's CNN runs on it in one
-    member-batched launch per conv stage."""
-    k = beta_k.shape[0]
-    x = x.float()
-    h = cnn.features_members(cfg, cnn_params_k,
-                             x[None].expand((k,) + tuple(x.shape)))
-    return elm.predict(h, beta_k)
-
 
 def confusion_matrix(y, preds, num_classes: int) -> np.ndarray:
     """(C, C) confusion matrix via one ``np.add.at`` scatter. Rows = true

@@ -228,3 +228,18 @@ def padded_stacked_epoch_batches(
         mask[i, :x.shape[0]] = 1.0
     return xs, ys, mask
 
+
+
+def chunk_scan_major(arrays: Sequence[np.ndarray], chunk_batches: int
+                     ) -> List[Tuple[np.ndarray, ...]]:
+    """Split scan-major arrays (leading dim = batch steps) into equal-size
+    chunks of ``chunk_batches`` steps. The leading dim must already be a
+    multiple of ``chunk_batches`` (pad via ``num_batches`` upstream); the
+    returned chunks are views, so nothing is copied until they are staged
+    for the device."""
+    nb = arrays[0].shape[0]
+    if nb % chunk_batches:
+        raise ValueError(f"{nb} steps do not split into chunks of "
+                         f"{chunk_batches}; pad with num_batches first")
+    return [tuple(a[i:i + chunk_batches] for a in arrays)
+            for i in range(0, nb, chunk_batches)]

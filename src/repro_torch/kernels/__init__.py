@@ -43,6 +43,11 @@ _ENTRIES = {
     # x, w, y, k, B, H, W, Cin, kh, kw, Cout, stream
     "conv2d": ("conv2d_valid_f32",
                (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P)),
+    # x, dy, partial sums, dw, k, B, H, W, Cin, kh, kw, Cout, images a
+    # chunk, stream
+    "conv2d_wgrad": ("conv2d_wgrad_f32",
+                     (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                      _P)),
     # h, t, mask (NULL = unmasked), out, k, n, L, C, stream
     "elm_stats": ("elm_stats_f32", (_P, _P, _P, _P, _I, _I, _I, _I, _P)),
     # x, scale, out, n, D, eps, x is bf16, scale is bf16, stream
@@ -123,12 +128,13 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
-def launch(name: str, *args):
+def launch(name: str, *args, passes: int = 1):
     """Launch kernel ``name`` on the current stream with ``args`` and count
-    one launch; raise if CUDA reports an error."""
+    its launches: ``passes`` for an entry point that launches its kernel in
+    that many passes, else one; raise if CUDA reports an error."""
     fn_name = _ENTRIES[name][0]
     err = getattr(library(), fn_name)(
         *args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+    LAUNCHES[name] += passes

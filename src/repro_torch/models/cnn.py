@@ -66,6 +66,23 @@ def _mean_pool(x, s: int):
     return acc / float(s * s)
 
 
+class _AddBias(torch.autograd.Function):
+    """x (k, B, H, W, C) + b (k, C), member i's bias on member i's maps. Its
+    gradient sums dY over each member's pixels one member at a time: a
+    reduction over all k at once may split the sum by k, and SGD amplifies
+    one rounding, so a member's bias gradient is the same bits for any k."""
+
+    @staticmethod
+    def forward(ctx, x, b):
+        return x + b[:, None, None, None, :]
+
+    @staticmethod
+    def backward(ctx, dy):
+        db = torch.stack([dy[i].sum(dim=(0, 1, 2))
+                          for i in range(dy.shape[0])])
+        return dy, db
+
+
 def features_members(cfg, params_k, images_k):
     """Member-batched features: params_k leaves carry a leading member dim
     k, images_k is (k, B, H, W) or (k, B, H, W, C) — member i's images
@@ -74,7 +91,10 @@ def features_members(cfg, params_k, images_k):
     x = x.float().contiguous()
     for st in params_k["stages"]:
         x = conv_ops.conv2d_valid(x, st["w"].contiguous())
-        x = torch.relu(x + st["b"][:, None, None, None, :])
+        b = st["b"]
+        x = torch.relu(_AddBias.apply(x, b) if torch.is_grad_enabled()
+                       and (x.requires_grad or b.requires_grad)
+                       else x + b[:, None, None, None, :])
         x = _mean_pool(x, cfg.cnn_pool).contiguous()
     return x.reshape(x.shape[0], x.shape[1], -1)
 

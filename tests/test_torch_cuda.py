@@ -23,7 +23,7 @@ from repro_torch.kernels.elm_stats import ops as stats_ops, ref as stats_ref
 from repro_torch.kernels.rmsnorm import ops as rms_ops, ref as rms_ref
 from repro_torch.kernels.swa_attention import ops as swa_ops, ref as swa_ref
 from repro_torch.models import api
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 # the reference's threaded tests share the CPU with these workers
 torch.set_num_threads(2)
@@ -317,3 +317,157 @@ def test_lm_serving_on_card_matches_cpu(cuda, window):
         c, p = c.cpu().numpy(), p.numpy()
         assert np.abs(c - p).max() <= 1e-4 * np.abs(p).max()
         assert np.array_equal(c.argmax(-1), p.argmax(-1))
+
+
+# ---------------------------------------------------------------------------
+# The conv's backward: dW by conv2d_wgrad.cu, dX by conv2d.cu on padded dY
+# ---------------------------------------------------------------------------
+
+# (k, B, H, W, Cin, kernel, Cout): the Map's two stages (k 4 and the
+# sequential k 1), the other configs' second stages, a ragged chunk of
+# images, a 3x3 kernel, and rows cut into bands
+GRAD_SHAPES = [(4, 200, 28, 28, 1, 5, 6), (4, 200, 12, 12, 6, 5, 12),
+               (1, 200, 28, 28, 1, 5, 6), (1, 200, 12, 12, 6, 5, 12),
+               (4, 200, 12, 12, 3, 5, 9), (4, 200, 12, 12, 2, 5, 4),
+               (2, 7, 12, 12, 6, 5, 12), (2, 3, 10, 11, 2, 3, 5),
+               (1, 2, 40, 90, 16, 5, 3)]
+
+
+def _grad_data(cuda, seed, k, b, h, w, cin, kk, cout):
+    rng = np.random.default_rng(seed)
+    x = rng.random((k, b, h, w, cin), dtype=np.float32)
+    wt = (rng.normal(size=(k, kk, kk, cin, cout)) * 0.2).astype(np.float32)
+    dy = rng.normal(size=(k, b, h - kk + 1, w - kk + 1, cout)
+                    ).astype(np.float32)
+    return (torch.from_numpy(a).to(cuda) for a in (x, wt, dy))
+
+
+def _within_f32(got, plain, exact):
+    """The f64 plain version is the truth: the kernel lands within twice
+    the f32 plain version's own distance from it, or within
+    1e-5 · max|truth|, whichever is larger."""
+    got, plain, exact = (a.double().cpu() for a in (got, plain, exact))
+    bar = max(2 * float((plain - exact).abs().max()),
+              1e-5 * float(exact.abs().max()))
+    assert float((got - exact).abs().max()) <= bar
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", GRAD_SHAPES)
+def test_conv2d_weight_grad_kernel_matches_plain_on_card(cuda, shape):
+    x, _, dy = _grad_data(cuda, sum(shape), *shape)
+    kk = shape[5]
+    before = kernels.LAUNCHES["conv2d_wgrad"]
+    dw = conv_ops.conv2d_weight_grad(x, dy, kk, kk)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["conv2d_wgrad"] == before + conv_ops.WGRAD_PASSES
+    _within_f32(dw, conv_ref.conv2d_weight_grad_ref(x, dy, kk, kk),
+                conv_ref.conv2d_weight_grad_ref(x.double(), dy.double(),
+                                                kk, kk))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", GRAD_SHAPES)
+def test_conv2d_input_grad_kernel_matches_plain_on_card(cuda, shape):
+    _, wt, dy = _grad_data(cuda, sum(shape) + 1, *shape)
+    before = kernels.LAUNCHES["conv2d"]
+    dx = conv_ops.conv2d_input_grad(dy, wt)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["conv2d"] == before + 1
+    _within_f32(dx, conv_ref.conv2d_input_grad_ref(dy, wt),
+                conv_ref.conv2d_input_grad_ref(dy.double(), wt.double()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", GRAD_SHAPES[:2] + GRAD_SHAPES[4:6])
+def test_conv2d_grads_are_deterministic_and_member_independent_on_card(
+        cuda, shape):
+    """No float atomics and a chunking that depends on B alone: two
+    launches agree bitwise, and member i of a member-batched launch is the
+    bits of a one-member launch — the sequential and stacked SGD Maps see
+    the same gradient."""
+    x, wt, dy = _grad_data(cuda, 3, *shape)
+    kk = shape[5]
+    dw = conv_ops.conv2d_weight_grad(x, dy, kk, kk)
+    dx = conv_ops.conv2d_input_grad(dy, wt)
+    assert torch.equal(dw, conv_ops.conv2d_weight_grad(x, dy, kk, kk))
+    assert torch.equal(dx, conv_ops.conv2d_input_grad(dy, wt))
+    for i in range(shape[0]):
+        s = slice(i, i + 1)
+        assert torch.equal(dw[s], conv_ops.conv2d_weight_grad(
+            x[s].contiguous(), dy[s].contiguous(), kk, kk))
+        assert torch.equal(dx[s], conv_ops.conv2d_input_grad(
+            dy[s].contiguous(), wt[s].contiguous()))
+
+
+@pytest.mark.cuda
+def test_conv2d_autograd_launches_backward_kernels_on_card(cuda):
+    """Stage 2 of the Map under autograd: the forward and dX through the
+    conv kernel, dW through conv2d_wgrad, both gradients within the bar of
+    the plain versions; images that need no gradient get no dX launch."""
+    x, wt, dy = _grad_data(cuda, 11, 4, 200, 12, 12, 6, 5, 12)
+    x.requires_grad_(True)
+    wt.requires_grad_(True)
+    kernels.reset_launches()
+    conv_ops.conv2d_valid(x, wt).backward(dy)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["conv2d"] == 2
+    assert kernels.LAUNCHES["conv2d_wgrad"] == conv_ops.WGRAD_PASSES
+    xd, wd = x.detach(), wt.detach()
+    _within_f32(wt.grad, conv_ref.conv2d_weight_grad_ref(xd, dy, 5, 5),
+                conv_ref.conv2d_weight_grad_ref(xd.double(), dy.double(),
+                                                5, 5))
+    _within_f32(x.grad, conv_ref.conv2d_input_grad_ref(dy, wd),
+                conv_ref.conv2d_input_grad_ref(dy.double(), wd.double()))
+    images = xd.clone()
+    kernels.reset_launches()
+    conv_ops.conv2d_valid(images, wt).backward(dy)
+    assert kernels.LAUNCHES["conv2d"] == 1 and images.grad is None
+
+
+@pytest.mark.cuda
+def test_conv2d_wgrad_refuses_bad_operands_on_card(cuda):
+    x = torch.zeros((1, 2, 12, 12, 6), device=cuda)
+    dy = torch.zeros((1, 2, 8, 8, 12), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv_ops.conv2d_weight_grad(x, dy.transpose(2, 3), 5, 5)
+    with pytest.raises(ValueError, match="shared memory"):
+        conv_ops.conv2d_weight_grad(
+            torch.zeros((1, 1, 8, 4000, 16), device=cuda),
+            torch.zeros((1, 1, 4, 3996, 2), device=cuda), 5, 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["stacked", "sequential"])
+@pytest.mark.parametrize("split", ["iid", "unequal"])
+def test_sgd_map_on_card_matches_cpu(cuda, backend, split):
+    """Two SGD epochs (dynamic_paper(0.05)) through the kernels equal the
+    plain CPU path: CNN weights within 1e-4 · max|w| per leaf, β within
+    1e-3 · max|β|; per step 3 conv launches (two forwards and stage 2's
+    dX), 2 stages × 2 passes of conv2d_wgrad and one elm_stats."""
+    from repro_torch.optim.schedules import dynamic_paper
+    cfg = replace(get_reduced_config("cnn_elm_6c12c"), elm_lambda=1.0)
+    ds = make_extended_mnist(n_per_class=30, seed=0)
+    train, _ = ds.split(n_test=100)
+    parts = (partition_iid(train.x, train.y, 3) if split == "iid" else
+             partition_unequal(train.x, train.y, (500, 300, 180)))
+    run = AveragingRun(cfg, MapConfig(
+        epochs=2, lr_schedule=dynamic_paper(0.05), batch_size=50,
+        backend=backend))
+    nbs = [len(p.x) // 50 for p in parts]
+    steps = 2 * (max(nbs) if backend == "stacked" else sum(nbs))
+    kernels.reset_launches()
+    card = run.run(parts, generator=torch.Generator().manual_seed(7),
+                   device=cuda)
+    assert {n: kernels.LAUNCHES[n] for n in
+            ("conv2d", "conv2d_wgrad", "elm_stats")} == {
+        "conv2d": 3 * steps, "conv2d_wgrad": 2 * 2 * steps,
+        "elm_stats": steps}
+    cpu = run.run(parts, generator=torch.Generator().manual_seed(7),
+                  device="cpu")
+    for a, b in zip(tree_leaves(card.stacked.cnn_params),
+                    tree_leaves(cpu.stacked.cnn_params)):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(
+            b.abs().max())
+    bc, bp = card.stacked.beta.cpu(), cpu.stacked.beta
+    assert float((bc - bp).abs().max()) <= 1e-3 * float(bp.abs().max())

@@ -95,13 +95,29 @@ def test_conv2d_rejects_bad_shapes(x_shape, w_shape, exc):
 
 
 def test_conv2d_rejects_other_dtypes_and_grad():
+    """Other dtypes are refused, also where autograd records the call: the
+    shape and dtype checks come before the gradient's route."""
     x = torch.zeros((1, 8, 8, 1), dtype=torch.float64)
     with pytest.raises(TypeError):
         conv_ops.conv2d_valid(x, torch.zeros((3, 3, 1, 2),
                                              dtype=torch.float64))
-    w = torch.zeros((3, 3, 1, 2), requires_grad=True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        conv_ops.conv2d_valid(torch.zeros((1, 8, 8, 1)), w)
+    w = torch.zeros((3, 3, 1, 2), dtype=torch.float64, requires_grad=True)
+    with pytest.raises(TypeError):
+        conv_ops.conv2d_valid(torch.zeros((1, 8, 8, 1),
+                                          dtype=torch.float64), w)
+
+
+def test_conv2d_records_its_gradient():
+    """A weight that requires grad goes through ``Conv2dValid``; under
+    ``no_grad`` the same call records nothing."""
+    w = torch.ones((3, 3, 1, 2), requires_grad=True)
+    y = conv_ops.conv2d_valid(torch.ones((1, 8, 8, 1)), w)
+    assert y.grad_fn is not None and y.requires_grad
+    y.sum().backward()
+    assert torch.equal(w.grad, torch.full((3, 3, 1, 2), 36.0))
+    with torch.no_grad():
+        assert conv_ops.conv2d_valid(torch.ones((1, 8, 8, 1)),
+                                     w).grad_fn is None
 
 
 # ---------------------------------------------------------------------------
@@ -184,9 +200,13 @@ def test_plain_versions_launch_nothing():
     nothing."""
     kernels.reset_launches()
     conv_ops.conv2d_valid(torch.zeros((1, 8, 8, 1)), torch.zeros((3, 3, 1, 2)))
+    x = torch.zeros((1, 8, 8, 1), requires_grad=True)
+    w = torch.zeros((3, 3, 1, 2), requires_grad=True)
+    conv_ops.conv2d_valid(x, w).sum().backward()      # the gradients' route
     stats_ops.elm_stats(torch.zeros((5, 3)), torch.zeros((5, 2)))
     rms_ops.rmsnorm(torch.zeros((4, 8)), torch.ones(8))
     q = torch.zeros((1, 4, 2, 8))
     swa_ops.swa_attention(q, q, q, window=2)
-    assert kernels.LAUNCHES == {"conv2d": 0, "elm_stats": 0, "rmsnorm": 0,
+    assert kernels.LAUNCHES == {"conv2d": 0, "conv2d_wgrad": 0,
+                                "elm_stats": 0, "rmsnorm": 0,
                                 "swa_attention": 0}

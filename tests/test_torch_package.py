@@ -1,6 +1,7 @@
 """The port stands alone: ``repro_torch`` imports neither JAX nor ``repro``,
 runs on the card unless asked for the CPU, and refuses what later slices
-of the port will bring instead of doing it wrongly."""
+of the port will bring (the mesh backend, drift syncs, elastic membership,
+the LM families beyond the dense decoder) instead of doing it wrongly."""
 import os
 import pkgutil
 import re
@@ -13,7 +14,7 @@ import torch
 
 import repro_torch
 from repro_torch.configs import get_reduced_config, replace
-from repro_torch.core import cnn_elm, elm, executor
+from repro_torch.core import elm, executor
 from repro_torch.core.runner import (AveragingRun, Ensemble, MapConfig,
                                      ReduceConfig)
 from repro_torch.data.partition import Partition
@@ -41,6 +42,7 @@ def test_every_module_imports_without_jax_or_repro():
     assert "repro_torch.serve.engine" in mods
     assert "repro_torch.kernels.swa_attention.ops" in mods
     assert "repro_torch.launch.serve" in mods
+    assert "repro_torch.optim.schedules" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -58,7 +60,9 @@ def test_no_source_imports_jax_or_repro():
     pattern = re.compile(r"^\s*(import\s+(jax|jaxlib|repro)\b"
                          r"|from\s+(jax|jaxlib|repro)(\.|\s))", re.M)
     files = [os.path.join(ROOT, "chip_smoke.py"),
-             os.path.join(ROOT, "tools", "kernel_variants.py")]
+             os.path.join(ROOT, "tools", "kernel_variants.py"),
+             os.path.join(ROOT, "tools", "sgd_sensitivity.py"),
+             os.path.join(ROOT, "examples", "quickstart_torch.py")]
     for dirpath, _, names in os.walk(PKG):
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith(".py")]
@@ -135,12 +139,10 @@ def test_executors_run_on_the_plan_device(monkeypatch, backend):
 
 
 @pytest.mark.parametrize("make", [
-    lambda: MapConfig(epochs=1),
     lambda: MapConfig(backend="mesh"),
-    lambda: ReduceConfig(strategy="gossip"),
-    lambda: ReduceConfig(rounds=2),
     lambda: executor.make_executor("mesh"),
-    lambda: cnn_elm.train_member(CFG, None, None, epochs=2, batch_size=8),
+    lambda: ReduceConfig(sync="drift"),
+    lambda: ReduceConfig(elastic=object()),
     lambda: api.module_of(replace(LM, family="moe")),
     lambda: api.module_of(replace(LM, family="ssm_rwkv6")),
     lambda: api.init_params(replace(LM, family="encoder",
@@ -152,12 +154,6 @@ def test_executors_run_on_the_plan_device(monkeypatch, backend):
 def test_later_slices_raise_not_implemented(make):
     with pytest.raises(NotImplementedError):
         make()
-
-
-def test_boosted_raises_not_implemented():
-    from repro_torch.core.reduce_strategies import Boosted
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ReduceConfig(strategy=Boosted())
 
 
 def test_unknown_backend_and_strategy_are_value_errors():
