@@ -38,10 +38,10 @@ wires to the backend-native scoring program (host loop / vmap / in-mesh
 shard_map), so the weights themselves stay backend-agnostic.
 
 This is the port's copy of ``repro.core.reduce_strategies`` (numpy
-only). The port's runner takes ``uniform``, ``shard_weighted`` and
-explicit weights in this slice; ``boosted`` and ``gossip`` resolve here
-but the runner refuses them until the slice that ports their scoring
-and ring programs.
+only). The port's runner takes every strategy here: ``uniform``,
+``shard_weighted``, explicit weights, ``boosted`` (which scores the
+members on a held-out validation slice) and ``gossip`` (the ring on the
+member dimension, stacked backend only).
 
 Register a custom strategy::
 

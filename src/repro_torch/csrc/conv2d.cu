@@ -32,9 +32,8 @@
 // coalesced 16-byte stores.
 //
 // The shapes of the repo's configurations (5x5 kernels; Cin -> Cout of
-// 1 -> 6, 6 -> 12, 1 -> 3, 3 -> 9 and the reduced configs' 1 -> 2, 2 -> 4,
-// and for the input gradient of each second stage, 12 -> 6, 9 -> 3 and
-// 4 -> 2) are compile-time instantiations, so the patch loops unroll. The host
+// 1 -> 6, 6 -> 12, 1 -> 3, 3 -> 9 and the reduced configs' 1 -> 2, 2 -> 4)
+// are compile-time instantiations, so the patch loops unroll. The host
 // picks the item by the launch's size: 4 pixels and all channels where that
 // gives enough items to fill the SMs (the Map's first stage); else 4 pixels
 // and 4 channels (the Map's second stage: on the H100 a 16-byte weight load
@@ -476,11 +475,6 @@ extern "C" int conv2d_valid_f32(const float* x, const float* w, float* y,
     if (Cin == 3 && Cout == 9) return run_fixed<5, 5, 3, 9>(a, k, sms, s);
     if (Cin == 1 && Cout == 2) return run_fixed<5, 5, 1, 2>(a, k, sms, s);
     if (Cin == 2 && Cout == 4) return run_fixed<5, 5, 2, 4>(a, k, sms, s);
-    // the input gradients of the second stages (conv2d/ops.py): padded dY
-    // through the 180-degree-turned weights, Cin and Cout swapped
-    if (Cin == 12 && Cout == 6) return run_fixed<5, 5, 12, 6>(a, k, sms, s);
-    if (Cin == 9 && Cout == 3) return run_fixed<5, 5, 9, 3>(a, k, sms, s);
-    if (Cin == 4 && Cout == 2) return run_fixed<5, 5, 4, 2>(a, k, sms, s);
   }
   plan(a, k, sms, false);
   return run<0, 0, 0, 0, 1, 4>(a, k, s);

@@ -48,6 +48,9 @@ _ENTRIES = {
     "conv2d_wgrad": ("conv2d_wgrad_f32",
                      (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                       _P)),
+    # dy, w, dx, k, B, H, W, Cin, kh, kw, Cout (H, W, Cin: dx's), stream
+    "conv2d_dgrad": ("conv2d_dgrad_f32",
+                     (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P)),
     # h, t, mask (NULL = unmasked), out, k, n, L, C, stream
     "elm_stats": ("elm_stats_f32", (_P, _P, _P, _P, _I, _I, _I, _I, _P)),
     # x, scale, out, n, D, eps, x is bf16, scale is bf16, stream
@@ -67,6 +70,17 @@ build_log = ""
 def reset_launches():
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def refuse_grad(name: str, tensors):
+    """Raise for an operand that requires grad while grad mode is on: the
+    kernel ``name`` has no backward, and its output, a buffer the kernel
+    fills, would silently cut the graph."""
+    if torch.is_grad_enabled() and any(a.requires_grad for a in tensors):
+        raise RuntimeError(
+            f"the {name} kernel has no backward yet: call it under "
+            f"torch.no_grad() or on operands that do not require grad "
+            f"(the CPU route is differentiable)")
 
 
 def _nvcc() -> str:

@@ -2,16 +2,16 @@
 and its two gradients.
 
 A CPU tensor goes to the plain versions (``ref.py``), a CUDA tensor to the
-hand kernels in ``csrc/conv2d.cu`` and ``csrc/conv2d_wgrad.cu``; nothing
-falls back from one to the other.
+hand kernels in ``csrc/conv2d.cu``, ``csrc/conv2d_dgrad.cu`` and
+``csrc/conv2d_wgrad.cu``; nothing falls back from one to the other.
 
 ``conv2d_valid`` is differentiable: where autograd records it, it runs as
 ``Conv2dValid``, whose backward is
 
-* dX (only where the input needs a gradient): the valid convolution of dY
-  padded by kh-1 rows and kw-1 columns on each side, with the weights
-  turned by 180° and Cin and Cout swapped — the forward kernel again
-  (``conv2d_input_grad``);
+* dX (only where the input needs a gradient): ``conv2d_input_grad``, dY
+  against the weights turned by 180°, by its own kernel, which reads dY
+  unpadded and the weights in place and sums each output in the order of
+  the valid convolution of dY padded by kh-1 rows and kw-1 columns;
 * dW (always): ``conv2d_weight_grad``, the patch matrix's transpose times
   dY, by its own kernel in two launches (partial sums over chunks of
   images, then their sum in chunk order).
@@ -19,7 +19,6 @@ falls back from one to the other.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch import kernels
 from repro_torch.kernels.conv2d import ref
@@ -28,13 +27,14 @@ from repro_torch.kernels.conv2d import ref
 # tile; 48 KB of weights leave room for a tile of one output pixel (whose
 # input patch is no larger than the weights) in what a block may take
 MAX_WEIGHT_BYTES = 48 * 1024
-# the weight gradient's launches per call, and the image chunks a member's
-# batch is cut into (the chunking is a function of B alone, so dW does not
-# depend on k); one band of one output row must fit in 48 KB of shared
-# memory beside the block's 4 KB of sums
+# the weight gradient's launches per call, and the most image chunks a
+# member's batch is cut into (the chunking is a function of B alone, so dW
+# does not depend on k)
 WGRAD_PASSES = 2
-WGRAD_CHUNKS = 48
-WGRAD_SMEM_FLOATS = 12 * 1024 - 1024
+WGRAD_CHUNKS = 50
+# shared memory the gradient kernels may take; dW needs a two-slot ring of
+# one output row's band, dX a member's weights beside one dX row's band
+GRAD_SMEM_BYTES = 160 * 1024
 
 
 def conv2d_valid(x, w):
@@ -77,13 +77,15 @@ def conv2d_input_grad(dy, w):
             dy.shape[-1] != w.shape[-1]:
         raise ValueError(f"dy {tuple(dy.shape)} and w {tuple(w.shape)} are "
                          f"not a member-batched conv's")
+    for a in (dy, w):
+        if a.dtype != torch.float32:
+            raise TypeError(f"conv2d_input_grad takes float32, got "
+                            f"{a.dtype}")
+    if dy.device != w.device:
+        raise ValueError(f"dy on {dy.device}, w on {w.device}")
     if dy.device.type == "cpu":
         return ref.conv2d_input_grad_ref(dy, w)
-    kh, kw = w.shape[1], w.shape[2]
-    padded = F.pad(dy, (0, 0, kw - 1, kw - 1, kh - 1, kh - 1))
-    turned = w.flip(1, 2).transpose(3, 4).contiguous()
-    _check(padded, turned)
-    return _forward(padded, turned)
+    return _launch_dgrad(dy, w)
 
 
 def conv2d_weight_grad(x, dy, kh: int, kw: int):
@@ -155,6 +157,22 @@ def _round4(n: int) -> int:
     return (n + 3) // 4 * 4
 
 
+def _pitch48(n: int) -> int:
+    """The kernels' pitch of a shared-memory row: a multiple of 4 floats
+    that is 4 mod 8, so neighbouring rows start in other banks."""
+    n = _round4(n)
+    return n if n % 8 == 4 else n + 4
+
+
+def wgrad_plan(B: int) -> tuple[int, int]:
+    """(images a chunk, chunks a member) of the weight gradient's split of
+    a member's batch: a function of B alone — not of k, the shape's other
+    sizes or the card — so a member's dW is the same bits however many
+    members share the launch."""
+    group = -(-B // WGRAD_CHUNKS)
+    return group, -(-B // group)
+
+
 def _launch_wgrad(x, dy, kh, kw):
     if not x.is_cuda:
         raise ValueError(f"conv2d_weight_grad runs on CPU or CUDA tensors, "
@@ -165,13 +183,13 @@ def _launch_wgrad(x, dy, kh, kw):
     Cout = dy.shape[-1]
     if k > 65535:
         raise ValueError(f"at most 65535 members per launch, got {k}")
-    if _round4(kh * W * Cin) + _round4((W - kw + 1) * Cout) > \
-            WGRAD_SMEM_FLOATS:
+    # a ring of two slots, each the x rows and the dY row of one output row
+    if 8 * (_round4(kh * _pitch48(W * Cin)) + _pitch48((W - kw + 1) * Cout)) \
+            > GRAD_SMEM_BYTES:
         raise ValueError(f"one output row of x {tuple(x.shape)} under a "
                          f"{kh}x{kw} kernel exceeds the conv2d_wgrad "
                          f"kernel's shared memory")
-    group = -(-B // WGRAD_CHUNKS)              # images a chunk
-    chunks = -(-B // group)
+    group, chunks = wgrad_plan(B)
     outs = kh * kw * Cin * Cout
     part = torch.empty((k, chunks, outs), dtype=torch.float32,
                        device=x.device)
@@ -182,3 +200,32 @@ def _launch_wgrad(x, dy, kh, kw):
                        part.data_ptr(), dw.data_ptr(), k, B, H, W, Cin, kh,
                        kw, Cout, group, passes=WGRAD_PASSES)
     return dw
+
+
+def _launch_dgrad(dy, w):
+    if not dy.is_cuda:
+        raise ValueError(f"conv2d_input_grad runs on CPU or CUDA tensors, "
+                         f"got {dy.device}")
+    if not (dy.is_contiguous() and w.is_contiguous()):
+        raise ValueError("the conv2d_dgrad kernel takes contiguous dy and w")
+    k, B, OH, OW, Cout = dy.shape
+    _, kh, kw, Cin, _ = w.shape
+    H, W = OH + kh - 1, OW + kw - 1
+    if k > 65535:
+        raise ValueError(f"at most 65535 members per launch, got {k}")
+    if max(B * OH * OW * Cout, B * H * W * Cin) > 2**30:
+        raise ValueError("one member's dy or dx exceeds the kernel's 32-bit "
+                         "indexing; split the batch")
+    # the weights, and the dY rows one dX row reads, padded by kw-1
+    # zero columns on each side (and to a group of up to 4 pixels)
+    weights = _round4(kh * kw * Cin * Cout)
+    band = _pitch48(min(OH, kh) * _round4((W + 3 + kw - 1) * Cout))
+    if 4 * (weights + band) > GRAD_SMEM_BYTES:
+        raise ValueError(f"w {tuple(w.shape)} and one dX row of "
+                         f"{W} x {Cin} exceed the conv2d_dgrad kernel's "
+                         f"shared memory")
+    dx = torch.empty((k, B, H, W, Cin), dtype=torch.float32, device=dy.device)
+    with torch.cuda.device(dy.device):
+        kernels.launch("conv2d_dgrad", dy.data_ptr(), w.data_ptr(),
+                       dx.data_ptr(), k, B, H, W, Cin, kh, kw, Cout)
+    return dx

@@ -3,8 +3,8 @@
 The same functions as ``csrc/conv2d.cu`` (and as the reference's im2col +
 Pallas GEMM): a valid, stride-1 NHWC convolution with HWIO weights, summed
 over the patch in (kh, kw, Cin) order, in f32; and its two gradients, as
-``csrc/conv2d_wgrad.cu`` (dW) and the forward kernel on padded dY (dX)
-compute them on the card.
+``csrc/conv2d_wgrad.cu`` (dW) and ``csrc/conv2d_dgrad.cu`` (dX) compute
+them on the card.
 
 Each takes one matrix product per member on freshly built operands, so a
 member's result does not depend on how many members ride beside it (the

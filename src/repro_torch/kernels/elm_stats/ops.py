@@ -3,7 +3,9 @@
 A CPU tensor goes to the plain version (``ref.elm_stats_ref``), a CUDA
 tensor to the hand kernel in ``csrc/elm_stats.cu``; nothing falls back from
 one to the other. Both produce one (L, L+C) block per member, and U and V
-are views of it.
+are views of it. The kernel has no backward: on the card, an operand that
+requires grad is refused while grad mode is on (the CPU route stays
+differentiable).
 """
 from __future__ import annotations
 
@@ -57,6 +59,7 @@ def _launch(h, t, mask):
         raise ValueError(f"elm_stats runs on CPU or CUDA tensors, "
                          f"got {h.device}")
     tensors = (h, t) if mask is None else (h, t, mask)
+    kernels.refuse_grad("elm_stats", tensors)
     if not all(a.is_contiguous() for a in tensors):
         raise ValueError("the elm_stats kernel takes contiguous operands")
     k, n, L = h.shape

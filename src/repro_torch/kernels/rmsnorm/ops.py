@@ -4,7 +4,9 @@ A CPU tensor goes to the plain version (``ref.rmsnorm_ref``), a CUDA
 tensor to the hand kernel in ``csrc/rmsnorm.cu``; nothing falls back from
 one to the other. x is f32 or bf16 of any leading shape (the kernel reads
 a contiguous copy of a strided view), scale (D,) f32 or bf16; the math is
-f32 and the output has x's dtype.
+f32 and the output has x's dtype. The kernel has no backward: on the card,
+an operand that requires grad is refused while grad mode is on (the CPU
+route stays differentiable).
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ def _launch(x, scale, eps):
     if not x.is_cuda:
         raise ValueError(f"rmsnorm runs on CPU or CUDA tensors, "
                          f"got {x.device}")
+    kernels.refuse_grad("rmsnorm", (x, scale))
     if not scale.is_contiguous():
         raise ValueError("the rmsnorm kernel takes a contiguous scale")
     x = x.contiguous()      # a view such as x[:, -1:] is copied once

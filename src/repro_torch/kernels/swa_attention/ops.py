@@ -4,6 +4,8 @@ A CPU tensor goes to the plain version (``ref.swa_attention_ref``), a CUDA
 tensor to the hand kernel in ``csrc/swa_attention.cu``; nothing falls back
 from one to the other. q is (B, S, H, hd), k and v (B, S, KV, hd), all f32
 or all bf16; the softmax and sums are f32 and the output has q's dtype.
+The kernel has no backward: on the card, an operand that requires grad is
+refused while grad mode is on (the CPU route stays differentiable).
 """
 from __future__ import annotations
 
@@ -55,6 +57,7 @@ def _launch(q, k, v, window):
     if not q.is_cuda:
         raise ValueError(f"swa_attention runs on CPU or CUDA tensors, "
                          f"got {q.device}")
+    kernels.refuse_grad("swa_attention", (q, k, v))
     if not all(a.is_contiguous() for a in (q, k, v)):
         raise ValueError("the swa_attention kernel takes contiguous operands")
     B, S, H, hd = q.shape

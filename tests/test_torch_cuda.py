@@ -320,7 +320,7 @@ def test_lm_serving_on_card_matches_cpu(cuda, window):
 
 
 # ---------------------------------------------------------------------------
-# The conv's backward: dW by conv2d_wgrad.cu, dX by conv2d.cu on padded dY
+# The conv's backward: dW by conv2d_wgrad.cu, dX by conv2d_dgrad.cu
 # ---------------------------------------------------------------------------
 
 # (k, B, H, W, Cin, kernel, Cout): the Map's two stages (k 4 and the
@@ -370,16 +370,16 @@ def test_conv2d_weight_grad_kernel_matches_plain_on_card(cuda, shape):
 @pytest.mark.parametrize("shape", GRAD_SHAPES)
 def test_conv2d_input_grad_kernel_matches_plain_on_card(cuda, shape):
     _, wt, dy = _grad_data(cuda, sum(shape) + 1, *shape)
-    before = kernels.LAUNCHES["conv2d"]
+    before = kernels.LAUNCHES["conv2d_dgrad"]
     dx = conv_ops.conv2d_input_grad(dy, wt)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["conv2d"] == before + 1
+    assert kernels.LAUNCHES["conv2d_dgrad"] == before + 1
     _within_f32(dx, conv_ref.conv2d_input_grad_ref(dy, wt),
                 conv_ref.conv2d_input_grad_ref(dy.double(), wt.double()))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", GRAD_SHAPES[:2] + GRAD_SHAPES[4:6])
+@pytest.mark.parametrize("shape", GRAD_SHAPES)
 def test_conv2d_grads_are_deterministic_and_member_independent_on_card(
         cuda, shape):
     """No float atomics and a chunking that depends on B alone: two
@@ -400,18 +400,44 @@ def test_conv2d_grads_are_deterministic_and_member_independent_on_card(
             dy[s].contiguous(), wt[s].contiguous()))
 
 
+def _padded_route_dx(dy, w):
+    """dX as the conv's backward computed it before it had its own kernel:
+    the forward kernel on dY padded by kh-1 rows and kw-1 columns on each
+    side, with the weights turned by 180 degrees and Cin, Cout swapped."""
+    import torch.nn.functional as F
+    kh, kw = w.shape[1], w.shape[2]
+    padded = F.pad(dy, (0, 0, kw - 1, kw - 1, kh - 1, kh - 1))
+    turned = w.flip(1, 2).transpose(3, 4).contiguous()
+    return conv_ops.conv2d_valid(padded, turned)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", GRAD_SHAPES)
+def test_conv2d_dgrad_equals_the_padded_route_on_card(cuda, shape):
+    """The direct dX kernel skips the padding's products and sums the rest
+    in the padded route's order, so it gives that route's dX value for
+    value (dY here holds exact zeros of both signs as well)."""
+    _, wt, dy = _grad_data(cuda, sum(shape) + 2, *shape)
+    dy.view(-1)[::7] = 0.0
+    dy.view(-1)[3::7] = -0.0
+    dx = conv_ops.conv2d_input_grad(dy, wt)
+    assert torch.equal(dx, _padded_route_dx(dy, wt))
+
+
 @pytest.mark.cuda
 def test_conv2d_autograd_launches_backward_kernels_on_card(cuda):
-    """Stage 2 of the Map under autograd: the forward and dX through the
-    conv kernel, dW through conv2d_wgrad, both gradients within the bar of
-    the plain versions; images that need no gradient get no dX launch."""
+    """Stage 2 of the Map under autograd: the forward through the conv
+    kernel, dX through conv2d_dgrad, dW through conv2d_wgrad, both
+    gradients within the bar of the plain versions; images that need no
+    gradient get no dX launch."""
     x, wt, dy = _grad_data(cuda, 11, 4, 200, 12, 12, 6, 5, 12)
     x.requires_grad_(True)
     wt.requires_grad_(True)
     kernels.reset_launches()
     conv_ops.conv2d_valid(x, wt).backward(dy)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["conv2d"] == 2
+    assert kernels.LAUNCHES["conv2d"] == 1
+    assert kernels.LAUNCHES["conv2d_dgrad"] == 1
     assert kernels.LAUNCHES["conv2d_wgrad"] == conv_ops.WGRAD_PASSES
     xd, wd = x.detach(), wt.detach()
     _within_f32(wt.grad, conv_ref.conv2d_weight_grad_ref(xd, dy, 5, 5),
@@ -423,6 +449,7 @@ def test_conv2d_autograd_launches_backward_kernels_on_card(cuda):
     kernels.reset_launches()
     conv_ops.conv2d_valid(images, wt).backward(dy)
     assert kernels.LAUNCHES["conv2d"] == 1 and images.grad is None
+    assert kernels.LAUNCHES["conv2d_dgrad"] == 0
 
 
 @pytest.mark.cuda
@@ -438,13 +465,65 @@ def test_conv2d_wgrad_refuses_bad_operands_on_card(cuda):
 
 
 @pytest.mark.cuda
+def test_conv2d_dgrad_refuses_bad_operands_on_card(cuda):
+    dy = torch.zeros((1, 2, 8, 8, 12), device=cuda)
+    w = torch.zeros((1, 5, 5, 6, 12), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv_ops.conv2d_input_grad(dy.transpose(2, 3), w)
+    with pytest.raises(TypeError):
+        conv_ops.conv2d_input_grad(dy.double(), w.double())
+    with pytest.raises(ValueError, match="shared memory"):
+        conv_ops.conv2d_input_grad(
+            torch.zeros((1, 1, 4, 20000, 4), device=cuda),
+            torch.zeros((1, 5, 5, 2, 4), device=cuda))
+
+
+def _no_backward_calls(cuda):
+    """One small call of each kernel that has no backward, on operands
+    that require grad."""
+    rng = np.random.default_rng(5)
+
+    def param(*shape, dtype=torch.float32):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                                ).to(cuda, dtype).requires_grad_(True)
+    return {
+        "elm_stats": lambda: stats_ops.elm_stats(param(2, 40, 16),
+                                                 param(2, 40, 3)),
+        "rmsnorm": lambda: rms_ops.rmsnorm(param(8, 64), param(64)),
+        "swa_attention": lambda: swa_ops.swa_attention(
+            param(1, 16, 4, 32), param(1, 16, 2, 32), param(1, 16, 2, 32),
+            window=8),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["elm_stats", "rmsnorm", "swa_attention"])
+def test_kernels_without_backward_refuse_grad_on_card(cuda, name):
+    """A kernel without a backward would hand back a buffer with no graph:
+    on the card it refuses an operand that requires grad under grad mode,
+    and runs the same call under no_grad."""
+    call = _no_backward_calls(cuda)[name]
+    before = kernels.LAUNCHES[name]
+    with pytest.raises(RuntimeError, match="no backward"):
+        call()
+    assert kernels.LAUNCHES[name] == before
+    with torch.no_grad():
+        out = call()
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 1
+    for o in (out if isinstance(out, tuple) else (out,)):
+        assert o.grad_fn is None and bool(torch.isfinite(o).all())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("backend", ["stacked", "sequential"])
 @pytest.mark.parametrize("split", ["iid", "unequal"])
 def test_sgd_map_on_card_matches_cpu(cuda, backend, split):
     """Two SGD epochs (dynamic_paper(0.05)) through the kernels equal the
     plain CPU path: CNN weights within 1e-4 · max|w| per leaf, β within
-    1e-3 · max|β|; per step 3 conv launches (two forwards and stage 2's
-    dX), 2 stages × 2 passes of conv2d_wgrad and one elm_stats."""
+    1e-3 · max|β|; per step 2 conv launches (the forwards), stage 2's dX
+    on conv2d_dgrad, 2 stages × WGRAD_PASSES of conv2d_wgrad and one
+    elm_stats."""
     from repro_torch.optim.schedules import dynamic_paper
     cfg = replace(get_reduced_config("cnn_elm_6c12c"), elm_lambda=1.0)
     ds = make_extended_mnist(n_per_class=30, seed=0)
@@ -460,8 +539,9 @@ def test_sgd_map_on_card_matches_cpu(cuda, backend, split):
     card = run.run(parts, generator=torch.Generator().manual_seed(7),
                    device=cuda)
     assert {n: kernels.LAUNCHES[n] for n in
-            ("conv2d", "conv2d_wgrad", "elm_stats")} == {
-        "conv2d": 3 * steps, "conv2d_wgrad": 2 * 2 * steps,
+            ("conv2d", "conv2d_dgrad", "conv2d_wgrad", "elm_stats")} == {
+        "conv2d": 2 * steps, "conv2d_dgrad": steps,
+        "conv2d_wgrad": 2 * conv_ops.WGRAD_PASSES * steps,
         "elm_stats": steps}
     cpu = run.run(parts, generator=torch.Generator().manual_seed(7),
                   device="cpu")

@@ -203,10 +203,78 @@ def test_plain_versions_launch_nothing():
     x = torch.zeros((1, 8, 8, 1), requires_grad=True)
     w = torch.zeros((3, 3, 1, 2), requires_grad=True)
     conv_ops.conv2d_valid(x, w).sum().backward()      # the gradients' route
+    conv_ops.conv2d_input_grad(torch.zeros((1, 2, 6, 6, 2)),
+                               torch.zeros((1, 3, 3, 1, 2)))
     stats_ops.elm_stats(torch.zeros((5, 3)), torch.zeros((5, 2)))
     rms_ops.rmsnorm(torch.zeros((4, 8)), torch.ones(8))
     q = torch.zeros((1, 4, 2, 8))
     swa_ops.swa_attention(q, q, q, window=2)
     assert kernels.LAUNCHES == {"conv2d": 0, "conv2d_wgrad": 0,
-                                "elm_stats": 0, "rmsnorm": 0,
-                                "swa_attention": 0}
+                                "conv2d_dgrad": 0, "elm_stats": 0,
+                                "rmsnorm": 0, "swa_attention": 0}
+
+
+def test_elm_stats_cpu_route_is_differentiable():
+    """The port's CPU elm_stats under autograd (the card refuses an operand
+    that requires grad: its kernel has no backward yet): dH and dT equal
+    jax.vjp of the reference's jnp route on the same inputs, with a
+    fractional mask."""
+    import jax
+    h, t, gu, gv = _data(70, (30, 12), (30, 3), (12, 12), (12, 3))
+    m = _mask("fractional", 30, 71)
+    ht, tt = (torch.from_numpy(a).requires_grad_(True) for a in (h, t))
+    u, v = stats_ops.elm_stats(ht, tt, mask=torch.from_numpy(m))
+    assert u.grad_fn is not None and v.grad_fn is not None
+    torch.autograd.backward((u, v), (torch.from_numpy(gu),
+                                     torch.from_numpy(gv)))
+    _, vjp = jax.vjp(lambda a, b: jstats.elm_stats(
+        a, b, mask=jnp.asarray(m), use_pallas=False),
+        jnp.asarray(h), jnp.asarray(t))
+    dh, dt = vjp((jnp.asarray(gu), jnp.asarray(gv)))
+    _close(ht.grad.numpy(), dh)
+    _close(tt.grad.numpy(), dt)
+
+
+def test_refuse_grad_guards_grad_mode_only():
+    """The card's refusal of an operand that requires grad (the wrappers
+    call it on CUDA operands only): it raises under grad mode, and lets
+    the same operands through under no_grad or detached."""
+    a = torch.zeros(3, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        kernels.refuse_grad("rmsnorm", (torch.zeros(3), a))
+    with torch.no_grad():
+        kernels.refuse_grad("rmsnorm", (torch.zeros(3), a))
+    kernels.refuse_grad("rmsnorm", (torch.zeros(3), a.detach()))
+
+
+def test_conv2d_dgrad_is_registered_with_its_c_signature():
+    """Each kernel's C entry point, as registered for ctypes, is the one its
+    source defines, with as many arguments (the stream last), and has its
+    launch counter; conv2d_dgrad among them."""
+    import ctypes
+    import re
+    assert kernels._ENTRIES["conv2d_dgrad"] == (
+        "conv2d_dgrad_f32", (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 8
+        + (ctypes.c_void_p,))
+    assert "conv2d_dgrad" in kernels.LAUNCHES
+    sources = "".join(p.read_text() for p in kernels.CSRC.glob("*.cu"))
+    for name, (fn, argtypes) in kernels._ENTRIES.items():
+        m = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", sources)
+        assert m is not None, name
+        params = [a.strip() for a in m.group(1).split(",")]
+        assert len(params) == len(argtypes), name
+        assert params[-1] == "void* stream", name
+        for p, t in zip(params, argtypes):
+            assert ("*" in p) == (t is ctypes.c_void_p), (name, p)
+
+
+@pytest.mark.parametrize("B", [1, 7, 49, 50, 51, 199, 200, 12_500])
+def test_wgrad_plan_depends_on_the_batch_alone(B):
+    """dW's split of a member's batch into chunks of images takes B alone
+    (no k, no card), covers every image once and makes at most
+    WGRAD_CHUNKS chunks."""
+    import inspect
+    assert list(inspect.signature(conv_ops.wgrad_plan).parameters) == ["B"]
+    group, chunks = conv_ops.wgrad_plan(B)
+    assert chunks <= conv_ops.WGRAD_CHUNKS
+    assert (chunks - 1) * group < B <= chunks * group

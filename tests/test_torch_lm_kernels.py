@@ -191,3 +191,59 @@ def test_swa_rejects_bad_operands():
         swa_ops.swa_attention(q, kv.bfloat16(), kv.bfloat16(), window=8)
     with pytest.raises(TypeError):
         swa_ops.swa_attention(q.double(), kv.double(), kv.double(), window=8)
+
+
+# ---------------------------------------------------------------------------
+# the CPU routes stay differentiable (on the card, an operand that requires
+# grad is refused: the kernels have no backward yet)
+# ---------------------------------------------------------------------------
+
+def _vjp_close(got, ref):
+    """Gradients of the same f32 function through two frameworks' autodiff,
+    sums taken in other orders: rtol 1e-5, atol 1e-5 · max|ref|."""
+    _close(got.detach().numpy(), np.asarray(ref, np.float32))
+
+
+def test_rmsnorm_cpu_route_is_differentiable():
+    """The port's CPU rmsnorm under autograd: dx and dscale equal jax.vjp
+    of the reference's jnp route on the same inputs and cotangent."""
+    import jax
+    x, scale, g = (_normal(40, 6, 128) * 3.0, _normal(41, 128),
+                   _normal(42, 6, 128))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    st = torch.from_numpy(scale).requires_grad_(True)
+    y = rms_ops.rmsnorm(xt, st, eps=1e-5)
+    assert y.grad_fn is not None
+    y.backward(torch.from_numpy(g))
+    _, vjp = jax.vjp(lambda a, b: jrms.rmsnorm(a, b, eps=1e-5,
+                                               use_pallas=False),
+                     jnp.asarray(x), jnp.asarray(scale))
+    dx, ds = vjp(jnp.asarray(g))
+    _vjp_close(xt.grad, dx)
+    _vjp_close(st.grad, ds)
+
+
+@pytest.mark.parametrize("window", [64, 9])
+def test_swa_cpu_route_is_differentiable(window):
+    """dq, dk and dv of the port's CPU swa_attention equal jax.vjp of the
+    reference's jnp oracle, kv heads repeated inside the differentiated
+    function."""
+    import jax
+    B, S, H, KV, d = 1, 64, 4, 2, 16
+    q, k, v = _swa_inputs(50 + window, B, S, H, KV, d)
+    g = _normal(60, B, S, H, d)
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    y = swa_ops.swa_attention(qt, kt, vt, window=window)
+    assert y.grad_fn is not None
+    y.backward(torch.from_numpy(g))
+
+    def ref(q, k, v):
+        def bh(a):
+            return a.transpose(0, 2, 1, 3).reshape(B * H, S, d)
+        rep = H // KV
+        out = jswa_ref(bh(q), bh(jnp.repeat(k, rep, axis=2)),
+                       bh(jnp.repeat(v, rep, axis=2)), window=window)
+        return out.reshape(B, H, S, d).transpose(0, 2, 1, 3)
+    _, vjp = jax.vjp(ref, *(jnp.asarray(a) for a in (q, k, v)))
+    for got, want in zip((qt.grad, kt.grad, vt.grad), vjp(jnp.asarray(g))):
+        _vjp_close(got, want)
