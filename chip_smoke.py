@@ -46,7 +46,29 @@ is non-zero and no result line is printed:
              images, checked against the ensemble surface; one hot swap.
 7. profile — one stacked Map and one stacked SGD epoch under
              torch.profiler: device busy, wall, idle share, top operations.
-8. lm      — the LM serving path (``repro_torch.launch.serve``): (a) qwen3_8b
+8. e2lm    — E²LM at ``benchmarks/e2lm_scaling.py``'s shape (200,000 rows,
+             L 192, C 10, λ 100, from a seed): per-shard stats for k 2, 4
+             and 8 through ``e2lm.mapreduce_solve`` within the solve bar of
+             the monolithic β (1e-3 · max|β|, or twice its own f32 distance
+             from the f64 solution, whichever is larger); the ``map``
+             phase's global β from its ``RunResult.stats``, card vs CPU,
+             within the same bar; OS-ELM in 50-row blocks against the batch
+             solve (rtol 5e-2, atol 5e-3); elm_stats timed at 25k, 50k,
+             100k and 200k rows a member.
+9. elm_head — the ELM head: over the CNN (the Map's init, its 50,000
+             images, the held-out set scored, 4 ``finetune_step``s whose
+             loss must fall), over the full qwen3_8b in bf16
+             (``hidden_states`` of 4 × 128 tokens, C 16, λ 10; elm_stats
+             timed at that shape; ``finetune_step`` must raise), and the
+             2-layer full-width f32 LM's states and head β, card vs CPU
+             (1e-4 · max|h|; the solve bar).
+10. resume — crash and resume at full width with the ``sgd`` phase's
+             settings: the stacked two-round run after round 0 (a torn
+             round-1 file must be skipped), the sequential run after
+             member 1, and an elastic run with one leave and one join
+             (stacked vs sequential, and its resume): each equal to its
+             uninterrupted run under ``torch.equal``.
+11. lm     — the LM serving path (``repro_torch.launch.serve``): (a) qwen3_8b
              at full width cut to 2 layers, f32, the card against the port's
              CPU path on the same params (prefill and 4 greedy decode steps
              within 1e-4 · max|logit|, equal tokens); (b) the full 36-layer
@@ -56,7 +78,7 @@ is non-zero and no result line is printed:
              device-idle share of a decode step: its device busy time
              (torch.profiler, one step) over the mean step of 10 unprofiled
              steps and over the mean step of run_lm's own decode loop.
-9. the kernels line, the card line, and the last line
+12. the kernels line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 The launch counters are set to 0 just before each path runs and read just
@@ -64,7 +86,8 @@ after it: the CNN main path (stacked Map → Reduce → scoring of the
 held-out set), the sequential Map, each SGD Map (the stacked one-round run
 is the SGD main path, whose conv2d_dgrad and conv2d_wgrad counts the
 kernels line reports),
-serving, and the LM path (b).
+serving, the E²LM path, the CNN and LM heads, the crash/resume runs, and
+the LM path (b).
 """
 from __future__ import annotations
 
@@ -182,12 +205,104 @@ def bound_ms(nbytes, flops, rates, bf16=False):
                                        else "operations")
 
 
+def compare(torch, got, ref):
+    """(max|err|, max|ref|, within the kernel tolerance)."""
+    rtol = BF16_RTOL if got.dtype == torch.bfloat16 else TOL
+    got, ref = got.float(), ref.float()
+    err = float((got - ref).abs().max())
+    top = float(ref.abs().max())
+    ok = bool(((got - ref).abs() <= TOL * top + rtol * ref.abs()).all())
+    return err, top, ok
+
+
+def same_function(lib, ref, rel=1e-3):
+    """A layout check on the library yardstick, which may pick an algorithm
+    (Winograd, split-K) with other rounding than ours."""
+    return float((lib - ref).abs().max()) <= rel * float(ref.abs().max())
+
+
+def f64_stats(torch, h, t, m, absolute=False):
+    """The elm_stats function in f64, member by member; ``absolute`` sums
+    the terms' magnitudes instead."""
+    out = []
+    for i in range(h.shape[0]):
+        hi, ti = h[i].double(), t[i].double()
+        if absolute:
+            hi, ti = hi.abs(), ti.abs()
+        hm = hi if m is None else hi * m[i].double()[:, None]
+        out.append(hm.T @ torch.cat([hi, ti], dim=1))
+    return torch.stack(out)
+
+
+def elm_stats_record(torch, rates, h, t, m, tag, plain_reps=20,
+                     long_sum=False):
+    """elm_stats on (k, n, L) h, (k, n, C) t and an optional (k, n) mask,
+    held against its plain version (and U against its transpose, bitwise),
+    timed beside its plain version, cuBLAS's bmm and its bound. The
+    launches made here are comparisons and timings, not a path's.
+
+    ``long_sum``: each output of the kernel is one f32 sum over the n rows
+    in order, and over 25,000 or more rows its rounding outgrows the
+    plain version's blocked sums (at n 200,000: 5.5e-5 · max|ref|, over
+    the 1e-5 bar). There the kernel is held against the f64 function,
+    each output within the probabilistic bound of an f32 sum of n terms
+    in order, 7·√n·2⁻²⁴·Σ|terms| (Higham and Mary's bound at λ = 7: an
+    output exceeds it with probability below 5e-11)."""
+    from repro_torch.kernels.elm_stats import ops as st_ops, ref as st_ref
+    k, n, L = h.shape
+    C = t.shape[-1]
+    u, v = st_ops.elm_stats(h, t, mask=m)
+    ref = st_ref.elm_stats_ref(h, t, m)
+    got = torch.cat([u, v], dim=-1)
+    extra = {}
+    if long_sum:
+        truth = f64_stats(torch, h, t, m)
+        bound = 7 * n ** 0.5 * 2.0 ** -24 * f64_stats(torch, h, t, m, True)
+        dev = (got.double() - truth).abs()
+        err, top = float(dev.max()), float(truth.abs().max())
+        ratio = float((dev / bound).max())
+        extra = dict(f64_rule=True, max_err_over_bound=ratio,
+                     plain_max_abs_err_f64=float(
+                         (ref.double() - truth).abs().max()))
+        check(ratio <= 1.0, f"elm_stats {tag}: max|err| {err} from f64, "
+              f"{ratio} of the f32 summation bound")
+        del truth, bound, dev
+    else:
+        err, top, ok = compare(torch, got, ref)
+        check(ok, f"elm_stats {tag}: max|err| {err} at max|ref| {top}")
+    check(torch.equal(u, u.transpose(1, 2)),
+          f"elm_stats {tag}: U is not bitwise symmetric")
+    hm = h if m is None else h * m[..., None]
+    hmt = hm.transpose(1, 2).contiguous()
+    ht = torch.cat([h, t], dim=-1).contiguous()
+    check(same_function(torch.matmul(hmt, ht), ref),
+          "the cuBLAS yardstick computes another function")
+    del u, v, ref, got
+    nbytes = 4 * (h.numel() + t.numel() + k * L * (L + C)
+                  + (m.numel() if m is not None else 0))
+    # U is symmetric: the function needs its pairs i <= j and all of V
+    flops = k * n * (L * (L + 1) + 2 * L * C) + (k * n * L if m is not None
+                                                   else 0)
+    b_ms, b_by = bound_ms(nbytes, flops, rates)
+    kernel = lambda: st_ops.elm_stats(h, t, mask=m)       # noqa: E731
+    plain = lambda: st_ref.elm_stats_ref(h, t, m)         # noqa: E731
+    library = lambda: torch.matmul(hmt, ht)               # noqa: E731
+    return dict(shape=f"k{k} n{n} L{L} C{C}", max_abs_err=err,
+                max_abs_ref=top, **extra,
+                ms=device_ms(torch, kernel),
+                plain_ms=device_ms(torch, plain, reps=plain_reps),
+                library_ms=device_ms(torch, library),
+                call_ms=call_ms(torch, kernel),
+                plain_call_ms=call_ms(torch, plain, reps=plain_reps),
+                library_call_ms=call_ms(torch, library),
+                bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
+
+
 def phase_kernels(torch, dev, rates):
     """Each kernel vs its plain version at the main path's shapes; returns
     per-kernel measurements for the kernels line."""
     import torch.nn.functional as F
     from repro_torch.kernels.conv2d import ops as conv_ops, ref as conv_ref
-    from repro_torch.kernels.elm_stats import ops as st_ops, ref as st_ref
     from repro_torch.kernels.rmsnorm import ops as rms_ops, ref as rms_ref
     from repro_torch.kernels.swa_attention import ops as swa_ops
     from repro_torch.kernels.swa_attention import ref as swa_ref
@@ -200,20 +315,6 @@ def phase_kernels(torch, dev, rates):
 
     def randn(*shape):
         return torch.randn(shape, generator=gen).to(dev)
-
-    def compare(got, ref):
-        rtol = BF16_RTOL if got.dtype == torch.bfloat16 else TOL
-        got, ref = got.float(), ref.float()
-        err = float((got - ref).abs().max())
-        top = float(ref.abs().max())
-        ok = bool(((got - ref).abs() <= TOL * top + rtol * ref.abs()).all())
-        return err, top, ok
-
-    def same_function(lib, ref, rel=1e-3):
-        # a layout check on the library yardstick, which may pick an
-        # algorithm (Winograd, split-K) with other rounding than ours
-        return float((lib - ref).abs().max()) <= rel * float(
-            ref.abs().max())
 
     out = {}
 
@@ -234,7 +335,7 @@ def phase_kernels(torch, dev, rates):
         k, B, H, W, Cin = xs
         _, kh, kw, _, Cout = ws
         y = conv_ops.conv2d_valid(x, w)
-        err, top, ok = compare(y, conv_ref.conv2d_valid_ref(x, w))
+        err, top, ok = compare(torch, y, conv_ref.conv2d_valid_ref(x, w))
         check(ok, f"conv2d {tag}: max|err| {err} at max|ref| {top}")
         # the library yardstick: cuDNN's grouped conv on NCHW copies made
         # outside the timed region (TF32 off at package import)
@@ -351,37 +452,7 @@ def phase_kernels(torch, dev, rates):
         t = F.one_hot(torch.randint(0, C, (k, n), generator=gen),
                       C).float().to(dev)
         m = rand(k, n) if masked else None
-        u, v = st_ops.elm_stats(h, t, mask=m)
-        ref = st_ref.elm_stats_ref(h, t, m)
-        got = torch.cat([u, v], dim=-1)
-        err, top, ok = compare(got, ref)
-        check(ok, f"elm_stats {tag}: max|err| {err} at max|ref| {top}")
-        check(torch.equal(u, u.transpose(1, 2)),
-              f"elm_stats {tag}: U is not bitwise symmetric")
-        hm = h if m is None else h * m[..., None]
-        hmt = hm.transpose(1, 2).contiguous()
-        ht = torch.cat([h, t], dim=-1).contiguous()
-        check(same_function(torch.matmul(hmt, ht), ref),
-              "the cuBLAS yardstick computes another function")
-        nbytes = 4 * (h.numel() + t.numel() + ref.numel()
-                      + (m.numel() if masked else 0))
-        # U is symmetric: the function needs its pairs i <= j and all of V
-        flops = k * n * (L * (L + 1) + 2 * L * C) + (k * n * L if masked
-                                                       else 0)
-        b_ms, b_by = bound_ms(nbytes, flops, rates)
-        kernel = lambda: st_ops.elm_stats(h, t, mask=m)       # noqa: E731
-        plain = lambda: st_ref.elm_stats_ref(h, t, m)         # noqa: E731
-        library = lambda: torch.matmul(hmt, ht)               # noqa: E731
-        rec = dict(shape=f"k{k} n{n} L{L} C{C}", max_abs_err=err,
-                   max_abs_ref=top,
-                   ms=device_ms(torch, kernel),
-                   plain_ms=device_ms(torch, plain, reps=20),
-                   library_ms=device_ms(torch, library),
-                   call_ms=call_ms(torch, kernel),
-                   plain_call_ms=call_ms(torch, plain, reps=20),
-                   library_call_ms=call_ms(torch, library),
-                   bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
-        keep("elm_stats", tag, rec)
+        keep("elm_stats", tag, elm_stats_record(torch, rates, h, t, m, tag))
 
     # the LM serving path's shapes, bf16: ln1/ln2/final norm over the B·S
     # rows of a batch-4, prompt-128 prefill (f32 scale), and q_norm over its
@@ -392,7 +463,8 @@ def phase_kernels(torch, dev, rates):
         x = (randn(*shape) * 3).to(torch.bfloat16)
         scale = (1 + 0.1 * randn(shape[-1])).to(scale_dtype)
         y = rms_ops.rmsnorm(x, scale, eps=1e-6)
-        err, top, ok = compare(y, rms_ref.rmsnorm_ref(x, scale, 1e-6))
+        err, top, ok = compare(torch, y,
+                               rms_ref.rmsnorm_ref(x, scale, 1e-6))
         check(ok, f"rmsnorm {tag}: max|err| {err} at max|ref| {top}")
         w_lib = scale.to(x.dtype)
         check(same_function(F.rms_norm(x, (shape[-1],), w_lib, 1e-6).float(),
@@ -428,8 +500,8 @@ def phase_kernels(torch, dev, rates):
         k = randn(B, S, KV, hd).to(torch.bfloat16)
         v = randn(B, S, KV, hd).to(torch.bfloat16)
         y = swa_ops.swa_attention(q, k, v, window=W)
-        err, top, ok = compare(y, swa_ref.swa_attention_ref(q, k, v,
-                                                            window=W))
+        err, top, ok = compare(torch, y, swa_ref.swa_attention_ref(
+            q, k, v, window=W))
         check(ok, f"swa_attention {tag}: max|err| {err} at max|ref| {top}")
         # the library yardstick: SDPA on (B, H, S, hd) copies made outside
         # the timed region, causal or with the window's boolean mask
@@ -642,7 +714,7 @@ def phase_map(torch, dev, n_per_class=1500, n_test=10_000, k=4, batch=200):
          members=ens.evaluate(test.x, test.y, preds=preds).tolist(),
          ensemble_mean=ens.accuracy(test.x, test.y))
     return dict(cfg=cfg, test=test, parts=parts, batch=batch, init=init,
-                stacked=stacked, seq=seq, ens=ens,
+                stacked=stacked, seq=seq, cpu=cpu, ens=ens,
                 scores=scores, launches=main_launches,
                 seq_launches=seq_launches)
 
@@ -759,7 +831,8 @@ def phase_sgd(torch, dev, m, epochs=2, lr_c=0.05, cut=2500):
          members=stacked.ensemble().evaluate(test.x, test.y).tolist())
     check(np.isfinite(a_sgd) and a_sgd > a_0 - 0.05,
           f"SGD accuracy {a_sgd} collapsed against epochs=0's {a_0}")
-    return dict(stacked=stacked, launches=main_launches)
+    return dict(stacked=stacked, seq=seq, rounds2=out[("stacked", 2)],
+                launches=main_launches, lr_c=lr_c, epochs=epochs)
 
 
 def phase_serve(torch, m):
@@ -836,6 +909,395 @@ def phase_profile(torch, m):
              idle_share=1 - device_ms / wall_ms if rows else "not measured",
              top=[{"name": name[:60], "ms": us / 1e3, "count": count}
                   for us, name, count in rows[:12]])
+
+
+def solve_bar(torch, beta, exact):
+    """The full-width f32 solve bar around ``beta``: 1e-3 · max|β| or twice
+    ``beta``'s own distance from the f64 solution ``exact``, whichever is
+    larger. Returns (bar, that distance)."""
+    own = float((beta.double().cpu() - exact.cpu()).abs().max())
+    return max(1e-3 * float(beta.abs().max()), 2 * own), own
+
+
+def member_rows(stats):
+    """Member-stacked ``ELMStats`` -> one ``ELMStats`` per member."""
+    return [type(stats)(*(a[i] for a in stats))
+            for i in range(stats.n.shape[0])]
+
+
+def f64_solve(torch, u, v, lam):
+    eye = torch.eye(u.shape[-1], dtype=torch.float64, device=u.device)
+    return torch.linalg.solve(u.double() + eye / lam, v.double())
+
+
+def phase_e2lm(torch, dev, rates, m, n=200_000, L=192, C=10, lam=100.0,
+               oselm_rows=5_000):
+    """E²LM at ``benchmarks/e2lm_scaling.py``'s shape (n 200,000 rows,
+    L 192, C 10, λ 100; H and T normal from a seed, drawn on the card):
+    the monolithic stats and the per-shard stats of k 2, 4 and 8 (one
+    member-batched launch each), each shard set reduced and solved by
+    ``e2lm.mapreduce_solve`` and held within the solve bar of the
+    monolithic β (``solve_bar``, around its f64 solution); the global β
+    of the ``map`` phase's card run, from its ``RunResult.stats``, against
+    the CPU run's; OS-ELM in 50-row blocks over the first ``oselm_rows``
+    rows against the batch solve (``tests/test_elm.py``'s bar, rtol 5e-2,
+    atol 5e-3); elm_stats timed at each shard shape. Returns the timing
+    records."""
+    from repro_torch import kernels
+    from repro_torch.core import e2lm, elm
+    from repro_torch.layers.norms import optimal_tanh
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    h = torch.randn((n, L), generator=gen, device=dev)
+    t = torch.randn((n, C), generator=gen, device=dev)
+    h64 = 1.7159 * torch.tanh(h.double() * (2.0 / 3.0))
+    exact = f64_solve(torch, h64.T @ h64, h64.T @ t.double(), lam)
+    del h64
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    beta_mono = elm.solve_beta(elm.batch_stats(h, t), lam)
+    torch.cuda.synchronize()
+    mono_ms = (time.perf_counter() - t0) * 1e3
+    bar, own = solve_bar(torch, beta_mono, exact)
+    shards = {}
+    for k in (2, 4, 8):
+        t0 = time.perf_counter()
+        stats = elm.batch_stats(h.reshape(k, n // k, L),
+                                t.reshape(k, n // k, C))
+        beta_k = e2lm.mapreduce_solve(member_rows(stats), lam)
+        torch.cuda.synchronize()
+        d = float((beta_k - beta_mono).abs().max())
+        check(bool(torch.isfinite(beta_k).all()) and d <= bar,
+              f"e2lm k={k}: beta {d} from the monolithic, bar {bar}")
+        shards[k] = dict(rows_per_shard=n // k, max_abs_dbeta=d,
+                         map_reduce_solve_ms_host_clock=(
+                             time.perf_counter() - t0) * 1e3)
+    launches = dict(kernels.LAUNCHES)
+    check(launches["elm_stats"] == 4,
+          f"e2lm path launched elm_stats {launches['elm_stats']} times")
+
+    # the Map's global β: the card run's member stats against the CPU run's
+    cfg, card, cpu = m["cfg"], m["stacked"], m["cpu"]
+    beta_card = e2lm.mapreduce_solve(member_rows(card.stats),
+                                     cfg.elm_lambda)
+    beta_cpu = e2lm.mapreduce_solve(member_rows(cpu.stats), cfg.elm_lambda)
+    map_bar, map_own = solve_bar(torch, beta_cpu, f64_solve(
+        torch, cpu.stats.u.double().sum(0), cpu.stats.v.double().sum(0),
+        cfg.elm_lambda))
+    map_d = float((beta_card.cpu() - beta_cpu).abs().max())
+    check(map_d <= map_bar,
+          f"e2lm: the Map's global beta, card vs CPU {map_d} > {map_bar}")
+
+    state = e2lm.oselm_init(L, C, lam, device=dev)
+    for i in range(0, oselm_rows, 50):
+        state = e2lm.oselm_update(state, h[i:i + 50], t[i:i + 50])
+    batch_beta = elm.solve_beta(elm.batch_stats(h[:oselm_rows],
+                                                t[:oselm_rows]), lam)
+    os_d = (state.beta - batch_beta).abs()
+    check(bool((os_d <= 5e-3 + 5e-2 * batch_beta.abs()).all()),
+          f"OS-ELM vs the batch solve: max|d| {float(os_d.max())}")
+
+    ha = optimal_tanh(h)
+    records = {}
+    for k in (1, 2, 4, 8):
+        records[f"e2lm_k{k}"] = rec = elm_stats_record(
+            torch, rates, ha.reshape(k, n // k, L), t.reshape(k, n // k, C),
+            None, f"e2lm k={k}", plain_reps=10, long_sum=True)
+        emit("kernel", name="elm_stats", case=f"e2lm_k{k}",
+             vs_library=rec["ms"] / rec["library_ms"], **rec)
+    emit("e2lm", rows=n, L=L, C=C, lam=lam, launches=launches,
+         monolithic_ms_host_clock=mono_ms,
+         max_abs_beta=float(beta_mono.abs().max()), bar_beta=bar,
+         f32_solve_err_beta=own, shards=shards,
+         map_global_beta=dict(max_abs_dbeta=map_d, bar_beta=map_bar,
+                              f32_solve_err_beta=map_own,
+                              max_abs_beta=float(beta_cpu.abs().max())),
+         oselm=dict(rows=oselm_rows, block=50,
+                    max_abs_dbeta=float(os_d.max()),
+                    max_abs_beta=float(batch_beta.abs().max())))
+    return records
+
+
+def phase_elm_head(torch, dev, rates, m, lm_layers=None, batch=500,
+                   ft_batch=200, ft_lr=1e-3, lm_batch=4, lm_seq=128,
+                   lm_classes=16, lm_lam=10.0, parity_layers=2):
+    """The ELM head (``core.elm_head``) over both backbones on the card.
+    CNN: the ``map`` phase's init as the backbone, ``accumulate_stats``
+    over its 50,000 training images in batches of ``batch``, ``solve`` at
+    the config's λ, ``predict`` over the held-out set, then 4
+    ``finetune_step``s on one batch (the loss must fall). LM: the full
+    qwen3_8b in bf16 (``lm_layers`` cuts the depth for a rehearsal),
+    ``hidden_states`` of a batch of ``lm_batch`` × ``lm_seq`` tokens, the
+    head at ``lm_classes`` classes and λ ``lm_lam``, elm_stats timed at
+    its shape; ``finetune_step`` over it must raise (rmsnorm and
+    swa_attention have no backward). Parity: the same model at full
+    width, ``parity_layers`` layers, f32, card against the port's CPU
+    path — states within 1e-4 · max|h|, head β within the solve bar."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.configs import get_config, replace
+    from repro_torch.core import elm_head
+    from repro_torch.kernels.conv2d.ops import WGRAD_PASSES
+    from repro_torch.layers.norms import optimal_tanh
+    from repro_torch.models import api, cnn
+    from repro_torch.tree import tree_map
+
+    cfg, parts, test = m["cfg"], m["parts"], m["test"]
+    C = cfg.num_classes
+    x = np.concatenate([p.x for p in parts])
+    y = np.concatenate([p.y for p in parts])
+    params = tree_map(lambda a: a.to(dev), m["init"])
+
+    def cnn_fn(p, b):
+        return cnn.features(cfg, p, b["x"])
+
+    def batches(xs, ys, size):
+        for i in range(0, len(xs), size):
+            yield {"x": torch.from_numpy(xs[i:i + size]).to(dev),
+                   "targets": torch.from_numpy(ys[i:i + size]).to(dev)}
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    stats = None
+    for b in batches(x, y, batch):
+        stats = elm_head.accumulate_stats(cnn_fn, params, b, C, stats)
+    beta = elm_head.solve(stats, cfg.elm_lambda)
+    preds = np.concatenate([
+        elm_head.predict(cnn_fn, params, beta, b).argmax(-1).cpu().numpy()
+        for b in batches(test.x, test.y, 512)])
+    head_s = time.perf_counter() - t0
+    fb = next(batches(x[:ft_batch], y[:ft_batch], ft_batch))
+    losses, p = [], params
+    t0 = time.perf_counter()
+    for _ in range(4):
+        p, loss = elm_head.finetune_step(cnn_fn, p, beta, fb, C, ft_lr)
+        losses.append(float(loss))
+    ft_s = time.perf_counter() - t0
+    cnn_launches = dict(kernels.LAUNCHES)
+    n_batches = -(-len(x) // batch)
+    blocks = -(-len(test.x) // 512)
+    want = {"conv2d": 2 * (n_batches + blocks + 4), "elm_stats": n_batches,
+            "conv2d_dgrad": 4, "conv2d_wgrad": 4 * 2 * WGRAD_PASSES,
+            "rmsnorm": 0, "swa_attention": 0}
+    check(cnn_launches == want, f"CNN head launches {cnn_launches} != {want}")
+    check(bool(torch.isfinite(beta).all()) and beta.shape == (
+        cnn.feature_dim(cfg), C), "CNN head beta")
+    check(losses[-1] < losses[0], f"CNN finetune losses {losses}")
+    cnn_acc = float((preds == test.y).mean())
+
+    # the LM backbone: the full model in bf16, drawn on the card
+    lm_cfg = get_config("qwen3_8b")
+    if lm_layers is not None:
+        lm_cfg = replace(lm_cfg, num_layers=lm_layers)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    lm = api.init_params(lm_cfg, gen, device=dev)
+    lb = {"tokens": torch.randint(0, lm_cfg.vocab_size, (lm_batch, lm_seq),
+                                  generator=gen, device=dev),
+          "targets": torch.randint(0, lm_classes, (lm_batch, lm_seq),
+                                   generator=gen, device=dev)}
+
+    def lm_fn(q, b):
+        return api.hidden_states(lm_cfg, q, b)
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        hs = lm_fn(lm, lb)
+    torch.cuda.synchronize()
+    states_ms = (time.perf_counter() - t0) * 1e3
+    check(hs.shape == (lm_batch, lm_seq, lm_cfg.d_model)
+          and hs.dtype == torch.bfloat16 and bool(torch.isfinite(hs).all()),
+          f"LM hidden states {tuple(hs.shape)} {hs.dtype}")
+    t0 = time.perf_counter()
+    lm_stats = elm_head.accumulate_stats(lm_fn, lm, lb, lm_classes)
+    lm_beta = elm_head.solve(lm_stats, lm_lam)
+    scores = elm_head.predict(lm_fn, lm, lm_beta, lb)
+    torch.cuda.synchronize()
+    lm_head_ms = (time.perf_counter() - t0) * 1e3
+    lm_launches = dict(kernels.LAUNCHES)
+    L = lm_cfg.num_layers
+    want = {"rmsnorm": 3 * (4 * L + 1), "swa_attention": 3 * L,
+            "elm_stats": 1, "conv2d": 0, "conv2d_dgrad": 0,
+            "conv2d_wgrad": 0}
+    check(lm_launches == want, f"LM head launches {lm_launches} != {want}")
+    check(bool(torch.isfinite(scores).all()) and scores.shape == (
+        lm_batch * lm_seq, lm_classes), "LM head scores")
+    lm_bar, lm_own = solve_bar(torch, lm_beta, f64_solve(
+        torch, lm_stats.u, lm_stats.v, lm_lam))
+    try:
+        elm_head.finetune_step(lm_fn, lm, lm_beta, lb, lm_classes, 1e-2)
+        refusal = None
+    except RuntimeError as e:
+        refusal = str(e)
+    check(refusal is not None and "no backward" in refusal,
+          f"finetune_step over the LM on the card did not refuse: "
+          f"{refusal!r}")
+    ha = optimal_tanh(hs.reshape(1, lm_batch * lm_seq, -1)).float()
+    ta = torch.nn.functional.one_hot(lb["targets"].reshape(1, -1),
+                                     lm_classes).float()
+    lm_rec = elm_stats_record(torch, rates, ha, ta, None, "LM head")
+    emit("kernel", name="elm_stats", case="lm_head",
+         vs_library=lm_rec["ms"] / lm_rec["library_ms"], **lm_rec)
+    del lm, hs, ha, lm_stats
+    torch.cuda.empty_cache()
+
+    # parity: full width, cut to parity_layers layers, f32, card vs CPU
+    pcfg = replace(get_config("qwen3_8b"), num_layers=parity_layers)
+    pgen = torch.Generator(device=dev).manual_seed(1)
+    card = api.init_params(pcfg, pgen, torch.float32, device=dev)
+    host = tree_map(lambda a: a.cpu(), card)
+    pb = {"tokens": torch.randint(0, pcfg.vocab_size, (lm_batch, lm_seq),
+                                  generator=pgen, device=dev),
+          "targets": torch.randint(0, lm_classes, (lm_batch, lm_seq),
+                                   generator=pgen, device=dev)}
+    pb_host = {k: v.cpu() for k, v in pb.items()}
+    with torch.no_grad():
+        hc = api.hidden_states(pcfg, card, pb)
+        hh = api.hidden_states(pcfg, host, pb_host)
+    h_err = float((hc.cpu() - hh).abs().max())
+    h_top = float(hh.abs().max())
+    check(h_err <= 1e-4 * h_top,
+          f"LM states card vs CPU {h_err} > 1e-4 * {h_top}")
+    # the head over the states just computed (any feature_fn)
+    bc = elm_head.solve(elm_head.accumulate_stats(
+        lambda q, b: hc, None, pb, lm_classes), lm_lam)
+    sh = elm_head.accumulate_stats(lambda q, b: hh, None, pb_host,
+                                   lm_classes)
+    bh = elm_head.solve(sh, lm_lam)
+    p_bar, p_own = solve_bar(torch, bh, f64_solve(torch, sh.u, sh.v,
+                                                  lm_lam))
+    p_d = float((bc.cpu() - bh).abs().max())
+    check(p_d <= p_bar, f"LM head beta card vs CPU {p_d} > {p_bar}")
+    del card, host, hc
+    torch.cuda.empty_cache()
+    emit("elm_head",
+         cnn=dict(images=len(x), batch=batch, head_s_host_clock=head_s,
+                  held_out_accuracy=cnn_acc, finetune_losses=losses,
+                  finetune_lr=ft_lr, finetune_s_host_clock=ft_s,
+                  launches=cnn_launches),
+         lm=dict(arch=lm_cfg.name, layers=L, dtype="bfloat16",
+                 batch=lm_batch, seq=lm_seq, classes=lm_classes, lam=lm_lam,
+                 hidden_states_ms_host_clock=states_ms,
+                 head_ms_host_clock=lm_head_ms, launches=lm_launches,
+                 max_abs_beta=float(lm_beta.abs().max()),
+                 f32_solve_err_beta=lm_own, finetune_refused=refusal),
+         lm_parity=dict(layers=parity_layers, dtype="float32",
+                        max_abs_dh=h_err, max_abs_h=h_top,
+                        bar_h=1e-4 * h_top, max_abs_dbeta=p_d,
+                        bar_beta=p_bar, f32_solve_err_beta=p_own,
+                        max_abs_beta=float(bh.abs().max())))
+    return lm_rec
+
+
+def phase_resume(torch, dev, m, sgd):
+    """Crash and resume on the card, on the ``map`` phase's shards at full
+    width with the ``sgd`` phase's settings: the stacked two-round run
+    crashed after round 0 by ``faults.crash_after`` (a torn round-1 file
+    then left beside it must be skipped) and resumed; the sequential run
+    crashed after member 1 and resumed; an elastic schedule with one
+    leave and one join at boundary 0, stacked and sequential, and its
+    stacked run crashed after round 0 and resumed. Each resumed run must
+    equal its uninterrupted one (the ``sgd`` phase's runs, or the elastic
+    run) under ``torch.equal``, and the stacked elastic run the
+    sequential one."""
+    import tempfile
+    from repro_torch import kernels
+    from repro_torch.checkpoint import run_state
+    from repro_torch.core import faults
+    from repro_torch.core.runner import (AveragingRun, ElasticEvent,
+                                         ElasticSchedule, MapConfig,
+                                         ReduceConfig)
+    from repro_torch.optim.schedules import dynamic_paper
+    from repro_torch.tree import tree_leaves
+
+    cfg, parts = m["cfg"], m["parts"]
+    kw = dict(init_params=m["init"], device=dev)
+
+    def make(backend, rounds, elastic=None):
+        return AveragingRun(cfg, MapConfig(
+            epochs=sgd["epochs"], lr_schedule=dynamic_paper(sgd["lr_c"]),
+            batch_size=m["batch"], backend=backend),
+            ReduceConfig(rounds=rounds, elastic=elastic))
+
+    def equal(a, b):
+        return all(torch.equal(x, y) for x, y in zip(
+            tree_leaves((a.cnn_params, a.beta)),
+            tree_leaves((b.cnn_params, b.beta))))
+
+    def runs_equal(a, b, names=None):
+        pairs = (zip(a.members, b.members) if names is None else
+                 ((a.members[n], b.members[n]) for n in names))
+        return all(equal(x, y) for x, y in pairs) and equal(a.averaged,
+                                                            b.averaged)
+
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        crashed = faults.run_to_crash(make("stacked", 2), parts, d,
+                                      unit="round", index=0, **kw)
+        crash_s = time.perf_counter() - t0
+        faults.inject_torn_save(d, run_state.ROUND, 1, crash=False)
+        check(crashed and run_state.latest_round(d) == 1
+              and run_state.latest_ready_round(d) == 0,
+              "stacked crash: round 0 saved, the torn round 1 skipped")
+        t0 = time.perf_counter()
+        res = make("stacked", 2).resume(parts, d, **kw)
+        resume_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        check(res.resumed and [r.round for r in res.rounds] == [1]
+              and run_state.latest_ready_round(d) == 1,
+              "stacked resume ran round 1 over the torn file")
+        check(runs_equal(sgd["rounds2"], res),
+              "stacked resume differs from the uninterrupted run")
+        check(all(launches[n] > 0 for n in ("conv2d", "conv2d_dgrad",
+                                            "conv2d_wgrad", "elm_stats")),
+              f"stacked crash/resume launches {launches}")
+        out["stacked"] = dict(rounds=2, crashed_after="round 0",
+                              crash_s=crash_s, resume_s=resume_s,
+                              torn_round_skipped=True, bitwise=True,
+                              launches=launches)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        crashed = faults.run_to_crash(make("sequential", 1), parts, d,
+                                      unit="member", index=1, **kw)
+        crash_s = time.perf_counter() - t0
+        check(crashed and run_state.completed_members(d) == [0, 1],
+              "sequential crash after member 1")
+        t0 = time.perf_counter()
+        res = make("sequential", 1).resume(parts, d, **kw)
+        resume_s = time.perf_counter() - t0
+        check(res.resumed and runs_equal(sgd["seq"], res),
+              "sequential resume differs from the uninterrupted run")
+        out["sequential"] = dict(crashed_after="member 1", crash_s=crash_s,
+                                 resume_s=resume_s, bitwise=True)
+    sched = ElasticSchedule((ElasticEvent(after_round=0, leave=("m3",),
+                                          join=(parts[3],)),))
+    t0 = time.perf_counter()
+    ela = make("stacked", 2, sched).run(parts, **kw)
+    ela_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ela_seq = make("sequential", 2, sched).run(parts, **kw)
+    ela_seq_s = time.perf_counter() - t0
+    names = ["m0", "m1", "m2", "m4"]
+    check(sorted(ela.members) == sorted(ela_seq.members) == names,
+          f"elastic members {sorted(ela.members)}")
+    check(runs_equal(ela, ela_seq, names),
+          "elastic stacked differs from elastic sequential")
+    with tempfile.TemporaryDirectory() as d:
+        crashed, res = faults.run_crash_resume(make("stacked", 2, sched),
+                                               parts, d, unit="round",
+                                               index=0, **kw)
+        check(crashed and res.resumed and runs_equal(ela, res, names),
+              "elastic resume differs from the uninterrupted run")
+    out["elastic"] = dict(schedule="m3 leaves and a joiner (m4) enters at "
+                          "boundary 0", members=names, stacked_s=ela_s,
+                          sequential_s=ela_seq_s,
+                          stacked_equals_sequential=True,
+                          resume_bitwise=True)
+    emit("resume", **out)
 
 
 def phase_lm_parity(torch, dev, batch=2, prompt=16, steps=4):
@@ -1007,6 +1469,9 @@ def main():
     sgd = phase_sgd(torch, dev, m)
     phase_serve(torch, m)
     phase_profile(torch, m)
+    phase_e2lm(torch, dev, rates, m)
+    phase_elm_head(torch, dev, rates, m)
+    phase_resume(torch, dev, m, sgd)
     phase_lm_parity(torch, dev)
     lm_launches = phase_lm(torch, dev)
 

@@ -59,6 +59,8 @@ def batch_stats(h, t, *, activation: bool = True, mask=None) -> ELMStats:
     is how the padded stacked Map phase cancels padding batches."""
     if activation:
         h = optimal_tanh(h)
+    # the reference rounds the activation to h's dtype, then sums in f32
+    h, t = h.float(), t.float()
     rows = h.shape[:-1]
     if mask is None:
         u, v = stats_ops.elm_stats(h, t)

@@ -25,8 +25,15 @@ members, whose ``val_errors()`` scores the held-out ``plan.validation``
 with the member-batched scoring pass (argmax on the device, the error
 rates on the host in f64).
 
-The mesh backend, checkpoints and resume, elastic membership and per-member
-inits come with later slices of the port.
+Fault tolerance (``plan.checkpoint``, ``checkpoint.run_state``): the
+stacked backend saves per round, with the post-sync params on non-final
+rounds, and resumes at ``plan.start_round`` from them; the sequential
+backend saves per member and skips the ``plan.completed`` ones. Each
+member stream is ``default_rng(member seed)`` fast-forwarded by the epochs
+already consumed, so a continuation draws the batch orders the
+uninterrupted run drew.
+
+The mesh backend comes with the multi-device slice of the port.
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint import run_state
 from repro_torch.core import elm
 from repro_torch.core.averaging import (average_member_dim,
                                         broadcast_member_dim,
@@ -58,6 +66,25 @@ _VAL_BATCH = 512       # validation slices score in bounded device batches
 
 
 @dataclass(frozen=True)
+class CheckpointConfig:
+    """Per-round checkpoint policy (``checkpoint.run_state`` files).
+
+    ``dir`` — where the atomic ``round-<r>.npz`` (and, on the sequential
+    backend, ``member-<i>.npz``) files land. ``every`` — save round r when
+    ``(r + 1) % every == 0``; the final round always saves. ``after_save``
+    — a hook ``(unit, index, path)`` called the moment a checkpoint is
+    renamed into place (``unit`` is ``"round"`` or ``"member"``);
+    ``core.faults`` raises from it to stand in for a preemption."""
+    dir: str
+    every: int = 1
+    after_save: Optional[Callable] = None
+
+    def __post_init__(self):
+        if self.every < 1:
+            raise ValueError(f"every must be >= 1, got {self.every}")
+
+
+@dataclass(frozen=True)
 class ExecutionPlan:
     """Everything one Map/Reduce execution needs.
 
@@ -70,6 +97,17 @@ class ExecutionPlan:
     members; ``validation`` is the (x, y) slice ``val_errors()`` scores),
     ``gossip_rounds`` (the ring-mixing combine in every sync and Reduce),
     and the device — the card unless the caller asks for ``"cpu"``.
+
+    Fault tolerance: ``checkpoint`` turns on per-round (stacked) or
+    per-member (sequential) saves; ``start_round`` resumes a stacked run
+    at that round (``init_params`` are then the restored post-sync params,
+    and the skipped rounds' permutation draws are burned); ``completed``
+    hands the sequential backend trained members ``{i: (model, stats)}``
+    to skip. ``member_seeds`` replaces the ``seed + i`` rule,
+    ``start_epochs`` fast-forwards each member's stream by that many
+    permutation draws (the elastic runner's stream continuation), and
+    ``member_init`` gives each member its own initial params (a k-list of
+    trees) in place of the shared ``init_params``.
 
     ``on_round(r, snapshot, averaged)`` fires after each round's epochs and
     its sync with two lazy, cached zero-arg closures: ``snapshot()`` → the
@@ -87,6 +125,12 @@ class ExecutionPlan:
     validation: Optional[tuple] = None      # (x, y) held-out slice
     gossip_rounds: Optional[int] = None
     device: Union[str, torch.device] = "cuda"
+    checkpoint: Optional[CheckpointConfig] = None
+    start_round: int = 0
+    completed: Optional[dict] = None
+    member_seeds: Optional[Sequence[int]] = None
+    start_epochs: Optional[Sequence[int]] = None
+    member_init: Optional[Sequence] = None
 
 
 @dataclass
@@ -106,6 +150,56 @@ def _on_device(init_params, plan: ExecutionPlan):
     """(the plan's device, ``init_params`` as f32 on it)."""
     dev = resolve_device(plan.device)
     return dev, tree_map(lambda a: a.to(dev, torch.float32), init_params)
+
+
+def _member_seeds(plan: ExecutionPlan, k: int) -> List[int]:
+    if plan.member_seeds is None:
+        return [plan.seed + i for i in range(k)]
+    seeds = list(plan.member_seeds)
+    if len(seeds) != k:
+        raise ValueError(f"{len(seeds)} member_seeds for {k} partitions")
+    return seeds
+
+
+def _member_inits(plan: ExecutionPlan, k: int) -> Optional[List]:
+    """Validated per-member init trees, or None for the shared init."""
+    if plan.member_init is None:
+        return None
+    inits = list(plan.member_init)
+    if len(inits) != k:
+        raise ValueError(f"{len(inits)} member_init trees for "
+                         f"{k} partitions")
+    return inits
+
+
+def _stream_burns(plan: ExecutionPlan, k: int, per_round: int) -> List[int]:
+    """Permutation draws to fast-forward each member stream by before its
+    first epoch: the explicit per-member ``start_epochs`` (elastic
+    continuation), else the skipped ``start_round`` rounds (resume)."""
+    if plan.start_epochs is None:
+        return [plan.start_round * per_round] * k
+    burns = list(plan.start_epochs)
+    if len(burns) != k:
+        raise ValueError(f"{len(burns)} start_epochs for {k} partitions")
+    return burns
+
+
+def _member_streams(plan: ExecutionPlan, partitions, per_round: int):
+    """One live ``default_rng`` per member, each fast-forwarded by the
+    permutations its earlier epochs drew (one per epoch)."""
+    k = len(partitions)
+    rngs = [np.random.default_rng(s) for s in _member_seeds(plan, k)]
+    for rng, p, burn in zip(rngs, partitions,
+                            _stream_burns(plan, k, per_round)):
+        for _ in range(burn):
+            rng.permutation(len(p.x))
+    return rngs
+
+
+def _fingerprint(name: str, partitions, plan: ExecutionPlan) -> dict:
+    return run_state.run_fingerprint(
+        name, partitions, seed=plan.seed, epochs=plan.epochs,
+        rounds=plan.rounds, batch_size=plan.batch_size)
 
 
 def make_executor(backend: str):
@@ -180,25 +274,53 @@ class SequentialExecutor:
             raise ValueError(
                 "rounds > 1 needs the stacked layout — the sequential "
                 "reference has no sync point between members")
+        if plan.start_round:
+            raise ValueError(
+                "start_round resume is the stacked layout's contract; the "
+                "sequential backend resumes from plan.completed member "
+                "checkpoints")
         if plan.gossip_rounds is not None:
             raise ValueError(
                 "the gossip combine mixes a member ring — the sequential "
                 "reference has no stacked member dim to mix over; use "
                 "backend='stacked'")
-        _, init_params = _on_device(init_params, plan)
+        dev, init_params = _on_device(init_params, plan)
+        k = len(partitions)
+        rngs = _member_streams(plan, partitions, 0)
+        inits = _member_inits(plan, k)
+        ck = plan.checkpoint
+        done = dict(plan.completed or {})
+        meta = _fingerprint(self.name, partitions, plan)
         members, stats = [], []
         for i, p in enumerate(partitions):
-            model, s = train_member(cfg, init_params, p, epochs=plan.epochs,
-                                    lr_schedule=plan.lr_schedule,
-                                    batch_size=plan.batch_size,
-                                    seed=plan.seed + i, return_stats=True)
+            if i in done:
+                model, s = done[i]
+            else:
+                init = (init_params if inits is None
+                        else _on_device(inits[i], plan)[1])
+                model, s = train_member(
+                    cfg, init, p, epochs=plan.epochs,
+                    lr_schedule=plan.lr_schedule, batch_size=plan.batch_size,
+                    seed=rngs[i], return_stats=True)
+                if ck is not None:
+                    path = run_state.save_member(ck.dir, i, model, s,
+                                                 {**meta, "member": i})
+                    if ck.after_save is not None:
+                        ck.after_save("member", i, path)
             members.append(model)
             stats.append(s)
-        stats_k = elm.ELMStats(*(torch.stack(a) for a in zip(*stats)))
+        stats_k = run_state.stack_stats(stats)
         sm = stack_models(members)
         averaged, _ = _round_closures(
             cfg, plan, 0, lambda: sm,
             lambda w: average_models(members, w))
+        if ck is not None:
+            path = run_state.save_round(
+                ck.dir, 0, members=sm, stats=stats_k, averaged=averaged(),
+                meta={**meta, "round": 0, "epochs_done": plan.epochs,
+                      "final": True})
+            if ck.after_save is not None:
+                ck.after_save("round", 0, path)
         if plan.on_round is not None:
             plan.on_round(0, lambda: sm, averaged)
         return MapOutcome(members, sm, averaged(), stats_k)
@@ -229,19 +351,42 @@ class StackedExecutor:
         if plan.gossip_rounds is not None and plan.gossip_rounds < 1:
             raise ValueError(f"gossip_rounds must be >= 1, "
                              f"got {plan.gossip_rounds}")
+        if plan.gossip_rounds is not None and plan.checkpoint is not None:
+            raise ValueError(
+                "gossip syncs leave each member on its OWN consensus "
+                "iterate; the per-round checkpoint/resume contract assumes "
+                "one shared post-sync row — run gossip without "
+                "checkpointing")
         if plan.epochs > 0 and plan.lr_schedule is None:
             raise ValueError("epochs > 0 needs an lr_schedule")
+        if plan.start_round and not 0 < plan.start_round < plan.rounds:
+            raise ValueError(
+                f"start_round {plan.start_round} outside this plan's "
+                f"resumable rounds (1..{plan.rounds - 1}); a finished run "
+                f"resumes from its final checkpoint, not through execute")
+        if plan.completed:
+            raise ValueError("plan.completed is the sequential backend's "
+                             "resume contract; the stacked layout resumes "
+                             "via start_round")
         k = len(partitions)
         dev, init_params = _on_device(init_params, plan)
         per_round = plan.epochs // plan.rounds
         # one live stream per member: each epoch draws its next permutation
-        rngs = [np.random.default_rng(plan.seed + i) for i in range(k)]
-        params_k = broadcast_member_dim(init_params, k)
+        rngs = _member_streams(plan, partitions, per_round)
+        inits = _member_inits(plan, k)
+        params_k = (broadcast_member_dim(init_params, k) if inits is None
+                    else tree_map(lambda *xs: torch.stack(xs),
+                                  *[_on_device(t, plan)[1] for t in inits]))
         round_rates = [[None]] if plan.epochs == 0 else [
             [float(plan.lr_schedule(r * per_round + e))
              for e in range(per_round)] for r in range(plan.rounds)]
+        ck = plan.checkpoint
+        meta = _fingerprint(self.name, partitions, plan)
         syncs = 0
         for r, rates in enumerate(round_rates):
+            if r < plan.start_round:
+                continue        # done before the resume point; its draws
+                                # were burned above
             for lr in rates:
                 params_k, stats_k = self._epoch(cfg, params_k, partitions,
                                                 plan, rngs, dev, lr)
@@ -253,6 +398,19 @@ class StackedExecutor:
             else:
                 params_k = self._sync(params_k, weights(), plan.gossip_rounds)
                 syncs += 1
+            if ck is not None and (last or (r + 1) % ck.every == 0):
+                # the sync broadcast one row into every member slot: row 0
+                # of the post-sync params is the resume point
+                path = run_state.save_round(
+                    ck.dir, r, members=snapshot(), stats=stats_k,
+                    averaged=averaged(),
+                    resume_params=(None if last else
+                                   tree_map(lambda a: a[0], params_k)),
+                    meta={**meta, "round": r,
+                          "epochs_done": (r + 1) * per_round,
+                          "final": last})
+                if ck.after_save is not None:
+                    ck.after_save("round", r, path)
             if plan.on_round is not None:
                 plan.on_round(r, snapshot, averaged)
         return MapOutcome(sm.unstack(), sm, averaged(), stats_k, syncs)

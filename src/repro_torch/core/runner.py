@@ -9,12 +9,16 @@ The port's counterpart of ``repro.core.runner``.
 * ``ReduceConfig`` — the Reduce strategy (``uniform``, ``shard_weighted``,
                      explicit weights, ``boosted`` with a held-out
                      ``validation`` slice, ``gossip``;
-                     ``core.reduce_strategies``) and ``rounds``: ``r > 1``
+                     ``core.reduce_strategies``), ``rounds``: ``r > 1``
                      splits the epochs into r blocks with a sync between
-                     blocks, the parallel-SGD regime (stacked only).
+                     blocks, the parallel-SGD regime (stacked only), and
+                     ``elastic``: an ``ElasticSchedule`` of joins and leaves
+                     at round boundaries.
 * ``AveragingRun`` — binds a model config to the two phase configs;
                      ``.run(partitions, ...)`` returns a ``RunResult`` with
-                     one ``RoundRecord`` per round.
+                     one ``RoundRecord`` per round (an ``ElasticRunResult``
+                     under an elastic schedule); ``.resume(partitions,
+                     ckpt_dir, ...)`` continues a checkpointed run.
 * ``Ensemble``     — the k members behind one batched scoring surface:
                      every eval slice is one member-batched pass.
 
@@ -22,28 +26,40 @@ Seed rule (shared by both backends): member ``i`` draws its batch
 permutations from ``np.random.default_rng(MapConfig.seed + i)``; epoch e's
 batch order is that stream's (e+1)-th permutation.
 
-The mesh backend, checkpoints and resume, ``sync="drift"`` (the streaming
-policy) and elastic membership come with later slices and raise
-``NotImplementedError`` here.
+Fault tolerance: ``CheckpointConfig`` turns on atomic per-round (stacked)
+or per-member (sequential) checkpoints (``checkpoint.run_state``), and
+``AveragingRun.resume`` continues a killed run bit for bit as the
+uninterrupted one. Under ``ReduceConfig.elastic`` members join at a round
+boundary from that boundary's average and leave with their weighted
+contribution kept in every later average (``core.elastic.ElasticGroup``),
+each round one executor block over the current members.
+``core.faults`` injects crashes and torn saves.
+
+The mesh backend and ``sync="drift"`` (the streaming policy) come with
+later slices and raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Sequence, Union
+from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
 
 from repro_torch import kernels, resolve_device
-from repro_torch.core import elm, reduce_strategies
+from repro_torch.checkpoint import run_state
+from repro_torch.core import elastic, elm, reduce_strategies
 from repro_torch.core.cnn_elm import (CNNELMModel, StackedMembers,
                                       scores_stacked, stack_models)
-from repro_torch.core.executor import (BACKENDS, MESH_SLICE, ExecutionPlan,
+from repro_torch.core.executor import (BACKENDS, MESH_SLICE,
+                                       CheckpointConfig, ExecutionPlan,
                                        make_executor)
 from repro_torch.core.reduce_strategies import ReduceContext, ReduceStrategy
 from repro_torch.data.partition import Partition
 from repro_torch.models import cnn
+from repro_torch.tree import tree_map
 
 COMBINES = ("mean", "vote")
 SYNCS = ("rounds", "drift")
@@ -86,6 +102,56 @@ class MapConfig:
 
 
 @dataclass(frozen=True)
+class ElasticEvent:
+    """One membership change, applied at the boundary after round
+    ``after_round``'s sync: ``leave`` names depart first (their final params
+    and stats stay in the group as a retired weighted contribution), then
+    the boundary average is taken, then each ``join`` partition enters as a
+    new member starting from exactly that average."""
+    after_round: int
+    join: Tuple[Partition, ...] = ()
+    leave: Tuple[str, ...] = ()
+
+    def __post_init__(self):
+        if self.after_round < 0:
+            raise ValueError(f"after_round must be >= 0, "
+                             f"got {self.after_round}")
+        if not (self.join or self.leave):
+            raise ValueError("an ElasticEvent needs at least one join "
+                             "partition or leave name")
+
+
+@dataclass(frozen=True)
+class ElasticSchedule:
+    """The membership timeline of an elastic run: ``ElasticEvent``s in any
+    order (events at one boundary merge). Members are named ``m<id>`` in
+    join order — the initial k partitions are ``m0..m<k-1>`` and every
+    joiner takes the next id, which also pins its rng stream
+    (``MapConfig.seed + id``), so churn never reshuffles anyone's data."""
+    events: Tuple[ElasticEvent, ...] = ()
+
+    def __post_init__(self):
+        for ev in self.events:
+            if not isinstance(ev, ElasticEvent):
+                raise ValueError(f"events must be ElasticEvent, got "
+                                 f"{type(ev).__name__}")
+
+    def at(self, boundary: int) -> Tuple[List[Partition], List[str]]:
+        """(joins, leaves) at the boundary after round ``boundary``."""
+        joins: List[Partition] = []
+        leaves: List[str] = []
+        for ev in self.events:
+            if ev.after_round == boundary:
+                joins.extend(ev.join)
+                leaves.extend(ev.leave)
+        return joins, leaves
+
+    @property
+    def last_boundary(self) -> int:
+        return max((ev.after_round for ev in self.events), default=-1)
+
+
+@dataclass(frozen=True)
 class ReduceConfig:
     """Reduce-phase configuration (Alg. 2 lines 18-20).
 
@@ -97,12 +163,17 @@ class ReduceConfig:
     every member on after each round; required by such strategies and
     refused by the others. ``rounds`` — how many averaging events the
     epochs split into (``1``: the paper's single final average).
-    ``sync="drift"`` and ``elastic`` come with later slices."""
+    ``elastic`` — an ``ElasticSchedule`` of joins and leaves at round
+    boundaries; the averaging weights are then cumulative work
+    (``uniform``: rounds survived, ``shard_weighted``: rows processed,
+    ``boosted``: validation-quality alphas per block), so strategies
+    without ``elastic_ok`` (explicit weights, gossip) are refused; it needs
+    ``rounds >= 2``. ``sync="drift"`` comes with the streaming slice."""
     strategy: Union[str, Sequence[float], ReduceStrategy] = "uniform"
     rounds: int = 1
     validation: Optional[Partition] = None
     sync: str = "rounds"
-    elastic: Any = None
+    elastic: Optional[ElasticSchedule] = None
 
     def __post_init__(self):
         strat = reduce_strategies.resolve(self.strategy, _warn_stacklevel=4)
@@ -114,10 +185,6 @@ class ReduceConfig:
             raise NotImplementedError(
                 "sync='drift' is the streaming policy; it comes with the "
                 "streaming slice of the port")
-        if self.elastic is not None:
-            raise NotImplementedError(
-                "elastic membership comes with the fault-tolerance slice "
-                "of the port")
         if self.rounds < 1:
             raise ValueError(f"rounds must be >= 1, got {self.rounds}")
         if strat.requires_validation and self.validation is None:
@@ -130,6 +197,29 @@ class ReduceConfig:
                 f"strategy {strat.name!r} does not score a validation "
                 f"slice — drop ReduceConfig.validation (it would be "
                 f"silently ignored)")
+        if self.elastic is not None:
+            if not isinstance(self.elastic, ElasticSchedule):
+                raise ValueError("elastic must be an ElasticSchedule")
+            if not strat.elastic_ok:
+                if strat.name == "explicit":
+                    raise ValueError(
+                        "explicit weight sequences cannot follow membership "
+                        "changes — use 'uniform', 'shard_weighted' or "
+                        "'boosted' with an elastic schedule")
+                raise ValueError(
+                    f"strategy {strat.name!r} does not extend to "
+                    f"membership churn (elastic_ok=False) — use "
+                    f"'uniform', 'shard_weighted' or 'boosted' with an "
+                    f"elastic schedule")
+            if self.rounds < 2:
+                raise ValueError("an elastic schedule needs rounds >= 2 — "
+                                 "events apply between rounds")
+            if self.elastic.last_boundary > self.rounds - 2:
+                raise ValueError(
+                    f"elastic event after round "
+                    f"{self.elastic.last_boundary} has no following round "
+                    f"(rounds={self.rounds}; boundaries are "
+                    f"0..{self.rounds - 2})")
 
     @property
     def strategy_obj(self) -> ReduceStrategy:
@@ -165,7 +255,8 @@ class RunResult:
     """Everything a Map/Reduce run produced: the k members (also stacked),
     the averaged model, the member-stacked ``ELMStats`` every β was solved
     from (the final epoch's), on the run's device; one ``RoundRecord`` per
-    round and the number of inter-round syncs."""
+    round run, the number of inter-round syncs, and whether the run was
+    rebuilt or continued from a checkpoint."""
     cfg: Any
     members: List[CNNELMModel]
     averaged: CNNELMModel
@@ -176,6 +267,7 @@ class RunResult:
     device: torch.device
     rounds: List[RoundRecord] = field(default_factory=list)
     round_syncs: int = 0
+    resumed: bool = False
 
     def ensemble(self, combine: str = "mean") -> "Ensemble":
         """The k members as a batched scoring surface on the run's device."""
@@ -184,10 +276,71 @@ class RunResult:
 
 
 @dataclass
+class ElasticRoundRecord:
+    """One round of an elastic run: who was in it, who changed at its
+    boundary, its wall time and kernel launches, and the round_hook result
+    (hooks see the boundary average — leavers' contributions in, joiners
+    not yet trained)."""
+    round: int
+    members: List[str]
+    joined: List[str]
+    left: List[str]
+    wall_time_s: float
+    launches: Dict[str, int]
+    hook: Any = None
+
+
+@dataclass
+class ElasticRunResult:
+    """An elastic run's output: the surviving ``members`` by name; the
+    ``averaged`` model, the ``ElasticGroup`` Reduce over the survivors'
+    final models and every retired member's weighted contribution; the
+    ``group`` itself (retired params and stats, cumulative weights), e.g.
+    for ``group.solve_head(lam)``, the E²LM readout over every member's
+    recorded stats."""
+    cfg: Any
+    members: Dict[str, CNNELMModel]
+    averaged: CNNELMModel
+    group: elastic.ElasticGroup
+    rounds: List[ElasticRoundRecord]
+    wall_time_s: float
+    backend: str
+    device: torch.device
+    resumed: bool = False
+
+    def ensemble(self, combine: str = "mean") -> "Ensemble":
+        """The surviving members as a batched scoring surface."""
+        return Ensemble.from_models(self.cfg, list(self.members.values()),
+                                    combine=combine, device=self.device)
+
+
+class _RoundClock:
+    """Wall time (host clock to a synchronise) and kernel launches since the
+    last ``tick``."""
+
+    def __init__(self, dev: torch.device):
+        self.dev = dev
+        self.t = time.perf_counter()
+        self.launches = dict(kernels.LAUNCHES)
+
+    def tick(self):
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+        now = time.perf_counter()
+        launches = {name: n - self.launches[name]
+                    for name, n in kernels.LAUNCHES.items()}
+        wall = now - self.t
+        self.t, self.launches = now, dict(kernels.LAUNCHES)
+        return wall, launches
+
+
+@dataclass
 class AveragingRun:
     """One distributed-averaging experiment: model config + Map config +
     Reduce config. ``run`` executes Algorithm 2: init once, Map every
-    shard, Reduce by averaging — ``rounds`` times."""
+    shard, Reduce by averaging — ``rounds`` times (with
+    ``ReduceConfig.elastic``, membership changes between rounds).
+    ``resume`` continues a checkpointed run bit for bit."""
     cfg: Any
     map_cfg: MapConfig = field(default_factory=MapConfig)
     reduce_cfg: ReduceConfig = field(default_factory=ReduceConfig)
@@ -195,8 +348,8 @@ class AveragingRun:
     def run(self, partitions: Sequence[Partition], *,
             generator: Optional[torch.Generator] = None,
             init_params=None, device="cuda",
-            round_hook: Optional[Callable[[int, CNNELMModel], Any]] = None
-            ) -> RunResult:
+            round_hook: Optional[Callable[[int, CNNELMModel], Any]] = None,
+            checkpoint: Optional[CheckpointConfig] = None):
         """Run on ``device`` (default the card). The members start from
         ``init_params`` (a parameter tree, e.g. the reference's init through
         ``convert.params_from_numpy``; moved to ``device``) or, without one,
@@ -205,13 +358,100 @@ class AveragingRun:
         ``round_hook(r, averaged)`` (optional) runs after every round's
         Reduce with that round's averaged model — the model the members
         were reset to; its return value lands in ``RunResult.rounds[r]``.
-        Rounds without a hook skip their β solve and Reduce."""
+        Rounds without a hook or a checkpoint skip their β solve and
+        Reduce. ``checkpoint`` turns on atomic per-round (stacked) or
+        per-member (sequential) checkpoints. Under
+        ``ReduceConfig.elastic`` the result is an ``ElasticRunResult``."""
         dev = resolve_device(device)
-        if init_params is None:
-            if generator is None:
-                raise ValueError("pass generator= (a seeded torch.Generator) "
-                                 "or init_params=")
-            init_params = cnn.init_params(self.cfg, generator, dev)
+        if checkpoint is not None and \
+                not isinstance(checkpoint, CheckpointConfig):
+            raise ValueError("checkpoint must be a CheckpointConfig")
+        init = self._init(generator, init_params, dev)
+        if self.reduce_cfg.elastic is not None:
+            return self._run_elastic(partitions, dev, round_hook, init=init,
+                                     checkpoint=checkpoint)
+        return self._run(partitions, dev, init, round_hook=round_hook,
+                         checkpoint=checkpoint)
+
+    def resume(self, partitions: Sequence[Partition], ckpt_dir: str, *,
+               generator: Optional[torch.Generator] = None,
+               init_params=None, device="cuda",
+               round_hook: Optional[Callable] = None, every: int = 1):
+        """Continue a checkpointed run from ``ckpt_dir``, bit for bit as the
+        uninterrupted run. Pass the same partitions the original run got
+        (the checkpoint's fingerprint refuses others) and, for a sequential
+        run with members still to train, its ``generator`` or
+        ``init_params``; the stacked and elastic layouts restart from the
+        saved post-sync params and ignore them. A finished run's final
+        checkpoint rebuilds the result without recomputation; otherwise the
+        remaining rounds (stacked, elastic) or members (sequential) run,
+        checkpointing into the same directory every ``every`` rounds (pass
+        the original cadence), and ``rounds`` lists only those."""
+        dev = resolve_device(device)
+        m, rc = self.map_cfg, self.reduce_cfg
+        if rc.elastic is not None:
+            return self._resume_elastic(partitions, ckpt_dir, dev,
+                                        round_hook, every)
+        expected = self._fingerprint(partitions)
+        # the newest readable round: a torn round-<r>.npz never completed,
+        # and the re-run of that round overwrites it
+        latest = run_state.latest_ready_round(ckpt_dir)
+        if latest is not None:
+            state = run_state.restore_round(ckpt_dir, latest, dev)
+            run_state.check_fingerprint(state.meta, expected)
+            if state.final:
+                # the run completed: its checkpoint is the result. A hook
+                # sees the restored final round; earlier rounds stay silent
+                records: List[RoundRecord] = []
+                if round_hook is not None:
+                    per_round = m.epochs // rc.rounds
+                    records.append(RoundRecord(
+                        state.round, state.round * per_round,
+                        (state.round + 1) * per_round if m.epochs else 0,
+                        0.0, {name: 0 for name in kernels.LAUNCHES},
+                        round_hook(state.round, state.averaged)))
+                return RunResult(self.cfg, state.members.unstack(),
+                                 state.averaged, state.members, state.stats,
+                                 0.0, m.backend, dev, records, resumed=True)
+            return self._run(
+                partitions, dev, state.resume_params, round_hook=round_hook,
+                checkpoint=CheckpointConfig(dir=ckpt_dir, every=every),
+                start_round=state.round + 1, resumed=True)
+        if m.backend == "sequential":
+            done = {}
+            for i in run_state.completed_members(ckpt_dir):
+                model, stats, meta = run_state.restore_member(ckpt_dir, i,
+                                                              dev)
+                run_state.check_fingerprint(meta, expected)
+                done[i] = (model, stats)
+            if done:
+                return self._run(
+                    partitions, dev,
+                    self._init(generator, init_params, dev),
+                    round_hook=round_hook,
+                    checkpoint=CheckpointConfig(dir=ckpt_dir, every=every),
+                    completed=done, resumed=True)
+        raise FileNotFoundError(f"no resumable checkpoint in {ckpt_dir}")
+
+    def _init(self, generator, init_params, dev):
+        if init_params is not None:
+            return init_params
+        if generator is None:
+            raise ValueError("pass generator= (a seeded torch.Generator) "
+                             "or init_params=")
+        return cnn.init_params(self.cfg, generator, dev)
+
+    def _fingerprint(self, partitions) -> dict:
+        m, rc = self.map_cfg, self.reduce_cfg
+        return run_state.run_fingerprint(
+            m.backend, partitions, seed=m.seed, epochs=m.epochs,
+            rounds=rc.rounds, batch_size=m.batch_size)
+
+    def _run(self, partitions: Sequence[Partition], dev, init_params, *,
+             round_hook: Optional[Callable] = None,
+             checkpoint: Optional[CheckpointConfig] = None,
+             start_round: int = 0, completed: Optional[dict] = None,
+             resumed: bool = False) -> RunResult:
         m, rc = self.map_cfg, self.reduce_cfg
         if rc.rounds > 1 and m.backend == "sequential":
             raise ValueError("rounds > 1 requires MapConfig(backend="
@@ -232,19 +472,14 @@ class AveragingRun:
         records: List[RoundRecord] = []
         per_round = m.epochs // rc.rounds
         t0 = time.perf_counter()
-        state = {"t": t0, "launches": dict(kernels.LAUNCHES)}
+        clock = _RoundClock(dev)
 
         def on_round(r: int, snapshot, averaged):
             hooked = None if round_hook is None else round_hook(r, averaged())
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            now = time.perf_counter()
-            launches = {name: n - state["launches"][name]
-                        for name, n in kernels.LAUNCHES.items()}
+            wall, launches = clock.tick()
             records.append(RoundRecord(
                 r, r * per_round, (r + 1) * per_round if m.epochs else 0,
-                now - state["t"], launches, hooked))
-            state["t"], state["launches"] = now, dict(kernels.LAUNCHES)
+                wall, launches, hooked))
 
         plan = ExecutionPlan(
             epochs=m.epochs, lr_schedule=m.lr_schedule,
@@ -255,14 +490,202 @@ class AveragingRun:
                         else (rc.validation.x, rc.validation.y)),
             gossip_rounds=(strat.rounds if strat.combine == "gossip"
                            else None),
-            device=dev)
+            device=dev, checkpoint=checkpoint, start_round=start_round,
+            completed=completed)
         out = make_executor(m.backend).execute(self.cfg, init_params,
                                                partitions, plan)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         return RunResult(self.cfg, out.members, out.averaged, out.stacked,
                          out.stats, time.perf_counter() - t0, m.backend, dev,
-                         records, out.round_syncs)
+                         records, out.round_syncs, resumed=resumed)
+
+    def _resume_elastic(self, partitions, ckpt_dir: str, dev, round_hook,
+                        every: int) -> ElasticRunResult:
+        """Continue a checkpointed elastic run, bit for bit as the
+        uninterrupted one. The checkpoint holds the whole post-boundary
+        ``ElasticGroup`` and the membership maps; joiners' partitions are
+        not saved but found again by replaying the caller's
+        ``ElasticSchedule``."""
+        expected = {**self._fingerprint(partitions), "mode": "elastic"}
+        latest = run_state.latest_ready_elastic_round(ckpt_dir)
+        if latest is None:
+            raise FileNotFoundError(
+                f"no resumable elastic checkpoint in {ckpt_dir}")
+        state = run_state.restore_elastic_round(ckpt_dir, latest, dev)
+        run_state.check_fingerprint(state.meta, expected)
+        if state.final:
+            # finished before the kill: the group is the result
+            group = state.group
+            boundary_model = CNNELMModel(*group.reduce_params())
+            members = {n: CNNELMModel(*group.members[n].params)
+                       for n in state.living}
+            records: List[ElasticRoundRecord] = []
+            if round_hook is not None:
+                records.append(ElasticRoundRecord(
+                    state.round, state.living, [], [], 0.0,
+                    {name: 0 for name in kernels.LAUNCHES},
+                    round_hook(state.round, boundary_model)))
+            return ElasticRunResult(self.cfg, members, boundary_model, group,
+                                    records, 0.0, self.map_cfg.backend, dev,
+                                    resumed=True)
+        return self._run_elastic(
+            partitions, dev, round_hook,
+            checkpoint=CheckpointConfig(dir=ckpt_dir, every=every),
+            restored=state, resumed=True)
+
+    def _run_elastic(self, partitions: Sequence[Partition], dev,
+                     round_hook: Optional[Callable], *, init=None,
+                     checkpoint: Optional[CheckpointConfig] = None,
+                     restored: Optional[run_state.ElasticRoundState] = None,
+                     resumed: bool = False) -> ElasticRunResult:
+        """The rounds contract under membership churn: each round is one
+        executor block over the current members, and every boundary an
+        ``ElasticGroup`` event — record each member's block output with its
+        round weight, retire the leavers, ``sync()`` everyone to the
+        boundary average, admit the joiners from exactly that average.
+        Member ``m<id>`` draws from ``default_rng(MapConfig.seed + id)``,
+        fast-forwarded by the epochs it has consumed, and every block sees
+        the global epoch's learning rate: a member's data order and rates
+        are the same whoever else churned."""
+        m, rc = self.map_cfg, self.reduce_cfg
+        sched = rc.elastic
+        if m.epochs <= 0:
+            raise ValueError("elastic membership needs SGD epochs "
+                             "(epochs > 0) to split into rounds")
+        if m.epochs % rc.rounds:
+            raise ValueError(f"epochs ({m.epochs}) must split evenly into "
+                             f"rounds ({rc.rounds})")
+        per_round = m.epochs // rc.rounds
+        executor = make_executor(m.backend)
+        t0 = time.perf_counter()
+        strat = rc.strategy_obj
+
+        def block_weights(names, outcome) -> List[float]:
+            """Each member's weight for this round block — the increment of
+            its cumulative ``ElasticGroup`` mass."""
+            rows = tuple(len(living[n].x) for n in names)
+            if strat.requires_validation:
+                errs = 1.0 - Ensemble.from_models(
+                    self.cfg, outcome.members, device=dev).evaluate(
+                        rc.validation.x, rc.validation.y)
+                return strat.weights(ReduceContext(
+                    num_members=len(names), rows=rows,
+                    val_errors=lambda: np.asarray(errs, np.float64)))
+            w = strat.weights(ReduceContext(num_members=len(names),
+                                            rows=rows))
+            return [1.0] * len(names) if w is None else list(w)
+
+        # id -> partition, the schedule replayed in boundary order: ids go
+        # by join order, so the replay gives every joiner the id it had in
+        # the original run (how a resume finds joiners' partitions)
+        parts_by_id: Dict[int, Partition] = dict(enumerate(partitions))
+        nid = len(partitions)
+        for b in range(rc.rounds - 1):
+            for p_new in sched.at(b)[0]:
+                parts_by_id[nid] = p_new
+                nid += 1
+        ck = checkpoint
+        ck_meta = {**self._fingerprint(partitions), "mode": "elastic"}
+        if restored is None:
+            cur_init = tree_map(lambda a: a.to(dev, torch.float32), init)
+            group = elastic.ElasticGroup()
+            living: Dict[str, Partition] = {}
+            joined_round: Dict[str, int] = {}
+            member_id: Dict[str, int] = {}
+            beta0 = torch.zeros((cnn.feature_dim(self.cfg),
+                                 self.cfg.num_classes), device=dev)
+            for i, p in enumerate(partitions):
+                name = f"m{i}"
+                group.join(name, init_params=(cur_init, beta0))
+                living[name], joined_round[name], member_id[name] = p, 0, i
+            next_id = len(partitions)
+            start_round = 0
+        else:
+            group = restored.group
+            joined_round = dict(restored.joined_round)
+            member_id = dict(restored.member_id)
+            living = {n: parts_by_id[member_id[n]] for n in restored.living}
+            next_id = restored.next_id
+            cur_init = restored.cur_init
+            start_round = restored.round + 1
+        last_stats: Dict[str, elm.ELMStats] = {}
+        records: List[ElasticRoundRecord] = []
+        clock = _RoundClock(dev)
+        for r in range(start_round, rc.rounds):
+            names = sorted(living, key=member_id.get)      # join order
+            plan = ExecutionPlan(
+                epochs=per_round,
+                lr_schedule=(lambda e, off=r * per_round:
+                             m.lr_schedule(off + e)),
+                batch_size=m.batch_size, seed=m.seed,
+                chunk_batches=m.chunk_batches, rounds=1, device=dev,
+                member_seeds=[m.seed + member_id[n] for n in names],
+                start_epochs=[(r - joined_round[n]) * per_round
+                              for n in names])
+            outcome = executor.execute(self.cfg, cur_init,
+                                       [living[n] for n in names], plan)
+            bw = block_weights(names, outcome)
+            for i, n in enumerate(names):
+                model = outcome.members[i]
+                group.record_step(n, (model.cnn_params, model.beta),
+                                  n=bw[i])
+                last_stats[n] = elm.ELMStats(
+                    outcome.stats.u[i], outcome.stats.v[i],
+                    outcome.stats.n[i])
+            joined_names: List[str] = []
+            left_names: List[str] = []
+            last = r == rc.rounds - 1
+            if not last:
+                joins, leaves = sched.at(r)
+                for n in dict.fromkeys(leaves):            # dedup, in order
+                    if n not in living:
+                        raise ValueError(
+                            f"elastic leave {n!r} at boundary {r} is not a "
+                            f"living member (living: {sorted(living)})")
+                    group.record_stats(n, last_stats.pop(n))
+                    group.leave(n)
+                    del living[n]
+                    left_names.append(n)
+                if not living:
+                    raise ValueError(
+                        f"the leaves at boundary {r} would empty the group")
+                # the boundary sync: every survivor restarts from the
+                # group average (leavers' contributions retired in)
+                avg = group.sync()
+                boundary_model = CNNELMModel(*avg)
+                for p_new in joins:
+                    n = f"m{next_id}"
+                    group.join(n, init_params=avg)
+                    living[n], joined_round[n] = p_new, r + 1
+                    member_id[n] = next_id
+                    next_id += 1
+                    joined_names.append(n)
+                cur_init = avg[0]
+            else:
+                for n in names:
+                    group.record_stats(n, last_stats[n])
+                boundary_model = CNNELMModel(*group.reduce_params())
+            if ck is not None and (last or (r + 1) % ck.every == 0):
+                # the post-boundary state: exactly what round r+1 starts
+                # from
+                path = run_state.save_elastic_round(
+                    ck.dir, r, group=group, cur_init=cur_init,
+                    joined_round=joined_round, member_id=member_id,
+                    next_id=next_id,
+                    meta={**ck_meta, "round": r, "final": last})
+                if ck.after_save is not None:
+                    ck.after_save("round", r, path)
+            hooked = (round_hook(r, boundary_model)
+                      if round_hook is not None else None)
+            wall, launches = clock.tick()
+            records.append(ElasticRoundRecord(
+                r, names, joined_names, left_names, wall, launches, hooked))
+        members = {n: CNNELMModel(*group.members[n].params)
+                   for n in sorted(living, key=member_id.get)}
+        return ElasticRunResult(self.cfg, members, boundary_model, group,
+                                records, time.perf_counter() - t0,
+                                m.backend, dev, resumed=resumed)
 
 
 # ---------------------------------------------------------------------------

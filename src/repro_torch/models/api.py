@@ -18,6 +18,10 @@ def init_params(cfg, generator, dtype=torch.bfloat16, device="cuda"):
     return module_of(cfg).init_params(cfg, generator, dtype, device)
 
 
+def hidden_states(cfg, params, batch):
+    return module_of(cfg).hidden_states(cfg, params, batch)
+
+
 def init_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
                device="cuda"):
     return module_of(cfg).init_cache(cfg, batch, seq_len, dtype, device)

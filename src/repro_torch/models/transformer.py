@@ -1,6 +1,7 @@
-"""The dense GQA decoder (qwen3-style): init, full forward, prefill and
-one-token decode — the port's counterpart of ``repro.models.transformer``
-for family ``dense`` (MoE, encoder and VLM come with their families).
+"""The dense GQA decoder (qwen3-style): init, full forward, the final
+hidden states (the ELM head's H), prefill and one-token decode — the
+port's counterpart of ``repro.models.transformer`` for family ``dense``
+(MoE, encoder and VLM come with their families).
 
 Layers are stacked (a leading L dim on every leaf of ``params["layers"]``)
 as in the reference, so trees convert leaf by leaf; the reference's
@@ -105,12 +106,19 @@ def _embed_inputs(cfg, p, batch):
 
 def forward(cfg, p, batch, *, window: int | None = None):
     """Full-sequence forward. Returns (logits f32, aux_loss)."""
+    x = hidden_states(cfg, p, batch, window=window)
+    return _unembed(cfg, p, x), torch.zeros((), device=x.device)
+
+
+def hidden_states(cfg, p, batch, *, window: int | None = None):
+    """Final-norm hidden states (B, S, D), no unembed — the ELM head's H.
+    The reference's remat is a memory policy of its autodiff and has no
+    counterpart here."""
     window = cfg.sliding_window if window is None else window
     x, positions, _ = _embed_inputs(cfg, p, batch)
     for i in range(cfg.num_layers):
         x, _ = _block(cfg, _layer(p["layers"], i), x, positions, window)
-    x = rms_norm(x, p["final_norm"], cfg.norm_eps)
-    return _unembed(cfg, p, x), torch.zeros((), device=x.device)
+    return rms_norm(x, p["final_norm"], cfg.norm_eps)
 
 
 # ---------------------------------------------------------------------------

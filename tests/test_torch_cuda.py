@@ -103,7 +103,10 @@ ELM_SHAPES = [(4, 200, 192, 10), (1, 137, 144, 20), (3, 17, 7, 2),
               (2, 50, 40, 3),            # L 40: a ragged 32-wide tile
               (2, 33, 24, 1),            # C 1
               (3, 1, 16, 4),             # one row
-              (2, 12_500, 192, 10)]      # a whole shard of the Map
+              (2, 12_500, 192, 10),      # a whole shard of the Map
+              (1, 512, 4096, 16)]        # the LM head: B 4 × S 128, d 4096
+# E²LM shards of 200,000 rows (k 1 and 2): sums too long for the 1e-5 bar
+LONG_SHAPES = [(2, 100_000, 192, 10), (1, 200_000, 192, 10)]
 
 
 @pytest.mark.cuda
@@ -128,9 +131,39 @@ def test_elm_stats_kernel_matches_plain_on_card(cuda, k, n, L, C, mask_kind):
     _close(v.cpu().numpy(), ref[..., L:])
 
 
+def _f64_stats(h, t, m, absolute=False):
+    out = []
+    for i in range(h.shape[0]):
+        hi, ti = h[i].double(), t[i].double()
+        if absolute:
+            hi, ti = hi.abs(), ti.abs()
+        hm = hi if m is None else hi * m[i].double()[:, None]
+        out.append(hm.T @ torch.cat([hi, ti], dim=1))
+    return torch.stack(out)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("k,n,L,C", ELM_SHAPES)
+@pytest.mark.parametrize("k,n,L,C", LONG_SHAPES)
+def test_elm_stats_long_shards_match_f64_on_card(cuda, k, n, L, C, masked):
+    """Each output is one f32 sum over the n rows in order; over 100,000 or
+    more rows its rounding outgrows the 1e-5 bar against the plain
+    version's blocked sums, so it is held against the f64 function within
+    the probabilistic bound of an f32 sum of n terms in order,
+    7·√n·2⁻²⁴·Σ|terms| per output (Higham and Mary, λ = 7)."""
+    h, t = _data(n + L, (k, n, L), (k, n, C))
+    hd, td = torch.from_numpy(h).to(cuda), torch.from_numpy(t).to(cuda)
+    md = (torch.from_numpy(_mask("fractional", k * n, n).reshape(k, n)
+                           ).to(cuda) if masked else None)
+    u, v = stats_ops.elm_stats(hd, td, mask=md)
+    got = torch.cat([u, v], dim=-1).double()
+    bound = 7 * n ** 0.5 * 2.0 ** -24 * _f64_stats(hd, td, md, True)
+    assert bool(((got - _f64_stats(hd, td, md)).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("k,n,L,C", ELM_SHAPES + LONG_SHAPES)
 def test_elm_stats_u_is_symmetric_and_deterministic_on_card(cuda, k, n, L, C,
                                                             masked):
     """U is computed once per pair and written to both halves, so it equals
@@ -551,3 +584,110 @@ def test_sgd_map_on_card_matches_cpu(cuda, backend, split):
             b.abs().max())
     bc, bp = card.stacked.beta.cpu(), cpu.stacked.beta
     assert float((bc - bp).abs().max()) <= 1e-3 * float(bp.abs().max())
+
+
+def _cnn_run(backend, rounds=2, elastic=None):
+    from repro_torch.core.runner import ReduceConfig
+    from repro_torch.optim.schedules import dynamic_paper
+    cfg = replace(get_reduced_config("cnn_elm_6c12c"), elm_lambda=1.0)
+    return AveragingRun(cfg, MapConfig(
+        epochs=2 if elastic is None else 3,
+        lr_schedule=dynamic_paper(0.05), batch_size=50, backend=backend),
+        ReduceConfig(rounds=rounds, elastic=elastic))
+
+
+def _bit_equal(a, b):
+    la = tree_leaves((a.cnn_params, a.beta))
+    lb = tree_leaves((b.cnn_params, b.beta))
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,unit,rounds,index", [
+    ("stacked", "round", 2, 0), ("sequential", "member", 1, 1)])
+def test_crash_resume_is_bitwise_on_card(cuda, tmp_path, backend, unit,
+                                         rounds, index):
+    """Crashed after round 0 (stacked) or member 1 (sequential) and resumed
+    from disk: members, β and the averaged model equal the uninterrupted
+    run's under ``torch.equal`` on the card, and the resume launched the
+    kernels."""
+    from repro_torch.core import faults
+    ds = make_extended_mnist(n_per_class=30, seed=0)
+    parts = partition_iid(ds.x, ds.y, 3)
+
+    def gen():
+        return torch.Generator().manual_seed(7)
+
+    ref = _cnn_run(backend, rounds).run(parts, generator=gen(), device=cuda)
+    assert faults.run_to_crash(_cnn_run(backend, rounds), parts,
+                               str(tmp_path), unit=unit, index=index,
+                               generator=gen(), device=cuda)
+    kernels.reset_launches()
+    res = _cnn_run(backend, rounds).resume(parts, str(tmp_path),
+                                           generator=gen(), device=cuda)
+    assert res.resumed and kernels.LAUNCHES["conv2d_wgrad"] > 0
+    assert res.stacked.beta.is_cuda
+    assert all(_bit_equal(a, b) for a, b in zip(ref.members, res.members))
+    assert _bit_equal(ref.averaged, res.averaged)
+
+
+@pytest.mark.cuda
+def test_elastic_backends_and_resume_are_bitwise_on_card(cuda, tmp_path):
+    """One leave and one join: the stacked and sequential elastic runs agree
+    under ``torch.equal`` on the card, and a crash after round 1 resumes
+    to the uninterrupted run."""
+    from repro_torch.core import faults
+    from repro_torch.core.runner import ElasticEvent, ElasticSchedule
+    ds = make_extended_mnist(n_per_class=30, seed=0)
+    parts = partition_iid(ds.x, ds.y, 3)
+    sched = ElasticSchedule((ElasticEvent(after_round=0, join=(parts[0],)),
+                             ElasticEvent(after_round=1, leave=("m1",))))
+
+    def gen():
+        return torch.Generator().manual_seed(7)
+
+    st = _cnn_run("stacked", 3, sched).run(parts, generator=gen(),
+                                           device=cuda)
+    seq = _cnn_run("sequential", 3, sched).run(parts, generator=gen(),
+                                               device=cuda)
+    assert sorted(st.members) == sorted(seq.members) == ["m0", "m2", "m3"]
+    assert all(_bit_equal(st.members[n], seq.members[n]) for n in st.members)
+    assert _bit_equal(st.averaged, seq.averaged)
+    crashed, res = faults.run_crash_resume(
+        _cnn_run("stacked", 3, sched), parts, str(tmp_path), unit="round",
+        index=1, generator=gen(), device=cuda)
+    assert crashed and res.resumed and [r.round for r in res.rounds] == [2]
+    assert all(_bit_equal(st.members[n], res.members[n]) for n in st.members)
+    assert _bit_equal(st.averaged, res.averaged)
+
+
+@pytest.mark.cuda
+def test_lm_finetune_step_refuses_on_card(cuda):
+    """The decoder's rmsnorm and swa_attention kernels have no backward:
+    ``finetune_step`` over the LM on the card raises rather than cut the
+    graph or fall back to the CPU, while the head's stats, solve and
+    predict run there under no_grad."""
+    from repro_torch.core import elm_head
+    cfg = get_reduced_config("qwen3_8b")
+    params = api.init_params(cfg, torch.Generator().manual_seed(0),
+                             torch.float32, device=cuda)
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 32),
+                                     generator=gen).to(cuda),
+             "targets": torch.randint(0, 16, (2, 32), generator=gen).to(cuda)}
+
+    def feature_fn(p, b):
+        return api.hidden_states(cfg, p, b)
+
+    kernels.reset_launches()
+    beta = elm_head.solve(elm_head.accumulate_stats(feature_fn, params,
+                                                    batch, 16), 10.0)
+    scores = elm_head.predict(feature_fn, params, beta, batch)
+    torch.cuda.synchronize()
+    assert scores.is_cuda and bool(torch.isfinite(scores).all())
+    assert kernels.LAUNCHES["elm_stats"] == 1
+    assert kernels.LAUNCHES["rmsnorm"] > 0 and \
+        kernels.LAUNCHES["swa_attention"] > 0
+    with pytest.raises(RuntimeError, match="no backward"):
+        elm_head.finetune_step(feature_fn, params, beta, batch, 16, lr=1e-2)

@@ -1,7 +1,8 @@
 """The port stands alone: ``repro_torch`` imports neither JAX nor ``repro``,
 runs on the card unless asked for the CPU, and refuses what later slices
-of the port will bring (the mesh backend, drift syncs, elastic membership,
-the LM families beyond the dense decoder) instead of doing it wrongly."""
+of the port will bring (the mesh backend and its ``psum_stats``, drift
+syncs, the LM families beyond the dense decoder) instead of doing it
+wrongly."""
 import os
 import pkgutil
 import re
@@ -13,8 +14,9 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch.checkpoint.ckpt import restore_checkpoint
 from repro_torch.configs import get_reduced_config, replace
-from repro_torch.core import elm, executor
+from repro_torch.core import e2lm, elm, executor
 from repro_torch.core.runner import (AveragingRun, Ensemble, MapConfig,
                                      ReduceConfig)
 from repro_torch.data.partition import Partition
@@ -43,6 +45,9 @@ def test_every_module_imports_without_jax_or_repro():
     assert "repro_torch.kernels.swa_attention.ops" in mods
     assert "repro_torch.launch.serve" in mods
     assert "repro_torch.optim.schedules" in mods
+    for name in ("checkpoint.ckpt", "checkpoint.run_state", "core.e2lm",
+                 "core.elm_head", "core.elastic", "core.faults"):
+        assert f"repro_torch.{name}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -104,6 +109,15 @@ def test_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         elm.zero_stats_stacked(4, 6, 3)
     assert elm.zero_stats(6, 3, device="cpu").u.device.type == "cpu"
+    # E²LM's streaming state and the checkpoint restores
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        e2lm.oselm_init(6, 3, 1.0)
+    assert e2lm.oselm_init(6, 3, 1.0, device="cpu").p.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        restore_checkpoint("no-such-dir", "round")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AveragingRun(CFG, MapConfig(batch_size=40)).resume(parts,
+                                                           "no-such-dir")
     assert elm.zero_stats_stacked(4, 6, 3, device="cpu").n.shape == (4,)
     # the LM serving path
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -142,7 +156,7 @@ def test_executors_run_on_the_plan_device(monkeypatch, backend):
     lambda: MapConfig(backend="mesh"),
     lambda: executor.make_executor("mesh"),
     lambda: ReduceConfig(sync="drift"),
-    lambda: ReduceConfig(elastic=object()),
+    lambda: e2lm.psum_stats(None, "pod"),
     lambda: api.module_of(replace(LM, family="moe")),
     lambda: api.module_of(replace(LM, family="ssm_rwkv6")),
     lambda: api.init_params(replace(LM, family="encoder",
@@ -161,5 +175,7 @@ def test_unknown_backend_and_strategy_are_value_errors():
         MapConfig(backend="tpu")
     with pytest.raises(ValueError):
         ReduceConfig(strategy="median")
+    with pytest.raises(ValueError, match="ElasticSchedule"):
+        ReduceConfig(elastic=object())
     with pytest.raises(ValueError):
         executor.make_executor("tpu")
