@@ -42,11 +42,39 @@ is non-zero and no result line is printed:
              of each shard at full width, one epoch and the two-round run,
              under the same gates; the averaged model's accuracy must stay
              above the epochs=0 model's less 0.05.
-6. serve   — a bucketed scorer answering requests of 1, 3, 17 and 64
-             images, checked against the ensemble surface; one hot swap.
-7. profile — one stacked Map and one stacked SGD epoch under
+6. serve   — a bucketed scorer, one captured CUDA graph per bucket,
+             answering requests of 1, 3, 17 and 64 images, checked against
+             the ensemble surface; launches counted over the replays; the
+             graph count after warm-up and after one hot swap; whether a
+             row scores the same bits in every bucket (the plain eager pass
+             and the graphs: rows 0 and 0..6 alone against the same rows
+             in every larger bucket); an ``EnsembleServer`` under
+             ``run_open_loop`` in ``benchmarks/serve_ensemble.py``'s
+             settings (max_batch 32, max_wait 4 ms, 600 requests at 100,
+             200, 400 and 800 /s, a swap mid-sweep): zero failed and zero
+             dropped, p50/p95/p99, images/s and mean occupancy per rate;
+             the same endpoint once through ``python -m
+             repro_torch.launch.serve --ensemble`` at 200 /s.
+7. stream  — the streaming Map at full width in
+             ``benchmarks/stream_map.py``'s settings (3 class-skewed
+             members, 48 chunks of 128 rows, a label permutation at chunk
+             24, window 8, cadence 12, held-out 16, epochs 0, batch 32):
+             the never, cadence and drift policies, stacked and
+             sequential, wall and launches per chunk; card sequential vs
+             card stacked and the card vs the port's CPU path (the same
+             syncs; β, the published β and its held-out scores within the
+             solve bars of ``map``, the published backbone within
+             1e-4 · max|w|); the window gate after evictions;
+             ``prefetch=2`` bitwise; drift syncs after chunk 24 and a
+             published model that beats the never-sync one; one run under
+             torch.profiler (device idle share of a chunk); the drift run
+             again with a live ``EnsembleServer`` and
+             ``CheckpointWatcher`` on its checkpoints under traffic: the
+             newest round staged, zero failed and dropped, post-swap
+             scores bitwise those of direct scoring, no new graph.
+8. profile — one stacked Map and one stacked SGD epoch under
              torch.profiler: device busy, wall, idle share, top operations.
-8. e2lm    — E²LM at ``benchmarks/e2lm_scaling.py``'s shape (200,000 rows,
+9. e2lm    — E²LM at ``benchmarks/e2lm_scaling.py``'s shape (200,000 rows,
              L 192, C 10, λ 100, from a seed): per-shard stats for k 2, 4
              and 8 through ``e2lm.mapreduce_solve`` within the solve bar of
              the monolithic β (1e-3 · max|β|, or twice its own f32 distance
@@ -55,20 +83,20 @@ is non-zero and no result line is printed:
              within the same bar; OS-ELM in 50-row blocks against the batch
              solve (rtol 5e-2, atol 5e-3); elm_stats timed at 25k, 50k,
              100k and 200k rows a member.
-9. elm_head — the ELM head: over the CNN (the Map's init, its 50,000
+10. elm_head — the ELM head: over the CNN (the Map's init, its 50,000
              images, the held-out set scored, 4 ``finetune_step``s whose
              loss must fall), over the full qwen3_8b in bf16
              (``hidden_states`` of 4 × 128 tokens, C 16, λ 10; elm_stats
              timed at that shape; ``finetune_step`` must raise), and the
              2-layer full-width f32 LM's states and head β, card vs CPU
              (1e-4 · max|h|; the solve bar).
-10. resume — crash and resume at full width with the ``sgd`` phase's
+11. resume — crash and resume at full width with the ``sgd`` phase's
              settings: the stacked two-round run after round 0 (a torn
              round-1 file must be skipped), the sequential run after
              member 1, and an elastic run with one leave and one join
              (stacked vs sequential, and its resume): each equal to its
              uninterrupted run under ``torch.equal``.
-11. lm     — the LM serving path (``repro_torch.launch.serve``): (a) qwen3_8b
+12. lm     — the LM serving path (``repro_torch.launch.serve``): (a) qwen3_8b
              at full width cut to 2 layers, f32, the card against the port's
              CPU path on the same params (prefill and 4 greedy decode steps
              within 1e-4 · max|logit|, equal tokens); (b) the full 36-layer
@@ -78,15 +106,17 @@ is non-zero and no result line is printed:
              device-idle share of a decode step: its device busy time
              (torch.profiler, one step) over the mean step of 10 unprofiled
              steps and over the mean step of run_lm's own decode loop.
-12. the kernels line, the card line, and the last line
+13. the kernels line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 The launch counters are set to 0 just before each path runs and read just
 after it: the CNN main path (stacked Map → Reduce → scoring of the
 held-out set), the sequential Map, each SGD Map (the stacked one-round run
 is the SGD main path, whose conv2d_dgrad and conv2d_wgrad counts the
-kernels line reports),
-serving, the E²LM path, the CNN and LM heads, the crash/resume runs, and
+kernels line reports), serving (the replays of its captured graphs,
+which the kernels line adds to conv2d's count), the open-loop sweep, each
+streaming run (the stacked drift run's conv2d and elm_stats counts are
+added to the kernels line's), the E²LM path, the CNN and LM heads, the crash/resume runs, and
 the LM path (b).
 """
 from __future__ import annotations
@@ -836,13 +866,33 @@ def phase_sgd(torch, dev, m, epochs=2, lr_c=0.05, cut=2500):
 
 
 def phase_serve(torch, m):
+    """The bucketed scorer over the Map's k = 4 members at full width, one
+    captured CUDA graph per bucket: requests of 1, 3, 17 and 64 images
+    against the ensemble surface, launches counted over the replays, the
+    graph count after warm-up and after a swap, whether a row scores the
+    same bits in every bucket (the plain eager pass and the graphs), then
+    an ``EnsembleServer`` under open-loop load in
+    ``benchmarks/serve_ensemble.py``'s settings with a hot swap mid-sweep,
+    and the same endpoint once through ``python -m
+    repro_torch.launch.serve --ensemble``. Returns the serving path's
+    launches."""
+    import re
     import numpy as np
     from repro_torch import kernels
+    from repro_torch.core.cnn_elm import scores_stacked, stack_models
+    from repro_torch.serve import EnsembleServer, ServeConfig, run_open_loop
 
     ens, test = m["ens"], m["test"]
     sizes = (1, 3, 17, 64)
     want = {n: ens.predict(test.x[:n]) for n in sizes}
-    scorer = ens.bucketed_scorer(max_batch=SERVE_MAX_BATCH).warmup()
+    scorer = ens.bucketed_scorer(max_batch=SERVE_MAX_BATCH)
+    t0 = time.perf_counter()
+    scorer.warmup()
+    capture_s = time.perf_counter() - t0
+    n_buckets = len(scorer.ladder.buckets)
+    check(scorer.compile_count() == n_buckets,
+          f"{scorer.compile_count()} graphs after warm-up for {n_buckets} "
+          f"buckets")
     reps = 30
     kernels.reset_launches()
     lat = {}
@@ -865,7 +915,7 @@ def phase_serve(torch, m):
                   "bucket": scorer.ladder.bucket_for(n)}
     serve_launches = dict(kernels.LAUNCHES)
     # per request size: one checked score, one prediction, the timed reps;
-    # each scoring pass is one conv launch per stage
+    # each scoring pass is one graph replay holding one conv launch per stage
     check(serve_launches["conv2d"] == 2 * len(sizes) * (reps + 2) and
           serve_launches["elm_stats"] == 0 and
           serve_launches["rmsnorm"] == serve_launches["swa_attention"] == 0,
@@ -875,8 +925,434 @@ def phase_serve(torch, m):
     ref = m["seq"].ensemble().member_scores(test.x[:17])
     check(np.allclose(swapped, ref, rtol=1e-5,
                       atol=1e-6 * np.abs(ref).max()), "scores after swap")
-    emit("serve", latency_ms=lat, launches=serve_launches,
-         swap="ok", requests=list(sizes))
+    check(scorer.compile_count() == n_buckets, "a swap recaptured")
+
+    # a row's bits in every bucket: rows 0..r-1 scored alone (at their own
+    # bucket) against the same rows at the head of every larger bucket,
+    # through the plain eager pass and through the graphs
+    dev = scorer.device
+    members = scorer.members
+    xs = torch.from_numpy(test.x[:SERVE_MAX_BATCH]).to(dev)
+    invariance = {}
+    for r in (1, 7):
+        alone_plain = scores_stacked(m["cfg"], members.cnn_params,
+                                     members.beta, xs[:r])
+        alone_graph = scorer.score_block(test.x[:r])
+        plain, graph = {}, {}
+        for b in scorer.ladder.buckets:
+            if b < r:
+                continue
+            s = scores_stacked(m["cfg"], members.cnn_params, members.beta,
+                               xs[:b])[:, :r]
+            plain[b] = float((s - alone_plain).abs().max())
+            graph[b] = float(np.abs(scorer.score_block(test.x[:b])[:, :r]
+                                    - alone_graph).max())
+        invariance[f"rows{r}"] = {"plain_max_abs_diff": plain,
+                                  "graph_max_abs_diff": graph}
+        check(all(d == 0.0 for d in graph.values()),
+              f"rows 0..{r - 1} score other bits in another bucket: {graph}")
+    emit("serve", latency_ms=lat, launches=serve_launches, swap="ok",
+         requests=list(sizes), graphs=scorer.compile_count(),
+         buckets=list(scorer.ladder.buckets), capture_s=capture_s,
+         bucket_invariance=invariance)
+
+    # continuous batching under open-loop load (benchmarks/serve_ensemble.py
+    # without --smoke: max_batch 32, max_wait 4 ms, 600 requests a rate)
+    max_batch, wait_ms, n_req = 32, 4.0, 600
+    scorer = ens.bucketed_scorer(max_batch=max_batch).warmup()
+    n_buckets = len(scorer.ladder.buckets)
+    server = EnsembleServer(scorer, ServeConfig(
+        max_batch=max_batch, max_wait_ms=wait_ms)).start(warmup=False)
+    loads = []
+    kernels.reset_launches()
+    try:
+        for i, rate in enumerate((100.0, 200.0, 400.0, 800.0)):
+            before = server.stats()
+            rep = run_open_loop(server, test.x, rate_per_s=rate,
+                                n_requests=n_req, seed=17 + i)
+            after = server.stats()
+            batches = after.batches - before.batches
+            occupancy = (after.mean_occupancy * after.batches
+                         - before.mean_occupancy * before.batches) / batches
+            loads.append({**rep.to_json(), "batches": batches,
+                          "mean_occupancy": occupancy})
+            check(rep.failed == 0 and rep.completed == n_req,
+                  f"{rep.failed} failed requests at {rate}/s")
+            if i == 0:
+                # a live swap mid-sweep: the members reversed, the
+                # checkpoint watcher's payload without the disk
+                server.swap_members(stack_models(ens.members.unstack()[::-1]))
+    finally:
+        server.close()
+    stats = server.stats()
+    load_launches = dict(kernels.LAUNCHES)
+    check(stats.failed == 0 and stats.dropped == 0 and stats.swaps == 1
+          and stats.completed == 4 * n_req,
+          f"open loop: completed {stats.completed}, failed {stats.failed}, "
+          f"dropped {stats.dropped}, swaps {stats.swaps}")
+    check(scorer.assert_compile_budget() == n_buckets,
+          "the open-loop sweep recaptured")
+    check(load_launches["conv2d"] == 2 * stats.batches
+          and load_launches["elm_stats"] == 0,
+          f"open-loop launches {load_launches} for {stats.batches} batches")
+    emit("serve_load", max_batch=max_batch, max_wait_ms=wait_ms,
+         requests_per_rate=n_req, loads=loads, swaps=stats.swaps,
+         failed=stats.failed, dropped=stats.dropped, batches=stats.batches,
+         graphs=scorer.compile_count(), launches=load_launches)
+
+    # the launcher's endpoint, in its own process, once at 200/s
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--ensemble",
+         "--rate", "200", "--requests", str(n_req), "--max-batch",
+         str(max_batch), "--max-wait-ms", str(wait_ms)],
+        capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+    check(proc.returncode == 0, f"launch.serve --ensemble exited "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    done = re.search(r"# (\d+) answered, (\d+) failed, (\d+) dropped",
+                     proc.stdout)
+    rates = re.search(r"achieved (\d+) imgs/s\s+p50 ([\d.]+) ms\s+p95 "
+                      r"([\d.]+) ms\s+p99 ([\d.]+) ms", proc.stdout)
+    check(done is not None and rates is not None
+          and done.groups() == (str(n_req), "0", "0"),
+          f"launch.serve --ensemble output: {proc.stdout[-2000:]}")
+    emit("serve_launcher", offered_per_s=200.0, requests=n_req,
+         answered=int(done.group(1)), failed=0, dropped=0,
+         images_per_s=float(rates.group(1)), p50_ms=float(rates.group(2)),
+         p95_ms=float(rates.group(3)), p99_ms=float(rates.group(4)),
+         process_s=time.perf_counter() - t0)
+    return {name: serve_launches[name] + load_launches[name]
+            for name in serve_launches}
+
+
+def window_f64(torch, windows, lam):
+    """The f64 solution of each member's ridge system from its window's
+    running totals (what the run's f32 β was solved from)."""
+    u = torch.stack([w.total().u for w in windows]).cpu().double()
+    v = torch.stack([w.total().v for w in windows]).cpu().double()
+    eye = torch.eye(u.shape[-1], dtype=torch.float64)
+    return torch.linalg.solve(u + eye / lam, v)
+
+
+def window_gap(torch, a, b, rtol, atol):
+    """Two runs' windows member by member: max |a's totals − b's| over U
+    and V, the window gate's tolerance for it (``atol + rtol ·
+    max|b's total|``, the bar a running total is held to against its
+    recompute), max |a's recompute − b's| (the chunks' own stats apart)
+    and each run's max |running total − recompute| (its downdates'
+    drift)."""
+    def gap(x, y):
+        return float((x.cpu() - y.cpu()).abs().max())
+    out = dict(d_total=0.0, tol=0.0, d_recompute=0.0, drift_a=0.0,
+               drift_b=0.0)
+    for wa, wb in zip(a.windows, b.windows):
+        ta, tb, ra, rb = wa.total(), wb.total(), wa.recompute(), \
+            wb.recompute()
+        for name in ("u", "v"):
+            ya = getattr(tb, name)
+            out["d_total"] = max(out["d_total"], gap(getattr(ta, name), ya))
+            out["tol"] = max(out["tol"],
+                             atol + rtol * float(ya.abs().max()))
+            out["d_recompute"] = max(out["d_recompute"],
+                                     gap(getattr(ra, name), getattr(rb, name)))
+            out["drift_a"] = max(out["drift_a"],
+                                 gap(getattr(ta, name), getattr(ra, name)))
+            out["drift_b"] = max(out["drift_b"],
+                                 gap(getattr(tb, name), getattr(rb, name)))
+    return out
+
+
+def phase_stream(torch, dev, m, n_chunks=48, chunk_rows=128,
+                 drift_at=24, window=8, cadence=12, holdout=16, batch=32):
+    """The streaming Map at full width (cnn_elm_6c12c) in
+    ``benchmarks/stream_map.py``'s settings without --smoke: three
+    class-skewed member streams of 48 chunks of 128 rows, a label
+    permutation at chunk 24, window 8, cadence 12, held-out 16, epochs 0,
+    batch 32, the window gate every 8 chunks. The never, cadence and
+    drift policies on the stacked and sequential backends; the card
+    against the port's CPU path on the drift run; ``prefetch=2`` against
+    none; the drift run's launches per chunk; one run under the profiler
+    (device idle share of a chunk); then the drift run once more with a
+    live ``EnsembleServer`` and ``CheckpointWatcher`` on its checkpoint
+    directory under traffic. Returns the drift run's launches."""
+    import tempfile
+    import threading
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import kernels
+    from repro_torch.checkpoint import run_state
+    from repro_torch.core.executor import CheckpointConfig
+    from repro_torch.core.runner import (Ensemble, MapConfig, ReduceConfig,
+                                         evaluate_model)
+    from repro_torch.data.synthetic import make_extended_mnist
+    from repro_torch.layers.norms import optimal_tanh
+    from repro_torch.models import cnn
+    from repro_torch.serve import (BucketedScorer, CheckpointWatcher,
+                                   EnsembleServer, ServeConfig)
+    from repro_torch.stream import (StreamConfig, StreamingRun,
+                                    SyntheticDriftSource, member_streams)
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg, init = m["cfg"], m["init"]
+    shift, class_sets = 5, ((0, 1, 2, 3), (3, 4, 5, 6), (6, 7, 8, 9))
+    k = len(class_sets)
+    ev = make_extended_mnist(n_per_class=40, seed=999)
+    ey_post = (ev.y + shift) % ev.num_classes
+
+    def streams():
+        return member_streams([SyntheticDriftSource(
+            n_chunks=n_chunks, chunk_rows=chunk_rows, drift_at=drift_at,
+            seed=11 + i, label_shift=shift, class_filter=class_sets[i],
+            n_per_class=48) for i in range(k)], k, seed=1000,
+            per_member=True)
+
+    def make(policy, backend="stacked", prefetch=0):
+        return StreamingRun(
+            cfg, MapConfig(epochs=0, batch_size=batch, backend=backend),
+            ReduceConfig(sync="drift" if policy == "drift" else "rounds"),
+            StreamConfig(window_chunks=window, holdout_rows=holdout,
+                         sync_every=0 if policy == "never" else cadence,
+                         drift_threshold=0.25, drift_warmup=3,
+                         verify_every=window), prefetch=prefetch)
+
+    def run(policy, backend="stacked", device=dev, prefetch=0, ckpt=None):
+        return make(policy, backend, prefetch).run(
+            streams(), init_params=init, device=device,
+            checkpoint=None if ckpt is None else CheckpointConfig(dir=ckpt))
+
+    def bitwise(a, b):
+        return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(
+            tree_leaves([(mm.cnn_params, mm.beta) for mm in a.members]
+                        + [a.last_published.beta]),
+            tree_leaves([(mm.cnn_params, mm.beta) for mm in b.members]
+                        + [b.last_published.beta])))
+
+    def f64_side(r, r_dir):
+        """``r``'s f64 counterparts: each member's β solved in f64 from its
+        window's final totals; the published β solved in f64 from the
+        totals its last sync saved, averaged uniformly (the phase's
+        Reduce); and that model's held-out scores under ``r``'s published
+        backbone (the CPU's f32 features)."""
+        state = run_state.restore_round(r_dir, r.sync_chunks[-1], "cpu")
+        u, v = state.stats.u.double(), state.stats.v.double()
+        eye = torch.eye(u.shape[-1], dtype=torch.float64)
+        pub = torch.linalg.solve(u + eye / cfg.elm_lambda, v).mean(0)
+        params = tree_map(lambda a: a.cpu(), r.last_published.cnn_params)
+        with torch.no_grad():
+            h = torch.cat([cnn.features(cfg, params, torch.from_numpy(
+                ev.x[i:i + 512])) for i in range(0, len(ev.x), 512)])
+        return (window_f64(torch, r.windows, cfg.elm_lambda), pub,
+                (optimal_tanh(h).double() @ pub).numpy())
+
+    def agree(a, a_dir, b, b_dir, what):
+        """``a`` against ``b`` (their checkpoints in ``a_dir``, ``b_dir``),
+        by the gates of PERF.md §2 for a stream. The same syncs. The
+        windows: every member's totals within the window gate's tolerance
+        of ``b``'s. Each side against the f64 model of its OWN windows:
+        ``a``'s windowed β, published β and the published model's
+        held-out scores within 1e-3 · max|β| (scores: 1e-4 · max|score|)
+        or twice ``b``'s own distance from its f64 model, whichever is
+        larger. ``a`` against ``b``: within those bars plus the distance
+        of the two sides' f64 models (what the windows' difference alone
+        makes of an exact solve). The published backbone within 1e-4 ·
+        max|w| per leaf (epochs 0 leave it at the init up to the
+        averages' rounding). Predictions are reported, not gated: the
+        post-drift published model is right on about a third of the rows,
+        and its near-ties flip under f32 rounding."""
+        check(a.sync_chunks == b.sync_chunks,
+              f"{what}: syncs {a.sync_chunks} != {b.sync_chunks}")
+        sc = StreamConfig()
+        win = window_gap(torch, a, b, sc.verify_rtol, sc.verify_atol)
+        (xa_beta, xa_pub, xa_s), (xb_beta, xb_pub, xb_s) = (
+            f64_side(a, a_dir), f64_side(b, b_dir))
+        ba, bb = a.stacked.beta.cpu().double(), b.stacked.beta.cpu().double()
+        pa = a.last_published.beta.cpu().double()
+        pb = b.last_published.beta.cpu().double()
+        sa, sb = [Ensemble.from_models(cfg, [r.last_published],
+                                       device=r.device).member_scores(
+                      ev.x)[0].astype(np.float64) for r in (a, b)]
+
+        def d(x, y):
+            return float(np.abs(np.asarray(x) - np.asarray(y)).max())
+
+        rows = {}
+        for name, ya, yb, xa, xb, rel in (
+                ("beta", ba, bb, xa_beta, xb_beta, 1e-3),
+                ("published", pa, pb, xa_pub, xb_pub, 1e-3),
+                ("score", sa, sb, xa_s, xb_s, 1e-4)):
+            own_b = d(yb, xb)
+            bar = max(rel * float(np.abs(np.asarray(yb)).max()), 2 * own_b)
+            rows[name] = dict(d=d(ya, yb), own_a=d(ya, xa), own_b=own_b,
+                              bar=bar, d_f64=d(xa, xb))
+        preds = {n: (x.argmax(-1), y.argmax(-1)) for n, x, y in (
+            ("a_b", sa, sb), ("a_own_f64", sa, xa_s), ("b_own_f64", sb, xb_s),
+            ("f64_f64", xa_s, xb_s))}
+        dw = [(float((x.cpu() - y.cpu()).abs().max()),
+               1e-4 * float(y.abs().max())) for x, y in zip(
+            tree_leaves(a.last_published.cnn_params),
+            tree_leaves(b.last_published.cnn_params))]
+        emit("stream_agree", pair=what, windows=win,
+             **{f"{n}_{k}": v for n, r in rows.items() for k, v in r.items()},
+             max_abs_score=float(np.abs(sb).max()),
+             prediction_agreement={n: float((p == q).mean())
+                                   for n, (p, q) in preds.items()},
+             backbone_max_abs_dw=[x for x, _ in dw], bitwise=bitwise(a, b))
+        check(win["d_total"] <= win["tol"],
+              f"{what}: window totals {win['d_total']} apart > {win['tol']}")
+        for name, r in rows.items():
+            check(r["own_a"] <= r["bar"], f"{what}: {name} {r['own_a']} from "
+                  f"the f64 model of its own windows > {r['bar']}")
+            check(r["d"] <= r["bar"] + r["d_f64"],
+                  f"{what}: {name} {r['d']} > {r['bar']} + {r['d_f64']}")
+        check(all(x <= lim for x, lim in dw),
+              f"{what}: published backbones {dw}")
+
+    dirs, results = {}, {}
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        for policy in ("never", "cadence", "drift"):
+            for backend in ("stacked", "sequential"):
+                d = os.path.join(tmp.name, f"{policy}-{backend}")
+                kernels.reset_launches()
+                res = run(policy, backend, ckpt=d)
+                launches = dict(kernels.LAUNCHES)
+                results[(policy, backend)], dirs[(policy, backend)] = res, d
+                check(res.chunks == n_chunks and
+                      run_state.latest_ready_round(d) == res.sync_chunks[-1],
+                      f"{policy} {backend}: {res.chunks} chunks, rounds")
+                acc = evaluate_model(cfg, res.last_published, ev.x, ey_post,
+                                     device=dev)
+                emit("stream", policy=policy, backend=backend,
+                     chunks=res.chunks, sync_chunks=res.sync_chunks,
+                     wall_s=res.wall_time_s,
+                     wall_ms_per_chunk=res.wall_time_s / res.chunks * 1e3,
+                     launches=launches,
+                     launches_per_chunk={n: c / res.chunks
+                                         for n, c in launches.items()},
+                     published_acc_post_drift=acc,
+                     window_gate_max_err=max(w.verify()
+                                             for w in res.windows),
+                     evicted=res.windows[0].evicted)
+                results[(policy, backend, "acc")] = acc
+        drift = results[("drift", "stacked")]
+        # the path's launches: per chunk one member-batched held-out pass
+        # (a conv a stage) and chunk_rows / batch Map steps (2 convs and
+        # one elm_stats each)
+        steps = chunk_rows // batch
+        want = {name: 0 for name in kernels.LAUNCHES}
+        want.update(conv2d=n_chunks * (2 + 2 * steps),
+                    elm_stats=n_chunks * steps)
+        check(drift.launches == want,
+              f"stream launches {drift.launches} != {want}")
+        check(results[("never", "stacked")].sync_chunks == [0],
+              "never-sync published more than once")
+        check(any(c > drift_at for c in drift.sync_chunks),
+              f"drift policy never fired after chunk {drift_at}: "
+              f"{drift.sync_chunks}")
+        check(results[("drift", "stacked", "acc")]
+              > results[("never", "stacked", "acc")],
+              "drift-triggered syncs did not beat the never-sync endpoint")
+        check(all(w.evicted > 0 for w in drift.windows),
+              "the windows never slid")
+        for policy in ("never", "cadence", "drift"):
+            agree(results[(policy, "sequential")],
+                  dirs[(policy, "sequential")],
+                  results[(policy, "stacked")], dirs[(policy, "stacked")],
+                  f"stream {policy}: card sequential vs card stacked")
+        cpu_dir = os.path.join(tmp.name, "drift-cpu")
+        t0 = time.perf_counter()
+        cpu = run("drift", device="cpu", ckpt=cpu_dir)
+        cpu_s = time.perf_counter() - t0
+        agree(drift, dirs[("drift", "stacked")], cpu, cpu_dir,
+              "stream drift: card stacked vs CPU stacked")
+        pre = run("drift", prefetch=2)
+        check(pre.sync_chunks == drift.sync_chunks and bitwise(pre, drift),
+              "prefetch=2 differs from prefetch=0")
+        score_end = float(np.mean(drift.records[-1].scores))
+        score_at = float(np.mean(drift.records[drift_at].scores))
+        emit("stream_checks", cpu_wall_s_host_clock=cpu_s,
+             prefetch2_bitwise=True, window_gate="ok",
+             drift_sync_chunks=drift.sync_chunks,
+             prequential_score_at_drift=score_at,
+             prequential_score_end=score_end)
+
+        # the device's share of a chunk, never policy, stacked
+        make("never").run(streams(), init_params=init, device=dev)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            res = make("never").run(streams(), init_params=init, device=dev)
+        rows = sorted(device_activity(torch, prof), reverse=True)
+        busy = sum(us for us, _, _ in rows) / 1e3
+        wall = res.wall_time_s * 1e3
+        emit("stream_profile", what=f"stream never, stacked, {n_chunks} "
+             f"chunks of {k} x {chunk_rows} rows",
+             wall_ms=wall, wall_ms_per_chunk=wall / res.chunks,
+             device_busy_ms=busy if rows else "not measured",
+             idle_share=1 - busy / wall if rows else "not measured",
+             top=[{"name": name[:60], "ms": us / 1e3, "count": count}
+                  for us, name, count in rows[:10]])
+
+        # the drift run again, published into a directory that a live
+        # endpoint watches under traffic
+        live = os.path.join(tmp.name, "live")
+        scorer = BucketedScorer(
+            cfg, run_state.restore_round(dirs[("drift", "stacked")], 0,
+                                         dev).members,
+            max_batch=32, device=dev).warmup()
+        n_buckets = len(scorer.ladder.buckets)
+        server = EnsembleServer(scorer, ServeConfig(
+            max_batch=32, max_wait_ms=4.0)).start(warmup=False)
+        watcher = CheckpointWatcher(live, server, poll_ms=10).start()
+        stop = threading.Event()
+        futs = []
+
+        def traffic():
+            i = 0
+            while not stop.is_set():
+                futs.append(server.submit(ev.x[i % len(ev.x)]))
+                i += 1
+                time.sleep(0.0025)
+
+        th = threading.Thread(target=traffic, daemon=True)
+        th.start()
+        try:
+            again = run("drift", ckpt=live)
+            last = again.sync_chunks[-1]
+            staged = watcher.wait_for_round(last, timeout_s=60)
+        finally:
+            stop.set()
+            th.join(timeout=60)
+            watcher.stop()
+        probe = ev.x[:7]
+        post = np.stack([f.result(timeout=60).member_scores
+                         for f in server.submit_many(probe)], axis=1)
+        server.close()
+        stats = server.stats()
+        direct = BucketedScorer(
+            cfg, run_state.restore_round(live, last, dev).members,
+            max_batch=32, device=dev).score_block(probe)
+        failed = sum(f.exception(timeout=60) is not None for f in futs)
+        check(staged and watcher.current_round == last,
+              f"watcher at round {watcher.current_round}, newest {last}")
+        check(failed == 0 and stats.failed == 0 and stats.dropped == 0,
+              f"live stream endpoint: {failed} failed futures, "
+              f"{stats.failed} failed, {stats.dropped} dropped")
+        check(np.array_equal(post, direct),
+              "post-swap scores differ from direct scoring of the round")
+        check(scorer.compile_count() == n_buckets,
+              "hot reloads recaptured")
+        check(again.sync_chunks == drift.sync_chunks, "live drift run syncs")
+        emit("stream_serve", rounds=again.sync_chunks,
+             staged=[s.round for s in watcher.swaps], rejected=watcher.rejected,
+             swaps_applied=stats.swaps, requests=len(futs) + len(probe),
+             completed=stats.completed, failed=stats.failed,
+             dropped=stats.dropped, p50_ms=stats.percentile_ms(50),
+             p99_ms=stats.percentile_ms(99), graphs=scorer.compile_count(),
+             post_swap_bitwise=True, stream_wall_s=again.wall_time_s)
+    finally:
+        tmp.cleanup()
+    return drift.launches
 
 
 def phase_profile(torch, m):
@@ -1467,7 +1943,8 @@ def main():
     per_case = phase_kernels(torch, dev, rates)
     m = phase_map(torch, dev)
     sgd = phase_sgd(torch, dev, m)
-    phase_serve(torch, m)
+    serve_launches = phase_serve(torch, m)
+    stream_launches = phase_stream(torch, dev, m)
     phase_profile(torch, m)
     phase_e2lm(torch, dev, rates, m)
     phase_elm_head(torch, dev, rates, m)
@@ -1494,7 +1971,9 @@ def main():
         {"name": "conv2d", "route": "cuda",
          "source": "src/repro_torch/csrc/conv2d.cu",
          "replaces": "src/repro/kernels/conv2d/kernel.py:28",
-         "launches": main_launches["conv2d"],
+         # the CNN main path, serving (graph replays) and the stream
+         "launches": sum(p["conv2d"] for p in (main_launches, serve_launches,
+                                              stream_launches)),
          "max_abs_err": conv_err,
          # one stacked Map step runs stage 1 and stage 2 once each
          "ms": sum(c["ms"] for c in conv),
@@ -1506,7 +1985,8 @@ def main():
         {"name": "elm_stats", "route": "cuda",
          "source": "src/repro_torch/csrc/elm_stats.cu",
          "replaces": "src/repro/kernels/elm_stats/kernel.py:36",
-         "launches": main_launches["elm_stats"],
+         "launches": main_launches["elm_stats"]
+         + stream_launches["elm_stats"],
          "max_abs_err": stats_err, "ms": stats["ms"],
          "plain_ms": stats["plain_ms"], "bound_ms": stats["bound_ms"],
          "bound_by": stats["bound_by"], "library_ms": stats["library_ms"]},

@@ -105,6 +105,17 @@ def train_member(cfg, cnn_params, part: Partition, *, epochs: int,
     and steps at ``lr_schedule(e)``. ``return_stats`` also returns the
     final epoch's ``ELMStats`` β was solved from. The host waits for the
     device once an epoch, for the β solves' factorisation checks."""
+    params, stats = member_epochs(cfg, cnn_params, part, epochs=epochs,
+                                  batch_size=batch_size,
+                                  lr_schedule=lr_schedule, seed=seed)
+    model = CNNELMModel(params, elm.solve_beta(stats, cfg.elm_lambda))
+    return (model, stats) if return_stats else model
+
+
+def member_epochs(cfg, cnn_params, part: Partition, *, epochs: int,
+                  batch_size: int, lr_schedule=None, seed=0):
+    """``train_member`` up to its final β solve: the trained CNN params and
+    the final epoch's ``ELMStats``."""
     if epochs < 0:
         raise ValueError(f"epochs must be >= 0, got {epochs}")
     if epochs > 0 and lr_schedule is None:
@@ -125,10 +136,8 @@ def train_member(cfg, cnn_params, part: Partition, *, epochs: int,
             params_k, stats = member_step(cfg, params_k, stats, xd, td,
                                           lr=lr, infos=infos)
         elm.check_factorisations(infos)
-    stats = elm.ELMStats(*(a[0] for a in stats))
-    model = CNNELMModel(tree_map(lambda a: a[0], params_k),
-                        elm.solve_beta(stats, cfg.elm_lambda))
-    return (model, stats) if return_stats else model
+    return (tree_map(lambda a: a[0], params_k),
+            elm.ELMStats(*(a[0] for a in stats)))
 
 
 @dataclass

@@ -6,7 +6,7 @@ epoch/round loop, host→device staging of the epochs, inter-round syncs and
 the Reduce.
 
 * ``SequentialExecutor`` (``backend="sequential"``) — the faithful
-  reference: one ``cnn_elm.train_member`` loop per member, one batch of
+  reference: one ``cnn_elm.member_epochs`` loop per member, one batch of
   one member per kernel launch. No sync point between members, so no
   ``rounds > 1`` and no gossip.
 * ``StackedExecutor`` (``backend="stacked"``) — all k members on a leading
@@ -19,7 +19,8 @@ the Reduce.
   with ``chunk_batches``, in chunks staged in pinned host memory and
   copied on a side stream one chunk ahead of the one being computed.
 
-Both resolve the Reduce weights lazily per round: the static
+Both hand back a ``MapOutcome`` whose β solves and averaged model run
+only when read, and resolve the Reduce weights lazily per round: the static
 ``plan.reduce_weights``, or ``plan.weight_fn`` over the round's trained
 members, whose ``val_errors()`` scores the held-out ``plan.validation``
 with the member-batched scoring pass (argmax on the device, the error
@@ -50,9 +51,9 @@ from repro_torch.core.averaging import (average_member_dim,
                                         broadcast_member_dim,
                                         gossip_member_dim)
 from repro_torch.core.cnn_elm import (CNNELMModel, StackedMembers,
-                                      average_models, scores_stacked,
-                                      stack_models, stacked_epoch_pass,
-                                      train_member)
+                                      average_models, member_epochs,
+                                      scores_stacked, stack_models,
+                                      stacked_epoch_pass)
 from repro_torch.data.partition import (Partition, chunk_scan_major,
                                         padded_stacked_epoch_batches)
 from repro_torch.data.synthetic import one_hot
@@ -133,17 +134,34 @@ class ExecutionPlan:
     member_init: Optional[Sequence] = None
 
 
-@dataclass
 class MapOutcome:
-    """What an executor hands back: the k trained members, the live
-    ``StackedMembers``, the final round's averaged model, every member's
-    final-epoch ``ELMStats`` (member-stacked) β was solved from, and the
-    number of inter-round syncs run."""
-    members: List[CNNELMModel]
-    stacked: StackedMembers
-    averaged: CNNELMModel
-    stats: elm.ELMStats
-    round_syncs: int = 0
+    """What an executor hands back: every member's trained CNN params, every
+    member's final-epoch ``ELMStats`` (member-stacked) β is solved from,
+    and the number of inter-round syncs run. The members' β (``stacked``,
+    ``members``) and the final round's ``averaged`` model are solved on
+    first read and kept: a caller that reads only ``member_params`` and
+    ``stats`` — the streaming Map, which solves β from its windows — runs
+    no solve and no average."""
+
+    def __init__(self, member_params: List[dict], stats: elm.ELMStats,
+                 snapshot: Callable[[], StackedMembers],
+                 averaged: Callable[[], CNNELMModel], round_syncs: int = 0):
+        self.member_params = member_params
+        self.stats = stats
+        self.round_syncs = round_syncs
+        self._snapshot, self._averaged = snapshot, averaged
+
+    @property
+    def stacked(self) -> StackedMembers:
+        return self._snapshot()
+
+    @property
+    def members(self) -> List[CNNELMModel]:
+        return self.stacked.unstack()
+
+    @property
+    def averaged(self) -> CNNELMModel:
+        return self._averaged()
 
 
 def _on_device(init_params, plan: ExecutionPlan):
@@ -263,8 +281,10 @@ def _round_closures(cfg, plan: ExecutionPlan, r: int, snapshot, reduce):
 
 
 class SequentialExecutor:
-    """One ``cnn_elm.train_member`` loop per member — the Algorithm 2
-    reference every fast path is held against."""
+    """One ``cnn_elm.member_epochs`` loop per member — the Algorithm 2
+    reference every fast path is held against; each member's β is solved
+    by itself (``elm.solve_beta`` of its own stats), when first read or
+    when its checkpoint is saved."""
 
     name = "sequential"
 
@@ -291,39 +311,53 @@ class SequentialExecutor:
         ck = plan.checkpoint
         done = dict(plan.completed or {})
         meta = _fingerprint(self.name, partitions, plan)
-        members, stats = [], []
+        params, stats, betas = [], [], {}
         for i, p in enumerate(partitions):
             if i in done:
                 model, s = done[i]
+                q, betas[i] = model.cnn_params, model.beta
             else:
                 init = (init_params if inits is None
                         else _on_device(inits[i], plan)[1])
-                model, s = train_member(
+                q, s = member_epochs(
                     cfg, init, p, epochs=plan.epochs,
                     lr_schedule=plan.lr_schedule, batch_size=plan.batch_size,
-                    seed=rngs[i], return_stats=True)
+                    seed=rngs[i])
                 if ck is not None:
-                    path = run_state.save_member(ck.dir, i, model, s,
-                                                 {**meta, "member": i})
+                    betas[i] = elm.solve_beta(s, cfg.elm_lambda)
+                    path = run_state.save_member(
+                        ck.dir, i, CNNELMModel(q, betas[i]), s,
+                        {**meta, "member": i})
                     if ck.after_save is not None:
                         ck.after_save("member", i, path)
-            members.append(model)
+            params.append(q)
             stats.append(s)
         stats_k = run_state.stack_stats(stats)
-        sm = stack_models(members)
+        cache: dict = {}
+
+        def snapshot():
+            if "sm" not in cache:
+                for i, s in enumerate(stats):
+                    if i not in betas:
+                        betas[i] = elm.solve_beta(s, cfg.elm_lambda)
+                cache["sm"] = stack_models([CNNELMModel(q, betas[i])
+                                            for i, q in enumerate(params)])
+            return cache["sm"]
+
         averaged, _ = _round_closures(
-            cfg, plan, 0, lambda: sm,
-            lambda w: average_models(members, w))
+            cfg, plan, 0, snapshot,
+            lambda w: average_models(snapshot().unstack(), w))
         if ck is not None:
             path = run_state.save_round(
-                ck.dir, 0, members=sm, stats=stats_k, averaged=averaged(),
+                ck.dir, 0, members=snapshot(), stats=stats_k,
+                averaged=averaged(),
                 meta={**meta, "round": 0, "epochs_done": plan.epochs,
                       "final": True})
             if ck.after_save is not None:
                 ck.after_save("round", 0, path)
         if plan.on_round is not None:
-            plan.on_round(0, lambda: sm, averaged)
-        return MapOutcome(members, sm, averaged(), stats_k)
+            plan.on_round(0, snapshot, averaged)
+        return MapOutcome(params, stats_k, snapshot, averaged)
 
 
 class StackedExecutor:
@@ -393,9 +427,7 @@ class StackedExecutor:
             snapshot, averaged, weights = self._closures(
                 cfg, plan, r, params_k, stats_k)
             last = r == len(round_rates) - 1
-            if last:
-                sm = snapshot()
-            else:
+            if not last:
                 params_k = self._sync(params_k, weights(), plan.gossip_rounds)
                 syncs += 1
             if ck is not None and (last or (r + 1) % ck.every == 0):
@@ -413,7 +445,9 @@ class StackedExecutor:
                     ck.after_save("round", r, path)
             if plan.on_round is not None:
                 plan.on_round(r, snapshot, averaged)
-        return MapOutcome(sm.unstack(), sm, averaged(), stats_k, syncs)
+        return MapOutcome([tree_map(lambda a, i=i: a[i], params_k)
+                           for i in range(k)], stats_k, snapshot, averaged,
+                          syncs)
 
     def _epoch(self, cfg, params_k, partitions, plan, rngs, dev, lr):
         """One epoch of all members (``lr=None``: the epochs=0 pass). The

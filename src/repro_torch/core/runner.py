@@ -35,8 +35,10 @@ contribution kept in every later average (``core.elastic.ElasticGroup``),
 each round one executor block over the current members.
 ``core.faults`` injects crashes and torn saves.
 
-The mesh backend and ``sync="drift"`` (the streaming policy) come with
-later slices and raise ``NotImplementedError`` here.
+``ReduceConfig(sync="drift")`` is the streaming policy: it constructs
+(rounds 1, no elastic schedule), and ``AveragingRun.run`` refuses it,
+pointing to ``repro_torch.stream.StreamingRun``. The mesh backend comes
+with a later slice and raises ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -168,7 +170,11 @@ class ReduceConfig:
     (``uniform``: rounds survived, ``shard_weighted``: rows processed,
     ``boosted``: validation-quality alphas per block), so strategies
     without ``elastic_ok`` (explicit weights, gossip) are refused; it needs
-    ``rounds >= 2``. ``sync="drift"`` comes with the streaming slice."""
+    ``rounds >= 2``. ``sync`` — WHEN the averaging events fire:
+    ``"rounds"`` (default) is everything above, a fixed count of evenly
+    spaced syncs; ``"drift"`` fires whenever a member's drift detector
+    signals — the STREAMING policy, which needs the per-chunk detectors of
+    ``repro_torch.stream.StreamingRun``, so the batch runner refuses it."""
     strategy: Union[str, Sequence[float], ReduceStrategy] = "uniform"
     rounds: int = 1
     validation: Optional[Partition] = None
@@ -181,10 +187,6 @@ class ReduceConfig:
         if self.sync not in SYNCS:
             raise ValueError(f"sync must be one of {SYNCS}, "
                              f"got {self.sync!r}")
-        if self.sync == "drift":
-            raise NotImplementedError(
-                "sync='drift' is the streaming policy; it comes with the "
-                "streaming slice of the port")
         if self.rounds < 1:
             raise ValueError(f"rounds must be >= 1, got {self.rounds}")
         if strat.requires_validation and self.validation is None:
@@ -197,6 +199,13 @@ class ReduceConfig:
                 f"strategy {strat.name!r} does not score a validation "
                 f"slice — drop ReduceConfig.validation (it would be "
                 f"silently ignored)")
+        if self.sync == "drift" and self.rounds != 1:
+            raise ValueError(
+                "sync='drift' replaces the rounds cadence — leave rounds=1 "
+                "(drift-triggered syncs fire per chunk, not per round)")
+        if self.sync == "drift" and self.elastic is not None:
+            raise ValueError("sync='drift' does not combine with an elastic "
+                             "schedule")
         if self.elastic is not None:
             if not isinstance(self.elastic, ElasticSchedule):
                 raise ValueError("elastic must be an ElasticSchedule")
@@ -361,7 +370,15 @@ class AveragingRun:
         Rounds without a hook or a checkpoint skip their β solve and
         Reduce. ``checkpoint`` turns on atomic per-round (stacked) or
         per-member (sequential) checkpoints. Under
-        ``ReduceConfig.elastic`` the result is an ``ElasticRunResult``."""
+        ``ReduceConfig.elastic`` the result is an ``ElasticRunResult``.
+        ``ReduceConfig(sync="drift")`` is refused: it needs
+        ``repro_torch.stream.StreamingRun``."""
+        if self.reduce_cfg.sync == "drift":
+            raise ValueError(
+                "ReduceConfig(sync='drift') is the streaming policy — it "
+                "needs per-chunk drift detectors, so drive it through "
+                "repro_torch.stream.StreamingRun; this batch runner syncs on "
+                "the rounds cadence")
         dev = resolve_device(device)
         if checkpoint is not None and \
                 not isinstance(checkpoint, CheckpointConfig):

@@ -14,6 +14,12 @@ back from one to the other: a failed build or launch raises.
 ``LAUNCHES`` counts kernel launches per kernel name; each wrapper adds one
 where it launches, and nowhere else, so a run can show that its main path
 went through the kernels (``reset_launches`` before, read after).
+
+A captured CUDA graph runs its kernels without a Python call, so the count
+follows the graph: launches made while a thread captures
+(``capture_launches``) run nothing and go into the graph's record instead
+of ``LAUNCHES``, and every replay adds that record back (``count_replay``).
+A kernel launched into a capture that keeps no record raises.
 """
 from __future__ import annotations
 
@@ -24,7 +30,9 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from contextlib import contextmanager
 from pathlib import Path
+from typing import Dict, Iterator
 
 import torch
 
@@ -63,13 +71,37 @@ _ENTRIES = {
 LAUNCHES = {name: 0 for name in _ENTRIES}
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()      # a serving worker and a trainer count
+_capturing = threading.local()      # .record: the capture's launches
 _lib = None
 build_log = ""
 
 
 def reset_launches():
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _count_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+@contextmanager
+def capture_launches() -> Iterator[Dict[str, int]]:
+    """While this thread captures a CUDA graph: yield the record of the
+    launches the capture makes, which are kept out of ``LAUNCHES`` (a
+    capture runs no kernel); ``count_replay(record)`` adds them per
+    replay."""
+    record = {name: 0 for name in _ENTRIES}
+    _capturing.record = record
+    try:
+        yield record
+    finally:
+        _capturing.record = None
+
+
+def count_replay(record: Dict[str, int]):
+    """Count one replay of a graph whose capture made ``record``."""
+    with _count_lock:
+        for name, n in record.items():
+            LAUNCHES[name] += n
 
 
 def refuse_grad(name: str, tensors):
@@ -147,8 +179,17 @@ def launch(name: str, *args, passes: int = 1):
     its launches: ``passes`` for an entry point that launches its kernel in
     that many passes, else one; raise if CUDA reports an error."""
     fn_name = _ENTRIES[name][0]
+    record = getattr(_capturing, "record", None)
+    if record is None and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"{name} launched into a CUDA graph capture that keeps no launch "
+            f"record: capture under kernels.capture_launches()")
     err = getattr(library(), fn_name)(
         *args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
-    LAUNCHES[name] += passes
+    if record is not None:
+        record[name] += passes
+        return
+    with _count_lock:
+        LAUNCHES[name] += passes

@@ -1,6 +1,9 @@
-"""Serving launcher, LM decode path: batched prefill of a batch of prompts,
-then greedy decode of N tokens against the KV cache, reporting prefill
-time and tokens/s — the port's counterpart of ``repro.launch.serve``.
+"""Serving launcher — two paths behind one CLI, the port's counterpart of
+``repro.launch.serve``.
+
+**LM decode** (the default): batched prefill of a batch of prompts, then
+greedy decode of N tokens against the KV cache, reporting prefill time and
+tokens/s.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_8b \\
@@ -9,9 +12,20 @@ time and tokens/s — the port's counterpart of ``repro.launch.serve``.
 Weights are random, drawn from ``--seed`` on the chosen device. As in the
 reference, the prompt is prefilled once (timed), then replayed token by
 token into a fresh cache sized for prompt + generation, and decoding
-continues from the replay's last logits. The CNN-ELM ensemble endpoint
-(``--ensemble``: continuous batching, the scheduler, hot reload) is not
-ported yet.
+continues from the replay's last logits.
+
+**CNN-ELM ensemble** (``--ensemble``): the ``repro_torch.serve`` endpoint —
+continuous batching under a latency SLO over a ``BucketedScorer`` (one
+captured CUDA graph per bucket on the card), driven by the open-loop load
+generator; with ``--ckpt-dir`` it serves a training run's newest
+``round-<r>.npz`` and hot-reloads newer rounds live.
+
+  # train k members, then serve synthetic open-loop load
+  PYTHONPATH=src python -m repro_torch.launch.serve --ensemble --k 4 \\
+      --rate 200 --requests 400
+  # track a live training run's checkpoints
+  PYTHONPATH=src python -m repro_torch.launch.serve --ensemble \\
+      --ckpt-dir /path/to/run --rate 200 --requests 400
 """
 from __future__ import annotations
 
@@ -85,9 +99,86 @@ def run_lm(args) -> dict:
                                   and torch.isfinite(logits).all())}
 
 
+def run_ensemble(args) -> dict:
+    """The CNN-ELM ensemble endpoint: serve from ``--ckpt-dir`` (hot-
+    reloading newer rounds) or from a freshly trained k-member stacked run,
+    then offer open-loop load and report tail latency."""
+    from repro_torch.checkpoint import run_state
+    from repro_torch.core.runner import AveragingRun, MapConfig, ReduceConfig
+    from repro_torch.data.partition import partition_iid
+    from repro_torch.data.synthetic import make_extended_mnist
+    from repro_torch.serve import (BucketedScorer, CheckpointWatcher,
+                                   EnsembleServer, ServeConfig,
+                                   run_open_loop)
+
+    dev = resolve_device(args.device)
+    cfg = get_reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    if cfg.family != "cnn":
+        raise SystemExit(f"--ensemble serves CNN-ELM archs; {cfg.name} is "
+                         f"family {cfg.family!r} (drop --ensemble for the "
+                         "LM decode path)")
+    ds = make_extended_mnist(n_per_class=60, seed=args.seed)
+    train, test = ds.split(n_test=200)
+
+    watcher = None
+    if args.ckpt_dir:
+        r = run_state.latest_ready_round(args.ckpt_dir)
+        if r is None:
+            raise SystemExit(f"no fully-written round-<r>.npz in "
+                             f"{args.ckpt_dir}")
+        members = run_state.restore_round(args.ckpt_dir, r, dev).members
+        print(f"# serving round {r} from {args.ckpt_dir} "
+              f"(k={members.k}, hot-reload on)")
+    else:
+        result = AveragingRun(
+            cfg, MapConfig(epochs=0, batch_size=200, backend="stacked"),
+            ReduceConfig()).run(
+                partition_iid(train.x, train.y, args.k),
+                generator=torch.Generator().manual_seed(args.seed),
+                device=dev)
+        members = result.stacked
+        print(f"# trained k={args.k} members in {result.wall_time_s:.1f}s")
+
+    scorer = BucketedScorer(cfg, members, max_batch=args.max_batch,
+                            device=dev)
+    server = EnsembleServer(scorer, ServeConfig(
+        max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
+        combine=args.combine)).start()
+    try:
+        if args.ckpt_dir:
+            watcher = CheckpointWatcher(args.ckpt_dir, server,
+                                        poll_ms=args.poll_ms,
+                                        start_round=r).start()
+        print(f"# buckets {scorer.ladder.buckets} — "
+              f"{scorer.compile_count()} programs (one per bucket, pinned)")
+        rep = run_open_loop(server, test.x, rate_per_s=args.rate,
+                            n_requests=args.requests, seed=args.seed)
+    finally:
+        if watcher is not None:
+            watcher.stop()
+        server.close()
+    stats = server.stats()
+    scorer.assert_compile_budget()
+    swaps = len(watcher.swaps) if watcher is not None else 0
+    print(f"# device={dev} offered {rep.offered_per_s:.0f}/s → achieved "
+          f"{rep.achieved_per_s:.0f} imgs/s   p50 {rep.p50_ms:.2f} ms  "
+          f"p95 {rep.p95_ms:.2f} ms  p99 {rep.p99_ms:.2f} ms")
+    print(f"# {stats.completed} answered, {stats.failed} failed, "
+          f"{stats.dropped} dropped, {swaps} hot swaps, "
+          f"mean batch occupancy {stats.mean_occupancy:.1f}")
+    return {"images_per_s": rep.achieved_per_s, "p50_ms": rep.p50_ms,
+            "p95_ms": rep.p95_ms, "p99_ms": rep.p99_ms,
+            "completed": stats.completed, "failed": stats.failed,
+            "dropped": stats.dropped, "mean_occupancy": stats.mean_occupancy,
+            "compile_count": stats.compile_count, "swaps": swaps,
+            "device": str(dev)}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3_8b")
+    ap.add_argument("--arch", default=None,
+                    help="default: qwen3_8b (LM) / cnn_elm_6c12c "
+                         "(--ensemble)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
@@ -97,15 +188,26 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--greedy", action="store_true", default=True)
+    # CNN-ELM ensemble path
     ap.add_argument("--ensemble", action="store_true",
-                    help="the CNN-ELM ensemble endpoint (not ported yet)")
+                    help="serve a CNN-ELM ensemble (repro_torch.serve) "
+                         "instead of LM decode")
+    ap.add_argument("--k", type=int, default=4,
+                    help="members to train when no --ckpt-dir is given")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve (and hot-reload) a training run's "
+                         "round-<r>.npz checkpoints")
+    ap.add_argument("--max-batch", type=int, default=32)
+    ap.add_argument("--max-wait-ms", type=float, default=5.0)
+    ap.add_argument("--combine", default="mean", choices=("mean", "vote"))
+    ap.add_argument("--poll-ms", type=float, default=50.0)
+    ap.add_argument("--rate", type=float, default=200.0,
+                    help="offered open-loop load, images/s")
+    ap.add_argument("--requests", type=int, default=400)
     args = ap.parse_args(argv)
-    if args.ensemble:
-        raise NotImplementedError(
-            "--ensemble: EnsembleServer, the scheduler and hot reload are not "
-            "ported yet (ROADMAP queue 1 item 9); BucketedScorer is "
-            "(repro_torch.serve)")
-    return run_lm(args)
+    if args.arch is None:
+        args.arch = "cnn_elm_6c12c" if args.ensemble else "qwen3_8b"
+    return run_ensemble(args) if args.ensemble else run_lm(args)
 
 
 if __name__ == "__main__":

@@ -4,8 +4,7 @@ copy of ``repro.serve.bucketing``.
 A continuous-batching server forms batches of every size from 1 to
 ``max_batch``. Scoring only at a fixed set of shapes keeps the set of
 programs a server runs bounded — the reference compiles one program per
-shape, and the port's CUDA-graph capture (a later slice) will capture one
-graph per shape.
+shape, and the port captures one CUDA graph per shape on the card.
 
 ``BucketLadder`` fixes the shape set up front: powers of two
 (1, 2, 4, 8, …) capped by ``max_batch`` (which is always the top rung,

@@ -691,3 +691,199 @@ def test_lm_finetune_step_refuses_on_card(cuda):
         kernels.LAUNCHES["swa_attention"] > 0
     with pytest.raises(RuntimeError, match="no backward"):
         elm_head.finetune_step(feature_fn, params, beta, batch, 16, lr=1e-2)
+
+
+# ---------------------------------------------------------------------------
+# Serving through one captured CUDA graph per bucket
+# ---------------------------------------------------------------------------
+
+def _serving_members(cuda, k=4, seed=0):
+    """k members of the full-width cnn_elm_6c12c with random weights and β
+    drawn from ``seed`` (the scorer's programs do not depend on training)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.cnn_elm import StackedMembers
+    from repro_torch.models import cnn
+    cfg = get_config("cnn_elm_6c12c")
+    gen = torch.Generator().manual_seed(seed)
+    params = [cnn.init_params(cfg, gen, device="cpu") for _ in range(k)]
+    cnn_k = tree_map(lambda *xs: torch.stack(xs), *params)
+    beta = 0.1 * torch.randn((k, cnn.feature_dim(cfg), cfg.num_classes),
+                             generator=gen)
+    return cfg, StackedMembers(cnn_k, beta).to(cuda)
+
+
+def _images(n, seed=0):
+    return np.random.default_rng(seed).random((n, 28, 28), dtype=np.float32)
+
+
+@pytest.mark.cuda
+def test_graph_replay_equals_eager_scoring_at_each_bucket(cuda):
+    """Every bucket's replay equals the same scoring pass run eagerly on
+    the card, bit for bit, and each bucket holds one graph."""
+    from repro_torch.serve import BucketedScorer
+    cfg, members = _serving_members(cuda)
+    scorer = BucketedScorer(cfg, members, max_batch=64, device=cuda)
+    x = _images(64)
+    for b in scorer.ladder.buckets:
+        got = scorer.score_block(x[:b])
+        eager = scorer._scores(torch.from_numpy(x[:b]).to(cuda))
+        torch.cuda.synchronize()
+        assert got.shape == (4, b, cfg.num_classes)
+        np.testing.assert_array_equal(got, eager.cpu().numpy())
+    assert scorer.compile_count() == len(scorer.ladder.buckets)
+    assert scorer.assert_compile_budget() == len(scorer.ladder.buckets)
+
+
+@pytest.mark.cuda
+def test_rows_score_the_same_bits_in_every_bucket_on_card(cuda):
+    """The padding contract on the card: 7 rows score the same bits alone
+    (bucket 8) and inside every larger bucket."""
+    from repro_torch.serve import BucketedScorer
+    cfg, members = _serving_members(cuda)
+    scorer = BucketedScorer(cfg, members, max_batch=64, device=cuda)
+    x = _images(64, seed=1)
+    alone = scorer.score_block(x[:7])
+    for n in (8, 9, 16, 17, 32, 33, 64):
+        np.testing.assert_array_equal(scorer.score_block(x[:n])[:, :7],
+                                      alone)
+
+
+@pytest.mark.cuda
+def test_swap_under_graphs_scores_the_new_members(cuda):
+    """A swap copies into the captured weights: every bucket's replay then
+    scores the new members (bitwise their own eager scores, here the old
+    members reversed), with no new capture."""
+    from repro_torch.core.cnn_elm import stack_models
+    from repro_torch.serve import BucketedScorer, SwapRejected
+    cfg, members = _serving_members(cuda)
+    scorer = BucketedScorer(cfg, members, max_batch=16, device=cuda).warmup()
+    x = _images(16, seed=2)
+    before = {b: scorer.score_block(x[:b]) for b in scorer.ladder.buckets}
+    scorer.swap_members(stack_models(members.unstack()[::-1]))
+    for b in scorer.ladder.buckets:
+        np.testing.assert_array_equal(scorer.score_block(x[:b]),
+                                      before[b][::-1])
+    assert scorer.assert_compile_budget() == len(scorer.ladder.buckets)
+    with pytest.raises(SwapRejected):
+        scorer.swap_members(stack_models(members.unstack()[:2]))
+
+
+@pytest.mark.cuda
+def test_graph_replays_are_counted_as_launches(cuda):
+    """A replay launches no kernel from Python, yet adds its capture's
+    launches (one conv2d per stage) to ``kernels.LAUNCHES``; the capture
+    itself counts none."""
+    from repro_torch.serve import BucketedScorer
+    cfg, members = _serving_members(cuda)
+    scorer = BucketedScorer(cfg, members, max_batch=8, device=cuda).warmup()
+    kernels.reset_launches()
+    x = _images(8, seed=3)
+    for n in (1, 3, 8, 8, 5):
+        scorer.score_block(x[:n])
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["conv2d"] == 2 * 5
+    assert kernels.LAUNCHES["elm_stats"] == 0
+
+
+@pytest.mark.cuda
+def test_capture_without_a_launch_record_raises(cuda):
+    """A kernel launched into a capture that keeps no launch record would
+    be counted as run though it ran nothing: the wrapper refuses."""
+    from repro_torch.serve import BucketedScorer
+    cfg, members = _serving_members(cuda)
+    scorer = BucketedScorer(cfg, members, max_batch=2, device=cuda).warmup()
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="capture_launches"):
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            scorer._scores(torch.zeros((2, 28, 28), device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# The streaming Map on the card
+# ---------------------------------------------------------------------------
+
+def _stream_run(device, backend="stacked", sync="drift", ckpt=None):
+    from repro_torch.core.executor import CheckpointConfig
+    from repro_torch.core.runner import ReduceConfig
+    from repro_torch.models import cnn
+    from repro_torch.stream import (StreamConfig, StreamingRun,
+                                    SyntheticDriftSource, member_streams)
+    cfg = get_reduced_config("cnn_elm_6c12c")
+    srcs = [SyntheticDriftSource(n_chunks=8, chunk_rows=64, drift_at=4,
+                                 seed=11 + i, label_shift=5, n_per_class=12)
+            for i in range(2)]
+    init = cnn.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    return StreamingRun(
+        cfg, MapConfig(epochs=0, batch_size=16, backend=backend),
+        ReduceConfig(sync=sync),
+        StreamConfig(window_chunks=3, holdout_rows=16, drift_threshold=0.3,
+                     drift_warmup=2, verify_every=3)).run(
+        member_streams(srcs, 2, seed=1000, per_member=True),
+        init_params=init, device=device,
+        checkpoint=None if ckpt is None else CheckpointConfig(dir=ckpt))
+
+
+def _stream_f64(res, ckpt, lam):
+    """The f64 models of a stream's own windows: each member's β solved in
+    f64 from its final window totals, and the published β solved in f64
+    from the totals its last sync saved, averaged uniformly."""
+    from repro_torch.checkpoint import run_state
+
+    def solve(u, v):
+        eye = torch.eye(u.shape[-1], dtype=torch.float64)
+        return torch.linalg.solve(u.cpu().double() + eye / lam,
+                                  v.cpu().double())
+    beta = solve(torch.stack([w.total().u for w in res.windows]),
+                 torch.stack([w.total().v for w in res.windows]))
+    state = run_state.restore_round(ckpt, res.sync_chunks[-1], "cpu")
+    return beta, solve(state.stats.u, state.stats.v).mean(0)
+
+
+@pytest.mark.cuda
+def test_stream_on_card_matches_cpu(cuda, tmp_path):
+    """A drift-policy stream (reduced cnn_elm_6c12c, 2 members, 8 chunks of
+    64 rows) through the kernels (per chunk: one member-batched held-out
+    pass, 2 convs, and 2 convs + 1 elm_stats a batch). The card's run
+    makes the CPU run's syncs; each member's window totals lie within the
+    window gate's tolerance (1e-3 + 1e-5 · max|total|) of the CPU's. Its
+    windowed β and published β lie within 1e-3 · max|β| — or twice the
+    CPU's own distance from the f64 model of the CPU's windows, where that
+    is larger — of the f64 model of the card's OWN windows, and from the
+    CPU's within that bar plus the two f64 models' distance (what the
+    windows' difference makes of an exact solve). The card's stacked and
+    sequential runs are the same bits."""
+    from repro_torch.stream import StreamConfig
+    cpu = _stream_run("cpu", ckpt=str(tmp_path / "cpu"))
+    kernels.reset_launches()
+    card = _stream_run(cuda, ckpt=str(tmp_path / "card"))
+    assert card.launches == {**{n: 0 for n in kernels.LAUNCHES},
+                             "conv2d": 8 * (2 + 2 * 4), "elm_stats": 8 * 4}
+    assert card.sync_chunks == cpu.sync_chunks
+    assert any(s.reason == "drift" for s in card.syncs)
+    sc = StreamConfig()
+    for wa, wb in zip(card.windows, cpu.windows):
+        for x, y in zip(wa.total()[:2], wb.total()[:2]):
+            assert x.is_cuda
+            np.testing.assert_allclose(
+                x.cpu().numpy(), y.numpy(), rtol=0,
+                atol=sc.verify_atol + sc.verify_rtol * float(y.abs().max()))
+    lam = get_reduced_config("cnn_elm_6c12c").elm_lambda
+    xa, xa_pub = _stream_f64(card, str(tmp_path / "card"), lam)
+    xb, xb_pub = _stream_f64(cpu, str(tmp_path / "cpu"), lam)
+    for got, ref, xg, xr in (
+            (card.stacked.beta, cpu.stacked.beta, xa, xb),
+            (card.last_published.beta, cpu.last_published.beta, xa_pub,
+             xb_pub)):
+        got, ref = got.cpu().double(), ref.cpu().double()
+        bar = max(1e-3 * float(ref.abs().max()),
+                  2 * float((ref - xr).abs().max()))
+        assert float((got - xg).abs().max()) <= bar
+        assert float((got - ref).abs().max()) <= \
+            bar + float((xg - xr).abs().max())
+    seq = _stream_run(cuda, backend="sequential")
+    assert seq.sync_chunks == card.sync_chunks
+    for a, b in zip(card.members, seq.members):
+        assert torch.equal(a.beta, b.beta)
+    for wa, wb in zip(card.windows, seq.windows):
+        assert all(torch.equal(p, q) for p, q in zip(wa.total(), wb.total()))

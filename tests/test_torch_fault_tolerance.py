@@ -91,15 +91,15 @@ def _stacked_run(rounds=4, epochs=4, backend="stacked", seed=1000):
 
 
 def _count_trained(monkeypatch):
-    """Record the partitions ``train_member`` trains on."""
+    """Record the partitions ``member_epochs`` trains on."""
     trained = []
-    real = executor.train_member
+    real = executor.member_epochs
 
     def spy(cfg, init, part, *, seed, **kw):
         trained.append(part)
         return real(cfg, init, part, seed=seed, **kw)
 
-    monkeypatch.setattr(executor, "train_member", spy)
+    monkeypatch.setattr(executor, "member_epochs", spy)
     return trained
 
 

@@ -1,8 +1,7 @@
 """The port stands alone: ``repro_torch`` imports neither JAX nor ``repro``,
 runs on the card unless asked for the CPU, and refuses what later slices
-of the port will bring (the mesh backend and its ``psum_stats``, drift
-syncs, the LM families beyond the dense decoder) instead of doing it
-wrongly."""
+of the port will bring (the mesh backend and its ``psum_stats``, the LM
+families beyond the dense decoder) instead of doing it wrongly."""
 import os
 import pkgutil
 import re
@@ -46,7 +45,10 @@ def test_every_module_imports_without_jax_or_repro():
     assert "repro_torch.launch.serve" in mods
     assert "repro_torch.optim.schedules" in mods
     for name in ("checkpoint.ckpt", "checkpoint.run_state", "core.e2lm",
-                 "core.elm_head", "core.elastic", "core.faults"):
+                 "core.elm_head", "core.elastic", "core.faults",
+                 "serve.scheduler", "serve.hot_reload", "serve.loadgen",
+                 "stream", "stream.drift", "stream.sources", "stream.window",
+                 "stream.run"):
         assert f"repro_torch.{name}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -126,6 +128,13 @@ def test_entry_points_default_to_the_card(monkeypatch):
         api.init_cache(LM, 1, 8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--reduced", "--prompt-len", "4", "--gen", "2"])
+    # the ensemble endpoint and the streaming Map
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--ensemble", "--reduced"])
+    from repro_torch.stream import StreamingRun
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StreamingRun(CFG, MapConfig(batch_size=40)).run(
+            [[parts[0]]], init_params=params)
     lm = api.init_params(LM, gen, device="cpu")
     assert lm["embed"].device.type == "cpu"
 
@@ -155,7 +164,6 @@ def test_executors_run_on_the_plan_device(monkeypatch, backend):
 @pytest.mark.parametrize("make", [
     lambda: MapConfig(backend="mesh"),
     lambda: executor.make_executor("mesh"),
-    lambda: ReduceConfig(sync="drift"),
     lambda: e2lm.psum_stats(None, "pod"),
     lambda: api.module_of(replace(LM, family="moe")),
     lambda: api.module_of(replace(LM, family="ssm_rwkv6")),
@@ -163,7 +171,6 @@ def test_executors_run_on_the_plan_device(monkeypatch, backend):
                                     is_encoder_only=True), None),
     lambda: trainer.make_prefill_step(replace(LM, is_encoder_only=True))(
         None, {"tokens": torch.zeros((1, 4), dtype=torch.int64)}),
-    lambda: serve.main(["--ensemble"]),
 ])
 def test_later_slices_raise_not_implemented(make):
     with pytest.raises(NotImplementedError):
