@@ -42,7 +42,25 @@ is non-zero and no result line is printed:
              of each shard at full width, one epoch and the two-round run,
              under the same gates; the averaged model's accuracy must stay
              above the epochs=0 model's less 0.05.
-6. serve   — a bucketed scorer, one captured CUDA graph per bucket,
+6. mesh    — the scale-out Map (``MapConfig(backend="mesh")``) over
+             NCCL at world size 1, in this process, on the flat and the
+             2-D (1, 1) member meshes, on ``map``'s shards at full width:
+             the epochs=0 Map → Reduce and ``sgd``'s two-epoch two-round
+             run, each bitwise the card's stacked run (members, stats, β,
+             averaged model; held-out scores at epochs=0) with its
+             launches; the collectives counted per span (none in an
+             epoch, one all-reduce a Reduce and a sync, two on the 2-D
+             mesh, one all-gather a snapshot and a boosted weight
+             resolve); shard_weighted and boosted Reduces bitwise the
+             stacked ones (the same weights); ``e2lm_global_beta``
+             bitwise ``e2lm.mapreduce_solve`` of the same stats; the
+             two-round run crashed after round 0 and resumed, bitwise;
+             walls and images/s beside the stacked run's, taken in turns,
+             and one all-reduce of the flat 3,888-float vector (CUDA
+             events); and two gloo ranks sharing the card
+             (``run_ranks``), the epochs=0 Map's members bitwise the
+             stacked run's and its average within rtol 1e-5.
+7. serve   — a bucketed scorer, one captured CUDA graph per bucket,
              answering requests of 1, 3, 17 and 64 images, checked against
              the ensemble surface; launches counted over the replays; the
              graph count after warm-up and after one hot swap; whether a
@@ -55,7 +73,7 @@ is non-zero and no result line is printed:
              dropped, p50/p95/p99, images/s and mean occupancy per rate;
              the same endpoint once through ``python -m
              repro_torch.launch.serve --ensemble`` at 200 /s.
-7. stream  — the streaming Map at full width in
+8. stream  — the streaming Map at full width in
              ``benchmarks/stream_map.py``'s settings (3 class-skewed
              members, 48 chunks of 128 rows, a label permutation at chunk
              24, window 8, cadence 12, held-out 16, epochs 0, batch 32):
@@ -72,9 +90,9 @@ is non-zero and no result line is printed:
              ``CheckpointWatcher`` on its checkpoints under traffic: the
              newest round staged, zero failed and dropped, post-swap
              scores bitwise those of direct scoring, no new graph.
-8. profile — one stacked Map and one stacked SGD epoch under
+9. profile — one stacked Map and one stacked SGD epoch under
              torch.profiler: device busy, wall, idle share, top operations.
-9. e2lm    — E²LM at ``benchmarks/e2lm_scaling.py``'s shape (200,000 rows,
+10. e2lm   — E²LM at ``benchmarks/e2lm_scaling.py``'s shape (200,000 rows,
              L 192, C 10, λ 100, from a seed): per-shard stats for k 2, 4
              and 8 through ``e2lm.mapreduce_solve`` within the solve bar of
              the monolithic β (1e-3 · max|β|, or twice its own f32 distance
@@ -83,20 +101,20 @@ is non-zero and no result line is printed:
              within the same bar; OS-ELM in 50-row blocks against the batch
              solve (rtol 5e-2, atol 5e-3); elm_stats timed at 25k, 50k,
              100k and 200k rows a member.
-10. elm_head — the ELM head: over the CNN (the Map's init, its 50,000
+11. elm_head — the ELM head: over the CNN (the Map's init, its 50,000
              images, the held-out set scored, 4 ``finetune_step``s whose
              loss must fall), over the full qwen3_8b in bf16
              (``hidden_states`` of 4 × 128 tokens, C 16, λ 10; elm_stats
              timed at that shape; ``finetune_step`` must raise), and the
              2-layer full-width f32 LM's states and head β, card vs CPU
              (1e-4 · max|h|; the solve bar).
-11. resume — crash and resume at full width with the ``sgd`` phase's
+12. resume — crash and resume at full width with the ``sgd`` phase's
              settings: the stacked two-round run after round 0 (a torn
              round-1 file must be skipped), the sequential run after
              member 1, and an elastic run with one leave and one join
              (stacked vs sequential, and its resume): each equal to its
              uninterrupted run under ``torch.equal``.
-12. lm     — the LM serving path (``repro_torch.launch.serve``): (a) qwen3_8b
+13. lm     — the LM serving path (``repro_torch.launch.serve``): (a) qwen3_8b
              at full width cut to 2 layers, f32, the card against the port's
              CPU path on the same params (prefill and 4 greedy decode steps
              within 1e-4 · max|logit|, equal tokens); (b) the full 36-layer
@@ -106,14 +124,15 @@ is non-zero and no result line is printed:
              device-idle share of a decode step: its device busy time
              (torch.profiler, one step) over the mean step of 10 unprofiled
              steps and over the mean step of run_lm's own decode loop.
-13. the kernels line, the card line, and the last line
+14. the kernels line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 The launch counters are set to 0 just before each path runs and read just
 after it: the CNN main path (stacked Map → Reduce → scoring of the
 held-out set), the sequential Map, each SGD Map (the stacked one-round run
 is the SGD main path, whose conv2d_dgrad and conv2d_wgrad counts the
-kernels line reports), serving (the replays of its captured graphs,
+kernels line reports), each mesh Map (the flat mesh's epochs=0 and SGD
+runs add to the kernels line's counts), serving (the replays of its captured graphs,
 which the kernels line adds to conv2d's count), the open-loop sweep, each
 streaming run (the stacked drift run's conv2d and elm_stats counts are
 added to the kernels line's), the E²LM path, the CNN and LM heads, the crash/resume runs, and
@@ -744,9 +763,9 @@ def phase_map(torch, dev, n_per_class=1500, n_test=10_000, k=4, batch=200):
          members=ens.evaluate(test.x, test.y, preds=preds).tolist(),
          ensemble_mean=ens.accuracy(test.x, test.y))
     return dict(cfg=cfg, test=test, parts=parts, batch=batch, init=init,
-                stacked=stacked, seq=seq, cpu=cpu, ens=ens,
-                scores=scores, launches=main_launches,
-                seq_launches=seq_launches)
+                data_args=(n_per_class, n_test, k), stacked=stacked,
+                seq=seq, cpu=cpu, ens=ens, scores=scores,
+                launches=main_launches, seq_launches=seq_launches)
 
 
 def phase_sgd(torch, dev, m, epochs=2, lr_c=0.05, cut=2500):
@@ -863,6 +882,271 @@ def phase_sgd(torch, dev, m, epochs=2, lr_c=0.05, cut=2500):
           f"SGD accuracy {a_sgd} collapsed against epochs=0's {a_0}")
     return dict(stacked=stacked, seq=seq, rounds2=out[("stacked", 2)],
                 launches=main_launches, lr_c=lr_c, epochs=epochs)
+
+
+def mesh_probe_rank(rank, world, dev_name, cfg, data_args, init, batch):
+    """One rank of the two-rank gloo group sharing the card (``run_ranks``
+    starts it): the ``map`` phase's shards made again from their seed, the
+    epochs=0 Map on the flat mesh; its members, stats, averaged model and
+    collectives' log back to the parent."""
+    from repro_torch.core.runner import AveragingRun, MapConfig
+    from repro_torch.data.partition import partition_iid
+    from repro_torch.data.synthetic import make_extended_mnist
+    from repro_torch.distributed import collectives
+    from repro_torch.launch.mesh import make_member_mesh
+    from repro_torch.tree import tree_leaves
+    n_per_class, n_test, k = data_args
+    train, _ = make_extended_mnist(n_per_class=n_per_class,
+                                   seed=0).split(n_test)
+    parts = partition_iid(train.x, train.y, k)
+    res = AveragingRun(cfg, MapConfig(
+        batch_size=batch, backend="mesh", mesh=make_member_mesh())).run(
+            parts, init_params=init, device=dev_name)
+    cpu = lambda t: [a.cpu() for a in tree_leaves(t)]    # noqa: E731
+    return dict(members=cpu((res.stacked.cnn_params, res.stacked.beta)),
+                stats=cpu(tuple(res.stats)),
+                averaged=cpu((res.averaged.cnn_params, res.averaged.beta)),
+                log=[(label, dict(c)) for label, c in collectives.LOG])
+
+
+def phase_mesh(torch, dev, m, sgd, probe_world2=True):
+    """The scale-out Map (``MapConfig(backend="mesh")``) on the card over
+    NCCL at world size 1, in this process: the flat 1-D and the 2-D (1, 1)
+    member meshes, on the ``map`` phase's shards at full width.
+
+    Runs: the epochs=0 Map → Reduce (flat and 2-D); the ``sgd`` phase's
+    two-epoch, two-round run (flat and 2-D); shard_weighted and boosted
+    Reduces of the epochs=0 Map; ``e2lm_global_beta`` of an epochs=0 Map;
+    the two-round run crashed after round 0's checkpoint and resumed.
+    Gates: members, stats, β, averaged model and held-out scores bitwise
+    those of the card's stacked runs (one rank holds every member, and
+    its all-reduce of one partial is that partial); the kernels' launches
+    the stacked path's; the collectives per span — none in an epoch, one
+    all-reduce a Reduce and a sync (two on the 2-D mesh), one all-gather a
+    snapshot and a boosted weight resolve; the global β bitwise
+    ``e2lm.mapreduce_solve`` of the same stats; the resumed run bitwise
+    the uninterrupted one. Printed: walls, images/s, and one all-reduce
+    of the flat f32 vector of the CNN and β (3,888 floats) timed by CUDA
+    events. Then, where ``probe_world2``: two gloo ranks sharing the card
+    (NCCL refuses two ranks on one card), the epochs=0 flat Map against
+    the stacked run."""
+    import tempfile
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.core import e2lm, elm, faults
+    from repro_torch.core.averaging import ravel
+    from repro_torch.core.executor import ExecutionPlan, make_executor
+    from repro_torch.core.reduce_strategies import Boosted
+    from repro_torch.core.runner import AveragingRun, MapConfig, ReduceConfig
+    from repro_torch.data.partition import Partition
+    from repro_torch.distributed import collectives
+    from repro_torch.launch.mesh import (make_member_mesh, process_group,
+                                         run_ranks)
+    from repro_torch.optim.schedules import dynamic_paper
+    from repro_torch.tree import tree_leaves
+
+    cfg, parts, test, init = m["cfg"], m["parts"], m["test"], m["init"]
+    batch, epochs, lr_c = m["batch"], sgd["epochs"], sgd["lr_c"]
+    n_images = sum(len(p.x) // batch * batch for p in parts)
+    validation = Partition(test.x[:2000], test.y[:2000])
+    seen = []
+
+    class RecordingBoosted(Boosted):
+        def weights(self, ctx):
+            w = super().weights(ctx)
+            seen.append([float(x) for x in w])
+            return w
+
+    def leaves_equal(a, b):
+        la, lb = tree_leaves(a), tree_leaves(b)
+        return len(la) == len(lb) and all(torch.equal(x, y)
+                                          for x, y in zip(la, lb))
+
+    def same_run(a, b):
+        return (leaves_equal((a.stacked.cnn_params, a.stacked.beta),
+                             (b.stacked.cnn_params, b.stacked.beta))
+                and leaves_equal(tuple(a.stats), tuple(b.stats))
+                and leaves_equal((a.averaged.cnn_params, a.averaged.beta),
+                                 (b.averaged.cnn_params, b.averaged.beta)))
+
+    def log_holds(log, two):
+        """The collective contract over one run's spans."""
+        reduce_check = (collectives.check_two_all_reduces if two
+                        else collectives.check_one_all_reduce)
+        for label, counts in log:
+            if label == "epoch":
+                ok = collectives.check_no_collectives(counts).ok
+            elif label in ("sync", "reduce"):
+                ok = reduce_check(counts).ok
+            elif label in ("gather", "weights"):
+                ok = collectives.by_kind(counts) == {"all_gather": 1}
+            else:
+                ok = label == "e2lm" and \
+                    collectives.check_one_all_reduce(counts).ok
+            if not ok:
+                return False
+        return True
+
+    def summary(log):
+        return [[label, collectives.by_kind(c)] for label, c in log]
+
+    out, mesh_launches = {}, {}
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    with process_group(device=dev.type, timeout_s=120):
+        meshes = {"flat": make_member_mesh(), "2d": make_member_mesh(hosts=1)}
+
+        def run(mesh, n_epochs=0, rounds=1, strategy="uniform", val=None,
+                backend="mesh", **kw):
+            return AveragingRun(cfg, MapConfig(
+                epochs=n_epochs,
+                lr_schedule=dynamic_paper(lr_c) if n_epochs else None,
+                batch_size=batch, backend=backend,
+                mesh=meshes[mesh] if backend == "mesh" else None),
+                ReduceConfig(strategy=strategy, rounds=rounds,
+                             validation=val)).run(
+                parts, init_params=init, device=dev, **kw)
+
+        want_map = expected_launches(parts, batch)[0]
+        want_sgd = expected_sgd_launches(parts, batch, epochs, "stacked")
+        for mesh in ("flat", "2d"):
+            for n_epochs, rounds, stacked, want in (
+                    (0, 1, m["stacked"], want_map),
+                    (epochs, 2, sgd["rounds2"], want_sgd)):
+                kernels.reset_launches()
+                collectives.reset()
+                res = run(mesh, n_epochs, rounds)
+                launches, log = dict(kernels.LAUNCHES), list(collectives.LOG)
+                what = f"mesh {mesh} epochs={n_epochs} rounds={rounds}"
+                check(launches == want, f"{what}: launches {launches} != "
+                      f"{want}")
+                check(same_run(res, stacked),
+                      f"{what}: not bitwise the card's stacked run")
+                check(log_holds(log, mesh == "2d"),
+                      f"{what}: collectives {summary(log)}")
+                check(sum(1 for label, _ in log if label == "sync")
+                      == rounds - 1 and res.round_syncs == rounds - 1,
+                      f"{what}: syncs")
+                if n_epochs == 0:
+                    scores = res.ensemble().member_scores(test.x)
+                    check(np.array_equal(scores, m["scores"]),
+                          f"{what}: held-out scores not bitwise")
+                if mesh == "flat":
+                    for name, n in launches.items():
+                        mesh_launches[name] = mesh_launches.get(name, 0) + n
+                # the stacked run beside it in turns (stacked first on even
+                # turns): the walls of one moment of the host
+                again, beside = [], []
+                for turn in range(4 if n_epochs == 0 else 2):
+                    order = ("stacked", "mesh")[::1 if turn % 2 == 0 else -1]
+                    for backend_now in order:
+                        wall = run(mesh, n_epochs, rounds,
+                                   backend=backend_now).wall_time_s
+                        (again if backend_now == "mesh" else
+                         beside).append(wall)
+                emit("mesh", mesh=mesh, world=1, backend=backend,
+                     epochs=n_epochs, rounds=rounds, device=str(dev),
+                     wall_s_first=res.wall_time_s, wall_s=again,
+                     stacked_wall_s=beside,
+                     images_per_s=max(1, n_epochs) * n_images / min(again),
+                     stacked_images_per_s=max(1, n_epochs) * n_images
+                     / min(beside),
+                     launches=launches, collectives=summary(log),
+                     bitwise_stacked=True)
+
+        # shard_weighted and boosted Reduces of the epochs=0 Map
+        for strategy in ("shard_weighted", "boosted"):
+            val = validation if strategy == "boosted" else None
+            strat = (RecordingBoosted() if strategy == "boosted"
+                     else strategy)
+            del seen[:]
+            st = run("flat", strategy=strat, val=val, backend="stacked")
+            st_w = list(seen)
+            del seen[:]
+            collectives.reset()
+            me = run("flat", strategy=strat, val=val)
+            log = list(collectives.LOG)
+            check(same_run(me, st) and seen == st_w,
+                  f"mesh {strategy}: not bitwise the stacked run")
+            check(log_holds(log, False)
+                  and sum(1 for label, _ in log if label == "weights")
+                  == (1 if strategy == "boosted" else 0),
+                  f"mesh {strategy}: collectives {summary(log)}")
+            out[strategy] = dict(bitwise_stacked=True, weights=seen[:1],
+                                 collectives=summary(log))
+
+        # E²LM's global readout from the Map's stats
+        collectives.reset()
+        ex = make_executor("mesh", meshes["flat"])
+        res = ex.execute(cfg, init, parts, ExecutionPlan(batch_size=batch,
+                                                         device=dev))
+        beta = ex.e2lm_global_beta()
+        rows = [elm.ELMStats(res.stats.u[i], res.stats.v[i], res.stats.n[i])
+                for i in range(len(parts))]
+        want_beta = e2lm.mapreduce_solve(rows, cfg.elm_lambda)
+        log = list(collectives.LOG)
+        check(torch.equal(beta, want_beta),
+              "mesh e2lm_global_beta is not mapreduce_solve's β")
+        check(log_holds(log, False), f"mesh e2lm: {summary(log)}")
+        out["e2lm"] = dict(bitwise_mapreduce_solve=True,
+                           max_abs_beta=float(beta.abs().max()),
+                           collectives=summary(log))
+
+        # crash after round 0's checkpoint, resume
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            crashed, resumed = faults.run_crash_resume(
+                AveragingRun(cfg, MapConfig(
+                    epochs=epochs, lr_schedule=dynamic_paper(lr_c),
+                    batch_size=batch, backend="mesh",
+                    mesh=meshes["flat"]), ReduceConfig(rounds=2)),
+                parts, d, unit="round", index=0, init_params=init,
+                device=dev)
+            check(crashed and resumed.resumed
+                  and [r.round for r in resumed.rounds] == [1]
+                  and same_run(resumed, sgd["rounds2"]),
+                  "mesh crash/resume differs from the uninterrupted run")
+            out["resume"] = dict(crashed_after="round 0", bitwise=True,
+                                 seconds=time.perf_counter() - t0)
+
+        # one all-reduce of the flat vector a Reduce sends
+        flat, _ = ravel((m["stacked"].averaged.cnn_params,
+                         m["stacked"].averaged.beta))
+        group = meshes["flat"].get_group("pod")
+        out["all_reduce"] = dict(
+            floats=flat.numel(), bytes=flat.numel() * 4,
+            ms=call_ms(torch, lambda: collectives.all_reduce(flat, group),
+                       reps=200))
+        collectives.reset()
+
+    if probe_world2:
+        # two gloo ranks on the one card: the members split 2 + 2
+        t0 = time.perf_counter()
+        per_rank = run_ranks(mesh_probe_rank, 2, device="cpu",
+                             args=(str(dev), cfg, m["data_args"], init,
+                                   batch),
+                             timeout_s=300)
+        st = m["stacked"]
+        want = [a.cpu() for a in tree_leaves((st.stacked.cnn_params,
+                                              st.stacked.beta))]
+        want_avg = [a.cpu() for a in tree_leaves((st.averaged.cnn_params,
+                                                  st.averaged.beta))]
+        got = per_rank[0]
+        check(all(torch.equal(a, b) for a, b in zip(got["members"], want)),
+              "world 2 on one card: members not bitwise the stacked run")
+        gap = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                  for a, b in zip(got["averaged"], want_avg))
+        check(gap <= 1e-5, f"world 2 on one card: averaged {gap}")
+        check(all(torch.equal(a, b) for r in per_rank[1:]
+                  for a, b in zip(r["averaged"], got["averaged"])),
+              "world 2 on one card: ranks disagree")
+        check(log_holds(got["log"], False),
+              f"world 2 on one card: {summary(got['log'])}")
+        out["world2_gloo_one_card"] = dict(
+            members_bitwise=True, averaged_max_rel_gap=gap,
+            collectives=summary(got["log"]),
+            seconds_with_spawn=time.perf_counter() - t0)
+    emit("mesh_checks", **out)
+    return mesh_launches
 
 
 def phase_serve(torch, m):
@@ -1943,6 +2227,7 @@ def main():
     per_case = phase_kernels(torch, dev, rates)
     m = phase_map(torch, dev)
     sgd = phase_sgd(torch, dev, m)
+    mesh_launches = phase_mesh(torch, dev, m, sgd)
     serve_launches = phase_serve(torch, m)
     stream_launches = phase_stream(torch, dev, m)
     phase_profile(torch, m)
@@ -1971,9 +2256,11 @@ def main():
         {"name": "conv2d", "route": "cuda",
          "source": "src/repro_torch/csrc/conv2d.cu",
          "replaces": "src/repro/kernels/conv2d/kernel.py:28",
-         # the CNN main path, serving (graph replays) and the stream
+         # the CNN main path, serving (graph replays), the stream and the
+         # mesh (its epochs=0 and SGD runs on the flat mesh)
          "launches": sum(p["conv2d"] for p in (main_launches, serve_launches,
-                                              stream_launches)),
+                                              stream_launches,
+                                              mesh_launches)),
          "max_abs_err": conv_err,
          # one stacked Map step runs stage 1 and stage 2 once each
          "ms": sum(c["ms"] for c in conv),
@@ -1986,21 +2273,22 @@ def main():
          "source": "src/repro_torch/csrc/elm_stats.cu",
          "replaces": "src/repro/kernels/elm_stats/kernel.py:36",
          "launches": main_launches["elm_stats"]
-         + stream_launches["elm_stats"],
+         + stream_launches["elm_stats"] + mesh_launches["elm_stats"],
          "max_abs_err": stats_err, "ms": stats["ms"],
          "plain_ms": stats["plain_ms"], "bound_ms": stats["bound_ms"],
          "bound_by": stats["bound_by"], "library_ms": stats["library_ms"]},
     ]}
     # conv2d_wgrad: one SGD step's dW of both stages; conv2d_dgrad: its dX
     # of stage 2; their launches from the SGD main path (the stacked
-    # two-epoch Map)
+    # two-epoch Map) and the mesh's two-round SGD run
     dx = per_case[("conv2d_dgrad", "dx_stage2")]
     line["kernels"].append(
         {"name": "conv2d_dgrad", "route": "cuda",
          "source": "src/repro_torch/csrc/conv2d_dgrad.cu",
          "replaces": "src/repro/kernels/conv2d/kernel.py:28 (the conv2d "
                      "TPU kernel; it has no Pallas backward)",
-         "launches": sgd_launches["conv2d_dgrad"],
+         "launches": sgd_launches["conv2d_dgrad"]
+         + mesh_launches["conv2d_dgrad"],
          "max_abs_err": dx["max_abs_err"], "ms": dx["ms"],
          "plain_ms": dx["plain_ms"], "bound_ms": dx["bound_ms"],
          "bound_by": dx["bound_by"], "library_ms": dx["library_ms"]})
@@ -2010,7 +2298,8 @@ def main():
          "source": "src/repro_torch/csrc/conv2d_wgrad.cu",
          "replaces": "src/repro/kernels/conv2d/kernel.py:28 (the conv2d "
                      "TPU kernel; it has no Pallas backward)",
-         "launches": sgd_launches["conv2d_wgrad"],
+         "launches": sgd_launches["conv2d_wgrad"]
+         + mesh_launches["conv2d_wgrad"],
          "max_abs_err": max(c["max_abs_err"] for c in dw),
          "ms": sum(c["ms"] for c in dw),
          "plain_ms": sum(c["plain_ms"] for c in dw),

@@ -67,7 +67,8 @@ def _unflatten(flat):
     return fix(root)
 
 
-def _path(ckpt_dir: str, name: str, step: int) -> str:
+def checkpoint_path(ckpt_dir: str, name: str, step: int) -> str:
+    """Where checkpoint ``name`` number ``step`` lands in ``ckpt_dir``."""
     return os.path.join(ckpt_dir, f"{name}-{step:08d}.npz")
 
 
@@ -83,7 +84,7 @@ def save_checkpoint(ckpt_dir: str, name: str, step: int, tree, metadata=None):
     flat["__meta__"] = np.frombuffer(
         json.dumps({"step": step, "metadata": metadata or {},
                     "dtypes": dtypes}).encode(), np.uint8)
-    path = _path(ckpt_dir, name, step)
+    path = checkpoint_path(ckpt_dir, name, step)
     fd, tmp = tempfile.mkstemp(dir=ckpt_dir, suffix=".tmp")
     try:
         with os.fdopen(fd, "wb") as f:
@@ -116,7 +117,7 @@ def restore_checkpoint(ckpt_dir: str, name: str, step: int | None = None,
         step = latest_step(ckpt_dir, name)
         if step is None:
             raise FileNotFoundError(f"no checkpoint '{name}' in {ckpt_dir}")
-    with np.load(_path(ckpt_dir, name, step)) as z:
+    with np.load(checkpoint_path(ckpt_dir, name, step)) as z:
         flat = {k: z[k] for k in z.files}
     meta = json.loads(bytes(flat.pop("__meta__")).decode())
     dtypes = meta.pop("dtypes", {})
@@ -142,7 +143,7 @@ def peek_step(ckpt_dir: str, name: str, step: int):
     Reading ``__meta__`` walks the zip's central directory, stored at the
     end of the file, so a torn or truncated write fails here."""
     try:
-        with np.load(_path(ckpt_dir, name, step)) as z:
+        with np.load(checkpoint_path(ckpt_dir, name, step)) as z:
             return json.loads(bytes(z["__meta__"]).decode())
     except Exception:       # any unreadable file is "not ready yet"
         return None

@@ -3,13 +3,15 @@ The port's counterpart of ``repro.core.e2lm``.
 
 * ``reduce_stats``    — host-level sum over a list of per-shard stats (the
                         literal MapReduce of the paper), added in list order.
+* ``psum_stats``      — the sum over the ranks of a member mesh: each rank
+                        holds the stats of its local rows, and U, V and n
+                        go in one flat all-reduce (exact, one collective).
+                        The mesh Map's global readout is built on it
+                        (``executor.MeshExecutor.e2lm_global_beta``).
 * ``mapreduce_solve`` — reduce, then one β solve.
 * ``OSELMState``      — OS-ELM (Liang et al. 2006): the sequential/streaming
                         alternative the paper cites, by the Sherman-Morrison-
                         Woodbury block update.
-
-The in-SPMD reduce over a mesh axis (``psum_stats``) comes with the
-multi-device slice of the port.
 """
 from __future__ import annotations
 
@@ -18,12 +20,11 @@ from typing import NamedTuple, Sequence
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.averaging import ravel
 from repro_torch.core.elm import (ELMStats, add_stats, check_factorisations,
                                   solve_beta)
+from repro_torch.distributed import collectives
 from repro_torch.layers.norms import optimal_tanh
-
-MESH_SLICE = ("psum_stats reduces over a mesh axis with torch.distributed "
-              "and comes with the multi-device slice of the port")
 
 
 def reduce_stats(shards: Sequence[ELMStats]) -> ELMStats:
@@ -33,9 +34,14 @@ def reduce_stats(shards: Sequence[ELMStats]) -> ELMStats:
     return out
 
 
-def psum_stats(local: ELMStats, axis_name) -> ELMStats:
-    """The cross-member stats sum over a mesh axis (one all-reduce)."""
-    raise NotImplementedError(MESH_SLICE)
+def psum_stats(local: ELMStats, group=None, label: str = "pod") -> ELMStats:
+    """The stats sum over the ranks of ``group`` (None: the default group;
+    the 2-D member mesh sums over both of its axes at once, the ranks of
+    the whole mesh): U, V and n raveled into one f32 vector, ONE
+    all-reduce. The result is the same on every rank."""
+    flat, unravel = ravel(tuple(local))
+    collectives.all_reduce(flat, group, label)
+    return ELMStats(*unravel(flat))
 
 
 def mapreduce_solve(shards: Sequence[ELMStats], lam: float):

@@ -2,18 +2,19 @@
 The port's counterpart of ``repro.core.runner``.
 
 * ``MapConfig``    — epochs, lr schedule, batch size, backend
-                     (``"sequential"`` or ``"stacked"``, see
-                     ``core.executor``), epoch chunking and THE member seed
-                     rule. There is no kernel switch: the device decides
-                     (hand kernels on CUDA, plain versions on the CPU).
+                     (``"sequential"``, ``"stacked"`` or ``"mesh"`` with its
+                     member ``mesh``, see ``core.executor``), epoch chunking
+                     and THE member seed rule. There is no kernel switch:
+                     the device decides (hand kernels on CUDA, plain
+                     versions on the CPU).
 * ``ReduceConfig`` — the Reduce strategy (``uniform``, ``shard_weighted``,
                      explicit weights, ``boosted`` with a held-out
                      ``validation`` slice, ``gossip``;
                      ``core.reduce_strategies``), ``rounds``: ``r > 1``
                      splits the epochs into r blocks with a sync between
-                     blocks, the parallel-SGD regime (stacked only), and
-                     ``elastic``: an ``ElasticSchedule`` of joins and leaves
-                     at round boundaries.
+                     blocks, the parallel-SGD regime (stacked and mesh),
+                     and ``elastic``: an ``ElasticSchedule`` of joins and
+                     leaves at round boundaries.
 * ``AveragingRun`` — binds a model config to the two phase configs;
                      ``.run(partitions, ...)`` returns a ``RunResult`` with
                      one ``RoundRecord`` per round (an ``ElasticRunResult``
@@ -22,7 +23,7 @@ The port's counterpart of ``repro.core.runner``.
 * ``Ensemble``     — the k members behind one batched scoring surface:
                      every eval slice is one member-batched pass.
 
-Seed rule (shared by both backends): member ``i`` draws its batch
+Seed rule (shared by every backend): member ``i`` draws its batch
 permutations from ``np.random.default_rng(MapConfig.seed + i)``; epoch e's
 batch order is that stream's (e+1)-th permutation.
 
@@ -37,8 +38,11 @@ each round one executor block over the current members.
 
 ``ReduceConfig(sync="drift")`` is the streaming policy: it constructs
 (rounds 1, no elastic schedule), and ``AveragingRun.run`` refuses it,
-pointing to ``repro_torch.stream.StreamingRun``. The mesh backend comes
-with a later slice and raises ``NotImplementedError`` here.
+pointing to ``repro_torch.stream.StreamingRun``.
+
+On the mesh backend every rank of the group calls ``run`` (or ``resume``)
+with the same arguments and gets the same result; each rank trains only
+its own members (``core.executor.MeshExecutor``).
 """
 from __future__ import annotations
 
@@ -52,12 +56,12 @@ import torch
 
 from repro_torch import kernels, resolve_device
 from repro_torch.checkpoint import run_state
+from repro_torch.checkpoint.ckpt import checkpoint_path
 from repro_torch.core import elastic, elm, reduce_strategies
 from repro_torch.core.cnn_elm import (CNNELMModel, StackedMembers,
                                       scores_stacked, stack_models)
-from repro_torch.core.executor import (BACKENDS, MESH_SLICE,
-                                       CheckpointConfig, ExecutionPlan,
-                                       make_executor)
+from repro_torch.core.executor import (BACKENDS, CheckpointConfig,
+                                       ExecutionPlan, make_executor)
 from repro_torch.core.reduce_strategies import ReduceContext, ReduceStrategy
 from repro_torch.data.partition import Partition
 from repro_torch.models import cnn
@@ -70,22 +74,26 @@ SYNCS = ("rounds", "drift")
 @dataclass(frozen=True)
 class MapConfig:
     """Map-phase configuration (Alg. 2 lines 4-17, one member per shard).
-    ``chunk_batches`` stages each epoch on the stacked backend in chunks of
+    ``chunk_batches`` stages each epoch on the stacked layouts in chunks of
     that many batch indices (pinned host memory, copied one chunk ahead);
-    the result is bit-identical to the whole-epoch copy."""
+    the result is bit-identical to the whole-epoch copy. ``mesh`` is the
+    member mesh of ``backend="mesh"`` (``launch.mesh.make_member_mesh``;
+    None: the flat mesh over every rank of the initialised group)."""
     epochs: int = 0
     lr_schedule: Optional[Callable[[int], float]] = None
     batch_size: int = 32
     backend: str = "stacked"
+    mesh: Any = None
     chunk_batches: Optional[int] = None
     seed: int = 1000
 
     def __post_init__(self):
-        if self.backend == "mesh":
-            raise NotImplementedError(MESH_SLICE)
         if self.backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, "
                              f"got {self.backend!r}")
+        if self.mesh is not None and self.backend != "mesh":
+            raise ValueError(f"MapConfig.mesh is read by backend 'mesh' "
+                             f"only, got backend {self.backend!r}")
         if self.epochs < 0:
             raise ValueError(f"epochs must be >= 0, got {self.epochs}")
         if self.epochs > 0 and self.lr_schedule is None:
@@ -470,10 +478,11 @@ class AveragingRun:
              start_round: int = 0, completed: Optional[dict] = None,
              resumed: bool = False) -> RunResult:
         m, rc = self.map_cfg, self.reduce_cfg
-        if rc.rounds > 1 and m.backend == "sequential":
+        executor = make_executor(m.backend, mesh=m.mesh)
+        if rc.rounds > 1 and not executor.supports_rounds:
             raise ValueError("rounds > 1 requires MapConfig(backend="
-                             "'stacked') — the sequential reference has no "
-                             "sync point between members")
+                             "'stacked') or 'mesh' — the sequential "
+                             "reference has no sync point between members")
         strat = rc.strategy_obj
         weights = weight_fn = None
         if strat.requires_validation:
@@ -509,8 +518,7 @@ class AveragingRun:
                            else None),
             device=dev, checkpoint=checkpoint, start_round=start_round,
             completed=completed)
-        out = make_executor(m.backend).execute(self.cfg, init_params,
-                                               partitions, plan)
+        out = executor.execute(self.cfg, init_params, partitions, plan)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         return RunResult(self.cfg, out.members, out.averaged, out.stacked,
@@ -574,7 +582,9 @@ class AveragingRun:
             raise ValueError(f"epochs ({m.epochs}) must split evenly into "
                              f"rounds ({rc.rounds})")
         per_round = m.epochs // rc.rounds
-        executor = make_executor(m.backend)
+        # on the mesh each round block re-pads to the current k: joiners
+        # and leavers change only k_pad and the weight vector
+        executor = make_executor(m.backend, mesh=m.mesh)
         t0 = time.perf_counter()
         strat = rc.strategy_obj
 
@@ -686,11 +696,13 @@ class AveragingRun:
             if ck is not None and (last or (r + 1) % ck.every == 0):
                 # the post-boundary state: exactly what round r+1 starts
                 # from
-                path = run_state.save_elastic_round(
-                    ck.dir, r, group=group, cur_init=cur_init,
-                    joined_round=joined_round, member_id=member_id,
-                    next_id=next_id,
-                    meta={**ck_meta, "round": r, "final": last})
+                path = executor.commit(
+                    lambda: run_state.save_elastic_round(
+                        ck.dir, r, group=group, cur_init=cur_init,
+                        joined_round=joined_round, member_id=member_id,
+                        next_id=next_id,
+                        meta={**ck_meta, "round": r, "final": last}),
+                    checkpoint_path(ck.dir, run_state.ELASTIC, r))
                 if ck.after_save is not None:
                     ck.after_save("round", r, path)
             hooked = (round_hook(r, boundary_model)

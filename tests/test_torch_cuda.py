@@ -663,6 +663,55 @@ def test_elastic_backends_and_resume_are_bitwise_on_card(cuda, tmp_path):
 
 
 @pytest.mark.cuda
+def test_mesh_on_card_is_the_stacked_run(cuda, tmp_path):
+    """The mesh backend over NCCL at world size 1, one rank holding every
+    member: the two-round SGD run and the elastic churn equal the stacked
+    runs under ``torch.equal`` on the card, with one all-reduce a sync and
+    none in an epoch, and a crash after round 0 resumes bitwise."""
+    from repro_torch.core import faults
+    from repro_torch.core.runner import ElasticEvent, ElasticSchedule
+    from repro_torch.distributed import collectives
+    from repro_torch.launch.mesh import process_group
+    ds = make_extended_mnist(n_per_class=30, seed=0)
+    parts = partition_iid(ds.x, ds.y, 3)
+    sched = ElasticSchedule((ElasticEvent(after_round=0, join=(parts[0],)),
+                             ElasticEvent(after_round=1, leave=("m1",))))
+
+    def gen():
+        return torch.Generator().manual_seed(7)
+
+    with process_group(device="cuda"):
+        st = _cnn_run("stacked", 2).run(parts, generator=gen(), device=cuda)
+        collectives.reset()
+        kernels.reset_launches()
+        me = _cnn_run("mesh", 2).run(parts, generator=gen(), device=cuda)
+        assert kernels.LAUNCHES["conv2d_wgrad"] > 0 and me.stacked.beta.is_cuda
+        assert all(_bit_equal(a, b) for a, b in zip(st.members, me.members))
+        assert _bit_equal(st.averaged, me.averaged)
+        spans = collectives.LOG
+        assert [label for label, _ in spans].count("sync") == 1
+        for label, counts in spans:
+            if label == "epoch":
+                assert collectives.check_no_collectives(counts).ok
+            if label in ("sync", "reduce"):
+                assert collectives.check_one_all_reduce(counts).ok
+        crashed, res = faults.run_crash_resume(
+            _cnn_run("mesh", 2), parts, str(tmp_path / "rounds"),
+            unit="round", index=0, generator=gen(), device=cuda)
+        assert crashed and res.resumed
+        assert all(_bit_equal(a, b) for a, b in zip(me.members, res.members))
+        assert _bit_equal(me.averaged, res.averaged)
+        st = _cnn_run("stacked", 3, sched).run(parts, generator=gen(),
+                                               device=cuda)
+        me = _cnn_run("mesh", 3, sched).run(parts, generator=gen(),
+                                            device=cuda)
+        assert sorted(me.members) == ["m0", "m2", "m3"]
+        assert all(_bit_equal(st.members[n], me.members[n])
+                   for n in st.members)
+        assert _bit_equal(st.averaged, me.averaged)
+
+
+@pytest.mark.cuda
 def test_lm_finetune_step_refuses_on_card(cuda):
     """The decoder's rmsnorm and swa_attention kernels have no backward:
     ``finetune_step`` over the LM on the card raises rather than cut the

@@ -171,12 +171,6 @@ def test_reduce_and_mapreduce_solve_match_reference(k, n):
                 je2lm.mapreduce_solve(ref, 10.0))
 
 
-def test_psum_stats_waits_for_the_mesh_slice():
-    s = elm.zero_stats(4, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        e2lm.psum_stats(s, "pod")
-
-
 def _rows(stats, k):
     return [type(stats)(*(a[i] for a in stats)) for i in range(k)]
 

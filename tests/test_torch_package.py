@@ -1,7 +1,7 @@
 """The port stands alone: ``repro_torch`` imports neither JAX nor ``repro``,
 runs on the card unless asked for the CPU, and refuses what later slices
-of the port will bring (the mesh backend and its ``psum_stats``, the LM
-families beyond the dense decoder) instead of doing it wrongly."""
+of the port will bring (the LM families beyond the dense decoder, the
+encoder's prefill) instead of doing it wrongly."""
 import os
 import pkgutil
 import re
@@ -46,12 +46,16 @@ def test_every_module_imports_without_jax_or_repro():
     assert "repro_torch.optim.schedules" in mods
     for name in ("checkpoint.ckpt", "checkpoint.run_state", "core.e2lm",
                  "core.elm_head", "core.elastic", "core.faults",
+                 "distributed.collectives", "distributed.sharding",
+                 "launch.mesh",
                  "serve.scheduler", "serve.hot_reload", "serve.loadgen",
                  "stream", "stream.drift", "stream.sources", "stream.window",
                  "stream.run"):
         assert f"repro_torch.{name}" in mods
+    # the mesh tests' rank module runs in processes of its own
     code = ("import importlib, sys\n"
-            f"for m in {mods!r}:\n"
+            f"sys.path.insert(0, {os.path.join(ROOT, 'tests')!r})\n"
+            f"for m in {mods + ['torch_mesh_ranks']!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
@@ -69,7 +73,8 @@ def test_no_source_imports_jax_or_repro():
     files = [os.path.join(ROOT, "chip_smoke.py"),
              os.path.join(ROOT, "tools", "kernel_variants.py"),
              os.path.join(ROOT, "tools", "sgd_sensitivity.py"),
-             os.path.join(ROOT, "examples", "quickstart_torch.py")]
+             os.path.join(ROOT, "examples", "quickstart_torch.py"),
+             os.path.join(ROOT, "tests", "torch_mesh_ranks.py")]
     for dirpath, _, names in os.walk(PKG):
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith(".py")]
@@ -162,9 +167,6 @@ def test_executors_run_on_the_plan_device(monkeypatch, backend):
 
 
 @pytest.mark.parametrize("make", [
-    lambda: MapConfig(backend="mesh"),
-    lambda: executor.make_executor("mesh"),
-    lambda: e2lm.psum_stats(None, "pod"),
     lambda: api.module_of(replace(LM, family="moe")),
     lambda: api.module_of(replace(LM, family="ssm_rwkv6")),
     lambda: api.init_params(replace(LM, family="encoder",
