@@ -25,7 +25,14 @@ is non-zero and no result line is printed:
              the f32 plain version's own distance from it, or
              1e-5 · max|ref|, whichever is larger; dX must also equal the
              forward kernel on padded dY with turned weights value for
-             value; its library is cuDNN's grouped backward.
+             value; its library is cuDNN's grouped backward. The LM
+             kernels' backward at the train step's shapes — rmsnorm_bwd at
+             ln 512 × 4096 and q_norm 16384 × 128, swa_attention_bwd at the
+             prefill shape and at S 1024, window 256, bf16 — against their
+             plain versions (2 bf16 ulps of max|ref|, or twice the plain
+             version's own distance from the f64 function) and bitwise the
+             same run to run; plain = torch autograd of the plain forward,
+             library = the backward of ``F.rms_norm`` and of SDPA.
 4. map     — the epochs=0 Map → Reduce at full width (cnn_elm_6c12c, 60,000
              synthetic extended-MNIST images, 10,000 held out, k = 4, batch
              200) on the card, stacked and sequential, held against the
@@ -105,9 +112,10 @@ is non-zero and no result line is printed:
              images, the held-out set scored, 4 ``finetune_step``s whose
              loss must fall), over the full qwen3_8b in bf16
              (``hidden_states`` of 4 × 128 tokens, C 16, λ 10; elm_stats
-             timed at that shape; ``finetune_step`` must raise), and the
-             2-layer full-width f32 LM's states and head β, card vs CPU
-             (1e-4 · max|h|; the solve bar).
+             timed at that shape), and the 2-layer full-width f32 LM's
+             states and head β, card vs CPU (1e-4 · max|h|; the solve
+             bar), then one ``finetune_step`` of it through the backward
+             kernels, card vs CPU (loss rtol 1e-4, leaves 1e-4 · max|leaf|).
 12. resume — crash and resume at full width with the ``sgd`` phase's
              settings: the stacked two-round run after round 0 (a torn
              round-1 file must be skipped), the sequential run after
@@ -124,7 +132,17 @@ is non-zero and no result line is printed:
              device-idle share of a decode step: its device busy time
              (torch.profiler, one step) over the mean step of 10 unprofiled
              steps and over the mean step of run_lm's own decode loop.
-14. the kernels line, the card line, and the last line
+14. train  — the LM training path (``repro_torch.launch.train``): qwen3_8b
+             at full width cut to 4 layers, 2 members, AdamW, cosine, 4
+             steps of 4 × 128 tokens, --rounds 2: losses finite, the
+             average's held-out loss beside the members', launches exact,
+             peak memory, step walls; member steps on one repeated batch
+             (the loss falls step by step), one of them profiled; killed
+             after step 2 and resumed, bitwise; reduced f32 SGD card vs
+             CPU (1e-4 · max|leaf|, or twice the CPU's one-ulp twin's
+             distance where the run is ill-conditioned); one SGD step of
+             the whole 36-layer model (wall, peak memory).
+15. the kernels line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 The launch counters are set to 0 just before each path runs and read just
@@ -135,12 +153,16 @@ kernels line reports), each mesh Map (the flat mesh's epochs=0 and SGD
 runs add to the kernels line's counts), serving (the replays of its captured graphs,
 which the kernels line adds to conv2d's count), the open-loop sweep, each
 streaming run (the stacked drift run's conv2d and elm_stats counts are
-added to the kernels line's), the E²LM path, the CNN and LM heads, the crash/resume runs, and
-the LM path (b).
+added to the kernels line's), the E²LM path, the CNN and LM heads, the
+LM head's finetune step, the crash/resume runs, the LM path (b) and the
+train path's full-width run (whose rmsnorm_bwd and swa_attention_bwd
+counts the kernels line reports, and whose forwards it adds to the
+serving path's rmsnorm and swa_attention counts).
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -585,7 +607,124 @@ def phase_kernels(torch, dev, rates):
                    bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops,
                    pairs_in_mask=pairs)
         keep("swa_attention", tag, rec)
+
+    # the backward kernels at the LM train step's shapes (batch 4 × 128
+    # tokens): rmsnorm's ln and q_norm, swa at the prefill shape and one
+    # windowed case. Plain: torch autograd of the plain forward on the
+    # card, the graph built outside the timed region (retain_graph);
+    # library: the backward of F.rms_norm and of SDPA with enable_gqa, the
+    # same way. Held against the plain backward (rmsnorm_bwd_ref,
+    # swa_attention_bwd_ref) on the same inputs: bf16 outputs within 2 bf16
+    # ulps of max|ref|, or twice the plain version's own distance from the
+    # f64 function where that is larger.
+    def bwd_rec(tag, got, ref, truth, timed, nbytes, flops, bf16, extra):
+        err, bar, top = 0.0, 0.0, 0.0
+        for g, r, t in zip(got, ref, truth):
+            r64 = r.double()
+            mx = float(r64.abs().max())
+            ulp = 2.0 ** (math.floor(math.log2(max(mx, 1e-30))) - 7)
+            b = max(2 * ulp if g.dtype == torch.bfloat16 else TOL * mx,
+                    2 * float((r64 - t).abs().max()))
+            e = float((g.double() - t).abs().max())
+            check(e <= b, f"{tag}: max|err| {e} from f64 > {b}")
+            err, bar, top = max(err, e), max(bar, b), max(top, mx)
+        b_ms, b_by = bound_ms(nbytes, flops, rates, bf16=bf16)
+        kernel, plain, library = timed
+        return dict(max_abs_err=err, max_abs_ref=top, bar=bar,
+                    ms=device_ms(torch, kernel),
+                    plain_ms=device_ms(torch, plain, reps=20),
+                    library_ms=device_ms(torch, library),
+                    call_ms=call_ms(torch, kernel),
+                    plain_call_ms=call_ms(torch, plain, reps=20),
+                    library_call_ms=call_ms(torch, library),
+                    bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops,
+                    **extra)
+
+    for tag, shape, scale_dtype in rms_cases:
+        x = (randn(*shape) * 3).to(torch.bfloat16)
+        scale = (1 + 0.1 * randn(shape[-1])).to(scale_dtype)
+        dy = randn(*shape).to(torch.bfloat16)
+        got = rms_ops.rmsnorm_bwd(x, scale, dy, eps=1e-6)
+        ref = rms_ref.rmsnorm_bwd_ref(x, scale, dy, 1e-6)
+        truth = rms_ref.rmsnorm_bwd_ref(x.double(), scale.double(),
+                                        dy.double(), 1e-6)
+        check(all(torch.equal(a, b) for a, b in zip(
+            got, rms_ops.rmsnorm_bwd(x, scale, dy, eps=1e-6))),
+            f"rmsnorm_bwd {tag}: not bitwise the same run to run")
+        xr, sr = x.clone().requires_grad_(True), scale.clone(
+            ).requires_grad_(True)
+        y_plain = rms_ref.rmsnorm_ref(xr, sr, 1e-6)
+        w_lib = scale.to(x.dtype).clone().requires_grad_(True)
+        y_lib = F.rms_norm(xr, (shape[-1],), w_lib, 1e-6)
+        check(same_function(torch.autograd.grad(
+            y_lib, xr, dy, retain_graph=True)[0].float(), ref[0].float(),
+            2e-2), "the rms_norm backward yardstick computes another "
+            "function")
+        timed = (lambda: rms_ops.rmsnorm_bwd(x, scale, dy, eps=1e-6),
+                 lambda: torch.autograd.grad(y_plain, (xr, sr), dy,
+                                             retain_graph=True),
+                 lambda: torch.autograd.grad(y_lib, (xr, w_lib), dy,
+                                             retain_graph=True))
+        n, D = shape
+        nbytes = 3 * x.element_size() * x.numel() + \
+            2 * scale.element_size() * D
+        keep("rmsnorm_bwd", tag, bwd_rec(
+            f"rmsnorm_bwd {tag}", got, ref, truth, timed, nbytes,
+            11 * x.numel(), False,
+            dict(shape=f"x{shape} bf16, scale {str(scale_dtype)[6:]}")))
+
+    swa_bwd_cases = [("prefill_causal", 4, 128, 32, 8, 128, 128),
+                     ("window256_s1024", 1, 1024, 32, 8, 128, 256)]
+    for tag, B, S, H, KV, hd, W in swa_bwd_cases:
+        q = randn(B, S, H, hd).to(torch.bfloat16)
+        k = randn(B, S, KV, hd).to(torch.bfloat16)
+        v = randn(B, S, KV, hd).to(torch.bfloat16)
+        do = randn(B, S, H, hd).to(torch.bfloat16)
+        o, lse = swa_ops.swa_attention_fwd(q, k, v, window=W)
+        got = swa_ops.swa_attention_bwd(q, k, v, o, lse, do, window=W)
+        ref = swa_ref.swa_attention_bwd_ref(q, k, v, o, lse, do, window=W)
+        truth = swa_ref.swa_attention_bwd_ref(
+            *(a.double() for a in (q, k, v, o, lse, do)), window=W)
+        check(all(torch.equal(a, b) for a, b in zip(
+            got, swa_ops.swa_attention_bwd(q, k, v, o, lse, do, window=W))),
+            f"swa_attention_bwd {tag}: not bitwise the same run to run")
+        qr, kr, vr = (a.clone().requires_grad_(True) for a in (q, k, v))
+        y_plain = swa_ref.swa_attention_ref(qr, kr, vr, window=W)
+        qt, kt, vt = (a.transpose(1, 2).contiguous().requires_grad_(True)
+                      for a in (q, k, v))
+        i = torch.arange(S, device=dev)
+        mask = None if W >= S else ((i[None] <= i[:, None])
+                                    & (i[:, None] - i[None] < W))
+        y_lib = F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+            enable_gqa=True)
+        dot = do.transpose(1, 2).contiguous()
+        lib_dq = torch.autograd.grad(y_lib, qt, dot, retain_graph=True)[0]
+        check(same_function(lib_dq.transpose(1, 2).float(), ref[0].float(),
+                            5e-2),
+              "the SDPA backward yardstick computes another function")
+        timed = (lambda: swa_ops.swa_attention_bwd(q, k, v, o, lse, do,
+                                                   window=W),
+                 lambda: torch.autograd.grad(y_plain, (qr, kr, vr), do,
+                                             retain_graph=True),
+                 lambda: torch.autograd.grad(y_lib, (qt, kt, vt), dot,
+                                             retain_graph=True))
+        pairs = B * H * sum(min(t + 1, W) for t in range(S))
+        nbytes = 2 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) + \
+            4 * lse.numel()
+        keep("swa_attention_bwd", tag, bwd_rec(
+            f"swa_attention_bwd {tag}", got, ref, truth, timed, nbytes,
+            10 * hd * pairs, True,
+            dict(shape=f"B{B} S{S} H{H} KV{KV} hd{hd} W{W} bf16",
+                 pairs_in_mask=pairs)))
+        del y_plain, y_lib, qr, kr, vr, qt, kt, vt
     return out
+
+
+def want_launches(**counts):
+    """A launch record with ``counts`` and every other kernel at 0."""
+    from repro_torch import kernels
+    return {name: counts.get(name, 0) for name in kernels.LAUNCHES}
 
 
 def expected_launches(parts, batch):
@@ -593,10 +732,8 @@ def expected_launches(parts, batch):
     stage and one elm_stats — member-batched on the stacked path, per member
     on the sequential one."""
     nbs = [len(p.x) // batch for p in parts]
-    lm = {"rmsnorm": 0, "swa_attention": 0, "conv2d_wgrad": 0,
-          "conv2d_dgrad": 0}
-    return ({"conv2d": 2 * max(nbs), "elm_stats": max(nbs), **lm},
-            {"conv2d": 2 * sum(nbs), "elm_stats": sum(nbs), **lm})
+    return (want_launches(conv2d=2 * max(nbs), elm_stats=max(nbs)),
+            want_launches(conv2d=2 * sum(nbs), elm_stats=sum(nbs)))
 
 
 def expected_sgd_launches(parts, batch, epochs, backend):
@@ -607,9 +744,9 @@ def expected_sgd_launches(parts, batch, epochs, backend):
     from repro_torch.kernels.conv2d.ops import WGRAD_PASSES
     nbs = [len(p.x) // batch for p in parts]
     steps = epochs * (max(nbs) if backend == "stacked" else sum(nbs))
-    return {"conv2d": 2 * steps, "conv2d_dgrad": steps,
-            "conv2d_wgrad": 2 * WGRAD_PASSES * steps,
-            "elm_stats": steps, "rmsnorm": 0, "swa_attention": 0}
+    return want_launches(conv2d=2 * steps, conv2d_dgrad=steps,
+                         conv2d_wgrad=2 * WGRAD_PASSES * steps,
+                         elm_stats=steps)
 
 
 def exact(torch, cfg, test, res):
@@ -1790,10 +1927,13 @@ def phase_elm_head(torch, dev, rates, m, lm_layers=None, batch=500,
     qwen3_8b in bf16 (``lm_layers`` cuts the depth for a rehearsal),
     ``hidden_states`` of a batch of ``lm_batch`` × ``lm_seq`` tokens, the
     head at ``lm_classes`` classes and λ ``lm_lam``, elm_stats timed at
-    its shape; ``finetune_step`` over it must raise (rmsnorm and
-    swa_attention have no backward). Parity: the same model at full
-    width, ``parity_layers`` layers, f32, card against the port's CPU
-    path — states within 1e-4 · max|h|, head β within the solve bar."""
+    its shape. Parity: the same model at full width, ``parity_layers``
+    layers, f32, card against the port's CPU path — states within
+    1e-4 · max|h|, head β within the solve bar; then one
+    ``finetune_step`` of it on a second batch, through the rmsnorm and
+    swa_attention backward kernels on the card (launches exact): the loss
+    within rtol 1e-4 and every new leaf within 1e-4 · max|leaf| of the
+    CPU's (``tests/test_torch_elm_head.py``'s bars)."""
     import numpy as np
     from repro_torch import kernels
     from repro_torch.configs import get_config, replace
@@ -1801,7 +1941,7 @@ def phase_elm_head(torch, dev, rates, m, lm_layers=None, batch=500,
     from repro_torch.kernels.conv2d.ops import WGRAD_PASSES
     from repro_torch.layers.norms import optimal_tanh
     from repro_torch.models import api, cnn
-    from repro_torch.tree import tree_map
+    from repro_torch.tree import tree_leaves, tree_map
 
     cfg, parts, test = m["cfg"], m["parts"], m["test"]
     C = cfg.num_classes
@@ -1837,9 +1977,9 @@ def phase_elm_head(torch, dev, rates, m, lm_layers=None, batch=500,
     cnn_launches = dict(kernels.LAUNCHES)
     n_batches = -(-len(x) // batch)
     blocks = -(-len(test.x) // 512)
-    want = {"conv2d": 2 * (n_batches + blocks + 4), "elm_stats": n_batches,
-            "conv2d_dgrad": 4, "conv2d_wgrad": 4 * 2 * WGRAD_PASSES,
-            "rmsnorm": 0, "swa_attention": 0}
+    want = want_launches(conv2d=2 * (n_batches + blocks + 4),
+                         elm_stats=n_batches, conv2d_dgrad=4,
+                         conv2d_wgrad=4 * 2 * WGRAD_PASSES)
     check(cnn_launches == want, f"CNN head launches {cnn_launches} != {want}")
     check(bool(torch.isfinite(beta).all()) and beta.shape == (
         cnn.feature_dim(cfg), C), "CNN head beta")
@@ -1878,22 +2018,13 @@ def phase_elm_head(torch, dev, rates, m, lm_layers=None, batch=500,
     lm_head_ms = (time.perf_counter() - t0) * 1e3
     lm_launches = dict(kernels.LAUNCHES)
     L = lm_cfg.num_layers
-    want = {"rmsnorm": 3 * (4 * L + 1), "swa_attention": 3 * L,
-            "elm_stats": 1, "conv2d": 0, "conv2d_dgrad": 0,
-            "conv2d_wgrad": 0}
+    want = want_launches(rmsnorm=3 * (4 * L + 1), swa_attention=3 * L,
+                         elm_stats=1)
     check(lm_launches == want, f"LM head launches {lm_launches} != {want}")
     check(bool(torch.isfinite(scores).all()) and scores.shape == (
         lm_batch * lm_seq, lm_classes), "LM head scores")
     lm_bar, lm_own = solve_bar(torch, lm_beta, f64_solve(
         torch, lm_stats.u, lm_stats.v, lm_lam))
-    try:
-        elm_head.finetune_step(lm_fn, lm, lm_beta, lb, lm_classes, 1e-2)
-        refusal = None
-    except RuntimeError as e:
-        refusal = str(e)
-    check(refusal is not None and "no backward" in refusal,
-          f"finetune_step over the LM on the card did not refuse: "
-          f"{refusal!r}")
     ha = optimal_tanh(hs.reshape(1, lm_batch * lm_seq, -1)).float()
     ta = torch.nn.functional.one_hot(lb["targets"].reshape(1, -1),
                                      lm_classes).float()
@@ -1930,7 +2061,43 @@ def phase_elm_head(torch, dev, rates, m, lm_layers=None, batch=500,
                                                   lm_lam))
     p_d = float((bc.cpu() - bh).abs().max())
     check(p_d <= p_bar, f"LM head beta card vs CPU {p_d} > {p_bar}")
-    del card, host, hc
+    # one finetune_step of the decoder on the ELM loss, card vs CPU, from
+    # the CPU's β (solved on this batch) on a second batch: through the
+    # rmsnorm and swa_attention backward kernels on the card
+    fb = {"tokens": torch.randint(0, pcfg.vocab_size, (lm_batch, lm_seq),
+                                  generator=pgen, device=dev),
+          "targets": torch.randint(0, lm_classes, (lm_batch, lm_seq),
+                                   generator=pgen, device=dev)}
+    fb_host = {k: v.cpu() for k, v in fb.items()}
+
+    def pfn(q, b):
+        return api.hidden_states(pcfg, q, b)
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    new_c, ft_loss_c = elm_head.finetune_step(pfn, card, bh.to(dev), fb,
+                                              lm_classes, ft_lr)
+    torch.cuda.synchronize()
+    lm_ft_ms = (time.perf_counter() - t0) * 1e3
+    ft_launches = dict(kernels.LAUNCHES)
+    pl = parity_layers
+    want = want_launches(rmsnorm=4 * pl + 1, rmsnorm_bwd=4 * pl + 1,
+                         swa_attention=pl, swa_attention_bwd=pl)
+    check(ft_launches == want,
+          f"LM finetune launches {ft_launches} != {want}")
+    new_h, ft_loss_h = elm_head.finetune_step(pfn, host, bh, fb_host,
+                                              lm_classes, ft_lr)
+    ft_loss_err = abs(float(ft_loss_c) - float(ft_loss_h))
+    check(ft_loss_err <= 1e-4 * abs(float(ft_loss_h)),
+          f"LM finetune loss card {float(ft_loss_c)} vs CPU "
+          f"{float(ft_loss_h)}")
+    ft_leaf = 0.0
+    for a, b in zip(tree_leaves(new_c), tree_leaves(new_h)):
+        rel = float((a.cpu() - b).abs().max()) / float(b.abs().max())
+        ft_leaf = max(ft_leaf, rel)
+    check(ft_leaf <= 1e-4, f"LM finetune leaves card vs CPU {ft_leaf} of "
+          f"max|leaf| > 1e-4")
+    del card, host, hc, new_c, new_h
     torch.cuda.empty_cache()
     emit("elm_head",
          cnn=dict(images=len(x), batch=batch, head_s_host_clock=head_s,
@@ -1942,12 +2109,17 @@ def phase_elm_head(torch, dev, rates, m, lm_layers=None, batch=500,
                  hidden_states_ms_host_clock=states_ms,
                  head_ms_host_clock=lm_head_ms, launches=lm_launches,
                  max_abs_beta=float(lm_beta.abs().max()),
-                 f32_solve_err_beta=lm_own, finetune_refused=refusal),
+                 f32_solve_err_beta=lm_own),
          lm_parity=dict(layers=parity_layers, dtype="float32",
                         max_abs_dh=h_err, max_abs_h=h_top,
                         bar_h=1e-4 * h_top, max_abs_dbeta=p_d,
                         bar_beta=p_bar, f32_solve_err_beta=p_own,
-                        max_abs_beta=float(bh.abs().max())))
+                        max_abs_beta=float(bh.abs().max()),
+                        finetune=dict(lr=ft_lr, loss_card=float(ft_loss_c),
+                                      loss_cpu=float(ft_loss_h),
+                                      max_leaf_err_over_max=ft_leaf,
+                                      bar=1e-4, launches=ft_launches,
+                                      ms_host_clock=lm_ft_ms)))
     return lm_rec
 
 
@@ -2128,9 +2300,7 @@ def phase_lm(torch, dev, batch=4, prompt=128, gen=32):
     cfg = get_config("qwen3_8b")
     L = cfg.num_layers
     steps = 1 + prompt + gen - 1       # the prefill, the replay, the decode
-    want = {"rmsnorm": steps * (4 * L + 1), "swa_attention": L,
-            "conv2d": 0, "elm_stats": 0, "conv2d_wgrad": 0,
-            "conv2d_dgrad": 0}
+    want = want_launches(rmsnorm=steps * (4 * L + 1), swa_attention=L)
     check(launches == want, f"lm launches {launches} != {want}")
     toks = first["tokens"]
     check(first["logits_finite"], "lm: logits are not finite")
@@ -2199,6 +2369,272 @@ def phase_lm(torch, dev, batch=4, prompt=128, gen=32):
     return launches
 
 
+def phase_train(torch, dev, layers=4, members=2, steps=4, batch=4, seq=128,
+                parity_steps=4, full_depth=True):
+    """The LM training path (``repro_torch.launch.train``) on the card.
+    (1) qwen3_8b at full width cut to ``layers`` layers, bf16 weights and
+    f32 norms as ``init_params`` makes them: ``members`` members, AdamW,
+    cosine, ``batch`` × ``seq`` tokens, ``steps`` steps, ``--rounds 2``,
+    IID, through ``launch.train.run``: losses finite (each is scored on
+    a fresh batch before the step trains on it, and over 151,936 tokens
+    the synthetic streams hold nothing four steps can learn: they are
+    reported, not held to fall), the average's held-out loss beside the
+    members', launches exact (per member step: rmsnorm forward and
+    backward 4 L + 1 each, swa_attention forward and backward L each; the
+    held-out evaluation adds forwards), the peak device memory, each
+    step's wall; then, from a fresh state, member steps on one repeated
+    batch, whose loss must fall step by step, one of them under
+    torch.profiler (device busy, idle share) beside unprofiled ones.
+    (2) Resume: the same run with ``--ckpt-every 2`` killed right after
+    its step-2 state files are written, then resumed to step 4
+    (``--resume``): its final averaged model bitwise the uninterrupted
+    run's (both taken as the launcher hands them to ``save_checkpoint``;
+    see ``run``). (3) Reduced qwen3_8b in f32, ``parity_steps`` SGD steps at lr
+    1e-2 on the card against the same run on the CPU from one init tree:
+    every leaf within 1e-4 · max|leaf|, or — where the CPU run from the
+    init one f32 ulp up lands further than that from the CPU run, the
+    rule of ``tools/sgd_sensitivity.py`` for an ill-conditioned run —
+    within twice that distance. (4) ``full_depth``: one SGD step of the
+    whole 36-layer qwen3_8b, one member, ``batch`` × ``seq``: wall and
+    peak memory. Checkpoints go under build/ and are removed after."""
+    import contextlib
+    import shutil
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import kernels, optim
+    from repro_torch.configs import get_config, get_reduced_config, replace
+    from repro_torch.core import trainer
+    from repro_torch.data.lm_data import (TokenDatasetSpec,
+                                          synthetic_token_batches)
+    from repro_torch.launch import train as launch
+    from repro_torch.models import api
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = replace(get_config("qwen3_8b"), num_layers=layers)
+    L = cfg.num_layers
+    root = os.path.join(ROOT, "build", "chip_smoke_train")
+    shutil.rmtree(root, ignore_errors=True)
+    d_full, d_cut = os.path.join(root, "full"), os.path.join(root, "cut")
+    common = ["--members", str(members), "--optimizer", "adamw",
+              "--schedule", "cosine", "--batch", str(batch), "--seq",
+              str(seq), "--log-every", "1", "--device", str(dev)]
+
+    class Killed(Exception):
+        """The cut run's end: raised right after its step-2 state files."""
+
+    averaged = {}
+
+    def run(argv, tag, kill_at=None):
+        """``launch.run`` with its checkpoint writes intercepted: the
+        ``state-<m>`` files are written as the launcher writes them (and
+        with ``kill_at`` the run is killed right after the last member's
+        file of that step); the final ``averaged`` tree is kept in host
+        memory under ``tag``, the bits its file would hold, and the final
+        member files are not written. The chip machine allows 45 GiB of
+        disk writes a call: two members' AdamW state at this width is
+        40.3 GB, all the final files another 12 GB a run."""
+        def save(ckpt_dir, name, step, tree, metadata=None):
+            if name.startswith("state-"):
+                written = real_save(ckpt_dir, name, step, tree, metadata)
+                if step == kill_at and name == f"state-{members - 1}":
+                    raise Killed()
+                return written
+            if name == "averaged":
+                averaged[tag] = tree_map(lambda a: a.detach().cpu(), tree)
+            return None
+
+        real_save = launch.save_checkpoint
+        launch.save_checkpoint = save
+        try:
+            # the launcher's log lines go to stderr: stdout keeps the JSON
+            with contextlib.redirect_stdout(sys.stderr):
+                return launch.run(cfg, launch.parse_args(common + argv))
+        finally:
+            launch.save_checkpoint = real_save
+
+    # (1) the full-width run
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = run(["--steps", str(steps), "--rounds", "2", "--ckpt-dir", d_full],
+              "full")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    member_steps, evals = steps * members, 4 * (members + 1)
+    want = want_launches(
+        rmsnorm=(4 * L + 1) * (member_steps + evals),
+        rmsnorm_bwd=(4 * L + 1) * member_steps,
+        swa_attention=L * (member_steps + evals),
+        swa_attention_bwd=L * member_steps)
+    check(launches == want, f"train launches {launches} != {want}")
+    hist = np.array(res["history"])
+    check(hist.shape == (steps, members) and bool(np.isfinite(hist).all()),
+          f"train losses {hist.tolist()}")
+    check(np.isfinite(res["eval_averaged"])
+          and bool(np.isfinite(res["eval_members"]).all()),
+          "held-out losses are not finite")
+    check(res["sync_steps"] == [steps // 2, steps],
+          f"sync steps {res['sync_steps']}")
+
+    # one member step profiled, beside unprofiled ones, from a fresh state
+    opt = optim.adamw()
+    step_fn = trainer.make_train_step(cfg, opt, launch.make_schedule(
+        launch.parse_args(common + ["--steps", str(steps)])))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = api.init_params(cfg, gen, device=dev)
+    o, st = opt.init(p), 0
+    toks = torch.randint(0, cfg.vocab_size, (batch, seq + 1), generator=gen,
+                         device=dev)
+    b = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    p, o, st, m_ = step_fn(p, o, st, b)                     # warm
+    same_batch = [float(m_["loss"])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        p, o, st, m_ = step_fn(p, o, st, b)
+        same_batch.append(float(m_["loss"]))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / 3
+    # the steps train on the batch they are scored on: the loss must fall
+    check(all(np.isfinite(same_batch)) and all(
+        b2 < b1 for b1, b2 in zip(same_batch, same_batch[1:])),
+        f"train losses on one repeated batch did not fall: {same_batch}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        p, o, st, m_ = step_fn(p, o, st, b)
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    rows = sorted(device_activity(torch, prof), reverse=True)
+    busy = sum(us for us, _, _ in rows) / 1e3
+    profiled = dict(
+        same_batch_losses=same_batch,
+        wall_ms=prof_wall, step_ms_unprofiled=step_ms,
+        device_busy_ms=busy if rows else "not measured",
+        idle_share=1 - busy / prof_wall if rows else "not measured",
+        idle_share_unprofiled=(1 - min(busy / step_ms, 1.0) if rows
+                               else "not measured"),
+        top=[{"name": name[:60], "ms": us / 1e3, "count": count}
+             for us, name, count in rows[:10]])
+    del p, o, m_, b, prof
+    torch.cuda.empty_cache()
+
+    # (2) killed after step 2 and resumed: bitwise the uninterrupted run
+    t0 = time.perf_counter()
+    try:
+        run(["--steps", str(steps), "--rounds", "2", "--ckpt-every", "2",
+             "--ckpt-dir", d_cut], "cut", kill_at=2)
+        check(False, "the cut run was not killed at step 2")
+    except Killed:
+        pass
+    torch.cuda.empty_cache()
+    cut_s = time.perf_counter() - t0
+    state_bytes = sum(os.path.getsize(os.path.join(d_cut, f))
+                      for f in os.listdir(d_cut))
+    t0 = time.perf_counter()
+    run(["--steps", str(steps), "--rounds", "2", "--resume", "--ckpt-dir",
+         d_cut], "resumed")
+    resume_s = time.perf_counter() - t0
+    full_avg, cut_avg = averaged["full"], averaged["resumed"]
+    check(len(tree_leaves(full_avg)) == len(tree_leaves(cut_avg)) and all(
+        a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(
+            tree_leaves(full_avg), tree_leaves(cut_avg))),
+          "resumed averaged model differs from the uninterrupted run's")
+    shutil.rmtree(root, ignore_errors=True)
+    del full_avg, cut_avg, averaged
+
+    # (3) card vs CPU: reduced, f32, SGD
+    rcfg = get_reduced_config("qwen3_8b")
+    init = api.init_params(rcfg, torch.Generator().manual_seed(0),
+                           torch.float32, device="cpu")
+    stream = synthetic_token_batches(TokenDatasetSpec(
+        vocab_size=rcfg.vocab_size, seq_len=64, batch_size=2, seed=0))
+    batches = [{"tokens": torch.from_numpy(t), "targets": torch.from_numpy(y)}
+               for t, y in (next(stream) for _ in range(parity_steps))]
+
+    def sgd_run(params, device):
+        step = trainer.make_train_step(rcfg, optim.sgd(), optim.constant(1e-2))
+        o, s = (), 0
+        for bb in batches:
+            params, o, s, _ = step(params, o, s, tree_map(
+                lambda a: a.to(device), bb))
+        return tree_map(lambda a: a.cpu(), params)
+
+    card = sgd_run(tree_map(lambda a: a.to(dev), init), dev)
+    host = sgd_run(init, torch.device("cpu"))
+    twin = sgd_run(tree_map(lambda a: torch.nextafter(
+        a, torch.full_like(a, float("inf"))), init), torch.device("cpu"))
+    leaves = []
+    for c, h, t in zip(tree_leaves(card), tree_leaves(host),
+                       tree_leaves(twin)):
+        top = float(h.abs().max())
+        d, d_twin = float((c - h).abs().max()), float((t - h).abs().max())
+        ill = d_twin > 1e-4 * top
+        bar = 2 * d_twin if ill else 1e-4 * top
+        check(d <= bar, f"train card vs CPU: {d} > {bar} (max|leaf| {top})")
+        leaves.append(dict(shape=list(c.shape), max_abs_err=d,
+                           max_abs_leaf=top, twin=d_twin, bar=bar,
+                           rule="one-ulp twin" if ill else "1e-4 max|leaf|"))
+    parity = dict(arch=rcfg.name, dtype="float32", steps=parity_steps,
+                  lr=1e-2, leaves=leaves,
+                  rules=sorted({x["rule"] for x in leaves}))
+
+    # (4) the whole model: one SGD step
+    deep = None
+    if full_depth:
+        dcfg = get_config("qwen3_8b")
+        gen = torch.Generator(device=dev).manual_seed(1)
+        params = api.init_params(dcfg, gen, device=dev)
+        toks = torch.randint(0, dcfg.vocab_size, (batch, seq + 1),
+                             generator=gen, device=dev)
+        b = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+        step = trainer.make_train_step(dcfg, optim.sgd(),
+                                       optim.constant(1e-2))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        params, _, _, dm = step(params, (), 0, b)
+        loss = float(dm["loss"])
+        torch.cuda.synchronize()
+        deep_s = time.perf_counter() - t0
+        dl = dict(kernels.LAUNCHES)
+        DL = dcfg.num_layers
+        check(dl == want_launches(rmsnorm=4 * DL + 1, rmsnorm_bwd=4 * DL + 1,
+                                  swa_attention=DL, swa_attention_bwd=DL),
+              f"full-depth step launches {dl}")
+        check(np.isfinite(loss), f"full-depth loss {loss}")
+        deep = dict(arch=dcfg.name, layers=DL, dtype="bfloat16",
+                    batch=batch, seq=seq, loss=loss,
+                    grad_norm=float(dm["grad_norm"]),
+                    step_s_host_clock=deep_s,
+                    peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                    launches=dl)
+        del params, dm, b
+        torch.cuda.empty_cache()
+
+    emit("train", arch=f"{cfg.name}, {L} of 36 layers, full width",
+         params=cfg.param_count(), members=members, optimizer="adamw",
+         schedule="cosine", batch=batch, seq=seq, steps=steps, rounds=2,
+         losses=hist.tolist(), eval_averaged=res["eval_averaged"],
+         eval_members=res["eval_members"], sync_steps=res["sync_steps"],
+         step_s_host_clock=res["step_s"], run_s_host_clock=run_s,
+         launches=launches,
+         launches_per_member_step={
+             "rmsnorm_bwd": launches["rmsnorm_bwd"] // member_steps,
+             "swa_attention_bwd": launches["swa_attention_bwd"]
+             // member_steps},
+         peak_memory_bytes=peak, profile_member_step=profiled,
+         resume=dict(bitwise=True, killed_after_step=2,
+                     state_files_bytes=state_bytes,
+                     cut_s_host_clock=cut_s, resume_s_host_clock=resume_s),
+         card_vs_cpu=parity, full_depth=deep)
+    return launches
+
+
 def main():
     import torch
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
@@ -2236,6 +2672,7 @@ def main():
     phase_resume(torch, dev, m, sgd)
     phase_lm_parity(torch, dev)
     lm_launches = phase_lm(torch, dev)
+    train_launches = phase_train(torch, dev)
 
     main_launches = m["launches"]
     check(all(main_launches[name] > 0 for name in ("conv2d", "elm_stats")),
@@ -2308,14 +2745,15 @@ def main():
          >= sum(c["flops"] for c in dw) / rates[0] else "operations",
          "library_ms": sum(c["library_ms"] for c in dw)})
     # rmsnorm: one ln (512 x 4096) and one q_norm (16384 x 128) launch of
-    # the prefill; swa_attention: one layer's prefill attention
+    # the prefill; swa_attention: one layer's prefill attention; their
+    # launches from the LM serving path and the train path's forwards
     rms = [per_case[("rmsnorm", c)] for c in ("ln_d4096", "qk_norm_d128")]
     swa = per_case[("swa_attention", "prefill_causal")]
     line["kernels"] += [
         {"name": "rmsnorm", "route": "cuda",
          "source": "src/repro_torch/csrc/rmsnorm.cu",
          "replaces": "src/repro/kernels/rmsnorm/kernel.py:23",
-         "launches": lm_launches["rmsnorm"],
+         "launches": lm_launches["rmsnorm"] + train_launches["rmsnorm"],
          "max_abs_err": max(c["max_abs_err"] for c in rms),
          "ms": sum(c["ms"] for c in rms),
          "plain_ms": sum(c["plain_ms"] for c in rms),
@@ -2326,13 +2764,42 @@ def main():
         {"name": "swa_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/swa_attention.cu",
          "replaces": "src/repro/kernels/swa_attention/kernel.py:28",
-         "launches": lm_launches["swa_attention"],
+         "launches": lm_launches["swa_attention"]
+         + train_launches["swa_attention"],
          "max_abs_err": max(per_case[("swa_attention", c)]["max_abs_err"]
                             for c in ("prefill_causal", "window256_s1024",
                                       "prefill_large_scores")),
          "ms": swa["ms"], "plain_ms": swa["plain_ms"],
          "bound_ms": swa["bound_ms"], "bound_by": swa["bound_by"],
          "library_ms": swa["library_ms"]},
+    ]
+    # the backward kernels: one ln and one q_norm backward, one layer's
+    # attention backward at the prefill shape; launches from the train path
+    rb = [per_case[("rmsnorm_bwd", c)] for c in ("ln_d4096", "qk_norm_d128")]
+    sb = per_case[("swa_attention_bwd", "prefill_causal")]
+    line["kernels"] += [
+        {"name": "rmsnorm_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/rmsnorm_bwd.cu",
+         "replaces": "src/repro/kernels/rmsnorm/kernel.py:23 (the rmsnorm "
+                     "TPU kernel; it has no Pallas backward)",
+         "launches": train_launches["rmsnorm_bwd"],
+         "max_abs_err": max(c["max_abs_err"] for c in rb),
+         "ms": sum(c["ms"] for c in rb),
+         "plain_ms": sum(c["plain_ms"] for c in rb),
+         "bound_ms": sum(c["bound_ms"] for c in rb),
+         "bound_by": "bytes" if sum(c["bytes"] for c in rb) / rates[1]
+         >= sum(c["flops"] for c in rb) / rates[0] else "operations",
+         "library_ms": sum(c["library_ms"] for c in rb)},
+        {"name": "swa_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/swa_attention_bwd.cu",
+         "replaces": "src/repro/kernels/swa_attention/kernel.py:28 (the "
+                     "swa_attention TPU kernel; it has no Pallas backward)",
+         "launches": train_launches["swa_attention_bwd"],
+         "max_abs_err": max(per_case[("swa_attention_bwd", c)]["max_abs_err"]
+                            for c in ("prefill_causal", "window256_s1024")),
+         "ms": sb["ms"], "plain_ms": sb["plain_ms"],
+         "bound_ms": sb["bound_ms"], "bound_by": sb["bound_by"],
+         "library_ms": sb["library_ms"]},
     ]
     print(json.dumps(line), flush=True)
     print(card, flush=True)

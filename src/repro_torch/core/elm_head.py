@@ -11,10 +11,10 @@ Any ``feature_fn(params, batch) -> (B, S, D)`` or ``(B, D)`` (the CNN's
 
 ``accumulate_stats`` and ``predict`` differentiate nothing and run under
 ``torch.no_grad()``, so they run on the card through every kernel of the
-backbone. ``finetune_step`` needs the backward of every kernel its backbone
-calls: the CNN's conv has one on the card, the decoder's rmsnorm and
-swa_attention have none yet, and their wrappers raise rather than cut the
-graph (``kernels.refuse_grad``).
+backbone. ``finetune_step`` runs through the backward of every kernel its
+backbone calls: the CNN's conv (conv2d_dgrad, conv2d_wgrad) and the
+decoder's rmsnorm and swa_attention (rmsnorm_bwd, swa_attention_bwd) each
+have one on the card.
 """
 from __future__ import annotations
 

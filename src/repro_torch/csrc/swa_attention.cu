@@ -3,7 +3,11 @@
 // over keys j <= i with i - j < window (G = H / KV query heads per kv head),
 // the output in the inputs' dtype. Scores are f32, scaled by hd^-0.5 and
 // masked to -1e30; a masked p is exactly 0; the output is acc / max(l, 1e-30)
-// with the guard of the Pallas kernel (kernel.py:60).
+// with the guard of the Pallas kernel (kernel.py:60). With a non-null lse
+// pointer the kernel also writes each row's log-sum-exp of its scaled
+// scores, lse = m + log(max(l, 1e-30)) in natural-log units, (B, H, S) f32,
+// which the backward (swa_attention_bwd.cu) recomputes P from; a null lse
+// (the serving path) writes nothing else and leaves o as it was.
 //
 // Replaces: src/repro/kernels/swa_attention/kernel.py:28 `_swa_kernel`,
 // launched by `swa_attention` (:66, pallas_call at :84). The Pallas kernel
@@ -220,7 +224,8 @@ __global__ void __launch_bounds__(kTcThreads)
     swa_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v,
-                    __nv_bfloat16* __restrict__ o, int S, int H, int KV,
+                    __nv_bfloat16* __restrict__ o,
+                    float* __restrict__ lse, int S, int H, int KV,
                     int hd, int window, float scale, int vec16) {
   constexpr int kPitch = tc_pitch<HDP>();
   constexpr int kKSteps = HDP / 16;  // k-steps of Q.K^T over hd
@@ -399,6 +404,14 @@ __global__ void __launch_bounds__(kTcThreads)
   // acc / l, far below the bf16 rounding that follows
   const float inv0 = 1.0f / fmaxf(l0, 1e-30f);
   const float inv1 = 1.0f / fmaxf(l1, 1e-30f);
+  if (lse != nullptr && tig == 0) {
+    // m is in log2 units: lse = m ln 2 + log(l); a quad shares m and l
+    float* lse_bh = lse + static_cast<long long>(blockIdx.y) * S;
+    if (qi0 < S)
+      lse_bh[qi0] = m0 * 0.6931471805599453f + logf(fmaxf(l0, 1e-30f));
+    if (qi1 < S)
+      lse_bh[qi1] = m1 * 0.6931471805599453f + logf(fmaxf(l1, 1e-30f));
+  }
   __nv_bfloat16* ow = q_s + warp * 16 * kPitch;
 #pragma unroll
   for (int d = 0; d < kDTiles; ++d) {
@@ -436,9 +449,9 @@ __global__ void __launch_bounds__(kTcThreads)
 }
 
 template <int HDP>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int S, int H, int KV, int hd, int window, float scale,
-                cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int S, int H, int KV, int hd, int window,
+                float scale, cudaStream_t stream) {
   constexpr size_t smem = tc_smem_bytes<HDP>();
   cudaError_t err = cudaFuncSetAttribute(
       swa_bf16_kernel<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -458,8 +471,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
   swa_bf16_kernel<HDP><<<grid, kTcThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S,
-      H, KV, hd, window, scale, vec16);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      lse, S, H, KV, hd, window, scale, vec16);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -481,8 +494,9 @@ size_t f32_smem_bytes(int hd) {
 
 __global__ void __launch_bounds__(kF32Threads)
     swa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, float* __restrict__ o, int S,
-                   int H, int KV, int hd, int window, float scale) {
+                   const float* __restrict__ v, float* __restrict__ o,
+                   float* __restrict__ lse, int S, int H, int KV, int hd,
+                   int window, float scale) {
   extern __shared__ float smem[];
   const int hdp = hd + 1;
   float* q_s = smem;               // kBQ x hdp
@@ -584,12 +598,14 @@ __global__ void __launch_bounds__(kF32Threads)
       const int d = sub + kSub * j;
       if (d < hd) orow[d] = acc[j] / l_safe;
     }
+    if (lse != nullptr && sub == 0)
+      lse[static_cast<long long>(blockIdx.y) * S + qi] = m + logf(l_safe);
   }
 }
 
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int S, int H, int KV, int hd, int window, float scale,
-               cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int S, int H, int KV, int hd, int window,
+               float scale, cudaStream_t stream) {
   const size_t smem = f32_smem_bytes(hd);
   cudaError_t err = cudaFuncSetAttribute(
       swa_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -598,29 +614,31 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   dim3 grid((S + kBQ - 1) / kBQ, B * H);
   swa_f32_kernel<<<grid, kF32Threads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, H, KV, hd,
-      window, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, S, H, KV,
+      hd, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // bf16: 0 = float32 operands (CUDA cores), 1 = bfloat16 (tensor cores).
+// lse: (B, H, S) f32 log-sum-exp of each row's scores, or null.
 extern "C" int swa_attention_fwd(const void* q, const void* k, const void* v,
-                                 void* o, int B, int S, int H, int KV, int hd,
-                                 int window, float scale, int bf16,
-                                 void* stream) {
+                                 void* o, void* lse, int B, int S, int H,
+                                 int KV, int hd, int window, float scale,
+                                 int bf16, void* stream) {
   if (hd < 1 || hd > kHdMax || KV < 1 || H % KV != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse_f = static_cast<float*>(lse);
   if (!bf16)
-    return launch_f32(q, k, v, o, B, S, H, KV, hd, window, scale, s);
-  using Launch = int (*)(const void*, const void*, const void*, void*, int,
-                         int, int, int, int, int, float, cudaStream_t);
+    return launch_f32(q, k, v, o, lse_f, B, S, H, KV, hd, window, scale, s);
+  using Launch = int (*)(const void*, const void*, const void*, void*, float*,
+                         int, int, int, int, int, int, float, cudaStream_t);
   constexpr Launch by_hdp[] = {launch_bf16<16>, launch_bf16<32>,
                                launch_bf16<48>, launch_bf16<64>,
                                launch_bf16<80>, launch_bf16<96>,
                                launch_bf16<112>, launch_bf16<128>};
-  return by_hdp[(hd + 15) / 16 - 1](q, k, v, o, B, S, H, KV, hd, window,
-                                    scale, s);
+  return by_hdp[(hd + 15) / 16 - 1](q, k, v, o, lse_f, B, S, H, KV, hd,
+                                    window, scale, s);
 }

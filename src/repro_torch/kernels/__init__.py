@@ -13,7 +13,10 @@ back from one to the other: a failed build or launch raises.
 
 ``LAUNCHES`` counts kernel launches per kernel name; each wrapper adds one
 where it launches, and nowhere else, so a run can show that its main path
-went through the kernels (``reset_launches`` before, read after).
+went through the kernels (``reset_launches`` before, read after). A
+kernel's backward has a name of its own (``rmsnorm_bwd``,
+``swa_attention_bwd``), counted in its ``torch.autograd.Function``'s
+``backward``, which runs on autograd's engine thread.
 
 A captured CUDA graph runs its kernels without a Python call, so the count
 follows the graph: launches made while a thread captures
@@ -63,9 +66,19 @@ _ENTRIES = {
     "elm_stats": ("elm_stats_f32", (_P, _P, _P, _P, _I, _I, _I, _I, _P)),
     # x, scale, out, n, D, eps, x is bf16, scale is bf16, stream
     "rmsnorm": ("rmsnorm_fwd", (_P, _P, _P, _I, _I, _F, _I, _I, _P)),
-    # q, k, v, out, B, S, H, KV, hd, window, scale, bf16, stream
+    # x, scale, dy, dx, partial sums, dscale, n, D, rows a chunk, eps, x is
+    # bf16, scale is bf16, stream
+    "rmsnorm_bwd": ("rmsnorm_bwd",
+                    (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P)),
+    # q, k, v, out, lse (NULL = none), B, S, H, KV, hd, window, scale, bf16,
+    # stream
     "swa_attention": ("swa_attention_fwd",
-                      (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P)),
+                      (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
+                       _P)),
+    # q, k, v, out, dout, lse, delta, dq, dk, dv, B, S, H, KV, hd, window,
+    # scale, bf16, stream
+    "swa_attention_bwd": ("swa_attention_bwd",
+                          (_P,) * 10 + (_I,) * 6 + (_F, _I, _P)),
 }
 
 LAUNCHES = {name: 0 for name in _ENTRIES}
@@ -104,11 +117,16 @@ def count_replay(record: Dict[str, int]):
             LAUNCHES[name] += n
 
 
+def needs_grad(tensors) -> bool:
+    """Whether a call on ``tensors`` is recorded by autograd."""
+    return torch.is_grad_enabled() and any(a.requires_grad for a in tensors)
+
+
 def refuse_grad(name: str, tensors):
     """Raise for an operand that requires grad while grad mode is on: the
-    kernel ``name`` has no backward, and its output, a buffer the kernel
-    fills, would silently cut the graph."""
-    if torch.is_grad_enabled() and any(a.requires_grad for a in tensors):
+    kernel ``name`` has no backward (elm_stats), and its output, a buffer
+    the kernel fills, would silently cut the graph."""
+    if needs_grad(tensors):
         raise RuntimeError(
             f"the {name} kernel has no backward yet: call it under "
             f"torch.no_grad() or on operands that do not require grad "

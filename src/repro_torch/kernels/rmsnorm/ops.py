@@ -1,12 +1,13 @@
 """The rmsnorm wrapper: row-wise x · 1/sqrt(mean(x²) + eps) · scale.
 
-A CPU tensor goes to the plain version (``ref.rmsnorm_ref``), a CUDA
-tensor to the hand kernel in ``csrc/rmsnorm.cu``; nothing falls back from
-one to the other. x is f32 or bf16 of any leading shape (the kernel reads
-a contiguous copy of a strided view), scale (D,) f32 or bf16; the math is
-f32 and the output has x's dtype. The kernel has no backward: on the card,
-an operand that requires grad is refused while grad mode is on (the CPU
-route stays differentiable).
+A CPU tensor goes to the plain version (``ref.rmsnorm_ref``, which
+autograd differentiates), a CUDA tensor to the hand kernel in
+``csrc/rmsnorm.cu``; nothing falls back from one to the other. x is f32 or
+bf16 of any leading shape (the kernel reads a contiguous copy of a strided
+view), scale (D,) f32 or bf16; the math is f32 and the output has x's
+dtype. On the card the call is a ``torch.autograd.Function`` whose
+backward is the kernel in ``csrc/rmsnorm_bwd.cu`` (dx in x's dtype, dscale
+in scale's), counted as ``rmsnorm_bwd``.
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ from repro_torch import kernels
 from repro_torch.kernels.rmsnorm import ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_BWD_DIM = 32 * 256     # columns a backward block holds in registers
+_BWD_BLOCKS = 264          # pass 1's target: two blocks for each of 132 SMs
 
 
 def rmsnorm(x, scale, *, eps: float = 1e-5):
@@ -23,7 +26,12 @@ def rmsnorm(x, scale, *, eps: float = 1e-5):
     _check(x, scale)
     if x.device.type == "cpu":
         return ref.rmsnorm_ref(x, scale, eps)
-    return _launch(x, scale, eps)
+    if not x.is_cuda:
+        raise ValueError(f"rmsnorm runs on CPU or CUDA tensors, "
+                         f"got {x.device}")
+    if kernels.needs_grad((x, scale)):
+        return _RMSNorm.apply(x, scale, eps)
+    return _forward(x.contiguous(), scale, eps)
 
 
 def _check(x, scale):
@@ -38,14 +46,7 @@ def _check(x, scale):
         raise ValueError(f"operands on {x.device} and {scale.device}")
 
 
-def _launch(x, scale, eps):
-    if not x.is_cuda:
-        raise ValueError(f"rmsnorm runs on CPU or CUDA tensors, "
-                         f"got {x.device}")
-    kernels.refuse_grad("rmsnorm", (x, scale))
-    if not scale.is_contiguous():
-        raise ValueError("the rmsnorm kernel takes a contiguous scale")
-    x = x.contiguous()      # a view such as x[:, -1:] is copied once
+def _rows(x):
     D = x.shape[-1]
     n = x.numel() // max(D, 1)
     if D < 1 or n < 1:
@@ -53,9 +54,70 @@ def _launch(x, scale, eps):
     if n > 2**31 - 1 or D > 2**31 // 2:
         raise ValueError(f"rmsnorm of {n} rows of {D} is too large for "
                          f"one launch")
+    return n, D
+
+
+def _forward(x, scale, eps):
+    """The kernel on a contiguous x."""
+    if not scale.is_contiguous():
+        raise ValueError("the rmsnorm kernel takes a contiguous scale")
+    n, D = _rows(x)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         kernels.launch("rmsnorm", x.data_ptr(), scale.data_ptr(),
                        out.data_ptr(), n, D, float(eps), _DTYPES[x.dtype],
                        _DTYPES[scale.dtype])
     return out
+
+
+def bwd_rows_per_chunk(n: int, D: int) -> int:
+    """Rows a block of the backward's first pass sums dscale over: about
+    two blocks an SM, at least a warp's 8 rows where a warp takes a row
+    (D <= 1024) and 4 where a block does. A function of the shape alone, so
+    dscale's order of summation is too."""
+    return max(8 if D <= 1024 else 4, -(-n // _BWD_BLOCKS))
+
+
+def rmsnorm_bwd(x, scale, dy, *, eps: float = 1e-5):
+    """The backward kernel: (dx in x's dtype, dscale in scale's) of the
+    rmsnorm of contiguous x (..., D) with cotangent dy of x's shape and
+    dtype. dscale sums per-chunk partials in a fixed order, no atomics."""
+    if not scale.is_contiguous():
+        raise ValueError("the rmsnorm kernel takes a contiguous scale")
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} does not match "
+                         f"x {tuple(x.shape)} {x.dtype}")
+    x, dy = x.contiguous(), dy.contiguous()
+    n, D = _rows(x)
+    if D > MAX_BWD_DIM:
+        raise ValueError(f"the rmsnorm backward kernel takes D <= "
+                         f"{MAX_BWD_DIM}, got {D}")
+    rows = bwd_rows_per_chunk(n, D)
+    chunks = -(-n // rows)
+    dx = torch.empty_like(x)
+    partial = torch.empty((chunks, D), dtype=torch.float32, device=x.device)
+    dscale = torch.empty_like(scale)
+    with torch.cuda.device(x.device):
+        kernels.launch("rmsnorm_bwd", x.data_ptr(), scale.data_ptr(),
+                       dy.data_ptr(), dx.data_ptr(), partial.data_ptr(),
+                       dscale.data_ptr(), n, D, rows, float(eps),
+                       _DTYPES[x.dtype], _DTYPES[scale.dtype])
+    return dx, dscale
+
+
+class _RMSNorm(torch.autograd.Function):
+    """The forward and backward kernels under autograd; x is kept as the
+    contiguous copy the forward read."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        x = x.contiguous()
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _forward(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_bwd(x, scale, dy, eps=ctx.eps)
+        return dx, dscale, None

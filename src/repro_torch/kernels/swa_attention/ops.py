@@ -4,8 +4,12 @@ A CPU tensor goes to the plain version (``ref.swa_attention_ref``), a CUDA
 tensor to the hand kernel in ``csrc/swa_attention.cu``; nothing falls back
 from one to the other. q is (B, S, H, hd), k and v (B, S, KV, hd), all f32
 or all bf16; the softmax and sums are f32 and the output has q's dtype.
-The kernel has no backward: on the card, an operand that requires grad is
-refused while grad mode is on (the CPU route stays differentiable).
+On the CPU autograd differentiates the plain version. On the card a call
+that autograd records is a ``torch.autograd.Function``: its forward also
+writes each row's log-sum-exp, and its backward is the kernels of
+``csrc/swa_attention_bwd.cu`` (one ``swa_attention_bwd`` launch a call);
+a call it does not record (serving, under ``torch.no_grad()``) passes the
+kernel a null log-sum-exp.
 """
 from __future__ import annotations
 
@@ -24,7 +28,12 @@ def swa_attention(q, k, v, *, window: int):
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return ref.swa_attention_ref(q, k, v, window=window)
-    return _launch(q, k, v, window)
+    if not q.is_cuda:
+        raise ValueError(f"swa_attention runs on CPU or CUDA tensors, "
+                         f"got {q.device}")
+    if kernels.needs_grad((q, k, v)):
+        return _SWAAttention.apply(q, k, v, window)
+    return _launch(q, k, v, window, with_lse=False)[0]
 
 
 def _check(q, k, v, window):
@@ -53,11 +62,7 @@ def _check(q, k, v, window):
                         f"got {q.dtype}")
 
 
-def _launch(q, k, v, window):
-    if not q.is_cuda:
-        raise ValueError(f"swa_attention runs on CPU or CUDA tensors, "
-                         f"got {q.device}")
-    kernels.refuse_grad("swa_attention", (q, k, v))
+def _launch_checks(q, k, v):
     if not all(a.is_contiguous() for a in (q, k, v)):
         raise ValueError("the swa_attention kernel takes contiguous operands")
     B, S, H, hd = q.shape
@@ -66,9 +71,80 @@ def _launch(q, k, v, window):
                          f"{MAX_HEAD_DIM}, got {hd}")
     if B * H > 65535 or q.numel() > 2**31 - 1:
         raise ValueError(f"q {tuple(q.shape)} is too large for one launch")
+
+
+def _launch(q, k, v, window, *, with_lse: bool):
+    """(out, lse): the forward kernel; lse (B, H, S) f32 when
+    ``with_lse``, else None (the kernel gets a null pointer)."""
+    _launch_checks(q, k, v)
+    B, S, H, hd = q.shape
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     with torch.cuda.device(q.device):
         kernels.launch("swa_attention", q.data_ptr(), k.data_ptr(),
-                       v.data_ptr(), out.data_ptr(), B, S, H, k.shape[2], hd,
+                       v.data_ptr(), out.data_ptr(),
+                       None if lse is None else lse.data_ptr(), B, S, H,
+                       k.shape[2], hd, min(int(window), S), hd ** -0.5,
+                       _DTYPES[q.dtype])
+    return out, lse
+
+
+def swa_attention_fwd(q, k, v, *, window: int):
+    """The forward kernel with its log-sum-exp: (out, lse (B, H, S) f32),
+    what the backward recomputes P from. Contiguous CUDA operands."""
+    _check(q, k, v, window)
+    if not q.is_cuda:
+        raise ValueError(f"swa_attention_fwd runs on CUDA tensors, "
+                         f"got {q.device}")
+    return _launch(q, k, v, window, with_lse=True)
+
+
+def swa_attention_bwd(q, k, v, out, lse, dout, *, window: int):
+    """The backward kernels: (dq, dk, dv) in q's dtype from the forward's
+    operands, its output, its log-sum-exp and the output cotangent (copied
+    once if not contiguous). dk and dv sum over the GQA group inside one
+    block each, in a fixed order, with no atomics."""
+    _check(q, k, v, window)
+    _launch_checks(q, k, v)
+    B, S, H, hd = q.shape
+    if out.shape != q.shape or dout.shape != q.shape or \
+            out.dtype != q.dtype or dout.dtype != q.dtype:
+        raise ValueError("out and dout must match q's shape and dtype")
+    if lse.shape != (B, H, S) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be (B, H, S) float32, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    if not (out.is_contiguous() and lse.is_contiguous()):
+        raise ValueError("the swa_attention backward takes a contiguous "
+                         "out and lse")
+    dout = dout.contiguous()
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        kernels.launch("swa_attention_bwd", q.data_ptr(), k.data_ptr(),
+                       v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+                       lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                       dk.data_ptr(), dv.data_ptr(), B, S, H, k.shape[2], hd,
                        min(int(window), S), hd ** -0.5, _DTYPES[q.dtype])
-    return out
+    return dq, dk, dv
+
+
+class _SWAAttention(torch.autograd.Function):
+    """The forward kernel (with its log-sum-exp) and the backward kernels
+    under autograd; saves q, k, v, the output and the log-sum-exp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window):
+        out, lse = _launch(q, k, v, window, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.window = window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = swa_attention_bwd(q, k, v, out, lse, dout,
+                                       window=ctx.window)
+        return dq, dk, dv, None

@@ -28,3 +28,57 @@ def swa_attention_ref(q, k, v, *, window: int):
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgst,btkh->bskgh", w, v.float())
     return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def _wide(q):
+    """f32, or f64 for f64 operands (the card tests' f64 truth)."""
+    return torch.float64 if q.dtype == torch.float64 else torch.float32
+
+
+def _scores(q, k, window):
+    """(B, KV, G, S, S) scaled scores, -1e30 outside the mask, and the
+    mask."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    w = _wide(q)
+    qg = q.to(w).reshape(B, S, KV, H // KV, hd)
+    s = torch.einsum("bskgh,btkh->bkgst", qg, k.to(w)) * (hd ** -0.5)
+    i = torch.arange(S, device=q.device)[:, None]
+    j = torch.arange(S, device=q.device)[None, :]
+    mask = (j <= i) & (i - j < window)
+    return torch.where(mask, s, torch.full_like(s, NEG_INF)), mask
+
+
+def swa_attention_lse_ref(q, k, *, window: int):
+    """(B, H, S) f32: each query row's log-sum-exp of its scaled scores
+    inside the mask (natural log), what the forward kernel writes for the
+    backward."""
+    B, S, H, _ = q.shape
+    s, _ = _scores(q, k, window)
+    return torch.logsumexp(s, dim=-1).reshape(B, H, S)
+
+
+def swa_attention_bwd_ref(q, k, v, out, lse, dout, *, window: int):
+    """The backward in plain PyTorch, recomputed from the log-sum-exp as
+    ``csrc/swa_attention_bwd.cu`` does: P = exp(s − lse) inside the mask,
+    D = rowsum(dout ∘ out), dS = P ∘ (dout·vᵀ − D); dq = scale·dS·k,
+    dk = scale·dSᵀ·q and dv = Pᵀ·dout summed over each kv head's group.
+    f32 throughout (f64 for f64 operands); (dq, dk, dv) in q's dtype."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    w = _wide(q)
+    s, mask = _scores(q, k, window)
+    p = torch.where(mask, torch.exp(s - lse.to(w).reshape(B, KV, G, S, 1)),
+                    torch.zeros_like(s))
+    dog = dout.to(w).reshape(B, S, KV, G, hd)
+    delta = (dog * out.to(w).reshape(B, S, KV, G, hd)).sum(-1)
+    dp = torch.einsum("bskgh,btkh->bkgst", dog, v.to(w))
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    scale = hd ** -0.5
+    qg = q.to(w).reshape(B, S, KV, G, hd)
+    dq = torch.einsum("bkgst,btkh->bskgh", ds, k.to(w)) * scale
+    dk = torch.einsum("bkgst,bskgh->btkh", ds, qg) * scale
+    dv = torch.einsum("bkgst,bskgh->btkh", p, dog)
+    return (dq.reshape(B, S, H, hd).to(q.dtype), dk.to(q.dtype),
+            dv.to(q.dtype))

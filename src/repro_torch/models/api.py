@@ -18,6 +18,10 @@ def init_params(cfg, generator, dtype=torch.bfloat16, device="cuda"):
     return module_of(cfg).init_params(cfg, generator, dtype, device)
 
 
+def loss_fn(cfg, params, batch):
+    return module_of(cfg).loss_fn(cfg, params, batch)
+
+
 def hidden_states(cfg, params, batch):
     return module_of(cfg).hidden_states(cfg, params, batch)
 

@@ -1,13 +1,21 @@
-"""The dense GQA decoder (qwen3-style): init, full forward, the final
-hidden states (the ELM head's H), prefill and one-token decode — the
-port's counterpart of ``repro.models.transformer`` for family ``dense``
-(MoE, encoder and VLM come with their families).
+"""The dense GQA decoder (qwen3-style): init, full forward, the training
+loss, the final hidden states (the ELM head's H), prefill and one-token
+decode — the port's counterpart of ``repro.models.transformer`` for family
+``dense`` (MoE, encoder and VLM come with their families).
 
 Layers are stacked (a leading L dim on every leaf of ``params["layers"]``)
 as in the reference, so trees convert leaf by leaf; the reference's
 ``layer_scan`` becomes a Python loop over views of the stacked leaves.
-Every rms_norm goes through the rmsnorm kernel and every prefill attention
-through the swa_attention kernel on the card.
+Every rms_norm goes through the rmsnorm kernel and every full-sequence
+attention through the swa_attention kernel on the card, forward and, under
+autograd, backward.
+
+The reference wraps each layer of the forward in ``jax.checkpoint``, a
+memory policy of its autodiff (recompute a layer's activations in the
+backward rather than keep them). PyTorch's autograd keeps them: at the
+sizes the port trains (Qwen3-8B at batch 4 × 128 tokens) they are a few GB
+beside the weights, gradients and optimizer state, so nothing stands in
+for it; the values are the same either way.
 """
 from __future__ import annotations
 
@@ -18,7 +26,7 @@ from repro_torch.layers import attention as attn
 from repro_torch.layers import mlp as mlp_lib
 from repro_torch.layers.init import normal
 from repro_torch.layers.norms import rms_norm
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 NEG_INF = -1e30
 UNPORTED = ("family {!r} is not ported yet (ROADMAP queue 1 item 13, the "
@@ -71,8 +79,18 @@ def _mask_padded_logits(cfg, logits):
                        torch.full_like(logits, NEG_INF))
 
 
-def _layer(layers, i):
-    return tree_map(lambda a: a[i], layers)
+def _unbound_layers(layers, num_layers: int):
+    """The per-layer trees of the stacked ``layers``: views from one
+    ``unbind`` of each leaf. Under autograd each leaf's gradient is then
+    stacked once, where a view ``a[i]`` per layer would hand every layer a
+    zero tensor of the whole leaf's size to add into it."""
+    leaves = tree_leaves(layers)
+    parts = [a.unbind(0) for a in leaves]
+    out = []
+    for i in range(num_layers):
+        it = iter([part[i] for part in parts])
+        out.append(tree_map(lambda _: next(it), layers))
+    return out
 
 
 def _unembed(cfg, p, x):
@@ -116,9 +134,22 @@ def hidden_states(cfg, p, batch, *, window: int | None = None):
     counterpart here."""
     window = cfg.sliding_window if window is None else window
     x, positions, _ = _embed_inputs(cfg, p, batch)
-    for i in range(cfg.num_layers):
-        x, _ = _block(cfg, _layer(p["layers"], i), x, positions, window)
+    for lp in _unbound_layers(p["layers"], cfg.num_layers):
+        x, _ = _block(cfg, lp, x, positions, window)
     return rms_norm(x, p["final_norm"], cfg.norm_eps)
+
+
+def loss_fn(cfg, p, batch):
+    """Next-token cross-entropy: (loss, {"ce", "aux"}), as the reference's
+    ``loss_fn`` (transformer.py:215) — the mean over tokens of
+    logsumexp(logits) minus the gold logit, padded vocab slots masked to
+    -1e30 in the logits; ``aux`` is 0 for the dense family."""
+    logits, aux = forward(cfg, p, batch)
+    tgt = batch["targets"].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, tgt[..., None])[..., 0]
+    ce = torch.mean(logz - gold)
+    return ce, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -138,8 +169,8 @@ def prefill(cfg, p, batch, max_len: int | None = None):
     x, positions, _ = _embed_inputs(cfg, p, batch)
     window = cfg.sliding_window
     ks, vs = [], []
-    for i in range(cfg.num_layers):
-        x, (k, v) = _block(cfg, _layer(p["layers"], i), x, positions, window)
+    for lp in _unbound_layers(p["layers"], cfg.num_layers):
+        x, (k, v) = _block(cfg, lp, x, positions, window)
         ks.append(k)
         vs.append(v)
     ks, vs = torch.stack(ks), torch.stack(vs)
@@ -162,8 +193,7 @@ def decode_step(cfg, p, cache, token, pos: int):
     (see ``attention.attn_decode``)."""
     _require_dense(cfg)
     x = p["embed"][token]
-    for i in range(cfg.num_layers):
-        lp = _layer(p["layers"], i)
+    for i, lp in enumerate(_unbound_layers(p["layers"], cfg.num_layers)):
         h, _ = attn.attn_decode(cfg, lp["attn"],
                                 rms_norm(x, lp["ln1"], cfg.norm_eps),
                                 (cache["k"][i], cache["v"][i]), pos)

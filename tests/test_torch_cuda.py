@@ -353,6 +353,263 @@ def test_lm_serving_on_card_matches_cpu(cuda, window):
 
 
 # ---------------------------------------------------------------------------
+# The LM kernels' backward: rmsnorm_bwd.cu, swa_attention_bwd.cu
+# ---------------------------------------------------------------------------
+
+def _bf16_ulp(x: float) -> float:
+    """One bf16 ulp at |x| (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(max(abs(x), 1e-30))) - 7)
+
+
+def _grad_close(got, ref, truth=None, terms=None):
+    """The backward kernels against their plain versions on the same
+    inputs: f32 within 1e-5 · max|ref| (the same f32 terms summed in
+    another order), bf16 within 2 bf16 ulps of max|ref| (both sides sum in
+    f32 and round once; the plain version rounds its einsums' sums in
+    another order, so a value near a rounding boundary may land one ulp
+    away, and the bar takes two). With the f64 ``truth`` of the same
+    function, the bar is at least twice the plain version's own distance
+    from it. With ``terms`` (per element, in f64, the sum of the
+    magnitudes of the terms the element sums, and its sums' length n),
+    an element may also differ from the truth by the f32 rounding those
+    sums allow, 2 · √n · 2⁻²⁴ · terms (Higham and Mary's probabilistic
+    bound at λ = 2): where the exact result cancels to 0 — attention's dq
+    and dk for a query row with one key, whose dS = P·(dP − D) subtracts
+    two equal dot products — both sides hold only that rounding."""
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    g, r = got.double().cpu(), ref.double().cpu()
+    top = float(r.abs().max())
+    bar = 2 * _bf16_ulp(top) if got.dtype == torch.bfloat16 else 1e-5 * top
+    if truth is not None:
+        t = truth.double().cpu()
+        bar = max(bar, 2 * float((r - t).abs().max()))
+        err = (g - t).abs()
+        if terms is not None:
+            mags, n = terms
+            err = err - 2 * n ** 0.5 * 2.0 ** -24 * mags.cpu()
+        assert float(err.max()) <= bar, (float(err.max()), bar)
+        return
+    assert float((g - r).abs().max()) <= bar, (float((g - r).abs().max()),
+                                               bar)
+
+
+def _swa_bwd_terms(q, k, v, out, lse, do, window):
+    """Per element of (dq, dk, dv), in f64: the sum of the magnitudes of
+    the terms it sums — P·(|dO|·|v| + |dO|·|out|) against |k| (dq) or
+    |q| (dk, over the group), P against |dO| (dv) — and the length of the
+    longest chain of f32 sums behind it (two head-dim dot products, then
+    the sum over keys or over the group's queries)."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    q, k, v, out, lse, do = (a.double() for a in (q, k, v, out, lse, do))
+    qg = q.reshape(B, S, KV, G, hd)
+    dog = do.abs().reshape(B, S, KV, G, hd)
+    s = torch.einsum("bskgh,btkh->bkgst", qg, k) * hd ** -0.5
+    i = torch.arange(S, device=q.device)
+    mask = (i[None] <= i[:, None]) & (i[:, None] - i[None] < window)
+    p = torch.where(mask, torch.exp(s - lse.reshape(B, KV, G, S, 1)),
+                    torch.zeros_like(s))
+    dabs = (dog * out.abs().reshape(B, S, KV, G, hd)).sum(-1)
+    e = p * (torch.einsum("bskgh,btkh->bkgst", dog, v.abs())
+             + dabs.permute(0, 2, 3, 1)[..., None])
+    scale = hd ** -0.5
+    m_dq = torch.einsum("bkgst,btkh->bskgh", e, k.abs()) * scale
+    m_dk = torch.einsum("bkgst,bskgh->btkh", e, qg.abs()) * scale
+    m_dv = torch.einsum("bkgst,bskgh->btkh", p, dog)
+    n = 2 * hd + G * min(window, S)
+    return [(m_dq.reshape(B, S, H, hd), n), (m_dk, n), (m_dv, n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dt,s_dt", [("f32", "f32"), ("bf16", "f32"),
+                                       ("bf16", "bf16"), ("f32", "bf16")])
+@pytest.mark.parametrize("shape", [(512, 4096), (16384, 128), (3, 17, 128),
+                                   (1, 96), (5, 3000), (2000, 64),
+                                   (7, 1025), (9, 8192)])
+def test_rmsnorm_bwd_kernel_matches_plain_on_card(cuda, shape, x_dt, s_dt):
+    """dx and dscale of the backward kernel against ``rmsnorm_bwd_ref``;
+    bitwise the same on a second call (dscale's fixed-order sums)."""
+    x, s, dy = _data(sum(shape) + 1, shape, shape[-1:], shape)
+    xd = (torch.from_numpy(x) * 3).to(cuda, _dt(x_dt))
+    sd = torch.from_numpy(s).to(cuda, _dt(s_dt))
+    dyd = torch.from_numpy(dy).to(cuda, _dt(x_dt))
+    before = kernels.LAUNCHES["rmsnorm_bwd"]
+    dx, ds = rms_ops.rmsnorm_bwd(xd, sd, dyd, eps=1e-6)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["rmsnorm_bwd"] == before + 1
+    rdx, rds = rms_ref.rmsnorm_bwd_ref(xd, sd, dyd, 1e-6)
+    _grad_close(dx, rdx)
+    _grad_close(ds, rds)
+    dx2, ds2 = rms_ops.rmsnorm_bwd(xd, sd, dyd, eps=1e-6)
+    assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
+
+
+def _swa_inputs(cuda, dt, B, S, H, KV, hd, seed=0, q_scale=1.0):
+    q, k, v, do = _data(seed + S, (B, S, H, hd), (B, S, KV, hd),
+                        (B, S, KV, hd), (B, S, H, hd))
+    return (torch.from_numpy(a).to(cuda, _dt(dt))
+            for a in (q * q_scale, k, v, do))
+
+
+SWA_BWD_SHAPES = [
+    (4, 128, 32, 8, 128, 128),     # the LM prefill and train step
+    (1, 1024, 32, 8, 128, 256),    # windowed
+    (2, 37, 4, 2, 64, 37),         # ragged
+    (2, 200, 4, 1, 64, 33),        # ragged, windowed, 4 heads per kv head
+    (1, 70, 2, 2, 16, 8),
+    (3, 1, 2, 1, 32, 1),
+    (2, 64, 4, 2, 40, 64),
+    (2, 65, 4, 2, 72, 65),
+    (1, 200, 4, 2, 64, 1),         # the diagonal alone
+    (1, 200, 4, 2, 64, 17),
+    (2, 96, 8, 1, 128, 96),        # G = 8
+    (1, 50, 2, 1, 20, 50)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,KV,hd,window", SWA_BWD_SHAPES)
+def test_swa_bwd_kernel_matches_plain_on_card(cuda, dt, B, S, H, KV, hd,
+                                              window):
+    """The forward's log-sum-exp against the plain one (rtol and atol
+    1e-5), and dq, dk, dv of the backward kernels against
+    ``swa_attention_bwd_ref`` on the same q, k, v, output, log-sum-exp and
+    cotangent, against the f64 function with the plain version's own
+    distance and each element's f32 rounding bound (``_grad_close``);
+    bitwise the same on a second call (dk and dv summed over the group in
+    one block, in order)."""
+    q, k, v, do = _swa_inputs(cuda, dt, B, S, H, KV, hd)
+    out, lse = swa_ops.swa_attention_fwd(q, k, v, window=window)
+    ref_lse = swa_ref.swa_attention_lse_ref(q, k, window=window)
+    np.testing.assert_allclose(lse.cpu().numpy(), ref_lse.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    before = kernels.LAUNCHES["swa_attention_bwd"]
+    got = swa_ops.swa_attention_bwd(q, k, v, out, lse, do, window=window)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["swa_attention_bwd"] == before + 1
+    ref = swa_ref.swa_attention_bwd_ref(q, k, v, out, lse, do, window=window)
+    truth = swa_ref.swa_attention_bwd_ref(
+        *(a.double() for a in (q, k, v, out, lse, do)), window=window)
+    terms = _swa_bwd_terms(q, k, v, out, lse, do, window)
+    for g, r, t, m in zip(got, ref, truth, terms):
+        _grad_close(g, r, t, m)
+    again = swa_ops.swa_attention_bwd(q, k, v, out, lse, do, window=window)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("window", [128, 40])
+def test_swa_bwd_large_scores_on_card(cuda, dt, window):
+    """q scaled by 8: peaked softmax rows, P near 0 and 1."""
+    q, k, v, do = _swa_inputs(cuda, dt, 2, 128, 8, 2, 128, seed=7,
+                              q_scale=8.0)
+    out, lse = swa_ops.swa_attention_fwd(q, k, v, window=window)
+    got = swa_ops.swa_attention_bwd(q, k, v, out, lse, do, window=window)
+    ref = swa_ref.swa_attention_bwd_ref(q, k, v, out, lse, do, window=window)
+    truth = swa_ref.swa_attention_bwd_ref(
+        *(a.double() for a in (q, k, v, out, lse, do)), window=window)
+    for g, r, t in zip(got, ref, truth):
+        _grad_close(g, r, t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,KV,hd,window", [
+    (4, 128, 32, 8, 128, 128), (2, 200, 4, 1, 64, 33), (2, 65, 4, 2, 72, 65),
+    (1, 50, 2, 1, 20, 50)])
+def test_swa_forward_is_bitwise_with_and_without_lse_on_card(
+        cuda, dt, B, S, H, KV, hd, window):
+    """Writing the log-sum-exp changes nothing else: the output with the
+    lse pointer is bitwise the output with a null one (the serving path)."""
+    q, k, v, _ = _swa_inputs(cuda, dt, B, S, H, KV, hd, seed=3)
+    with torch.no_grad():
+        plain_call = swa_ops.swa_attention(q, k, v, window=window)
+    with_lse, _ = swa_ops.swa_attention_fwd(q, k, v, window=window)
+    assert torch.equal(plain_call, with_lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_lm_kernels_record_autograd_on_card(cuda, dt):
+    """Under autograd the two wrappers record their Functions: backward
+    launches rmsnorm_bwd and swa_attention_bwd once each (counted in the
+    Functions' backward, on autograd's thread), and the gradients are the
+    plain kernels' on the same inputs; a non-contiguous cotangent is
+    copied once."""
+    x, s = _data(11, (6, 40, 64), (64,))
+    xd = torch.from_numpy(x).to(cuda, _dt(dt)).requires_grad_(True)
+    sd = torch.from_numpy(s).to(cuda, _dt(dt)).requires_grad_(True)
+    q, k, v, do = _swa_inputs(cuda, dt, 2, 40, 4, 2, 64, seed=2)
+    q, k, v = (a.requires_grad_(True) for a in (q, k, v))
+    kernels.reset_launches()
+    y = rms_ops.rmsnorm(xd, sd, eps=1e-6)
+    o = swa_ops.swa_attention(q, k, v, window=16)
+    assert y.grad_fn is not None and o.grad_fn is not None
+    dy = torch.ones_like(y)
+    torch.autograd.backward((y, o), (dy, do.transpose(1, 2).contiguous()
+                                     .transpose(1, 2)))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["rmsnorm"] == 1
+    assert kernels.LAUNCHES["rmsnorm_bwd"] == 1
+    assert kernels.LAUNCHES["swa_attention"] == 1
+    assert kernels.LAUNCHES["swa_attention_bwd"] == 1
+    dx, ds = rms_ops.rmsnorm_bwd(xd.detach(), sd.detach(), dy, eps=1e-6)
+    assert torch.equal(xd.grad, dx) and torch.equal(sd.grad, ds)
+    out, lse = swa_ops.swa_attention_fwd(q.detach(), k.detach(), v.detach(),
+                                         window=16)
+    ref = swa_ops.swa_attention_bwd(q.detach(), k.detach(), v.detach(), out,
+                                    lse, do, window=16)
+    for g, r in zip((q.grad, k.grad, v.grad), ref):
+        assert torch.equal(g, r)
+
+
+def _sgd_run(cfg, params, batches, lr=1e-2):
+    from repro_torch import optim
+    from repro_torch.core import trainer
+    step = trainer.make_train_step(cfg, optim.sgd(), optim.constant(lr))
+    opt, s, losses = (), 0, []
+    for b in batches:
+        params, opt, s, m = step(params, opt, s, b)
+        losses.append(float(m["loss"]))
+    return params, losses
+
+
+@pytest.mark.cuda
+def test_lm_train_step_on_card_matches_cpu(cuda):
+    """Reduced qwen3_8b, f32: three SGD steps at lr 1e-2 through the
+    forward and backward kernels against the port's CPU path from the same
+    init — every leaf within 1e-4 · max|leaf| (and the loss within 1e-5
+    relative) — with the launches of each step exact: rmsnorm forward and
+    backward 4 L + 1, swa_attention forward and backward L."""
+    cfg = get_reduced_config("qwen3_8b")
+    params = api.init_params(cfg, torch.Generator().manual_seed(0),
+                             torch.float32, device="cpu")
+    rng = np.random.default_rng(4)
+    batches = [{"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                        (2, 48))),
+                "targets": torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                         (2, 48)))}
+               for _ in range(3)]
+    kernels.reset_launches()
+    card, card_losses = _sgd_run(
+        cfg, tree_map(lambda a: a.to(cuda), params),
+        [tree_map(lambda a: a.to(cuda), b) for b in batches])
+    torch.cuda.synchronize()
+    L = cfg.num_layers
+    want = {name: 0 for name in kernels.LAUNCHES}
+    want.update(rmsnorm=3 * (4 * L + 1), rmsnorm_bwd=3 * (4 * L + 1),
+                swa_attention=3 * L, swa_attention_bwd=3 * L)
+    assert kernels.LAUNCHES == want
+    host, host_losses = _sgd_run(cfg, params, batches)
+    np.testing.assert_allclose(card_losses, host_losses, rtol=1e-5)
+    for c, h in zip(tree_leaves(card), tree_leaves(host)):
+        c, h = c.cpu(), h
+        assert float((c - h).abs().max()) <= 1e-4 * float(h.abs().max())
+
+
+# ---------------------------------------------------------------------------
 # The conv's backward: dW by conv2d_wgrad.cu, dX by conv2d_dgrad.cu
 # ---------------------------------------------------------------------------
 
@@ -522,15 +779,11 @@ def _no_backward_calls(cuda):
     return {
         "elm_stats": lambda: stats_ops.elm_stats(param(2, 40, 16),
                                                  param(2, 40, 3)),
-        "rmsnorm": lambda: rms_ops.rmsnorm(param(8, 64), param(64)),
-        "swa_attention": lambda: swa_ops.swa_attention(
-            param(1, 16, 4, 32), param(1, 16, 2, 32), param(1, 16, 2, 32),
-            window=8),
     }
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["elm_stats", "rmsnorm", "swa_attention"])
+@pytest.mark.parametrize("name", ["elm_stats"])
 def test_kernels_without_backward_refuse_grad_on_card(cuda, name):
     """A kernel without a backward would hand back a buffer with no graph:
     on the card it refuses an operand that requires grad under grad mode,
@@ -712,34 +965,53 @@ def test_mesh_on_card_is_the_stacked_run(cuda, tmp_path):
 
 
 @pytest.mark.cuda
-def test_lm_finetune_step_refuses_on_card(cuda):
-    """The decoder's rmsnorm and swa_attention kernels have no backward:
-    ``finetune_step`` over the LM on the card raises rather than cut the
-    graph or fall back to the CPU, while the head's stats, solve and
-    predict run there under no_grad."""
+def test_lm_finetune_step_on_card_matches_cpu(cuda):
+    """``finetune_step`` over the decoder runs on the card through the
+    rmsnorm and swa_attention forward and backward kernels, after the
+    head's stats, solve and predict under no_grad: reduced qwen3_8b in
+    f32, the same params, batch and β on the card and on the CPU; the loss
+    within rtol 1e-4 and every new leaf within 1e-4 · max|leaf|."""
     from repro_torch.core import elm_head
     cfg = get_reduced_config("qwen3_8b")
     params = api.init_params(cfg, torch.Generator().manual_seed(0),
-                             torch.float32, device=cuda)
+                             torch.float32, device="cpu")
     gen = torch.Generator().manual_seed(1)
-    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 32),
-                                     generator=gen).to(cuda),
-             "targets": torch.randint(0, 16, (2, 32), generator=gen).to(cuda)}
+
+    def make_batch():
+        return {"tokens": torch.randint(0, cfg.vocab_size, (2, 32),
+                                        generator=gen),
+                "targets": torch.randint(0, 16, (2, 32), generator=gen)}
 
     def feature_fn(p, b):
         return api.hidden_states(cfg, p, b)
 
+    # β from one batch, the step on another (as the CPU parity test,
+    # tests/test_torch_elm_head.py, whose bars these are)
+    stats_batch, batch = make_batch(), make_batch()
+    on_card = tree_map(lambda a: a.to(cuda), params)
+    card_batch = {k: v.to(cuda) for k, v in batch.items()}
     kernels.reset_launches()
-    beta = elm_head.solve(elm_head.accumulate_stats(feature_fn, params,
-                                                    batch, 16), 10.0)
-    scores = elm_head.predict(feature_fn, params, beta, batch)
+    beta = elm_head.solve(elm_head.accumulate_stats(
+        feature_fn, on_card, {k: v.to(cuda) for k, v in stats_batch.items()},
+        16), 10.0)
+    scores = elm_head.predict(feature_fn, on_card, beta, card_batch)
     torch.cuda.synchronize()
     assert scores.is_cuda and bool(torch.isfinite(scores).all())
     assert kernels.LAUNCHES["elm_stats"] == 1
-    assert kernels.LAUNCHES["rmsnorm"] > 0 and \
-        kernels.LAUNCHES["swa_attention"] > 0
-    with pytest.raises(RuntimeError, match="no backward"):
-        elm_head.finetune_step(feature_fn, params, beta, batch, 16, lr=1e-2)
+    kernels.reset_launches()
+    new_card, loss_card = elm_head.finetune_step(feature_fn, on_card, beta,
+                                                 card_batch, 16, lr=1e-2)
+    torch.cuda.synchronize()
+    L = cfg.num_layers
+    assert kernels.LAUNCHES["rmsnorm_bwd"] == 4 * L + 1
+    assert kernels.LAUNCHES["swa_attention_bwd"] == L
+    new_host, loss_host = elm_head.finetune_step(feature_fn, params,
+                                                 beta.cpu(), batch, 16,
+                                                 lr=1e-2)
+    np.testing.assert_allclose(float(loss_card), float(loss_host), rtol=1e-4)
+    for c, h in zip(tree_leaves(new_card), tree_leaves(new_host)):
+        assert float((c.cpu() - h).abs().max()) <= 1e-4 * float(
+            h.abs().max())
 
 
 # ---------------------------------------------------------------------------

@@ -206,12 +206,14 @@ def test_plain_versions_launch_nothing():
     conv_ops.conv2d_input_grad(torch.zeros((1, 2, 6, 6, 2)),
                                torch.zeros((1, 3, 3, 1, 2)))
     stats_ops.elm_stats(torch.zeros((5, 3)), torch.zeros((5, 2)))
-    rms_ops.rmsnorm(torch.zeros((4, 8)), torch.ones(8))
-    q = torch.zeros((1, 4, 2, 8))
-    swa_ops.swa_attention(q, q, q, window=2)
+    x = torch.ones((4, 8), requires_grad=True)
+    rms_ops.rmsnorm(x, torch.ones(8)).sum().backward()  # autograd's route
+    q = torch.zeros((1, 4, 2, 8), requires_grad=True)
+    swa_ops.swa_attention(q, q, q, window=2).sum().backward()
     assert kernels.LAUNCHES == {"conv2d": 0, "conv2d_wgrad": 0,
                                 "conv2d_dgrad": 0, "elm_stats": 0,
-                                "rmsnorm": 0, "swa_attention": 0}
+                                "rmsnorm": 0, "rmsnorm_bwd": 0,
+                                "swa_attention": 0, "swa_attention_bwd": 0}
 
 
 def test_elm_stats_cpu_route_is_differentiable():

@@ -237,3 +237,21 @@ def fail_on_rank_1(rank, world):
         raise ValueError("rank 1 fails on purpose")
     collectives.all_reduce(torch.zeros(1))
     return rank
+
+
+def lm_average_step(rank, world, stacked, weights):
+    """``trainer.make_average_step`` over the default group on this rank's
+    equal slice of the stacked LM members: (its averaged stack, whether
+    the step made exactly one all-reduce, the count's detail)."""
+    import torch.distributed as dist
+    from repro_torch.core import trainer
+    from repro_torch.tree import tree_map
+    k_local = tree_leaves(stacked)[0].shape[0] // world
+    local = tree_map(lambda a: a[rank * k_local:(rank + 1) * k_local]
+                     .clone(), stacked)
+    collectives.reset()
+    with collectives.span("sync") as counts:
+        out = trainer.make_average_step(weights, group=dist.group.WORLD)(
+            local)
+    check = collectives.check_one_all_reduce(counts)
+    return out, check.ok, check.detail

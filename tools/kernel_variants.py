@@ -13,7 +13,10 @@ output is wrong by design): it is timed, and its disagreement with the
 plain version is reported but not a failure.
 ``--baseline DIR`` adds, for each kernel, a build of the same-named source
 in DIR as it stands (an earlier checkout's ``src/repro_torch/csrc``: the
-same C entry point). The shipped source is built the same way beside them,
+same C entry point; swa_attention's gained its log-sum-exp argument
+with the backward kernels, so a baseline of that kernel must have it). The
+backward kernels (rmsnorm_bwd, swa_attention_bwd) have no variants but
+take a baseline. The shipped source is built the same way beside them,
 and all the nvcc processes run together; the port's own build is not
 touched. Every build is called through its C entry point on the same
 inputs, checked against the kernel's plain version at ``chip_smoke.py``'s
@@ -51,7 +54,12 @@ ENTRIES = {
     "elm_stats": ("elm_stats.cu", "elm_stats_f32",
                   (_P, _P, _P, _P, _I, _I, _I, _I, _P)),
     "swa_attention": ("swa_attention.cu", "swa_attention_fwd",
-                      (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P)),
+                      (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
+                       _P)),
+    "rmsnorm_bwd": ("rmsnorm_bwd.cu", "rmsnorm_bwd",
+                    (_P,) * 6 + (_I, _I, _I, _F, _I, _I, _P)),
+    "swa_attention_bwd": ("swa_attention_bwd.cu", "swa_attention_bwd",
+                          (_P,) * 10 + (_I,) * 6 + (_F, _I, _P)),
     "conv2d_wgrad": ("conv2d_wgrad.cu", "conv2d_wgrad_f32",
                      (_P, _P, _P, _P) + (_I,) * 9 + (_P,)),
     "conv2d_dgrad": ("conv2d_dgrad.cu", "conv2d_dgrad_f32",
@@ -111,6 +119,8 @@ VARIANTS = {
         ("one_copy_loop", [(r"if \(vec16 && hd == HDP\) \{",
                             "if (false) {")]),
     ],
+    "rmsnorm_bwd": [("shipped", [])],
+    "swa_attention_bwd": [("shipped", [])],
     "conv2d_wgrad": [
         ("shipped", []),
         # one phase run twice: the time over the shipped kernel's is what
@@ -413,7 +423,8 @@ def swa_cases(torch, dev, gen):
         def call(fn, q=q, k=k, v=v, out=out, B=B, S=S, H=H, KV=KV, hd=hd,
                  W=W):
             return launcher(fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            out.data_ptr(), B, S, H, KV, hd, W, hd ** -0.5, 1)
+                            out.data_ptr(), None, B, S, H, KV, hd, W,
+                            hd ** -0.5, 1)
 
         def verdict(out=out, want=want):
             return close(out, want, chip_smoke.BF16_RTOL)
@@ -422,6 +433,93 @@ def swa_cases(torch, dev, gen):
             return F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, is_causal=mask is None,
                 enable_gqa=True)
+        cases[case] = (call, verdict, library)
+    return cases
+
+
+def _two_ulps(got, ref):
+    """(within 2 bf16 ulps of max|ref| for every output, max|err|) — the
+    bar of chip_smoke.py's backward cases on bf16 outputs."""
+    import math
+    ok, worst = True, 0.0
+    for g, r in zip(got, ref):
+        top = float(r.float().abs().max())
+        ulp = 2.0 ** (math.floor(math.log2(max(top, 1e-30))) - 7)
+        err = float((g.float() - r.float()).abs().max())
+        ok, worst = ok and err <= 2 * ulp, max(worst, err)
+    return ok, worst
+
+
+def rms_bwd_cases(torch, dev, gen):
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm import ops, ref
+    cases = {}
+    for case, (n, D), s_dt in [("ln_d4096", (512, 4096), torch.float32),
+                               ("qk_norm_d128", (16384, 128),
+                                torch.bfloat16)]:
+        x = (torch.randn((n, D), generator=gen) * 3).to(torch.bfloat16).to(
+            dev)
+        scale = (1 + 0.1 * torch.randn((D,), generator=gen)).to(s_dt).to(dev)
+        dy = torch.randn((n, D), generator=gen).to(torch.bfloat16).to(dev)
+        want = ref.rmsnorm_bwd_ref(x, scale, dy, 1e-6)
+        rows = ops.bwd_rows_per_chunk(n, D)
+        part = torch.empty((-(-n // rows), D), dtype=torch.float32,
+                           device=dev)
+        dx, ds = torch.empty_like(x), torch.empty_like(scale)
+        xr = x.clone().requires_grad_(True)
+        w = scale.to(x.dtype).requires_grad_(True)
+        y = F.rms_norm(xr, (D,), w, 1e-6)
+
+        def call(fn, x=x, scale=scale, dy=dy, dx=dx, part=part, ds=ds, n=n,
+                 D=D, rows=rows, sb=int(s_dt == torch.bfloat16)):
+            return launcher(fn, x.data_ptr(), scale.data_ptr(), dy.data_ptr(),
+                            dx.data_ptr(), part.data_ptr(), ds.data_ptr(), n,
+                            D, rows, 1e-6, 1, sb)
+
+        def verdict(dx=dx, ds=ds, want=want):
+            return _two_ulps((dx, ds), want)
+
+        def library(y=y, xr=xr, w=w, dy=dy):
+            return torch.autograd.grad(y, (xr, w), dy, retain_graph=True)
+        cases[case] = (call, verdict, library)
+    return cases
+
+
+def swa_bwd_cases(torch, dev, gen):
+    import torch.nn.functional as F
+    from repro_torch.kernels.swa_attention import ops, ref
+    cases = {}
+    for case, B, S, H, KV, hd, W in SWA_SHAPES:
+        q, k, v, do = (torch.randn((B, S, heads, hd), generator=gen)
+                       .to(torch.bfloat16).to(dev)
+                       for heads in (H, KV, KV, H))
+        o, lse = ops.swa_attention_fwd(q, k, v, window=W)
+        want = ref.swa_attention_bwd_ref(q, k, v, o, lse, do, window=W)
+        delta = torch.empty_like(lse)
+        dq, dk, dv = (torch.empty_like(a) for a in (q, k, v))
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                      for x in (q, k, v))
+        i = torch.arange(S, device=dev)
+        mask = None if W >= S else ((i[None] <= i[:, None])
+                                    & (i[:, None] - i[None] < W))
+        y = F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+            enable_gqa=True)
+        dot = do.transpose(1, 2).contiguous()
+
+        def call(fn, q=q, k=k, v=v, o=o, do=do, lse=lse, delta=delta, dq=dq,
+                 dk=dk, dv=dv, B=B, S=S, H=H, KV=KV, hd=hd, W=W):
+            return launcher(fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                            dv.data_ptr(), B, S, H, KV, hd, W, hd ** -0.5, 1)
+
+        def verdict(dq=dq, dk=dk, dv=dv, want=want):
+            return _two_ulps((dq, dk, dv), want)
+
+        def library(y=y, qt=qt, kt=kt, vt=vt, dot=dot):
+            return torch.autograd.grad(y, (qt, kt, vt), dot,
+                                       retain_graph=True)
         cases[case] = (call, verdict, library)
     return cases
 
@@ -443,7 +541,8 @@ def main(argv=None):
     gen = torch.Generator().manual_seed(0)
     make = {"conv2d": conv_cases, "elm_stats": elm_cases,
             "swa_attention": swa_cases, "conv2d_wgrad": wgrad_cases,
-            "conv2d_dgrad": dgrad_cases}
+            "conv2d_dgrad": dgrad_cases, "rmsnorm_bwd": rms_bwd_cases,
+            "swa_attention_bwd": swa_bwd_cases}
     shapes = {name: make[name](torch, dev, gen) for name in args.kernels}
     failed = []
     for name, cases in shapes.items():
