@@ -18,7 +18,7 @@ from repro_torch.kernels.rmsnorm import ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_BWD_DIM = 32 * 256     # columns a backward block holds in registers
-_BWD_BLOCKS = 264          # pass 1's target: two blocks for each of 132 SMs
+_BWD_BLOCKS = 264          # the backward's target: two blocks an SM (132)
 
 
 def rmsnorm(x, scale, *, eps: float = 1e-5):
@@ -71,17 +71,20 @@ def _forward(x, scale, eps):
 
 
 def bwd_rows_per_chunk(n: int, D: int) -> int:
-    """Rows a block of the backward's first pass sums dscale over: about
-    two blocks an SM, at least a warp's 8 rows where a warp takes a row
-    (D <= 1024) and 4 where a block does. A function of the shape alone, so
-    dscale's order of summation is too."""
-    return max(8 if D <= 1024 else 4, -(-n // _BWD_BLOCKS))
+    """Rows a block of the backward sums dscale over: about two blocks an
+    SM. A function of the shape alone, so dscale's order of summation is
+    too."""
+    return max(1, -(-n // _BWD_BLOCKS))
 
 
 def rmsnorm_bwd(x, scale, dy, *, eps: float = 1e-5):
     """The backward kernel: (dx in x's dtype, dscale in scale's) of the
     rmsnorm of contiguous x (..., D) with cotangent dy of x's shape and
-    dtype. dscale sums per-chunk partials in a fixed order, no atomics."""
+    dtype. Each row is read once; rows that start on a 16-byte boundary
+    (D a multiple of 8 for bf16, of 4 for f32, and an aligned x, dy and
+    dx) move in 16-byte vectors, other rows element by element. dscale
+    adds per-chunk partial rows in a fixed order, no atomics: bitwise the
+    same run to run."""
     if not scale.is_contiguous():
         raise ValueError("the rmsnorm kernel takes a contiguous scale")
     if dy.shape != x.shape or dy.dtype != x.dtype:
@@ -93,9 +96,9 @@ def rmsnorm_bwd(x, scale, dy, *, eps: float = 1e-5):
         raise ValueError(f"the rmsnorm backward kernel takes D <= "
                          f"{MAX_BWD_DIM}, got {D}")
     rows = bwd_rows_per_chunk(n, D)
-    chunks = -(-n // rows)
     dx = torch.empty_like(x)
-    partial = torch.empty((chunks, D), dtype=torch.float32, device=x.device)
+    partial = torch.empty((-(-n // rows), D), dtype=torch.float32,
+                          device=x.device)
     dscale = torch.empty_like(scale)
     with torch.cuda.device(x.device):
         kernels.launch("rmsnorm_bwd", x.data_ptr(), scale.data_ptr(),

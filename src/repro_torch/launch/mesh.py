@@ -34,16 +34,17 @@ from typing import Callable, List, Optional
 import torch
 import torch.distributed as dist
 
+from repro_torch import resolve_device
+
 DEFAULT_TIMEOUT_S = 300.0
 _ERROR_GRACE_S = 2.0     # after a rank's error, how long to collect others'
 _BACKENDS = {"cpu": "gloo", "cuda": "nccl"}
 
 
 def _backend(device) -> str:
-    kind = torch.device(device).type
-    if kind not in _BACKENDS:
-        raise ValueError(f"device must be 'cpu' or 'cuda', got {device!r}")
-    return _BACKENDS[kind]
+    """gloo or NCCL for ``device``; raise for CUDA without a card, naming
+    ``device='cpu'``, as every entry point of the port does."""
+    return _BACKENDS[resolve_device(device).type]
 
 
 def make_member_mesh(num_pods: Optional[int] = None, *,
@@ -96,7 +97,7 @@ def axis_size(mesh, name: str) -> int:
 
 
 @contextmanager
-def process_group(rank: int = 0, world: int = 1, *, device="cpu",
+def process_group(rank: int = 0, world: int = 1, *, device="cuda",
                   store: Optional[str] = None,
                   timeout_s: float = DEFAULT_TIMEOUT_S):
     """Initialise this process's rank of a ``world``-rank group (gloo on
@@ -137,7 +138,7 @@ def _rank_main(rank, world, device, store, timeout_s, fn, args, out):
         raise
 
 
-def run_ranks(fn: Callable, world: int, *, device="cpu", args=(),
+def run_ranks(fn: Callable, world: int, *, device="cuda", args=(),
               timeout_s: float = DEFAULT_TIMEOUT_S) -> List:
     """Run ``fn(rank, world, *args)`` on ``world`` fresh processes, one rank
     of one group each (gloo for ``device="cpu"``, NCCL for ``"cuda"``,

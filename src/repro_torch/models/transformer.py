@@ -29,8 +29,8 @@ from repro_torch.layers.norms import rms_norm
 from repro_torch.tree import tree_leaves, tree_map
 
 NEG_INF = -1e30
-UNPORTED = ("family {!r} is not ported yet (ROADMAP queue 1 item 13, the "
-            "LM model zoo: only the dense decoder is ported)")
+UNPORTED = ("family {!r} is not ported yet (ROADMAP queue 1, the LM model "
+            "zoo: only the dense decoder is ported)")
 
 
 def _require_dense(cfg):

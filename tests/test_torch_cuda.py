@@ -445,6 +445,27 @@ def test_rmsnorm_bwd_kernel_matches_plain_on_card(cuda, shape, x_dt, s_dt):
     assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dt,s_dt", [("bf16", "f32"), ("f32", "bf16")])
+@pytest.mark.parametrize("shape", [(512, 4096), (300, 128), (9, 8192)])
+def test_rmsnorm_bwd_unaligned_rows_on_card(cuda, shape, x_dt, s_dt):
+    """Rows that do not start on a 16-byte boundary (x and dy one element
+    past one) are read element by element, not refused: dx and dscale
+    within the bars of ``test_rmsnorm_bwd_kernel_matches_plain_on_card``,
+    and bitwise run to run."""
+    x, s, dy = _data(sum(shape) + 2, shape, shape[-1:], shape)
+    xd = _off_by((torch.from_numpy(x) * 3).to(cuda, _dt(x_dt)), 1)
+    sd = torch.from_numpy(s).to(cuda, _dt(s_dt))
+    dyd = _off_by(torch.from_numpy(dy).to(cuda, _dt(x_dt)), 1)
+    assert xd.is_contiguous() and xd.data_ptr() % 16 != 0
+    dx, ds = rms_ops.rmsnorm_bwd(xd, sd, dyd, eps=1e-6)
+    rdx, rds = rms_ref.rmsnorm_bwd_ref(xd, sd, dyd, 1e-6)
+    _grad_close(dx, rdx)
+    _grad_close(ds, rds)
+    dx2, ds2 = rms_ops.rmsnorm_bwd(xd, sd, dyd, eps=1e-6)
+    assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
+
+
 def _swa_inputs(cuda, dt, B, S, H, KV, hd, seed=0, q_scale=1.0):
     q, k, v, do = _data(seed + S, (B, S, H, hd), (B, S, KV, hd),
                         (B, S, KV, hd), (B, S, H, hd))
@@ -464,7 +485,14 @@ SWA_BWD_SHAPES = [
     (1, 200, 4, 2, 64, 1),         # the diagonal alone
     (1, 200, 4, 2, 64, 17),
     (2, 96, 8, 1, 128, 96),        # G = 8
-    (1, 50, 2, 1, 20, 50)]
+    (1, 50, 2, 1, 20, 50),
+    # the tensor-core route's edges: 32-key dK/dV blocks and 32-query
+    # tiles, 64-query dQ blocks and 64-key tiles, 16-row warps
+    (2, 20, 4, 2, 16, 20),         # S below one tile, hd 16
+    (1, 33, 4, 2, 20, 33),         # one key past a 32-key block, hd 20
+    (1, 100, 8, 2, 64, 40),        # key-tile boundaries inside the window
+    (2, 130, 4, 1, 128, 48),       # window ending mid-tile, G = 4
+    (1, 64, 2, 2, 32, 16)]         # S one dQ tile, window half a tile
 
 
 @pytest.mark.cuda
@@ -488,6 +516,37 @@ def test_swa_bwd_kernel_matches_plain_on_card(cuda, dt, B, S, H, KV, hd,
     got = swa_ops.swa_attention_bwd(q, k, v, out, lse, do, window=window)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["swa_attention_bwd"] == before + 1
+    ref = swa_ref.swa_attention_bwd_ref(q, k, v, out, lse, do, window=window)
+    truth = swa_ref.swa_attention_bwd_ref(
+        *(a.double() for a in (q, k, v, out, lse, do)), window=window)
+    terms = _swa_bwd_terms(q, k, v, out, lse, do, window)
+    for g, r, t, m in zip(got, ref, truth, terms):
+        _grad_close(g, r, t, m)
+    again = swa_ops.swa_attention_bwd(q, k, v, out, lse, do, window=window)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _off_by(a, elems):
+    """A contiguous copy of ``a`` that starts ``elems`` elements past a
+    16-byte boundary."""
+    buf = torch.empty(a.numel() + 16, dtype=a.dtype, device=a.device)
+    out = buf[elems:elems + a.numel()].view(a.shape)
+    out.copy_(a)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,hd,window", [
+    (2, 37, 4, 2, 64, 37), (1, 100, 8, 2, 128, 40)])
+def test_swa_bwd_unaligned_operands_on_card(cuda, B, S, H, KV, hd, window):
+    """bf16 operands 2 bytes past a 16-byte boundary take the 2-byte
+    staging of the tensor-core route: within the bars of
+    ``test_swa_bwd_kernel_matches_plain_on_card``, bitwise run to run."""
+    q, k, v, do = (_off_by(a, 1) for a in
+                   _swa_inputs(cuda, "bf16", B, S, H, KV, hd, seed=5))
+    assert q.is_contiguous() and q.data_ptr() % 16 == 2
+    out, lse = swa_ops.swa_attention_fwd(q, k, v, window=window)
+    got = swa_ops.swa_attention_bwd(q, k, v, out, lse, do, window=window)
     ref = swa_ref.swa_attention_bwd_ref(q, k, v, out, lse, do, window=window)
     truth = swa_ref.swa_attention_bwd_ref(
         *(a.double() for a in (q, k, v, out, lse, do)), window=window)

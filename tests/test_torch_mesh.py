@@ -127,11 +127,13 @@ def test_no_collective_outside_the_collectives_module():
 
 @bounded(120)
 def test_run_ranks_returns_each_rank_and_fails_fast():
-    assert run_ranks(ranks.report, 2) == [(0, 2, "gloo"), (1, 2, "gloo")]
+    assert run_ranks(ranks.report, 2, device="cpu") == [(0, 2, "gloo"),
+                                                        (1, 2, "gloo")]
     # rank 0 waits in an all-reduce rank 1 never joins: the call fails with
     # rank 1's error at once, not at the group's timeout
     with pytest.raises(RuntimeError, match="rank 1 fails on purpose"):
-        run_ranks(ranks.fail_on_rank_1, 2, timeout_s=100)
+        run_ranks(ranks.fail_on_rank_1, 2, device="cpu",
+                  timeout_s=100)
 
 
 # ---------------------------------------------------------------------------

@@ -57,7 +57,7 @@ def worlds(tmp_path_factory):
     out = {}
     for key, world in (("flat2", 2), ("2d4", 4)):
         ckpt = str(tmp_path_factory.mktemp(key))
-        per_rank = run_ranks(ranks.cases_on_ranks, world,
+        per_rank = run_ranks(ranks.cases_on_ranks, world, device="cpu",
                              args=(CASES[key], INIT, ckpt), timeout_s=240)
         out[key] = {c["name"]: [r[i] for r in per_rank]
                     for i, c in enumerate(CASES[key])}

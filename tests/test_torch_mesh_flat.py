@@ -66,7 +66,7 @@ def worlds():
     """{world: {case name: [each rank's result]}}, one spawn a world."""
     out = {}
     for world, cases in CASES.items():
-        per_rank = run_ranks(ranks.cases_on_ranks, world,
+        per_rank = run_ranks(ranks.cases_on_ranks, world, device="cpu",
                              args=(cases, INIT), timeout_s=240)
         out[world] = {c["name"]: [r[i] for r in per_rank]
                       for i, c in enumerate(cases)}

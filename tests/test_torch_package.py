@@ -73,6 +73,7 @@ def test_no_source_imports_jax_or_repro():
     files = [os.path.join(ROOT, "chip_smoke.py"),
              os.path.join(ROOT, "tools", "kernel_variants.py"),
              os.path.join(ROOT, "tools", "sgd_sensitivity.py"),
+             os.path.join(ROOT, "tools", "train_step_turns.py"),
              os.path.join(ROOT, "examples", "quickstart_torch.py"),
              os.path.join(ROOT, "tests", "torch_mesh_ranks.py")]
     for dirpath, _, names in os.walk(PKG):
@@ -81,6 +82,22 @@ def test_no_source_imports_jax_or_repro():
     assert len(files) > 20
     offenders = [f for f in files if pattern.search(open(f).read())]
     assert offenders == []
+
+
+def test_kernel_variants_patch_the_shipped_sources():
+    """Every variant of tools/kernel_variants.py applies to the kernel
+    source as it stands: each of its edits matches exactly once."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    try:
+        import kernel_variants
+    finally:
+        sys.path.remove(os.path.join(ROOT, "tools"))
+    for name, variants in kernel_variants.VARIANTS.items():
+        built = kernel_variants.variants_of(name, None)
+        assert [tag for tag, _ in built] == [tag for tag, _ in variants]
+        shipped = dict(built)["shipped"]
+        for tag, text in built:
+            assert (text == shipped) == (tag == "shipped"), (name, tag)
 
 
 def test_tf32_is_off():
@@ -144,6 +161,21 @@ def test_entry_points_default_to_the_card(monkeypatch):
     assert lm["embed"].device.type == "cpu"
 
 
+def test_mesh_launchers_default_to_the_card(monkeypatch):
+    """``process_group`` and ``run_ranks`` default to the card like every
+    other entry point: without one they raise at once, naming
+    ``device='cpu'``, before any group is made or rank spawned."""
+    from repro_torch.launch import mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        with mesh.process_group():
+            pass
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mesh.run_ranks(print, 1)
+    with pytest.raises(ValueError, match="device must be"):
+        mesh.run_ranks(print, 1, device="meta")
+
+
 @pytest.mark.parametrize("backend", ["sequential", "stacked"])
 def test_executors_run_on_the_plan_device(monkeypatch, backend):
     """An executor called directly runs on ``plan.device``, which defaults
@@ -177,6 +209,15 @@ def test_executors_run_on_the_plan_device(monkeypatch, backend):
 def test_later_slices_raise_not_implemented(make):
     with pytest.raises(NotImplementedError):
         make()
+
+
+@pytest.mark.parametrize("family", ["moe", "ssm_rwkv6", "hybrid"])
+def test_unported_family_names_the_model_zoo(family):
+    """The refusal of a family the port lacks names the ROADMAP item that
+    brings it by its title, which does not go stale as items move."""
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP queue 1, the LM model zoo"):
+        api.module_of(replace(LM, family=family))
 
 
 def test_unknown_backend_and_strategy_are_value_errors():

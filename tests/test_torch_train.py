@@ -452,7 +452,7 @@ def test_make_average_step_over_two_gloo_ranks_is_one_all_reduce(weights):
         for m in range(4)]
     stacked = tree_map(lambda *xs: torch.stack(xs), *members)
     want = trainer.make_average_step(weights)(stacked)
-    out = mesh_launch.run_ranks(ranks.lm_average_step, 2,
+    out = mesh_launch.run_ranks(ranks.lm_average_step, 2, device="cpu",
                                 args=(stacked, weights), timeout_s=150)
     for avg, counts_ok, detail in out:
         assert counts_ok, detail

@@ -11,19 +11,21 @@ one phase of a block run twice - built alone with nvcc into
 ``build/variants/``. A variant tagged ``probe_`` leaves a phase out (its
 output is wrong by design): it is timed, and its disagreement with the
 plain version is reported but not a failure.
-``--baseline DIR`` adds, for each kernel, a build of the same-named source
-in DIR as it stands (an earlier checkout's ``src/repro_torch/csrc``: the
-same C entry point; swa_attention's gained its log-sum-exp argument
-with the backward kernels, so a baseline of that kernel must have it). The
-backward kernels (rmsnorm_bwd, swa_attention_bwd) have no variants but
-take a baseline. The shipped source is built the same way beside them,
-and all the nvcc processes run together; the port's own build is not
-touched. Every build is called through its C entry point on the same
-inputs, checked against the kernel's plain version at ``chip_smoke.py``'s
-bars (and elm_stats's U for bitwise symmetry), and timed by
-torch.profiler's device trace over 100 launches after warm-up, in two
-rounds (the variants in order, then in reverse). The library call (cuBLAS
-bmm, SDPA, cuDNN's grouped conv) is timed once per shape.
+``--baseline DIR`` adds, for each kernel, a build of the same-named source in
+DIR as it stands (an earlier checkout's ``src/repro_torch/csrc``: the same C
+entry point; swa_attention's gained its log-sum-exp argument with the backward
+kernels, so a baseline of that kernel must have it). swa_attention_bwd's
+variants change its dK/dV key or query tile, the warp groups that share a
+block's tiles, dQ's key tile or the tiles' copy loop, or leave one kernel out;
+rmsnorm_bwd's change its chunks or leave out its dscale pass; its baseline
+(the first design) is called with the chunks it chose. The shipped source is
+built the same way beside them, and all the nvcc processes run together; the
+port's own build is not touched. Every build is called through its C entry
+point on the same inputs, checked against the kernel's plain version at
+``chip_smoke.py``'s bars (and elm_stats's U for bitwise symmetry), and timed
+by torch.profiler's device trace over 100 launches after warm-up, in two
+rounds (the variants in order, then in reverse). The library call (cuBLAS bmm,
+SDPA, cuDNN's grouped conv) is timed once per shape.
 
 Prints one JSON line per build with its ptxas lines and its times per
 shape, one line of library times per kernel, then the card's name and
@@ -119,8 +121,40 @@ VARIANTS = {
         ("one_copy_loop", [(r"if \(vec16 && hd == HDP\) \{",
                             "if (false) {")]),
     ],
-    "rmsnorm_bwd": [("shipped", [])],
-    "swa_attention_bwd": [("shipped", [])],
+    "rmsnorm_bwd": [
+        ("shipped", []),
+        # twice the rows a chunk: half the blocks and partial rows
+        ("chunks_half", [(r"(  const long long chunks =)",
+                          r"  rows_per_chunk *= 2;\n\1")]),
+        # pass 1 alone: the time over it is what the dscale pass costs
+        ("probe_rows_only", [(r"  const int units = D % 4 == 0 \? D / 4 : D;",
+                              r"  return 0;\n\g<0>")]),
+    ],
+    "swa_attention_bwd": [
+        ("shipped", []),
+        # 64 keys (4 warps) a dK/dV block: 64 blocks at the prefill shape
+        # against the shipped 128
+        ("keys64", [(r"kKvWarps = \d+;", "kKvWarps = 4;")]),
+        # the query tiles of a dK/dV block walked by 2 or 4 warp groups
+        # at every shape (summed in group order at the end)
+        ("kv_split2", [(r"kKvFewBlocks = \d+;", "kKvFewBlocks = 0;")]),
+        ("kv_split4", [(r"kKvFewBlocks = \d+;",
+                        "kKvFewBlocks = 1 << 30;")]),
+        # 16-query tiles in the dK/dV block: half the S^T and dP^T
+        # registers of the shipped 32 (which spills at hd 112 and 128)
+        ("kv_q16", [(r"kKvQ = \d+;", "kKvQ = 16;")]),
+        # 32-key tiles in the dQ block
+        ("dq_keys32", [(r"kQK = \d+;", "kQK = 32;")]),
+        # the tiles' copy loop for hd == HDP switched off (the general
+        # 16-byte loop at every hd)
+        ("one_copy_loop", [(r"if \(vec16 && hd == HDP\) \{",
+                            "if (false) {")]),
+        # one main kernel left out (D's pre-pass and the other run)
+        ("probe_dkdv_off", [(r"(\n  )(swa_bwd_dkdv_tc<HDP, SPLIT>"
+                             r"\s*<<<)", r"\1if (false) \2")]),
+        ("probe_dq_off", [(r"(\n  )(swa_bwd_dq_tc<HDP>\s*<<<)",
+                           r"\1if (false) \2")]),
+    ],
     "conv2d_wgrad": [
         ("shipped", []),
         # one phase run twice: the time over the shipped kernel's is what
@@ -191,6 +225,17 @@ GRAD_SHAPES = [("stage1", 4, 200, 28, 1, 6, None),
                ("stage2_chunk8", 4, 200, 12, 6, 12, 8),
                ("stage2_3c9c", 4, 200, 12, 3, 9, None),
                ("stage2_reduced", 4, 200, 12, 2, 4, None)]
+# (case, k, B, H, Cin, Cout): the stacked and sequential Maps' batches and
+# a scoring request of one image, 5x5 kernels
+CONV_SHAPES = [("stage1", 4, 200, 28, 1, 6), ("stage2", 4, 200, 12, 6, 12),
+               ("seq_stage1", 1, 200, 28, 1, 6),
+               ("seq_stage2", 1, 200, 12, 6, 12),
+               ("score1_stage1", 4, 1, 28, 1, 6),
+               ("score1_stage2", 4, 1, 12, 6, 12)]
+# (case, k, n, L, C, masked)
+ELM_SHAPES = [("unmasked", 4, 200, 192, 10, False),
+              ("fractional_mask", 4, 200, 192, 10, True),
+              ("shard", 4, 12_500, 192, 10, False)]
 # (case, B, S, H, KV, hd, window)
 SWA_SHAPES = [("prefill_causal", 4, 128, 32, 8, 128, 128),
               ("window256_s1024", 1, 1024, 32, 8, 128, 256),
@@ -250,6 +295,7 @@ def build_all(names, baseline):
         _, fn_name, argtypes = ENTRIES[key[0]]
         fn = getattr(ctypes.CDLL(so), fn_name)
         fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+        fn.variant = key[1]
         built[key] = (fn, [ln.strip() for ln in log.splitlines()
                            if "registers" in ln or "spill" in ln])
     return built
@@ -287,7 +333,8 @@ def conv_cases(torch, dev, gen):
         wn = w.permute(0, 4, 3, 1, 2).reshape(k * Cout, Cin, 5, 5
                                               ).contiguous()
 
-        def call(fn, x=x, w=w, out=out, k=k, B=B, H=H, Cin=Cin, Cout=Cout):
+        def call(fn, x=x, w=w, out=out, k=k, B=B, H=H, Cin=Cin,
+                 Cout=Cout):
             return launcher(fn, x.data_ptr(), w.data_ptr(), out.data_ptr(),
                             k, B, H, H, Cin, 5, 5, Cout)
 
@@ -420,8 +467,8 @@ def swa_cases(torch, dev, gen):
         mask = None if W >= S else ((i[None] <= i[:, None])
                                     & (i[:, None] - i[None] < W))
 
-        def call(fn, q=q, k=k, v=v, out=out, B=B, S=S, H=H, KV=KV, hd=hd,
-                 W=W):
+        def call(fn, q=q, k=k, v=v, out=out, B=B, S=S, H=H, KV=KV,
+                 hd=hd, W=W):
             return launcher(fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                             out.data_ptr(), None, B, S, H, KV, hd, W,
                             hd ** -0.5, 1)
@@ -462,9 +509,12 @@ def rms_bwd_cases(torch, dev, gen):
         scale = (1 + 0.1 * torch.randn((D,), generator=gen)).to(s_dt).to(dev)
         dy = torch.randn((n, D), generator=gen).to(torch.bfloat16).to(dev)
         want = ref.rmsnorm_bwd_ref(x, scale, dy, 1e-6)
-        rows = ops.bwd_rows_per_chunk(n, D)
-        part = torch.empty((-(-n // rows), D), dtype=torch.float32,
-                           device=dev)
+        # rows a chunk and the partial rows' scratch: the shipped rule, and
+        # the first design's (a baseline's) own
+        rows = {"shipped": ops.bwd_rows_per_chunk(n, D),
+                "baseline": max(8 if D <= 1024 else 4, -(-n // 264))}
+        part = {tag: torch.empty(-(-n // r) * D, device=dev)
+                for tag, r in rows.items()}
         dx, ds = torch.empty_like(x), torch.empty_like(scale)
         xr = x.clone().requires_grad_(True)
         w = scale.to(x.dtype).requires_grad_(True)
@@ -472,9 +522,10 @@ def rms_bwd_cases(torch, dev, gen):
 
         def call(fn, x=x, scale=scale, dy=dy, dx=dx, part=part, ds=ds, n=n,
                  D=D, rows=rows, sb=int(s_dt == torch.bfloat16)):
+            tag = "baseline" if fn.variant == "baseline" else "shipped"
             return launcher(fn, x.data_ptr(), scale.data_ptr(), dy.data_ptr(),
-                            dx.data_ptr(), part.data_ptr(), ds.data_ptr(), n,
-                            D, rows, 1e-6, 1, sb)
+                            dx.data_ptr(), part[tag].data_ptr(), ds.data_ptr(),
+                            n, D, rows[tag], 1e-6, 1, sb)
 
         def verdict(dx=dx, ds=ds, want=want):
             return _two_ulps((dx, ds), want)
@@ -507,8 +558,9 @@ def swa_bwd_cases(torch, dev, gen):
             enable_gqa=True)
         dot = do.transpose(1, 2).contiguous()
 
-        def call(fn, q=q, k=k, v=v, o=o, do=do, lse=lse, delta=delta, dq=dq,
-                 dk=dk, dv=dv, B=B, S=S, H=H, KV=KV, hd=hd, W=W):
+        def call(fn, q=q, k=k, v=v, o=o, do=do, lse=lse,
+                 delta=delta, dq=dq, dk=dk, dv=dv, B=B, S=S, H=H, KV=KV,
+                 hd=hd, W=W):
             return launcher(fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                             o.data_ptr(), do.data_ptr(), lse.data_ptr(),
                             delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
