@@ -142,7 +142,26 @@ is non-zero and no result line is printed:
              CPU (1e-4 · max|leaf|, or twice the CPU's one-ulp twin's
              distance where the run is ill-conditioned); one SGD step of
              the whole 36-layer model (wall, peak memory).
-15. the kernels line, the card line, and the last line
+15. audit  — the runtime contract audit (``repro_torch.analysis.audit``)
+             on the card, one line per audited program (each check's name,
+             verdict and detail; checks that do not apply listed as
+             skipped), then its wall: ``audit_executor`` on cnn_elm_6c12c
+             at full width (k 4, the ``map`` phase's batch) for the
+             sequential backend (``average_trees`` of bf16 members: f32
+             accumulation, no collective), the stacked one (``_sync`` of
+             bf16 members; one SGD epoch ``_epoch``: the carry released,
+             no collective, and the conv2d, conv2d_dgrad, conv2d_wgrad
+             and elm_stats kernels launched with no library convolution)
+             and the mesh over NCCL at world size 1 in this process (the
+             flat mesh with 2 gossip rounds, the 2-D (1, 1) mesh: one /
+             two all-reduces a sync and a Reduce, none in an epoch, a ring
+             of one exchanging nothing, the epoch's route);
+             ``audit_scorer`` on the ``serve`` phase's scorer, which that
+             phase warmed (no more graphs than buckets);
+             ``audit_average_step`` on a bf16 two-member tree of qwen3_8b
+             at full width cut to 4 layers (f32 accumulation, no
+             collective). Any failed check fails the run.
+16. the kernels line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 The launch counters are set to 0 just before each path runs and read just
@@ -1314,6 +1333,7 @@ def phase_serve(torch, m):
     check(scorer.compile_count() == n_buckets,
           f"{scorer.compile_count()} graphs after warm-up for {n_buckets} "
           f"buckets")
+    m["scorer"] = scorer            # audited by phase audit
     reps = 30
     kernels.reset_launches()
     lat = {}
@@ -2635,6 +2655,71 @@ def phase_train(torch, dev, layers=4, members=2, steps=4, batch=4, seq=128,
     return launches
 
 
+def phase_audit(torch, dev, m, lm_layers=4, k=4):
+    """The runtime contract audit on ``dev``: every audited program's
+    report on a line of its own, then the phase's wall; a failed check
+    fails the run, and on the card each epoch's report must hold the
+    hand-kernel route (not skip it)."""
+    from repro_torch.analysis import audit
+    from repro_torch.configs import get_config, replace
+    from repro_torch.launch.mesh import make_member_mesh, process_group
+    from repro_torch.models import api
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg, batch = m["cfg"], m["batch"]
+    t0 = time.perf_counter()
+    surfaces = [
+        ("sequential", audit.audit_executor(cfg, "sequential", k=k,
+                                            device=dev)),
+        ("stacked", audit.audit_executor(cfg, "stacked", k=k,
+                                         batch_size=batch, device=dev))]
+    with process_group(device=dev):
+        surfaces += [
+            ("mesh flat", audit.audit_executor(
+                cfg, "mesh", k=k, batch_size=batch, gossip_rounds=2,
+                device=dev)),
+            ("mesh (1, 1)", audit.audit_executor(
+                cfg, "mesh", mesh=make_member_mesh(hosts=1), k=k,
+                batch_size=batch, device=dev))]
+    # phase serve warmed every bucket and held graphs == buckets; this
+    # re-reads the same budget through the audit's report
+    surfaces.append(("scorer", [audit.audit_scorer(m["scorer"],
+                                                   device=dev)]))
+    lm = replace(get_config("qwen3_8b"), num_layers=lm_layers)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    members = [api.init_params(lm, gen, torch.bfloat16, dev)
+               for _ in range(2)]
+    stacked = tree_map(lambda *xs: torch.stack(xs), *members)
+    del members
+    lm_bytes = sum(a.numel() * a.element_size()
+                   for a in tree_leaves(stacked))
+    surfaces.append(("lm average", [audit.audit_average_step(
+        params=stacked, device=dev)]))
+    del stacked
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    reports = [r for _, rs in surfaces for r in rs]
+    for surface, rs in surfaces:
+        for r in rs:
+            emit("audit", surface=surface, program=r.program,
+                 checks=[{"name": c.name, "ok": c.ok, "detail": c.detail}
+                         for c in r.checks],
+                 skipped=[{"name": n, "why": why} for n, why in r.skipped])
+    failed = [f"{r.program}: {c}" for r in reports for c in r.failures]
+    epochs = [r for r in reports if r.program.endswith("/_epoch")]
+    emit("audit_summary", seconds=seconds, programs=len(reports),
+         checks=sum(len(r.checks) for r in reports),
+         skipped=sum(len(r.skipped) for r in reports), failed=failed,
+         lm_tree_bytes=lm_bytes)
+    check(not failed, f"audit: {failed}")
+    if dev.type == "cuda":
+        check(all(any(c.name == "hand-kernel-route" for c in r.checks)
+                  for r in epochs) and len(epochs) == 3,
+              "audit: an epoch's hand-kernel route was not checked")
+
+
 def main():
     import torch
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
@@ -2673,6 +2758,7 @@ def main():
     phase_lm_parity(torch, dev)
     lm_launches = phase_lm(torch, dev)
     train_launches = phase_train(torch, dev)
+    phase_audit(torch, dev, m)
 
     main_launches = m["launches"]
     check(all(main_launches[name] > 0 for name in ("conv2d", "elm_stats")),

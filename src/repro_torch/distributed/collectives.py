@@ -110,9 +110,16 @@ def barrier(device, group=None, label: str = "world"):
 # ---------------------------------------------------------------------------
 
 class Check(NamedTuple):
+    """One contract check: its name, whether it held, and what was seen
+    (``repro_torch.analysis.audit`` reports these too)."""
     name: str
     ok: bool
     detail: str
+
+    def __str__(self):
+        mark = "ok " if self.ok else "FAIL"
+        return f"[{mark}] {self.name}" + (f": {self.detail}"
+                                          if self.detail else "")
 
 
 def by_kind(counts: Counter) -> Dict[str, int]:

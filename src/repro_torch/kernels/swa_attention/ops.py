@@ -92,11 +92,14 @@ def _launch(q, k, v, window, *, with_lse: bool):
 
 def swa_attention_fwd(q, k, v, *, window: int):
     """The forward kernel with its log-sum-exp: (out, lse (B, H, S) f32),
-    what the backward recomputes P from. Contiguous CUDA operands."""
+    what the backward recomputes P from. Contiguous CUDA operands; an
+    operand that requires grad is refused while grad mode is on (the
+    differentiable call is ``swa_attention``)."""
     _check(q, k, v, window)
     if not q.is_cuda:
         raise ValueError(f"swa_attention_fwd runs on CUDA tensors, "
                          f"got {q.device}")
+    kernels.refuse_grad("swa_attention_fwd", (q, k, v))
     return _launch(q, k, v, window, with_lse=True)
 
 

@@ -255,3 +255,13 @@ def lm_average_step(rank, world, stacked, weights):
             local)
     check = collectives.check_one_all_reduce(counts)
     return out, check.ok, check.detail
+
+
+def audit_mesh(rank, world, hosts, kwargs):
+    """``audit.audit_executor(CFG, "mesh", device="cpu", **kwargs)`` on
+    this rank, on the flat member mesh or, with ``hosts``, the
+    ``('host', 'pod')`` mesh: this rank's reports."""
+    from repro_torch.analysis import audit
+    mesh = make_member_mesh(hosts=hosts) if hosts else make_member_mesh()
+    return audit.audit_executor(CFG, "mesh", mesh=mesh, device="cpu",
+                                **kwargs)
