@@ -32,7 +32,12 @@ is non-zero and no result line is printed:
              plain versions (2 bf16 ulps of max|ref|, or twice the plain
              version's own distance from the f64 function) and bitwise the
              same run to run; plain = torch autograd of the plain forward,
-             library = the backward of ``F.rms_norm`` and of SDPA.
+             library = the backward of ``F.rms_norm`` and of SDPA. Also
+             swa_attention's non-causal mode (the encoder's) at
+             HuBERT-XLarge's B 4, S 1024, H 16, hd 80 in bf16, a ragged S
+             1000 and a small f32 case (library: SDPA with
+             is_causal=False), and elm_stats at the HuBERT head (k 1, n
+             4,096, L 1,280, C 6).
 4. map     — the epochs=0 Map → Reduce at full width (cnn_elm_6c12c, 60,000
              synthetic extended-MNIST images, 10,000 held out, k = 4, batch
              200) on the card, stacked and sequential, held against the
@@ -132,7 +137,25 @@ is non-zero and no result line is printed:
              device-idle share of a decode step: its device busy time
              (torch.profiler, one step) over the mean step of 10 unprofiled
              steps and over the mean step of run_lm's own decode loop.
-14. train  — the LM training path (``repro_torch.launch.train``): qwen3_8b
+14. zoo    — the LM zoo's transformer families: (a) f32, full
+             width cut to 2 layers, the card against the port's CPU path
+             within 1e-4 · max|logit|: olmoe_1b_7b's prefill and 4 greedy
+             decode steps (equal tokens; the routers' top-k sets counted
+             on both sides, with the smallest top-k margin), hubert_xlarge's
+             encode logits and hidden states, internvl2_26b's prefill with
+             1,024 patch slots and 16 text tokens; (b) olmoe_1b_7b (64
+             experts, top 8) and minicpm_2b at full size in bf16 through
+             ``run_lm`` as phase ``lm`` runs qwen3_8b (launches exact:
+             rmsnorm (2 L + 1) a forward, swa_attention L); (c)
+             hubert_xlarge at full size in bf16: the encode of 4 × 1,024
+             frames (one non-causal swa_attention a layer, 2 L + 1
+             rmsnorm), then the ELM head on ``tests/test_elm_head.py``'s
+             frame task over 6 batches at λ 100, held-out accuracy above
+             0.5 (elm_stats launches counted); (d) internvl2_26b at full
+             width cut to 8 of 48 layers: ``api.prefill`` of 4 × 128
+             tokens behind 1,024 patch slots and 32 greedy decode steps
+             (launches exact, logits finite, prefill ms, tokens/s).
+15. train  — the LM training path (``repro_torch.launch.train``): qwen3_8b
              at full width cut to 4 layers, 2 members, AdamW, cosine, 4
              steps of 4 × 128 tokens, --rounds 2: losses finite, the
              average's held-out loss beside the members', launches exact,
@@ -142,7 +165,7 @@ is non-zero and no result line is printed:
              CPU (1e-4 · max|leaf|, or twice the CPU's one-ulp twin's
              distance where the run is ill-conditioned); one SGD step of
              the whole 36-layer model (wall, peak memory).
-15. audit  — the runtime contract audit (``repro_torch.analysis.audit``)
+16. audit  — the runtime contract audit (``repro_torch.analysis.audit``)
              on the card, one line per audited program (each check's name,
              verdict and detail; checks that do not apply listed as
              skipped), then its wall: ``audit_executor`` on cnn_elm_6c12c
@@ -161,7 +184,7 @@ is non-zero and no result line is printed:
              ``audit_average_step`` on a bf16 two-member tree of qwen3_8b
              at full width cut to 4 layers (f32 accumulation, no
              collective). Any failed check fails the run.
-16. the kernels line, the card line, and the last line
+17. the kernels line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 The launch counters are set to 0 just before each path runs and read just
@@ -173,8 +196,9 @@ runs add to the kernels line's counts), serving (the replays of its captured gra
 which the kernels line adds to conv2d's count), the open-loop sweep, each
 streaming run (the stacked drift run's conv2d and elm_stats counts are
 added to the kernels line's), the E²LM path, the CNN and LM heads, the
-LM head's finetune step, the crash/resume runs, the LM path (b) and the
-train path's full-width run (whose rmsnorm_bwd and swa_attention_bwd
+LM head's finetune step, the crash/resume runs, the LM path (b), the zoo's
+paths (b)–(d) (whose rmsnorm, swa_attention and elm_stats counts the
+kernels line adds) and the train path's full-width run (whose rmsnorm_bwd and swa_attention_bwd
 counts the kernels line reports, and whose forwards it adds to the
 serving path's rmsnorm and swa_attention counts).
 """
@@ -626,6 +650,65 @@ def phase_kernels(torch, dev, rates):
                    bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops,
                    pairs_in_mask=pairs)
         keep("swa_attention", tag, rec)
+
+    # the encoder's non-causal attention (HuBERT-XLarge: 16 heads of 80 over
+    # 4 × 1,024 frames), a ragged S 1000, and a small f32 case (the f32
+    # parity route). The library: SDPA with is_causal=False; the bound by
+    # operations, every (query, key) pair of each head.
+    enc_cases = [("encoder_bidirectional", 4, 1024, 16, 16, 80,
+                  torch.bfloat16),
+                 ("encoder_ragged_s1000", 4, 1000, 16, 16, 80,
+                  torch.bfloat16),
+                 ("encoder_f32_small", 2, 200, 4, 2, 80, torch.float32)]
+    for tag, B, S, H, KV, hd, dt in enc_cases:
+        q, k, v = (randn(B, S, n, hd).to(dt) for n in (H, KV, KV))
+        y = swa_ops.swa_attention(q, k, v, window=S, causal=False)
+        err, top, ok = compare(torch, y, swa_ref.swa_attention_ref(
+            q, k, v, window=S, causal=False))
+        check(ok, f"swa_attention {tag}: max|err| {err} at max|ref| {top}")
+        check(torch.equal(y, swa_ops.swa_attention(q, k, v, window=S,
+                                                   causal=False)),
+              f"swa_attention {tag}: not bitwise the same run to run")
+        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+
+        def library(qt=qt, kt=kt, vt=vt):
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=False,
+                                                  enable_gqa=True)
+        check(same_function(library().transpose(1, 2).float(), y.float(),
+                            2e-2),
+              "the SDPA yardstick computes another function")
+        pairs = B * H * S * S
+        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+        flops = 4 * hd * pairs
+        b_ms, b_by = bound_ms(nbytes, flops, rates,
+                              bf16=dt == torch.bfloat16)
+        kernel = lambda: swa_ops.swa_attention(                   # noqa
+            q, k, v, window=S, causal=False)
+        plain = lambda: swa_ref.swa_attention_ref(                # noqa
+            q, k, v, window=S, causal=False)
+        rec = dict(shape=f"B{B} S{S} H{H} KV{KV} hd{hd} non-causal "
+                   f"{str(dt)[6:]}",
+                   max_abs_err=err, max_abs_ref=top,
+                   ms=device_ms(torch, kernel),
+                   plain_ms=device_ms(torch, plain, reps=20),
+                   library_ms=device_ms(torch, library),
+                   call_ms=call_ms(torch, kernel),
+                   plain_call_ms=call_ms(torch, plain, reps=20),
+                   library_call_ms=call_ms(torch, library),
+                   bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops,
+                   pairs_in_mask=pairs)
+        keep("swa_attention", tag, rec)
+        del q, k, v, qt, kt, vt, y
+
+    # the ELM head over HuBERT-XLarge: one batch of 4 × 1,024 frames of
+    # 1,280 states, 6 classes
+    h = torch.tanh(randn(1, 4096, 1280))
+    t = F.one_hot(torch.randint(0, 6, (1, 4096), generator=gen),
+                  6).float().to(dev)
+    keep("elm_stats", "hubert_head",
+         elm_stats_record(torch, rates, h, t, None, "hubert_head"))
+    del h, t
 
     # the backward kernels at the LM train step's shapes (batch 4 × 128
     # tokens): rmsnorm's ln and q_norm, swa at the prefill shape and one
@@ -2252,6 +2335,38 @@ def phase_resume(torch, dev, m, sgd):
     emit("resume", **out)
 
 
+def greedy_parity(torch, dev, cfg, card, host, batch, steps, what,
+                  max_len):
+    """Prefill ``batch`` and ``steps`` greedy decode steps on the card and
+    on the port's CPU path from the same params (``host`` is ``card`` on
+    the CPU): each step's logits within 1e-4 · max|logit| and its tokens
+    equal. Returns (max|err| per step, max|logit| per step, tokens)."""
+    from repro_torch.models import api
+    lg_c, cache_c = api.prefill(cfg, card, batch, max_len)
+    lg_h, cache_h = api.prefill(cfg, host, {k: v.cpu() for k, v in
+                                            batch.items()}, max_len)
+    pos0 = max_len - steps
+    errs, tops, tokens = [], [], []
+    for t in range(steps + 1):
+        c, h = lg_c.cpu(), lg_h
+        check(bool(torch.isfinite(c).all()), f"{what}: card logits at {t}")
+        errs.append(float((c - h).abs().max()))
+        tops.append(float(h.abs().max()))
+        check(errs[-1] <= 1e-4 * tops[-1],
+              f"{what} step {t}: card vs CPU logits {errs[-1]} > "
+              f"1e-4 * {tops[-1]}")
+        tc, th = c.argmax(-1), h.argmax(-1)
+        check(torch.equal(tc, th), f"{what} step {t}: greedy tokens "
+              f"{tc.tolist()} (card) != {th.tolist()} (CPU)")
+        tokens.append(tc[:, 0].tolist())
+        if t == steps:
+            break
+        lg_c, cache_c = api.decode_step(cfg, card, cache_c, tc.to(dev),
+                                        pos0 + t)
+        lg_h, cache_h = api.decode_step(cfg, host, cache_h, th, pos0 + t)
+    return errs, tops, tokens
+
+
 def phase_lm_parity(torch, dev, batch=2, prompt=16, steps=4):
     """(a) qwen3_8b at full width cut to 2 layers, f32: prefill and greedy
     decode on the card against the port's CPU path on the same params."""
@@ -2265,50 +2380,51 @@ def phase_lm_parity(torch, dev, batch=2, prompt=16, steps=4):
     host = tree_map(lambda a: a.cpu(), card)
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
                             generator=gen, device=dev)
-    max_len = prompt + steps
-    lg_c, cache_c = api.prefill(cfg, card, {"tokens": prompts}, max_len)
-    lg_h, cache_h = api.prefill(cfg, host, {"tokens": prompts.cpu()},
-                                max_len)
-    errs, tops, tokens = [], [], []
-    for t in range(steps + 1):
-        c, h = lg_c.cpu(), lg_h
-        check(bool(torch.isfinite(c).all()), f"lm (a): card logits at {t}")
-        errs.append(float((c - h).abs().max()))
-        tops.append(float(h.abs().max()))
-        check(errs[-1] <= 1e-4 * tops[-1],
-              f"lm (a) step {t}: card vs CPU logits {errs[-1]} > "
-              f"1e-4 * {tops[-1]}")
-        tc, th = c.argmax(-1), h.argmax(-1)
-        check(torch.equal(tc, th), f"lm (a) step {t}: greedy tokens "
-              f"{tc.tolist()} (card) != {th.tolist()} (CPU)")
-        tokens.append(tc[:, 0].tolist())
-        if t == steps:
-            break
-        pos = prompt + t
-        lg_c, cache_c = api.decode_step(cfg, card, cache_c, tc.to(dev), pos)
-        lg_h, cache_h = api.decode_step(cfg, host, cache_h, th, pos)
+    errs, tops, tokens = greedy_parity(torch, dev, cfg, card, host,
+                                       {"tokens": prompts}, steps, "lm (a)",
+                                       prompt + steps)
     emit("lm_parity", arch=f"{cfg.name}, 2 of 36 layers, full width, f32",
          batch=batch, prompt=prompt, decode_steps=steps,
          max_abs_err=errs, max_abs_logit=tops,
          bar=[1e-4 * top for top in tops], tokens=tokens)
-    del card, host, cache_c, cache_h
+    del card, host
     torch.cuda.empty_cache()
     return max(errs)
 
 
-def phase_lm(torch, dev, batch=4, prompt=128, gen=32):
-    """(b) the slice itself: the full qwen3_8b in bf16 through the port's
-    ``launch.serve.run_lm``, as a user calls it; then a warm run and one
-    profiled prefill and decode step."""
+def profile_once(torch, fn):
+    """One call of ``fn`` under torch.profiler: wall, device busy, idle
+    share and the 8 largest device activities."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = sorted(device_activity(torch, prof), reverse=True)
+    busy = sum(us for us, _, _ in rows) / 1e3
+    return dict(wall_ms=wall, device_busy_ms=busy if rows else
+                "not measured",
+                idle_share=1 - busy / wall if rows else "not measured",
+                top=[{"name": name[:60], "ms": us / 1e3, "count": count}
+                     for us, name, count in rows[:8]])
+
+
+def lm_serving(torch, dev, arch, batch=4, prompt=128, gen=32):
+    """An LM config at full size in bf16 through the port's
+    ``launch.serve.run_lm``, as a user calls it (launches exact: the
+    prefill's and every decode step's rmsnorm, the prefill's
+    swa_attention), then a warm run and one profiled prefill and decode
+    step. Returns (the fields of its line, its launches)."""
     import argparse
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models import api
 
-    args = argparse.Namespace(arch="qwen3_8b", reduced=False, seed=0,
+    args = argparse.Namespace(arch=arch, reduced=False, seed=0,
                               device=str(dev), batch=batch, prompt_len=prompt,
                               gen=gen, greedy=True)
     torch.cuda.reset_peak_memory_stats()
@@ -2317,15 +2433,17 @@ def phase_lm(torch, dev, batch=4, prompt=128, gen=32):
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    cfg = get_config("qwen3_8b")
+    cfg = get_config(arch)
     L = cfg.num_layers
     steps = 1 + prompt + gen - 1       # the prefill, the replay, the decode
-    want = want_launches(rmsnorm=steps * (4 * L + 1), swa_attention=L)
-    check(launches == want, f"lm launches {launches} != {want}")
+    per_forward = (4 if cfg.qk_norm else 2) * L + 1
+    want = want_launches(rmsnorm=steps * per_forward, swa_attention=L)
+    check(launches == want, f"{arch} launches {launches} != {want}")
     toks = first["tokens"]
-    check(first["logits_finite"], "lm: logits are not finite")
+    check(first["logits_finite"], f"{arch}: logits are not finite")
     check(toks.shape == (batch, gen) and (toks >= 0).all()
-          and (toks < cfg.vocab_size).all(), f"lm: token ids {toks.shape}")
+          and (toks < cfg.vocab_size).all(), f"{arch}: token ids "
+          f"{toks.shape}")
     warm = serve.run_lm(args)
 
     # one prefill and one decode step of the same model under the profiler
@@ -2339,26 +2457,10 @@ def phase_lm(torch, dev, batch=4, prompt=128, gen=32):
     for t in range(3):
         _, cache = api.decode_step(cfg, params, cache, tok, t)     # warm
     torch.cuda.synchronize()
-
-    def profiled(fn):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        rows = sorted(device_activity(torch, prof), reverse=True)
-        busy = sum(us for us, _, _ in rows) / 1e3
-        return dict(wall_ms=wall, device_busy_ms=busy if rows else
-                    "not measured",
-                    idle_share=1 - busy / wall if rows else "not measured",
-                    top=[{"name": name[:60], "ms": us / 1e3, "count": count}
-                         for us, name, count in rows[:8]])
-
-    prof_prefill = profiled(lambda: api.prefill(cfg, params,
-                                                {"tokens": prompts}))
-    prof_decode = profiled(lambda: api.decode_step(cfg, params, cache, tok,
-                                                   3))
+    prof_prefill = profile_once(torch, lambda: api.prefill(
+        cfg, params, {"tokens": prompts}))
+    prof_decode = profile_once(torch, lambda: api.decode_step(
+        cfg, params, cache, tok, 3))
     # the same step without the profiler's own host cost: host clock over
     # 10 steps that end in a synchronise
     t0 = time.perf_counter()
@@ -2374,19 +2476,282 @@ def phase_lm(torch, dev, batch=4, prompt=128, gen=32):
         busy = prof_decode["device_busy_ms"]
         prof_decode["idle_share_unprofiled"] = 1 - min(busy / step_ms, 1.0)
         prof_decode["idle_share_run_lm_loop"] = 1 - min(busy / loop_ms, 1.0)
-    emit("lm", arch=cfg.name, dtype="bfloat16", batch=batch, prompt=prompt,
-         gen=gen, launches=launches, peak_memory_bytes=peak,
-         prefill_ms_first=first["prefill_ms"],
-         tokens_per_s_first=first["tokens_per_s"],
-         prefill_ms=warm["prefill_ms"], tokens_per_s=warm["tokens_per_s"],
-         prefill_replay_gap=first["prefill_replay_gap"],
-         max_abs_logit=first["max_abs_logit"],
-         tokens=toks[0, :16].tolist(),
-         same_tokens_warm=bool(np.array_equal(toks, warm["tokens"])),
-         profile_prefill=prof_prefill, profile_decode_step=prof_decode)
     del params, cache
     torch.cuda.empty_cache()
+    return dict(arch=cfg.name, dtype="bfloat16", batch=batch, prompt=prompt,
+                gen=gen, launches=launches, peak_memory_bytes=peak,
+                prefill_ms_first=first["prefill_ms"],
+                tokens_per_s_first=first["tokens_per_s"],
+                prefill_ms=warm["prefill_ms"],
+                tokens_per_s=warm["tokens_per_s"],
+                prefill_replay_gap=first["prefill_replay_gap"],
+                max_abs_logit=first["max_abs_logit"],
+                tokens=toks[0, :16].tolist(),
+                same_tokens_warm=bool(np.array_equal(toks, warm["tokens"])),
+                profile_prefill=prof_prefill,
+                profile_decode_step=prof_decode), launches
+
+
+def phase_lm(torch, dev, batch=4, prompt=128, gen=32):
+    """(b) the slice itself: the full qwen3_8b in bf16 through the port's
+    ``launch.serve.run_lm``, as a user calls it; then a warm run and one
+    profiled prefill and decode step."""
+    fields, launches = lm_serving(torch, dev, "qwen3_8b", batch, prompt, gen)
+    emit("lm", **fields)
     return launches
+
+
+def phase_zoo(torch, dev, parity_layers=2, vlm_layers=8, vlm_patches=1024,
+              batch=4, prompt=128, gen=32, frames=1024, head_batches=6):
+    """The LM zoo's transformer families on the card.
+    (a) parity, f32, full width cut to ``parity_layers`` layers, card vs
+    the port's CPU path on the same params within 1e-4 · max|logit|:
+    olmoe_1b_7b's prefill and 4 greedy decode steps (equal tokens; the
+    routers' top-k choices counted on both sides), hubert_xlarge's encode
+    logits and hidden states, internvl2_26b's prefill with
+    ``vlm_patches`` patch slots and 16 text tokens at batch 1.
+    (b) olmoe_1b_7b and minicpm_2b at full size in bf16 through
+    ``run_lm`` (``lm_serving``).
+    (c) hubert_xlarge at full size in bf16: ``trainer.make_prefill_step``
+    (the encode) on ``batch`` × ``frames`` frames (launches exact: one
+    non-causal swa_attention a layer, 2 L + 1 rmsnorm), then the ELM head
+    on ``tests/test_elm_head.py``'s frame task (6 classes, class embeddings
+    plus 0.4 noise) over ``head_batches`` batches at λ 100, a held-out
+    batch above 0.5 accuracy.
+    (d) internvl2_26b at full width cut to ``vlm_layers`` layers:
+    ``api.prefill`` of ``batch`` × ``prompt`` tokens behind ``vlm_patches``
+    patch slots, then ``gen`` greedy ``api.decode_step``s (launches
+    exact). Returns the launches of (b)–(d) summed."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config, replace
+    from repro_torch.core import elm_head, trainer
+    from repro_torch.layers import mlp
+    from repro_torch.models import api
+    from repro_torch.tree import tree_map
+
+    t_phase = time.perf_counter()
+    total = want_launches()
+
+    def add(launches):
+        for name, n in launches.items():
+            total[name] += n
+
+    def close(tag, c, h):
+        c, h = c.float().cpu(), h.float()
+        err, top = float((c - h).abs().max()), float(h.abs().max())
+        check(bool(torch.isfinite(c).all()), f"zoo (a) {tag}: not finite")
+        check(err <= 1e-4 * top,
+              f"zoo (a) {tag}: card vs CPU {err} > 1e-4 * {top}")
+        return dict(max_abs_err=err, max_abs_ref=top, bar=1e-4 * top)
+
+    # (a) parity
+    t0 = time.perf_counter()
+    parity = {}
+    cfg = replace(get_config("olmoe_1b_7b"), num_layers=parity_layers)
+    g = torch.Generator(device=dev).manual_seed(10)
+    card = api.init_params(cfg, g, torch.float32, device=dev)
+    host = tree_map(lambda a: a.cpu(), card)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 16), generator=g,
+                            device=dev)
+    routes, route = [], mlp.route
+
+    def recording(p, x, k):
+        out = route(p, x, k)
+        routes.append((x.is_cuda, out[0].detach().cpu(),
+                       out[2].detach().cpu()))
+        return out
+
+    mlp.route = recording
+    try:
+        errs, tops, tokens = greedy_parity(
+            torch, dev, cfg, card, host, {"tokens": prompts}, 4,
+            "zoo (a) olmoe", 20)
+    finally:
+        mlp.route = route
+    # each router call on the card against the same call on the CPU
+    card_r = [r[1:] for r in routes if r[0]]
+    host_r = [r[1:] for r in routes if not r[0]]
+    check(len(card_r) == len(host_r) == 5 * parity_layers,
+          "zoo (a): router calls")
+    agree, choices, margin = 0, 0, float("inf")
+    for (_, ic), (ph, ih) in zip(card_r, host_r):
+        # the chosen sets (the order inside the top k changes nothing)
+        agree += int((ic.sort(-1).values == ih.sort(-1).values).sum())
+        choices += ic.numel()
+        top = torch.sort(ph, dim=-1, descending=True).values
+        k = ic.shape[-1]
+        margin = min(margin, float((top[..., k - 1] - top[..., k]).min()))
+    parity["olmoe_1b_7b"] = dict(
+        max_abs_err=errs, max_abs_logit=tops,
+        bar=[1e-4 * t for t in tops], tokens=tokens,
+        route_choices_agree=agree, route_choices=choices,
+        smallest_top_k_margin=margin)
+    del card, host
+    torch.cuda.empty_cache()
+
+    cfg = replace(get_config("hubert_xlarge"), num_layers=parity_layers)
+    g = torch.Generator(device=dev).manual_seed(11)
+    card = api.init_params(cfg, g, torch.float32, device=dev)
+    host = tree_map(lambda a: a.cpu(), card)
+    fb = {"frames": torch.randn((2, 256, 512), generator=g, device=dev)}
+    fh = {"frames": fb["frames"].cpu()}
+    encode = trainer.make_prefill_step(cfg)
+    with torch.no_grad():
+        parity["hubert_xlarge"] = dict(
+            logits=close("hubert logits", encode(card, fb),
+                         encode(host, fh)),
+            hidden_states=close("hubert states",
+                                api.hidden_states(cfg, card, fb),
+                                api.hidden_states(cfg, host, fh)))
+    del card, host
+    torch.cuda.empty_cache()
+
+    cfg = replace(get_config("internvl2_26b"), num_layers=parity_layers)
+    g = torch.Generator(device=dev).manual_seed(12)
+    card = api.init_params(cfg, g, torch.float32, device=dev)
+    host = tree_map(lambda a: a.cpu(), card)
+    vb = {"tokens": torch.randint(0, cfg.vocab_size, (1, 16), generator=g,
+                                  device=dev),
+          "patches": torch.randn((1, vlm_patches, 1024), generator=g,
+                                 device=dev)}
+    t1 = time.perf_counter()
+    lg_h, _ = api.prefill(cfg, host, {k: v.cpu() for k, v in vb.items()})
+    cpu_s = time.perf_counter() - t1
+    lg_c, _ = api.prefill(cfg, card, vb)
+    parity["internvl2_26b"] = dict(
+        patch_slots=vlm_patches, text_tokens=16, cpu_prefill_s=cpu_s,
+        **close("internvl2 prefill", lg_c, lg_h))
+    check(torch.equal(lg_c.cpu().argmax(-1), lg_h.argmax(-1)),
+          "zoo (a) internvl2: greedy token")
+    del card, host, lg_c, lg_h
+    torch.cuda.empty_cache()
+    emit("zoo_parity", layers=parity_layers, dtype="float32",
+         cut=f"depth {parity_layers} layers a config, full width",
+         wall_s=time.perf_counter() - t0, **parity)
+
+    # (b) OLMoE-1B-7B and MiniCPM-2B at full size through run_lm
+    for arch in ("olmoe_1b_7b", "minicpm_2b"):
+        fields, launches = lm_serving(torch, dev, arch, batch, prompt, gen)
+        add(launches)
+        emit(f"zoo_{arch}", cut="none", **fields)
+
+    # (c) HuBERT-XLarge at full size, bf16: the encode and the ELM head
+    cfg = get_config("hubert_xlarge")
+    L, C = cfg.num_layers, 6
+    g = torch.Generator(device=dev).manual_seed(13)
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init_params(cfg, g, device=dev)
+    class_emb = torch.randn((C, 512), generator=g, device=dev)
+
+    def frame_batch():
+        y = torch.randint(0, C, (batch, frames), generator=g, device=dev)
+        x = class_emb[y] + 0.4 * torch.randn((batch, frames, 512),
+                                             generator=g, device=dev)
+        return {"frames": x.to(torch.bfloat16), "targets": y}
+
+    encode = trainer.make_prefill_step(cfg)
+    fb = frame_batch()
+    with torch.no_grad():
+        encode(params, fb)                                      # warm
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        logits = encode(params, fb)
+        torch.cuda.synchronize()
+        encode_ms = (time.perf_counter() - t0) * 1e3
+        enc_launches = dict(kernels.LAUNCHES)
+        want = want_launches(rmsnorm=2 * L + 1, swa_attention=L)
+        check(enc_launches == want,
+              f"hubert encode launches {enc_launches} != {want}")
+        check(logits.shape == (batch, frames, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()), "hubert logits")
+        add(enc_launches)
+        prof_encode = profile_once(torch, lambda: encode(params, fb))
+
+    def feature_fn(p, b):
+        return api.hidden_states(cfg, p, b)
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    stats = None
+    for _ in range(head_batches):
+        stats = elm_head.accumulate_stats(feature_fn, params, frame_batch(),
+                                          C, stats)
+    beta = elm_head.solve(stats, 100.0)
+    held = frame_batch()
+    pred = elm_head.predict(feature_fn, params, beta, held).argmax(-1)
+    torch.cuda.synchronize()
+    head_ms = (time.perf_counter() - t0) * 1e3
+    head_launches = dict(kernels.LAUNCHES)
+    acc = float((pred.reshape(held["targets"].shape) == held["targets"])
+                .float().mean())
+    n_enc = head_batches + 1
+    want = want_launches(rmsnorm=n_enc * (2 * L + 1),
+                         swa_attention=n_enc * L, elm_stats=head_batches)
+    check(head_launches == want,
+          f"hubert head launches {head_launches} != {want}")
+    check(acc > 0.5, f"hubert head held-out accuracy {acc} <= 0.5")
+    add(head_launches)
+    emit("zoo_hubert_xlarge", arch=cfg.name, dtype="bfloat16", cut="none",
+         batch=batch, frames=frames, encode_ms=encode_ms,
+         encode_launches=enc_launches, profile_encode=prof_encode,
+         head=dict(classes=C, lam=100.0, batches=head_batches,
+                   rows=head_batches * batch * frames, held_out_accuracy=acc,
+                   launches=head_launches, ms_host_clock=head_ms,
+                   max_abs_beta=float(beta.abs().max())),
+         peak_memory_bytes=torch.cuda.max_memory_allocated())
+    del params, logits, stats, beta
+    torch.cuda.empty_cache()
+
+    # (d) InternVL2-26B at full width cut to vlm_layers layers
+    cfg = replace(get_config("internvl2_26b"), num_layers=vlm_layers)
+    L = cfg.num_layers
+    g = torch.Generator(device=dev).manual_seed(14)
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init_params(cfg, g, device=dev)
+    vb = {"tokens": torch.randint(0, cfg.vocab_size, (batch, prompt),
+                                  generator=g, device=dev),
+          "patches": torch.randn((batch, vlm_patches, 1024), generator=g,
+                                 device=dev).to(torch.bfloat16)}
+    pos0 = vlm_patches + prompt
+    api.prefill(cfg, params, vb, max_len=pos0 + gen)              # warm
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = api.prefill(cfg, params, vb, max_len=pos0 + gen)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    finite = bool(torch.isfinite(logits).all())
+    tok = torch.argmax(logits[:, -1:], dim=-1)
+    out = [tok]
+    t0 = time.perf_counter()
+    for t in range(gen):
+        logits, cache = api.decode_step(cfg, params, cache, tok, pos0 + t)
+        tok = torch.argmax(logits[:, -1:], dim=-1)
+        out.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    vlm_launches = dict(kernels.LAUNCHES)
+    want = want_launches(rmsnorm=(1 + gen) * (2 * L + 1), swa_attention=L)
+    check(vlm_launches == want,
+          f"internvl2 launches {vlm_launches} != {want}")
+    finite = finite and bool(torch.isfinite(logits).all())
+    check(finite, "internvl2: logits are not finite")
+    toks = torch.cat(out, dim=1).cpu()
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "internvl2: token ids")
+    add(vlm_launches)
+    emit("zoo_internvl2_26b", arch=cfg.name, dtype="bfloat16",
+         cut=f"depth {L} of 48 layers, full width", batch=batch,
+         patch_slots=vlm_patches, prompt=prompt, gen=gen,
+         launches=vlm_launches, prefill_ms=prefill_ms,
+         tokens_per_s=batch * gen / decode_s,
+         tokens=toks[0, :16].tolist(),
+         peak_memory_bytes=torch.cuda.max_memory_allocated())
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    emit("zoo", wall_s=time.perf_counter() - t_phase, launches=total)
+    return total
 
 
 def phase_train(torch, dev, layers=4, members=2, steps=4, batch=4, seq=128,
@@ -2757,6 +3122,7 @@ def main():
     phase_resume(torch, dev, m, sgd)
     phase_lm_parity(torch, dev)
     lm_launches = phase_lm(torch, dev)
+    zoo_launches = phase_zoo(torch, dev)
     train_launches = phase_train(torch, dev)
     phase_audit(torch, dev, m)
 
@@ -2774,7 +3140,7 @@ def main():
     stats = per_case[("elm_stats", "unmasked")]
     stats_err = max(per_case[("elm_stats", c)]["max_abs_err"]
                     for c in ("unmasked", "fractional_mask", "ragged",
-                              "shard"))
+                              "shard", "hubert_head"))
     line = {"kernels": [
         {"name": "conv2d", "route": "cuda",
          "source": "src/repro_torch/csrc/conv2d.cu",
@@ -2796,7 +3162,8 @@ def main():
          "source": "src/repro_torch/csrc/elm_stats.cu",
          "replaces": "src/repro/kernels/elm_stats/kernel.py:36",
          "launches": main_launches["elm_stats"]
-         + stream_launches["elm_stats"] + mesh_launches["elm_stats"],
+         + stream_launches["elm_stats"] + mesh_launches["elm_stats"]
+         + zoo_launches["elm_stats"],
          "max_abs_err": stats_err, "ms": stats["ms"],
          "plain_ms": stats["plain_ms"], "bound_ms": stats["bound_ms"],
          "bound_by": stats["bound_by"], "library_ms": stats["library_ms"]},
@@ -2832,14 +3199,16 @@ def main():
          "library_ms": sum(c["library_ms"] for c in dw)})
     # rmsnorm: one ln (512 x 4096) and one q_norm (16384 x 128) launch of
     # the prefill; swa_attention: one layer's prefill attention; their
-    # launches from the LM serving path and the train path's forwards
+    # launches from the LM serving path, the zoo's paths (the encoder's
+    # non-causal attention among them) and the train path's forwards
     rms = [per_case[("rmsnorm", c)] for c in ("ln_d4096", "qk_norm_d128")]
     swa = per_case[("swa_attention", "prefill_causal")]
     line["kernels"] += [
         {"name": "rmsnorm", "route": "cuda",
          "source": "src/repro_torch/csrc/rmsnorm.cu",
          "replaces": "src/repro/kernels/rmsnorm/kernel.py:23",
-         "launches": lm_launches["rmsnorm"] + train_launches["rmsnorm"],
+         "launches": lm_launches["rmsnorm"] + zoo_launches["rmsnorm"]
+         + train_launches["rmsnorm"],
          "max_abs_err": max(c["max_abs_err"] for c in rms),
          "ms": sum(c["ms"] for c in rms),
          "plain_ms": sum(c["plain_ms"] for c in rms),
@@ -2851,10 +3220,13 @@ def main():
          "source": "src/repro_torch/csrc/swa_attention.cu",
          "replaces": "src/repro/kernels/swa_attention/kernel.py:28",
          "launches": lm_launches["swa_attention"]
-         + train_launches["swa_attention"],
+         + zoo_launches["swa_attention"] + train_launches["swa_attention"],
          "max_abs_err": max(per_case[("swa_attention", c)]["max_abs_err"]
                             for c in ("prefill_causal", "window256_s1024",
-                                      "prefill_large_scores")),
+                                      "prefill_large_scores",
+                                      "encoder_bidirectional",
+                                      "encoder_ragged_s1000",
+                                      "encoder_f32_small")),
          "ms": swa["ms"], "plain_ms": swa["plain_ms"],
          "bound_ms": swa["bound_ms"], "bound_by": swa["bound_by"],
          "library_ms": swa["library_ms"]},

@@ -2,8 +2,8 @@
 
 Each architecture has a module ``repro_torch/configs/<id>.py`` exporting
 ``CONFIG`` and ``reduced()``. The port carries the paper's two CNN-ELM
-architectures and the LM zoo's dense decoder ``qwen3_8b``; the other LM
-configs come with their model families.
+architectures and the LM zoo's transformer families (dense, MoE, encoder,
+VLM); the recurrent configs (rwkv6, zamba2) come with their families.
 
 Configs are frozen dataclasses so they are hashable and can be shared
 between members and threads as static data.
@@ -169,8 +169,15 @@ ARCH_IDS = [
     # the paper's own CNN-ELM architectures
     "cnn_elm_6c12c",
     "cnn_elm_3c9c",
-    # the LM zoo's dense decoder, served by ``launch.serve``
+    # the LM zoo's transformer families (``models/transformer.py``)
+    "internlm2_20b",
+    "qwen3_moe_235b_a22b",
+    "olmoe_1b_7b",
+    "qwen3_32b",
+    "minicpm_2b",
     "qwen3_8b",
+    "hubert_xlarge",
+    "internvl2_26b",
 ]
 
 _ALIAS = {a.replace("_", "-"): a for a in ARCH_IDS}

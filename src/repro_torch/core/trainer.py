@@ -123,6 +123,13 @@ def make_serve_step(cfg):
 
 
 def make_prefill_step(cfg):
+    if cfg.is_encoder_only:
+        # encoder-only "prefill" = the full encode, logits out, no cache
+        def encode_step(params, batch):
+            logits, _ = api.module_of(cfg).forward(cfg, params, batch)
+            return logits
+        return encode_step
+
     def prefill_step(params, batch):
         return api.prefill(cfg, params, batch)
 

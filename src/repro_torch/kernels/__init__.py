@@ -70,11 +70,11 @@ _ENTRIES = {
     # bf16, scale is bf16, stream
     "rmsnorm_bwd": ("rmsnorm_bwd",
                     (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P)),
-    # q, k, v, out, lse (NULL = none), B, S, H, KV, hd, window, scale, bf16,
-    # stream
+    # q, k, v, out, lse (NULL = none), B, S, H, KV, hd, window, causal,
+    # scale, bf16, stream
     "swa_attention": ("swa_attention_fwd",
-                      (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
-                       _P)),
+                      (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                       _I, _P)),
     # q, k, v, out, dout, lse, delta, dq, dk, dv, B, S, H, KV, hd, window,
     # scale, bf16, stream
     "swa_attention_bwd": ("swa_attention_bwd",

@@ -1,4 +1,5 @@
-"""The swa_attention wrapper: causal sliding-window attention with GQA.
+"""The swa_attention wrapper: causal sliding-window attention with GQA,
+or, with ``causal=False``, attention over every key (the encoder's).
 
 A CPU tensor goes to the plain version (``ref.swa_attention_ref``), a CUDA
 tensor to the hand kernel in ``csrc/swa_attention.cu``; nothing falls back
@@ -9,7 +10,10 @@ that autograd records is a ``torch.autograd.Function``: its forward also
 writes each row's log-sum-exp, and its backward is the kernels of
 ``csrc/swa_attention_bwd.cu`` (one ``swa_attention_bwd`` launch a call);
 a call it does not record (serving, under ``torch.no_grad()``) passes the
-kernel a null log-sum-exp.
+kernel a null log-sum-exp. The non-causal mode has no backward kernel yet:
+on the card a call that autograd would record is refused
+(``kernels.refuse_grad``); on the CPU autograd runs through the plain
+version as for the causal mode.
 """
 from __future__ import annotations
 
@@ -22,18 +26,24 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
 
 
-def swa_attention(q, k, v, *, window: int):
-    """Query i attends to keys j with j <= i and i - j < ``window``.
+def swa_attention(q, k, v, *, window: int, causal: bool = True):
+    """Query i attends to keys j with j <= i and i - j < ``window``; with
+    ``causal=False`` to every key j < S, and ``window`` must be S.
     q: (B, S, H, hd); k, v: (B, S, KV, hd) -> (B, S, H, hd)."""
     _check(q, k, v, window)
+    if not causal and window != q.shape[1]:
+        raise ValueError(f"non-causal attention sees every key: window must "
+                         f"be S = {q.shape[1]}, got {window}")
     if q.device.type == "cpu":
-        return ref.swa_attention_ref(q, k, v, window=window)
+        return ref.swa_attention_ref(q, k, v, window=window, causal=causal)
     if not q.is_cuda:
         raise ValueError(f"swa_attention runs on CPU or CUDA tensors, "
                          f"got {q.device}")
     if kernels.needs_grad((q, k, v)):
+        if not causal:
+            kernels.refuse_grad("swa_attention (causal=False)", (q, k, v))
         return _SWAAttention.apply(q, k, v, window)
-    return _launch(q, k, v, window, with_lse=False)[0]
+    return _launch(q, k, v, window, with_lse=False, causal=causal)[0]
 
 
 def _check(q, k, v, window):
@@ -73,7 +83,7 @@ def _launch_checks(q, k, v):
         raise ValueError(f"q {tuple(q.shape)} is too large for one launch")
 
 
-def _launch(q, k, v, window, *, with_lse: bool):
+def _launch(q, k, v, window, *, with_lse: bool, causal: bool = True):
     """(out, lse): the forward kernel; lse (B, H, S) f32 when
     ``with_lse``, else None (the kernel gets a null pointer)."""
     _launch_checks(q, k, v)
@@ -85,8 +95,8 @@ def _launch(q, k, v, window, *, with_lse: bool):
         kernels.launch("swa_attention", q.data_ptr(), k.data_ptr(),
                        v.data_ptr(), out.data_ptr(),
                        None if lse is None else lse.data_ptr(), B, S, H,
-                       k.shape[2], hd, min(int(window), S), hd ** -0.5,
-                       _DTYPES[q.dtype])
+                       k.shape[2], hd, min(int(window), S), int(causal),
+                       hd ** -0.5, _DTYPES[q.dtype])
     return out, lse
 
 

@@ -12,7 +12,12 @@ tokens/s.
 Weights are random, drawn from ``--seed`` on the chosen device. As in the
 reference, the prompt is prefilled once (timed), then replayed token by
 token into a fresh cache sized for prompt + generation, and decoding
-continues from the replay's last logits.
+continues from the replay's last logits. ``--arch`` takes the transformer
+decoders (dense and MoE); as in the reference, an encoder-only config
+(``hubert_xlarge``) is refused and the launcher feeds tokens only, so the
+VLM (``internvl2_26b``) is served through ``models.api`` with its
+patches. For the MoE the replay's last logits need not equal the
+prefill's: a slot dropped at the prompt's capacity is kept at one token's.
 
 **CNN-ELM ensemble** (``--ensemble``): the ``repro_torch.serve`` endpoint —
 continuous batching under a latency SLO over a ``BucketedScorer`` (one
@@ -48,6 +53,8 @@ def _sync(dev):
 def run_lm(args) -> dict:
     dev = resolve_device(args.device)
     cfg = get_reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    if cfg.is_encoder_only:
+        raise SystemExit(f"{cfg.name} is encoder-only: no decode step")
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = api.init_params(cfg, gen, device=dev)

@@ -1,8 +1,7 @@
 """Attention: GQA with RoPE, optional qk-norm, causal / sliding-window
-prefill through the swa_attention kernel, and single-token decode against a
-(full or ring-buffer) KV cache — the port's counterpart of
-``repro.layers.attention`` (the bidirectional encoder form comes with the
-encoder family).
+prefill and the encoder's bidirectional attention through the swa_attention
+kernel, and single-token decode against a (full or ring-buffer) KV cache —
+the port's counterpart of ``repro.layers.attention``.
 
 Parameter layout per layer (optionally with a leading stacked-layer dim):
   wq: (d_model, n_heads*head_dim)    wk/wv: (d_model, n_kv*head_dim)
@@ -76,6 +75,17 @@ def attn_forward(cfg, p, x, positions, window: int = 0):
     q, k, v = _project_qkv(cfg, p, x, positions)
     S = x.shape[1]
     y = swa_ops.swa_attention(q, k, v, window=window or S)
+    y = y.reshape(*x.shape[:2], cfg.q_dim) @ p["wo"]
+    return y, (k, v)
+
+
+def attn_forward_bidirectional(cfg, p, x, positions):
+    """Encoder-only (HuBERT) attention: every query sees every key, RoPE
+    as in the causal form — the reference's all-ones mask, through the
+    swa_attention kernel's non-causal mode. Returns (y, (k, v))."""
+    q, k, v = _project_qkv(cfg, p, x, positions)
+    S = x.shape[1]
+    y = swa_ops.swa_attention(q, k, v, window=S, causal=False)
     y = y.reshape(*x.shape[:2], cfg.q_dim) @ p["wo"]
     return y, (k, v)
 

@@ -1,6 +1,8 @@
 """Family dispatch for the LM zoo — the port's counterpart of
-``repro.models.api``. The dense decoder is ported; every other family
-raises ``NotImplementedError`` naming the ROADMAP item that brings it."""
+``repro.models.api``. The four transformer families (dense, moe, encoder,
+vlm) are ported in ``models.transformer``; the recurrent ones (rwkv6,
+zamba2) raise ``NotImplementedError`` naming the ROADMAP item that brings
+them."""
 from __future__ import annotations
 
 import torch
@@ -9,7 +11,7 @@ from repro_torch.models import transformer
 
 
 def module_of(cfg):
-    if cfg.family == "dense":
+    if cfg.family in transformer.FAMILIES:
         return transformer
     raise NotImplementedError(transformer.UNPORTED.format(cfg.family))
 

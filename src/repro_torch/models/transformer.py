@@ -1,14 +1,23 @@
-"""The dense GQA decoder (qwen3-style): init, full forward, the training
-loss, the final hidden states (the ELM head's H), prefill and one-token
-decode — the port's counterpart of ``repro.models.transformer`` for family
-``dense`` (MoE, encoder and VLM come with their families).
+"""The transformer backbone: dense GQA decoders (qwen3*, internlm2,
+minicpm), MoE decoders (olmoe, qwen3-moe), the encoder-only HuBERT and the
+VLM (internvl2: a patch-embedding prefix, then the decoder) — init, full
+forward, the training loss, the final hidden states (the ELM head's H),
+prefill and one-token decode; the port's counterpart of
+``repro.models.transformer``.
 
 Layers are stacked (a leading L dim on every leaf of ``params["layers"]``)
 as in the reference, so trees convert leaf by leaf; the reference's
 ``layer_scan`` becomes a Python loop over views of the stacked leaves.
 Every rms_norm goes through the rmsnorm kernel and every full-sequence
-attention through the swa_attention kernel on the card, forward and, under
-autograd, backward.
+attention through the swa_attention kernel on the card (the encoder's
+bidirectional attention through its non-causal mode), forward and, under
+autograd, backward (the non-causal mode has no backward yet and refuses).
+The MoE's dispatch, expert products and combine are plain PyTorch, as the
+reference leaves them to XLA (``layers/mlp.py``).
+
+Stub frontends, as in the reference: audio frame embeddings
+(``batch["frames"]``) and vision patch embeddings (``batch["patches"]``)
+arrive precomputed, and a learned projection maps them into d_model.
 
 The reference wraps each layer of the forward in ``jax.checkpoint``, a
 memory policy of its autodiff (recompute a layer's activations in the
@@ -20,6 +29,7 @@ for it; the values are the same either way.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.layers import attention as attn
@@ -29,12 +39,16 @@ from repro_torch.layers.norms import rms_norm
 from repro_torch.tree import tree_leaves, tree_map
 
 NEG_INF = -1e30
+AUDIO_FRONTEND_DIM = 512    # wav2vec2/HuBERT conv-extractor output dim
+VISION_FRONTEND_DIM = 1024  # InternViT patch-embedding dim (stub)
+FAMILIES = ("dense", "moe", "encoder", "vlm")
 UNPORTED = ("family {!r} is not ported yet (ROADMAP queue 1, the LM model "
-            "zoo: only the dense decoder is ported)")
+            "zoo: the transformer families dense, moe, encoder and vlm are "
+            "ported)")
 
 
-def _require_dense(cfg):
-    if cfg.family != "dense" or cfg.is_encoder_only or cfg.frontend:
+def _require_transformer(cfg):
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(UNPORTED.format(cfg.family))
 
 
@@ -46,7 +60,7 @@ def init_params(cfg, generator, dtype=torch.bfloat16, device="cuda"):
     """The reference's distributions from a ``torch.Generator``, drawn on
     the generator's device (a CUDA generator draws a full-size model on the
     card) and stored on ``device``. Padded vocab rows are zero."""
-    _require_dense(cfg)
+    _require_transformer(cfg)
     dev = resolve_device(device)
     L, D, V = cfg.num_layers, cfg.d_model, cfg.padded_vocab
     layers = {
@@ -54,9 +68,14 @@ def init_params(cfg, generator, dtype=torch.bfloat16, device="cuda"):
                                     device=dev),
         "ln1": torch.ones((L, D), dtype=torch.float32, device=dev),
         "ln2": torch.ones((L, D), dtype=torch.float32, device=dev),
-        "mlp": mlp_lib.init_swiglu(D, cfg.d_ff, generator, dtype,
-                                   num_layers=L, device=dev),
     }
+    if cfg.family == "moe":
+        layers["moe"] = mlp_lib.init_moe(D, cfg.moe_d_ff or cfg.d_ff,
+                                         cfg.num_experts, generator, dtype,
+                                         num_layers=L, device=dev)
+    else:
+        layers["mlp"] = mlp_lib.init_swiglu(D, cfg.d_ff, generator, dtype,
+                                            num_layers=L, device=dev)
     embed = normal(generator, (V, D), D ** -0.5, dtype, dev)
     if V > cfg.vocab_size:
         embed[cfg.vocab_size:] = 0
@@ -67,6 +86,15 @@ def init_params(cfg, generator, dtype=torch.bfloat16, device="cuda"):
     }
     if not cfg.tie_embeddings:
         p["unembed"] = normal(generator, (D, V), D ** -0.5, dtype, dev)
+    if cfg.frontend == "audio":
+        p["frontend_proj"] = normal(generator, (AUDIO_FRONTEND_DIM, D),
+                                    AUDIO_FRONTEND_DIM ** -0.5, dtype, dev)
+    if cfg.frontend == "vision":
+        p["projector"] = {
+            "w1": normal(generator, (VISION_FRONTEND_DIM, D),
+                         VISION_FRONTEND_DIM ** -0.5, dtype, dev),
+            "w2": normal(generator, (D, D), D ** -0.5, dtype, dev),
+        }
     return p
 
 
@@ -102,54 +130,97 @@ def _unembed(cfg, p, x):
 # blocks
 # ---------------------------------------------------------------------------
 
-def _block(cfg, lp, x, positions, window):
-    """One decoder block; returns (x, (k, v))."""
-    h, kv = attn.attn_forward(cfg, lp["attn"],
-                              rms_norm(x, lp["ln1"], cfg.norm_eps),
-                              positions, window=window)
+def _ffn(cfg, lp, x):
+    """The block's feed-forward: (y, aux); aux is None but for the MoE."""
+    if cfg.family == "moe":
+        return mlp_lib.moe_apply(lp["moe"], x, cfg.experts_per_token,
+                                 capacity_factor=cfg.moe_capacity_factor)
+    return mlp_lib.swiglu(lp["mlp"], x), None
+
+
+def _block(cfg, lp, x, positions, window, bidirectional=False):
+    """One block; returns (x, (k, v), aux). ``bidirectional``: the
+    encoder's attention over every position (the reference's forward and
+    hidden states of an encoder-only config)."""
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    if bidirectional:
+        h, kv = attn.attn_forward_bidirectional(cfg, lp["attn"], h,
+                                                positions)
+    else:
+        h, kv = attn.attn_forward(cfg, lp["attn"], h, positions,
+                                  window=window)
     x = x + h
-    h = mlp_lib.swiglu(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps))
-    return x + h, kv
+    h, aux = _ffn(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps))
+    return x + h, kv, aux
 
 
 def _embed_inputs(cfg, p, batch):
-    """Token embedding. Returns (x, positions, text_offset)."""
-    _require_dense(cfg)
-    tokens = batch["tokens"]
-    x = p["embed"][tokens]
+    """Token / frame / patch embedding (+ the VLM prefix ahead of the
+    tokens). Returns (x, positions, text_offset): where the loss-bearing
+    text starts in the sequence."""
+    _require_transformer(cfg)
+    if cfg.frontend == "audio":
+        proj = p["frontend_proj"]
+        x = batch["frames"].to(proj.dtype) @ proj
+        B, S = x.shape[:2]
+        return x, torch.arange(S, device=x.device).expand(B, S), 0
+    tok = p["embed"][batch["tokens"]]
+    if cfg.frontend == "vision":
+        w1, w2 = p["projector"]["w1"], p["projector"]["w2"]
+        patches = batch["patches"].to(w1.dtype)
+        # jax.nn.gelu's default is the tanh form
+        pref = F.gelu((patches @ w1).float(), approximate="tanh")
+        x = torch.cat([pref.to(tok.dtype) @ w2, tok], dim=1)
+        offset = patches.shape[1]
+    else:
+        x, offset = tok, 0
     B, S = x.shape[:2]
-    pos = torch.arange(S, device=x.device).expand(B, S)
-    return x, pos, 0
+    return x, torch.arange(S, device=x.device).expand(B, S), offset
+
+
+def _encode(cfg, p, batch, window):
+    """The layers and the final norm over the text positions: (x, the
+    per-layer aux losses of the MoE, else [])."""
+    window = cfg.sliding_window if window is None else window
+    x, positions, offset = _embed_inputs(cfg, p, batch)
+    auxes = []
+    for lp in _unbound_layers(p["layers"], cfg.num_layers):
+        x, _, aux = _block(cfg, lp, x, positions, window,
+                           bidirectional=cfg.is_encoder_only)
+        if aux is not None:
+            auxes.append(aux)
+    x = rms_norm(x, p["final_norm"], cfg.norm_eps)
+    return (x[:, offset:] if offset else x), auxes
 
 
 def forward(cfg, p, batch, *, window: int | None = None):
-    """Full-sequence forward. Returns (logits f32, aux_loss)."""
-    x = hidden_states(cfg, p, batch, window=window)
-    return _unembed(cfg, p, x), torch.zeros((), device=x.device)
+    """Full-sequence forward. Returns (logits f32, aux_loss): the mean of
+    the layers' router aux losses (0 but for the MoE)."""
+    x, auxes = _encode(cfg, p, batch, window)
+    aux = (torch.stack(auxes).mean() if auxes
+           else torch.zeros((), device=x.device))
+    return _unembed(cfg, p, x), aux
 
 
 def hidden_states(cfg, p, batch, *, window: int | None = None):
-    """Final-norm hidden states (B, S, D), no unembed — the ELM head's H.
-    The reference's remat is a memory policy of its autodiff and has no
-    counterpart here."""
-    window = cfg.sliding_window if window is None else window
-    x, positions, _ = _embed_inputs(cfg, p, batch)
-    for lp in _unbound_layers(p["layers"], cfg.num_layers):
-        x, _ = _block(cfg, lp, x, positions, window)
-    return rms_norm(x, p["final_norm"], cfg.norm_eps)
+    """Final-norm hidden states (B, S, D) of the text positions, no
+    unembed — the ELM head's H."""
+    return _encode(cfg, p, batch, window)[0]
 
 
 def loss_fn(cfg, p, batch):
     """Next-token cross-entropy: (loss, {"ce", "aux"}), as the reference's
     ``loss_fn`` (transformer.py:215) — the mean over tokens of
     logsumexp(logits) minus the gold logit, padded vocab slots masked to
-    -1e30 in the logits; ``aux`` is 0 for the dense family."""
+    -1e30 in the logits; the MoE adds ``router_aux_coef`` times the aux
+    loss."""
     logits, aux = forward(cfg, p, batch)
     tgt = batch["targets"].long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, tgt[..., None])[..., 0]
     ce = torch.mean(logz - gold)
-    return ce, {"ce": ce, "aux": aux}
+    loss = ce + cfg.router_aux_coef * aux if cfg.family == "moe" else ce
+    return loss, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -158,19 +229,21 @@ def loss_fn(cfg, p, batch):
 
 def init_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
                device="cuda"):
-    _require_dense(cfg)
+    _require_transformer(cfg)
     return attn.init_kv_cache(cfg, batch, seq_len, cfg.num_layers, dtype,
                               resolve_device(device))
 
 
 def prefill(cfg, p, batch, max_len: int | None = None):
     """Encode a prompt, returning last-position logits + the KV cache.
-    ``max_len`` pads the cache so decoding can continue past the prompt."""
+    ``max_len`` pads the cache so decoding can continue past the prompt.
+    Every family runs the causal attention here, the encoder too, as the
+    reference's ``prefill`` does."""
     x, positions, _ = _embed_inputs(cfg, p, batch)
     window = cfg.sliding_window
     ks, vs = [], []
     for lp in _unbound_layers(p["layers"], cfg.num_layers):
-        x, (k, v) = _block(cfg, lp, x, positions, window)
+        x, (k, v), _ = _block(cfg, lp, x, positions, window)
         ks.append(k)
         vs.append(v)
     ks, vs = torch.stack(ks), torch.stack(vs)
@@ -191,14 +264,14 @@ def decode_step(cfg, p, cache, token, pos: int):
     """One new token against the KV cache. token: (B, 1) integers; pos: the
     tokens so far. Returns (logits, cache); the cache is updated in place
     (see ``attention.attn_decode``)."""
-    _require_dense(cfg)
+    _require_transformer(cfg)
     x = p["embed"][token]
     for i, lp in enumerate(_unbound_layers(p["layers"], cfg.num_layers)):
         h, _ = attn.attn_decode(cfg, lp["attn"],
                                 rms_norm(x, lp["ln1"], cfg.norm_eps),
                                 (cache["k"][i], cache["v"][i]), pos)
         x = x + h
-        x = x + mlp_lib.swiglu(lp["mlp"], rms_norm(x, lp["ln2"],
-                                                   cfg.norm_eps))
+        h, _ = _ffn(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps))
+        x = x + h
     x = rms_norm(x, p["final_norm"], cfg.norm_eps)
     return _unembed(cfg, p, x), cache

@@ -301,6 +301,119 @@ def test_swa_kernel_large_scores_on_card(cuda, dt, window):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,KV,hd", [
+    (2, 64, 4, 4, 64),             # one whole key tile
+    (2, 100, 4, 4, 80),            # hd 80 (HuBERT's), a ragged last tile
+    (1, 1000, 16, 16, 80),         # HuBERT's heads, S 1000: ragged tail
+    (2, 65, 8, 2, 128),            # GQA, one key past a tile
+    (1, 15, 4, 1, 64),             # under one tile
+    (2, 1, 2, 2, 32),              # a single key
+    (1, 50, 2, 1, 20),             # hd 20: rows staged 2 bytes at a time
+    (1, 130, 4, 2, 72)])           # hd 72: zero-padded to 80
+def test_swa_non_causal_kernel_matches_plain_on_card(cuda, dt, B, S, H, KV,
+                                                     hd):
+    """The non-causal mode (the encoder's attention over every key)
+    against ``swa_attention_ref(causal=False)``; the ragged tail kj >= S
+    of the last key tile is masked, or its zero rows would take weight."""
+    q, k, v = _data(S + hd, (B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd))
+    qd, kd, vd = (torch.from_numpy(a).to(cuda, _dt(dt)) for a in (q, k, v))
+    before = kernels.LAUNCHES["swa_attention"]
+    got = swa_ops.swa_attention(qd, kd, vd, window=S, causal=False)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["swa_attention"] == before + 1
+    ref = swa_ref.swa_attention_ref(qd, kd, vd, window=S, causal=False)
+    assert got.dtype == qd.dtype
+    if dt == "bf16":
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   ref.float().cpu().numpy(), rtol=2.0 ** -7,
+                                   atol=1e-5 * float(ref.abs().max()))
+    else:
+        _close(got.cpu().numpy(), ref.cpu().numpy())
+    assert torch.equal(got, swa_ops.swa_attention(qd, kd, vd, window=S,
+                                                  causal=False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_swa_non_causal_refuses_grad_on_card(cuda, dt):
+    """The non-causal mode has no backward kernel: under grad mode a call
+    on operands that require grad is refused, never run through the plain
+    version; without grad it runs."""
+    q, k, v = _data(3, (1, 40, 4, 64), (1, 40, 2, 64), (1, 40, 2, 64))
+    qd, kd, vd = (torch.from_numpy(a).to(cuda, _dt(dt)) for a in (q, k, v))
+    qd.requires_grad_(True)
+    before = kernels.LAUNCHES["swa_attention"]
+    with pytest.raises(RuntimeError, match="no backward"):
+        swa_ops.swa_attention(qd, kd, vd, window=40, causal=False)
+    assert kernels.LAUNCHES["swa_attention"] == before
+    with torch.no_grad():
+        out = swa_ops.swa_attention(qd, kd, vd, window=40, causal=False)
+    assert out.shape == qd.shape and kernels.LAUNCHES["swa_attention"] == \
+        before + 1
+    with pytest.raises(ValueError, match="window must be S"):
+        swa_ops.swa_attention(qd.detach(), kd, vd, window=8, causal=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_moe_apply_is_bitwise_run_to_run_on_card(cuda, dt):
+    """The MoE layer on the card: the same bits run after run (gathers, no
+    scatter-add), f32 within 1e-4 · max|y| of the CPU's, and R6's
+    overflow (8 identical tokens on 2 experts of C = 2 slots) zeroes token
+    0 as on the CPU."""
+    from repro_torch.layers import mlp
+    p = mlp.init_moe(64, 48, 8, torch.Generator().manual_seed(0), _dt(dt),
+                     device="cpu")
+    pc = tree_map(lambda a: a.to(cuda), p)
+    x = torch.from_numpy(_data(4, (3, 40, 64))[0]).to(_dt(dt))
+    y, aux = mlp.moe_apply(pc, x.to(cuda), 2)
+    for _ in range(3):
+        y2, aux2 = mlp.moe_apply(pc, x.to(cuda), 2)
+        assert torch.equal(y, y2) and torch.equal(aux, aux2)
+    if dt == "f32":
+        yh, auxh = mlp.moe_apply(p, x, 2)
+        assert float((y.cpu() - yh).abs().max()) <= 1e-4 * float(
+            yh.abs().max())
+        assert abs(float(aux) - float(auxh)) <= 1e-5 * float(auxh)
+    same = x[:1, :1].expand(1, 8, 64).contiguous()
+    C = mlp.moe_capacity(8, 8, 2, 1.0)
+    ys, _ = mlp.moe_apply(pc, same.to(cuda), 2, capacity_factor=1.0)
+    norms = ys[0].float().abs().sum(-1).cpu()
+    assert C == 2 and norms[0] == 0 and (norms[1:C] > 0).all()
+    assert (norms[C:] == 0).all()
+
+
+@pytest.mark.cuda
+def test_encoder_and_moe_on_card_match_cpu(cuda):
+    """Reduced hubert (the non-causal kernel) and olmoe in f32: the forward
+    on the card equals the port's CPU path within 1e-4 · max|logit|, with
+    one swa_attention launch and two rmsnorm launches a layer plus the
+    final norm."""
+    for arch in ("hubert_xlarge", "olmoe_1b_7b"):
+        cfg = get_reduced_config(arch)
+        params = api.init_params(cfg, torch.Generator().manual_seed(0),
+                                 torch.float32, device="cpu")
+        on_card = tree_map(lambda a: a.to(cuda), params)
+        rng = np.random.default_rng(1)
+        batch = ({"frames": torch.from_numpy(rng.normal(size=(2, 70, 512))
+                                             .astype(np.float32))}
+                 if cfg.frontend == "audio" else
+                 {"tokens": torch.from_numpy(rng.integers(
+                     0, cfg.vocab_size, (2, 70)))})
+        kernels.reset_launches()
+        with torch.no_grad():
+            got, _ = api.module_of(cfg).forward(
+                cfg, on_card, {k: v.to(cuda) for k, v in batch.items()})
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["swa_attention"] == cfg.num_layers
+        assert kernels.LAUNCHES["rmsnorm"] == 2 * cfg.num_layers + 1
+        want, _ = api.module_of(cfg).forward(cfg, params, batch)
+        assert float((got.cpu() - want).abs().max()) <= 1e-4 * float(
+            want.abs().max())
+
+
+@pytest.mark.cuda
 def test_lm_kernels_refuse_bad_operands_on_card(cuda):
     with pytest.raises(TypeError):
         rms_ops.rmsnorm(torch.zeros((4, 8), device=cuda, dtype=torch.float16),

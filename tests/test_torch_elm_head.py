@@ -209,4 +209,4 @@ def test_finetune_step_reduces_elm_loss():
 def test_hidden_states_of_other_families_raise():
     lm = get_reduced_config("qwen3_8b")
     with pytest.raises(NotImplementedError):
-        api.hidden_states(replace(lm, family="moe"), None, {})
+        api.hidden_states(replace(lm, family="ssm_rwkv6"), None, {})

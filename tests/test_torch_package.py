@@ -1,7 +1,7 @@
 """The port stands alone: ``repro_torch`` imports neither JAX nor ``repro``,
 runs on the card unless asked for the CPU, and refuses what later slices
-of the port will bring (the LM families beyond the dense decoder, the
-encoder's prefill) instead of doing it wrongly."""
+of the port will bring (the recurrent LM families, rwkv6 and zamba2)
+instead of doing it wrongly."""
 import os
 import pkgutil
 import re
@@ -50,7 +50,10 @@ def test_every_module_imports_without_jax_or_repro():
                  "launch.mesh",
                  "serve.scheduler", "serve.hot_reload", "serve.loadgen",
                  "stream", "stream.drift", "stream.sources", "stream.window",
-                 "stream.run"):
+                 "stream.run", "layers.mlp", "configs.olmoe_1b_7b",
+                 "configs.qwen3_moe_235b_a22b", "configs.hubert_xlarge",
+                 "configs.internvl2_26b", "configs.minicpm_2b",
+                 "configs.internlm2_20b", "configs.qwen3_32b"):
         assert f"repro_torch.{name}" in mods
     # the mesh tests' rank module runs in processes of its own
     code = ("import importlib, sys\n"
@@ -199,11 +202,10 @@ def test_executors_run_on_the_plan_device(monkeypatch, backend):
 
 
 @pytest.mark.parametrize("make", [
-    lambda: api.module_of(replace(LM, family="moe")),
+    lambda: api.module_of(replace(LM, family="hybrid_zamba2")),
     lambda: api.module_of(replace(LM, family="ssm_rwkv6")),
-    lambda: api.init_params(replace(LM, family="encoder",
-                                    is_encoder_only=True), None),
-    lambda: trainer.make_prefill_step(replace(LM, is_encoder_only=True))(
+    lambda: api.init_params(replace(LM, family="ssm_mamba2"), None),
+    lambda: trainer.make_prefill_step(replace(LM, family="ssm_rwkv6"))(
         None, {"tokens": torch.zeros((1, 4), dtype=torch.int64)}),
 ])
 def test_later_slices_raise_not_implemented(make):
@@ -211,7 +213,8 @@ def test_later_slices_raise_not_implemented(make):
         make()
 
 
-@pytest.mark.parametrize("family", ["moe", "ssm_rwkv6", "hybrid"])
+@pytest.mark.parametrize("family", ["ssm_mamba2", "ssm_rwkv6",
+                                    "hybrid_zamba2"])
 def test_unported_family_names_the_model_zoo(family):
     """The refusal of a family the port lacks names the ROADMAP item that
     brings it by its title, which does not go stale as items move."""

@@ -14,7 +14,9 @@ plain version is reported but not a failure.
 ``--baseline DIR`` adds, for each kernel, a build of the same-named source in
 DIR as it stands (an earlier checkout's ``src/repro_torch/csrc``: the same C
 entry point; swa_attention's gained its log-sum-exp argument with the backward
-kernels, so a baseline of that kernel must have it). swa_attention_bwd's
+kernels, so a baseline of that kernel must have it; one without the later
+causal argument is called without it). Each swa_attention build's output is
+also compared bit for bit with the shipped source's (``bitwise_shipped``). swa_attention_bwd's
 variants change its dK/dV key or query tile, the warp groups that share a
 block's tiles, dQ's key tile or the tiles' copy loop, or leave one kernel out;
 rmsnorm_bwd's change its chunks or leave out its dscale pass; its baseline
@@ -56,8 +58,8 @@ ENTRIES = {
     "elm_stats": ("elm_stats.cu", "elm_stats_f32",
                   (_P, _P, _P, _P, _I, _I, _I, _I, _P)),
     "swa_attention": ("swa_attention.cu", "swa_attention_fwd",
-                      (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
-                       _P)),
+                      (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                       _I, _P)),
     "rmsnorm_bwd": ("rmsnorm_bwd.cu", "rmsnorm_bwd",
                     (_P,) * 6 + (_I, _I, _I, _F, _I, _I, _P)),
     "swa_attention_bwd": ("swa_attention_bwd.cu", "swa_attention_bwd",
@@ -277,9 +279,10 @@ def build_all(names, baseline):
     from repro_torch import kernels
     out = os.path.join(ROOT, "build", "variants")
     os.makedirs(out, exist_ok=True)
-    procs = {}
+    procs, texts = {}, {}
     for name in names:
         for tag, text in variants_of(name, baseline):
+            texts[(name, tag)] = text
             cu = os.path.join(out, f"{name}_{tag}.cu")
             so = cu[:-3] + ".so"
             with open(cu, "w") as f:
@@ -293,9 +296,15 @@ def build_all(names, baseline):
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {key}:\n{log}")
         _, fn_name, argtypes = ENTRIES[key[0]]
+        # a baseline swa_attention source from before its non-causal mode
+        # has no causal argument (the one after window); this branch serves
+        # only such baselines, as every later source has the argument
+        legacy = key[0] == "swa_attention" and "int causal" not in texts[key]
+        if legacy:
+            argtypes = argtypes[:11] + argtypes[12:]
         fn = getattr(ctypes.CDLL(so), fn_name)
         fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
-        fn.variant = key[1]
+        fn.variant, fn.legacy = key[1], legacy
         built[key] = (fn, [ln.strip() for ln in log.splitlines()
                            if "registers" in ln or "spill" in ln])
     return built
@@ -469,9 +478,10 @@ def swa_cases(torch, dev, gen):
 
         def call(fn, q=q, k=k, v=v, out=out, B=B, S=S, H=H, KV=KV,
                  hd=hd, W=W):
+            causal = () if fn.legacy else (1,)
             return launcher(fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                             out.data_ptr(), None, B, S, H, KV, hd, W,
-                            hd ** -0.5, 1)
+                            *causal, hd ** -0.5, 1)
 
         def verdict(out=out, want=want):
             return close(out, want, chip_smoke.BF16_RTOL)
@@ -480,7 +490,7 @@ def swa_cases(torch, dev, gen):
             return F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, is_causal=mask is None,
                 enable_gqa=True)
-        cases[case] = (call, verdict, library)
+        cases[case] = (call, verdict, library, out)
     return cases
 
 
@@ -599,14 +609,22 @@ def main(argv=None):
     failed = []
     for name, cases in shapes.items():
         tags = [tag for tag, _ in variants_of(name, args.baseline)]
+        assert tags[0] == "shipped"
         recs = {tag: {"kernel": name, "variant": tag,
                       "ptxas": built[(name, tag)][1]} for tag in tags}
-        for case, (call, verdict, _) in cases.items():
+        for case, (call, verdict, _, *out) in cases.items():
+            shipped = None
             for tag in tags:
                 call(built[(name, tag)][0])()
                 torch.cuda.synchronize()
                 ok, err = verdict()
                 recs[tag][case] = {"ok": ok, "max_abs_err": err, "ms": []}
+                if out:
+                    # the output's bits against the shipped source's
+                    if shipped is None:
+                        shipped = out[0].clone()
+                    recs[tag][case]["bitwise_shipped"] = bool(
+                        torch.equal(out[0], shipped))
                 if not ok and not tag.startswith("probe_"):
                     failed.append((name, tag, case))
             for tag in tags + tags[::-1]:
@@ -616,7 +634,7 @@ def main(argv=None):
             print(json.dumps(recs[tag]), flush=True)
         print(json.dumps({"kernel": name, "library_ms": {
             case: chip_smoke.device_ms(torch, lib)
-            for case, (_, _, lib) in cases.items()}}), flush=True)
+            for case, (_, _, lib, *_) in cases.items()}}), flush=True)
     print(card, flush=True)
     if failed:
         sys.exit(f"variants that disagree with the plain version: {failed}")
