@@ -27,7 +27,8 @@ is non-zero and no result line is printed:
              forward kernel on padded dY with turned weights value for
              value; its library is cuDNN's grouped backward. The LM
              kernels' backward at the train step's shapes — rmsnorm_bwd at
-             ln 512 × 4096 and q_norm 16384 × 128, swa_attention_bwd at the
+             ln 512 × 4096, q_norm 16384 × 128 and Zamba2's ln 512 × 2048,
+             swa_attention_bwd at the
              prefill shape and at S 1024, window 256, bf16 — against their
              plain versions (2 bf16 ulps of max|ref|, or twice the plain
              version's own distance from the f64 function) and bitwise the
@@ -36,8 +37,13 @@ is non-zero and no result line is printed:
              swa_attention's non-causal mode (the encoder's) at
              HuBERT-XLarge's B 4, S 1024, H 16, hd 80 in bf16, a ragged S
              1000 and a small f32 case (library: SDPA with
-             is_causal=False), and elm_stats at the HuBERT head (k 1, n
-             4,096, L 1,280, C 6).
+             is_causal=False), its backward (swa_attention_bwd's
+             non-causal mode, the same three cases, under the backward's
+             rule; library: SDPA's backward with is_causal=False), and
+             elm_stats at the HuBERT head (k 1, n 4,096, L 1,280, C 6) and
+             the RWKV6-3B head (k 1, n 512, L 2,560, C 16). Zamba2-1.2B's
+             serving shapes: rmsnorm at 512 × 2048 (f32 scale) and
+             swa_attention at B 4, S 128, H 32/32, hd 64, bf16.
 4. map     — the epochs=0 Map → Reduce at full width (cnn_elm_6c12c, 60,000
              synthetic extended-MNIST images, 10,000 held out, k = 4, batch
              200) on the card, stacked and sequential, held against the
@@ -151,11 +157,37 @@ is non-zero and no result line is printed:
              frames (one non-causal swa_attention a layer, 2 L + 1
              rmsnorm), then the ELM head on ``tests/test_elm_head.py``'s
              frame task over 6 batches at λ 100, held-out accuracy above
-             0.5 (elm_stats launches counted); (d) internvl2_26b at full
+             0.5 (elm_stats launches counted), then one
+             ``finetune_step`` at lr 1e-2 on the held-out batch through
+             the non-causal swa_attention_bwd (launches exact; the loss
+             falls); and in (a), one ``finetune_step`` of the 2-layer f32
+             encoder's head, card vs CPU (loss rtol 1e-4; the gradient of
+             its ELM loss leaf by leaf within 1e-4 · max|leaf|, or twice
+             the CPU's distance from its one-ulp twin's); (d)
+             internvl2_26b at full
              width cut to 8 of 48 layers: ``api.prefill`` of 4 × 128
              tokens behind 1,024 patch slots and 32 greedy decode steps
              (launches exact, logits finite, prefill ms, tokens/s).
-15. train  — the LM training path (``repro_torch.launch.train``): qwen3_8b
+15. recurrent — the LM zoo's recurrent families: (a) f32, full width cut
+             to 2 layers (Zamba2 with one shared invocation), batch 2, 32
+             prompt tokens, card vs the port's CPU path: RWKV6's chunked
+             prefill and Zamba2's, then 4 greedy decode steps (logits
+             within 1e-4 · max|logit| or twice the CPU's one-ulp twins'
+             distance; tokens equal but on a row whose two largest CPU
+             logits lie within twice that distance), and one ``loss_fn``
+             gradient of each
+             (Zamba2's through swa_attention_bwd and rmsnorm_bwd; launches
+             exact; leaves by the same rule); (b) rwkv6_3b and zamba2_1p2b
+             at full size in bf16 through ``run_lm`` as phase ``lm``
+             (launches exact: none for RWKV6; rmsnorm 2 L + 2 I + 1 a
+             forward and swa_attention I in the prefill for Zamba2, over
+             its I shared invocations); (c) the ELM head over the full
+             RWKV6-3B (4 × 128 tokens, C 16, λ 10; one elm_stats launch);
+             (d) recorded: the full-depth RWKV6's chunked forward against
+             its scan (bf16, the deepest log-decay sum inside a chunk) and
+             ROADMAP R7 at full size (Zamba2's decode after a prefill
+             against its forward, and from a cache padded by 4 slots).
+16. train  — the LM training path (``repro_torch.launch.train``): qwen3_8b
              at full width cut to 4 layers, 2 members, AdamW, cosine, 4
              steps of 4 × 128 tokens, --rounds 2: losses finite, the
              average's held-out loss beside the members', launches exact,
@@ -165,7 +197,7 @@ is non-zero and no result line is printed:
              CPU (1e-4 · max|leaf|, or twice the CPU's one-ulp twin's
              distance where the run is ill-conditioned); one SGD step of
              the whole 36-layer model (wall, peak memory).
-16. audit  — the runtime contract audit (``repro_torch.analysis.audit``)
+17. audit  — the runtime contract audit (``repro_torch.analysis.audit``)
              on the card, one line per audited program (each check's name,
              verdict and detail; checks that do not apply listed as
              skipped), then its wall: ``audit_executor`` on cnn_elm_6c12c
@@ -184,7 +216,8 @@ is non-zero and no result line is printed:
              ``audit_average_step`` on a bf16 two-member tree of qwen3_8b
              at full width cut to 4 layers (f32 accumulation, no
              collective). Any failed check fails the run.
-17. the kernels line, the card line, and the last line
+18. the kernels line (after a line of swa_attention_bwd's launches by
+   mode), the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 The launch counters are set to 0 just before each path runs and read just
@@ -197,8 +230,9 @@ which the kernels line adds to conv2d's count), the open-loop sweep, each
 streaming run (the stacked drift run's conv2d and elm_stats counts are
 added to the kernels line's), the E²LM path, the CNN and LM heads, the
 LM head's finetune step, the crash/resume runs, the LM path (b), the zoo's
-paths (b)–(d) (whose rmsnorm, swa_attention and elm_stats counts the
-kernels line adds) and the train path's full-width run (whose rmsnorm_bwd and swa_attention_bwd
+paths (b)–(d) and the recurrent paths (a)–(c) (whose rmsnorm,
+swa_attention, elm_stats and backward counts the kernels line adds), and
+the train path's full-width run (whose rmsnorm_bwd and swa_attention_bwd
 counts the kernels line reports, and whose forwards it adds to the
 serving path's rmsnorm and swa_attention counts).
 """
@@ -569,10 +603,12 @@ def phase_kernels(torch, dev, rates):
         keep("elm_stats", tag, elm_stats_record(torch, rates, h, t, m, tag))
 
     # the LM serving path's shapes, bf16: ln1/ln2/final norm over the B·S
-    # rows of a batch-4, prompt-128 prefill (f32 scale), and q_norm over its
-    # B·S·32 heads (bf16 scale)
+    # rows of a batch-4, prompt-128 prefill (f32 scale; at 4,096 also
+    # Zamba2-1.2B's gate norm), q_norm over its B·S·32 heads (bf16 scale),
+    # and Zamba2-1.2B's norms at its width 2,048 (f32 scale)
     rms_cases = [("ln_d4096", (512, 4096), torch.float32),
-                 ("qk_norm_d128", (16384, 128), torch.bfloat16)]
+                 ("qk_norm_d128", (16384, 128), torch.bfloat16),
+                 ("zamba2_ln_d2048", (512, 2048), torch.float32)]
     for tag, shape, scale_dtype in rms_cases:
         x = (randn(*shape) * 3).to(torch.bfloat16)
         scale = (1 + 0.1 * randn(shape[-1])).to(scale_dtype)
@@ -603,12 +639,14 @@ def phase_kernels(torch, dev, rates):
         keep("rmsnorm", tag, rec)
 
     # the prefill's attention (B 4, S 128, 32 heads over 8 kv heads, hd 128,
-    # window = S), one windowed case, and the prefill with q scaled by 8:
-    # scores of large magnitude stress the online rescale and the hi/lo
-    # split of p
+    # window = S), one windowed case, the prefill with q scaled by 8 (scores
+    # of large magnitude stress the online rescale and the hi/lo split of
+    # p), and Zamba2-1.2B's shared block over a batch-4, prompt-128 prefill
+    # (32 heads over 32 kv heads, hd 64, its window 4,096 clamped to S)
     swa_cases = [("prefill_causal", 4, 128, 32, 8, 128, 128, 1.0),
                  ("window256_s1024", 1, 1024, 32, 8, 128, 256, 1.0),
-                 ("prefill_large_scores", 4, 128, 32, 8, 128, 128, 8.0)]
+                 ("prefill_large_scores", 4, 128, 32, 8, 128, 128, 8.0),
+                 ("zamba2_shared", 4, 128, 32, 32, 64, 128, 1.0)]
     for tag, B, S, H, KV, hd, W, q_scale in swa_cases:
         q = (randn(B, S, H, hd) * q_scale).to(torch.bfloat16)
         k = randn(B, S, KV, hd).to(torch.bfloat16)
@@ -709,11 +747,20 @@ def phase_kernels(torch, dev, rates):
     keep("elm_stats", "hubert_head",
          elm_stats_record(torch, rates, h, t, None, "hubert_head"))
     del h, t
+    # the ELM head over RWKV6-3B: 4 × 128 tokens of 2,560 states, 16
+    # classes
+    h = torch.tanh(randn(1, 512, 2560))
+    t = F.one_hot(torch.randint(0, 16, (1, 512), generator=gen),
+                  16).float().to(dev)
+    keep("elm_stats", "rwkv6_head",
+         elm_stats_record(torch, rates, h, t, None, "rwkv6_head"))
+    del h, t
 
     # the backward kernels at the LM train step's shapes (batch 4 × 128
-    # tokens): rmsnorm's ln and q_norm, swa at the prefill shape and one
-    # windowed case. Plain: torch autograd of the plain forward on the
-    # card, the graph built outside the timed region (retain_graph);
+    # tokens): rmsnorm's ln, q_norm and Zamba2's ln, swa at the prefill
+    # shape and one windowed case. Plain: torch autograd of the plain
+    # forward on the card, the graph built outside the timed region
+    # (retain_graph);
     # library: the backward of F.rms_norm and of SDPA with enable_gqa, the
     # same way. Held against the plain backward (rmsnorm_bwd_ref,
     # swa_attention_bwd_ref) on the same inputs: bf16 outputs within 2 bf16
@@ -775,30 +822,45 @@ def phase_kernels(torch, dev, rates):
             11 * x.numel(), False,
             dict(shape=f"x{shape} bf16, scale {str(scale_dtype)[6:]}")))
 
-    swa_bwd_cases = [("prefill_causal", 4, 128, 32, 8, 128, 128),
-                     ("window256_s1024", 1, 1024, 32, 8, 128, 256)]
-    for tag, B, S, H, KV, hd, W in swa_bwd_cases:
-        q = randn(B, S, H, hd).to(torch.bfloat16)
-        k = randn(B, S, KV, hd).to(torch.bfloat16)
-        v = randn(B, S, KV, hd).to(torch.bfloat16)
-        do = randn(B, S, H, hd).to(torch.bfloat16)
-        o, lse = swa_ops.swa_attention_fwd(q, k, v, window=W)
-        got = swa_ops.swa_attention_bwd(q, k, v, o, lse, do, window=W)
-        ref = swa_ref.swa_attention_bwd_ref(q, k, v, o, lse, do, window=W)
+    # the causal cases at the train step's shapes; the non-causal mode (the
+    # encoder's, HuBERT-XLarge's fine-tune) at B 4, S 1024, H 16, hd 80, a
+    # ragged S 1000 and the small f32 case (library: SDPA's backward with
+    # is_causal=False)
+    swa_bwd_cases = [
+        ("prefill_causal", 4, 128, 32, 8, 128, 128, True, torch.bfloat16),
+        ("window256_s1024", 1, 1024, 32, 8, 128, 256, True, torch.bfloat16),
+        ("encoder_bidirectional", 4, 1024, 16, 16, 80, 1024, False,
+         torch.bfloat16),
+        ("encoder_ragged_s1000", 4, 1000, 16, 16, 80, 1000, False,
+         torch.bfloat16),
+        ("encoder_f32_small", 2, 200, 4, 2, 80, 200, False, torch.float32)]
+    for tag, B, S, H, KV, hd, W, causal, dt in swa_bwd_cases:
+        q = randn(B, S, H, hd).to(dt)
+        k = randn(B, S, KV, hd).to(dt)
+        v = randn(B, S, KV, hd).to(dt)
+        do = randn(B, S, H, hd).to(dt)
+        o, lse = swa_ops.swa_attention_fwd(q, k, v, window=W, causal=causal)
+        got = swa_ops.swa_attention_bwd(q, k, v, o, lse, do, window=W,
+                                        causal=causal)
+        ref = swa_ref.swa_attention_bwd_ref(q, k, v, o, lse, do, window=W,
+                                            causal=causal)
         truth = swa_ref.swa_attention_bwd_ref(
-            *(a.double() for a in (q, k, v, o, lse, do)), window=W)
+            *(a.double() for a in (q, k, v, o, lse, do)), window=W,
+            causal=causal)
         check(all(torch.equal(a, b) for a, b in zip(
-            got, swa_ops.swa_attention_bwd(q, k, v, o, lse, do, window=W))),
+            got, swa_ops.swa_attention_bwd(q, k, v, o, lse, do, window=W,
+                                           causal=causal))),
             f"swa_attention_bwd {tag}: not bitwise the same run to run")
         qr, kr, vr = (a.clone().requires_grad_(True) for a in (q, k, v))
-        y_plain = swa_ref.swa_attention_ref(qr, kr, vr, window=W)
+        y_plain = swa_ref.swa_attention_ref(qr, kr, vr, window=W,
+                                            causal=causal)
         qt, kt, vt = (a.transpose(1, 2).contiguous().requires_grad_(True)
                       for a in (q, k, v))
         i = torch.arange(S, device=dev)
-        mask = None if W >= S else ((i[None] <= i[:, None])
-                                    & (i[:, None] - i[None] < W))
+        mask = None if W >= S or not causal else (
+            (i[None] <= i[:, None]) & (i[:, None] - i[None] < W))
         y_lib = F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
             enable_gqa=True)
         dot = do.transpose(1, 2).contiguous()
         lib_dq = torch.autograd.grad(y_lib, qt, dot, retain_graph=True)[0]
@@ -806,20 +868,22 @@ def phase_kernels(torch, dev, rates):
                             5e-2),
               "the SDPA backward yardstick computes another function")
         timed = (lambda: swa_ops.swa_attention_bwd(q, k, v, o, lse, do,
-                                                   window=W),
+                                                   window=W, causal=causal),
                  lambda: torch.autograd.grad(y_plain, (qr, kr, vr), do,
                                              retain_graph=True),
                  lambda: torch.autograd.grad(y_lib, (qt, kt, vt), dot,
                                              retain_graph=True))
-        pairs = B * H * sum(min(t + 1, W) for t in range(S))
-        nbytes = 2 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) + \
-            4 * lse.numel()
+        pairs = (B * H * sum(min(t + 1, W) for t in range(S)) if causal
+                 else B * H * S * S)
+        nbytes = q.element_size() * (4 * q.numel() + 2 * k.numel()
+                                     + 2 * v.numel()) + 4 * lse.numel()
         keep("swa_attention_bwd", tag, bwd_rec(
             f"swa_attention_bwd {tag}", got, ref, truth, timed, nbytes,
-            10 * hd * pairs, True,
-            dict(shape=f"B{B} S{S} H{H} KV{KV} hd{hd} W{W} bf16",
-                 pairs_in_mask=pairs)))
-        del y_plain, y_lib, qr, kr, vr, qt, kt, vt
+            10 * hd * pairs, dt == torch.bfloat16,
+            dict(shape=f"B{B} S{S} H{H} KV{KV} hd{hd} "
+                 + (f"W{W}" if causal else "non-causal")
+                 + f" {str(dt)[6:]}", pairs_in_mask=pairs)))
+        del y_plain, y_lib, qr, kr, vr, qt, kt, vt, truth
     return out
 
 
@@ -2336,35 +2400,120 @@ def phase_resume(torch, dev, m, sgd):
 
 
 def greedy_parity(torch, dev, cfg, card, host, batch, steps, what,
-                  max_len):
+                  max_len, twin_rule=False):
     """Prefill ``batch`` and ``steps`` greedy decode steps on the card and
     on the port's CPU path from the same params (``host`` is ``card`` on
-    the CPU): each step's logits within 1e-4 · max|logit| and its tokens
-    equal. Returns (max|err| per step, max|logit| per step, tokens)."""
+    the CPU), each step fed the CPU's tokens: each step's logits within
+    1e-4 · max|logit| and its greedy tokens equal. With ``twin_rule`` a
+    step that misses 1e-4 is held within twice the larger distance of the
+    CPU's two one-ulp twins (the same run on params one ulp up and one ulp
+    down, replayed from the prefill on first need): RWKV6 casts its group
+    norm's output to bf16 in every precision, so a sum taken in another
+    order can flip a bf16 rounding there and move a logit by ~1e-3; and a
+    token may then differ only on a row whose two largest CPU logits lie
+    within twice that step's card-vs-CPU distance (a tie within the
+    rounding, recorded). ``api.prefill`` ignores ``max_len`` for the
+    recurrent families; decode starts at ``max_len - steps``. Returns one
+    record a step."""
     from repro_torch.models import api
+    hb = {k: v.cpu() for k, v in batch.items()}
     lg_c, cache_c = api.prefill(cfg, card, batch, max_len)
-    lg_h, cache_h = api.prefill(cfg, host, {k: v.cpu() for k, v in
-                                            batch.items()}, max_len)
+    lg_h, cache_h = api.prefill(cfg, host, hb, max_len)
     pos0 = max_len - steps
-    errs, tops, tokens = [], [], []
+    fed, twins, recs = [], None, []
     for t in range(steps + 1):
-        c, h = lg_c.cpu(), lg_h
+        c, h = lg_c.float().cpu(), lg_h.float()
         check(bool(torch.isfinite(c).all()), f"{what}: card logits at {t}")
-        errs.append(float((c - h).abs().max()))
-        tops.append(float(h.abs().max()))
-        check(errs[-1] <= 1e-4 * tops[-1],
-              f"{what} step {t}: card vs CPU logits {errs[-1]} > "
-              f"1e-4 * {tops[-1]}")
+        err, top = float((c - h).abs().max()), float(h.abs().max())
+        own = None
+        if err > 1e-4 * top:
+            check(twin_rule, f"{what} step {t}: card vs CPU logits {err} > "
+                  f"1e-4 * {top}")
+            if twins is None:
+                twins = []
+                for d in (math.inf, -math.inf):
+                    tp = nudged(torch, host, d)
+                    lg, cache = api.prefill(cfg, tp, hb, max_len)
+                    for i, tok in enumerate(fed):
+                        lg, cache = api.decode_step(cfg, tp, cache, tok,
+                                                    pos0 + i)
+                    twins.append((tp, lg, cache))
+            own = max(float((lg.float() - h).abs().max())
+                      for _, lg, _ in twins)
+            check(err <= 2 * own, f"{what} step {t}: card vs CPU logits "
+                  f"{err} > 1e-4 * {top} and > twice the one-ulp twins' "
+                  f"{own}")
         tc, th = c.argmax(-1), h.argmax(-1)
-        check(torch.equal(tc, th), f"{what} step {t}: greedy tokens "
-              f"{tc.tolist()} (card) != {th.tolist()} (CPU)")
-        tokens.append(tc[:, 0].tolist())
+        miss = tc != th
+        margin = None
+        if bool(miss.any()):
+            top2 = torch.topk(h, 2, dim=-1).values
+            margin = float((top2[..., 0] - top2[..., 1])[miss].max())
+            check(twin_rule and margin <= 2 * err, f"{what} step {t}: "
+                  f"greedy tokens {tc.tolist()} (card) != {th.tolist()} "
+                  f"(CPU), the largest top-2 margin of those rows {margin}")
+        recs.append(dict(max_abs_err=err, max_abs_logit=top,
+                         twins_max_abs_err=own, tokens=th[:, 0].tolist(),
+                         token_ties=int(miss.sum()),
+                         largest_top2_margin_of_ties=margin))
         if t == steps:
             break
-        lg_c, cache_c = api.decode_step(cfg, card, cache_c, tc.to(dev),
+        fed.append(th)
+        lg_c, cache_c = api.decode_step(cfg, card, cache_c, th.to(dev),
                                         pos0 + t)
         lg_h, cache_h = api.decode_step(cfg, host, cache_h, th, pos0 + t)
-    return errs, tops, tokens
+        if twins is not None:
+            twins = [(tp, *api.decode_step(cfg, tp, cache, th, pos0 + t))
+                     for tp, _, cache in twins]
+    return recs
+
+
+def nudged(torch, tree, toward=math.inf):
+    """``tree`` with every floating leaf moved one ulp toward ``toward``
+    (up by default): a one-ulp twin of a CPU run, whose distance from the
+    run measures how far the function's rounding alone can move it
+    (``tools/sgd_sensitivity.py``)."""
+    from repro_torch.tree import tree_map
+    return tree_map(lambda a: torch.nextafter(a, torch.full_like(
+        a, toward)) if a.is_floating_point() else a, tree)
+
+
+def leaves_agree(torch, card, host, twin, what):
+    """Leaf by leaf (gradients or steps of a tree), the card against the
+    CPU: within 1e-4 · max|leaf|, or, where a leaf misses that and the
+    function is ill-conditioned there, within twice the CPU's distance from
+    its one-ulp twins' leaf (``twin``: a callable giving the twins' leaf
+    lists, computed once, on first need; the largest distance counts).
+    Returns the worst err / max|leaf| and the leaves held by the twin
+    rule."""
+    worst, by_twin, twins = 0.0, 0, None
+    for i, (c, h) in enumerate(zip(card, host)):
+        c, h = c.detach().float().cpu(), h.detach().float()
+        err, top = float((c - h).abs().max()), float(h.abs().max())
+        worst = max(worst, err / top if top else err)
+        if err <= 1e-4 * top:
+            continue
+        if twins is None:
+            twins = [[t.detach().float() for t in leaves]
+                     for leaves in twin()]
+        own = max(float((tw[i] - h).abs().max()) for tw in twins)
+        check(err <= 2 * own, f"{what} leaf {i}: card vs CPU {err} > "
+              f"1e-4 * {top} and > twice the one-ulp twins' {own}")
+        by_twin += 1
+    return worst, by_twin
+
+
+def grads_of(torch, loss_of, params):
+    """(the loss, the gradient of every leaf of ``params``) by autograd; a
+    leaf the loss does not use gets zeros."""
+    from repro_torch.tree import tree_leaves, tree_map
+    leaves = [a.detach().requires_grad_(True) for a in tree_leaves(params)]
+    it = iter(leaves)
+    p = tree_map(lambda _: next(it), params)
+    loss = loss_of(p)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.detach(), [torch.zeros_like(a) if g is None else g
+                           for a, g in zip(leaves, grads)]
 
 
 def phase_lm_parity(torch, dev, batch=2, prompt=16, steps=4):
@@ -2380,9 +2529,10 @@ def phase_lm_parity(torch, dev, batch=2, prompt=16, steps=4):
     host = tree_map(lambda a: a.cpu(), card)
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
                             generator=gen, device=dev)
-    errs, tops, tokens = greedy_parity(torch, dev, cfg, card, host,
-                                       {"tokens": prompts}, steps, "lm (a)",
-                                       prompt + steps)
+    recs = greedy_parity(torch, dev, cfg, card, host, {"tokens": prompts},
+                         steps, "lm (a)", prompt + steps)
+    errs, tops, tokens = ([r[k] for r in recs] for k in (
+        "max_abs_err", "max_abs_logit", "tokens"))
     emit("lm_parity", arch=f"{cfg.name}, 2 of 36 layers, full width, f32",
          batch=batch, prompt=prompt, decode_steps=steps,
          max_abs_err=errs, max_abs_logit=tops,
@@ -2415,14 +2565,17 @@ def lm_serving(torch, dev, arch, batch=4, prompt=128, gen=32):
     """An LM config at full size in bf16 through the port's
     ``launch.serve.run_lm``, as a user calls it (launches exact: the
     prefill's and every decode step's rmsnorm, the prefill's
-    swa_attention), then a warm run and one profiled prefill and decode
-    step. Returns (the fields of its line, its launches)."""
+    swa_attention; the transformers replay the prompt, the recurrent
+    families decode from the prefill's state: Zamba2's forward launches
+    rmsnorm 2 L + 2 I + 1 times over its I shared invocations, RWKV6 no
+    kernel), then a warm run and one profiled prefill and decode step.
+    Returns (the fields of its line, its launches)."""
     import argparse
     import numpy as np
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
-    from repro_torch.models import api
+    from repro_torch.models import api, zamba2
 
     args = argparse.Namespace(arch=arch, reduced=False, seed=0,
                               device=str(dev), batch=batch, prompt_len=prompt,
@@ -2435,9 +2588,17 @@ def lm_serving(torch, dev, arch, batch=4, prompt=128, gen=32):
     peak = torch.cuda.max_memory_allocated()
     cfg = get_config(arch)
     L = cfg.num_layers
-    steps = 1 + prompt + gen - 1       # the prefill, the replay, the decode
-    per_forward = (4 if cfg.qk_norm else 2) * L + 1
-    want = want_launches(rmsnorm=steps * per_forward, swa_attention=L)
+    if cfg.family == "ssm_rwkv6":
+        want = want_launches()
+    elif cfg.family == "hybrid_zamba2":
+        I = zamba2.num_attn_invocations(cfg)
+        steps = 1 + gen - 1            # the prefill, then the decode
+        want = want_launches(rmsnorm=steps * (2 * L + 2 * I + 1),
+                             swa_attention=I)
+    else:
+        steps = 1 + prompt + gen - 1   # the prefill, the replay, the decode
+        per_forward = (4 if cfg.qk_norm else 2) * L + 1
+        want = want_launches(rmsnorm=steps * per_forward, swa_attention=L)
     check(launches == want, f"{arch} launches {launches} != {want}")
     toks = first["tokens"]
     check(first["logits_finite"], f"{arch}: logits are not finite")
@@ -2502,7 +2663,8 @@ def phase_lm(torch, dev, batch=4, prompt=128, gen=32):
 
 
 def phase_zoo(torch, dev, parity_layers=2, vlm_layers=8, vlm_patches=1024,
-              batch=4, prompt=128, gen=32, frames=1024, head_batches=6):
+              batch=4, prompt=128, gen=32, frames=1024, head_batches=6,
+              ft_lr=1e-2):
     """The LM zoo's transformer families on the card.
     (a) parity, f32, full width cut to ``parity_layers`` layers, card vs
     the port's CPU path on the same params within 1e-4 · max|logit|:
@@ -2517,17 +2679,20 @@ def phase_zoo(torch, dev, parity_layers=2, vlm_layers=8, vlm_patches=1024,
     non-causal swa_attention a layer, 2 L + 1 rmsnorm), then the ELM head
     on ``tests/test_elm_head.py``'s frame task (6 classes, class embeddings
     plus 0.4 noise) over ``head_batches`` batches at λ 100, a held-out
-    batch above 0.5 accuracy.
+    batch above 0.5 accuracy, then a ``finetune_step`` on that batch
+    through the backward kernels (launches exact) whose step at learning
+    rate ``ft_lr`` lowers its ELM loss.
     (d) internvl2_26b at full width cut to ``vlm_layers`` layers:
     ``api.prefill`` of ``batch`` × ``prompt`` tokens behind ``vlm_patches``
     patch slots, then ``gen`` greedy ``api.decode_step``s (launches
     exact). Returns the launches of (b)–(d) summed."""
+    import torch.nn.functional as F
     from repro_torch import kernels
     from repro_torch.configs import get_config, replace
-    from repro_torch.core import elm_head, trainer
+    from repro_torch.core import elm, elm_head, trainer
     from repro_torch.layers import mlp
     from repro_torch.models import api
-    from repro_torch.tree import tree_map
+    from repro_torch.tree import tree_leaves, tree_map
 
     t_phase = time.perf_counter()
     total = want_launches()
@@ -2563,9 +2728,8 @@ def phase_zoo(torch, dev, parity_layers=2, vlm_layers=8, vlm_patches=1024,
 
     mlp.route = recording
     try:
-        errs, tops, tokens = greedy_parity(
-            torch, dev, cfg, card, host, {"tokens": prompts}, 4,
-            "zoo (a) olmoe", 20)
+        recs = greedy_parity(torch, dev, cfg, card, host,
+                             {"tokens": prompts}, 4, "zoo (a) olmoe", 20)
     finally:
         mlp.route = route
     # each router call on the card against the same call on the CPU
@@ -2581,6 +2745,8 @@ def phase_zoo(torch, dev, parity_layers=2, vlm_layers=8, vlm_patches=1024,
         top = torch.sort(ph, dim=-1, descending=True).values
         k = ic.shape[-1]
         margin = min(margin, float((top[..., k - 1] - top[..., k]).min()))
+    errs, tops, tokens = ([r[k] for r in recs] for k in (
+        "max_abs_err", "max_abs_logit", "tokens"))
     parity["olmoe_1b_7b"] = dict(
         max_abs_err=errs, max_abs_logit=tops,
         bar=[1e-4 * t for t in tops], tokens=tokens,
@@ -2603,7 +2769,60 @@ def phase_zoo(torch, dev, parity_layers=2, vlm_layers=8, vlm_patches=1024,
             hidden_states=close("hubert states",
                                 api.hidden_states(cfg, card, fb),
                                 api.hidden_states(cfg, host, fh)))
-    del card, host
+    # one finetune_step of its ELM head (6 classes, β solved on the CPU's
+    # states of this batch) on a second batch, through the non-causal
+    # swa_attention_bwd and rmsnorm_bwd (launches exact): its loss within
+    # rtol 1e-4 of the CPU's, and the gradient it steps by, taken on both
+    # sides through the same ELM loss, leaf by leaf within 1e-4 · max|leaf|
+    # or twice the CPU's distance from its one-ulp twin's leaf. (On the
+    # batch β was solved on, 512 rows of 1,280 states, the fit is exact
+    # and the loss ~5e-8: rounding alone.)
+    fh["targets"] = torch.randint(0, 6, (2, 256), generator=g,
+                                  device=dev).cpu()
+
+    def hfn(p, b):
+        return api.hidden_states(cfg, p, b)
+
+    hbeta = elm_head.solve(elm_head.accumulate_stats(hfn, host, fh, 6), 10.0)
+    fb = {"frames": torch.randn((2, 256, 512), generator=g, device=dev),
+          "targets": torch.randint(0, 6, (2, 256), generator=g,
+                                   device=dev)}
+    fh = {k: v.cpu() for k, v in fb.items()}
+    kernels.reset_launches()
+    new_c, loss_c = elm_head.finetune_step(hfn, card, hbeta.to(dev), fb, 6,
+                                           1e-3)
+    torch.cuda.synchronize()
+    ft_launches = dict(kernels.LAUNCHES)
+    pl = parity_layers
+    want = want_launches(rmsnorm=2 * pl + 1, rmsnorm_bwd=2 * pl + 1,
+                         swa_attention=pl, swa_attention_bwd=pl)
+    check(ft_launches == want,
+          f"zoo (a) hubert finetune launches {ft_launches} != {want}")
+    add(ft_launches)
+
+    def elm_loss_of(beta, b):
+        def loss_of(p):
+            h = hfn(p, b)
+            t = F.one_hot(b["targets"].reshape(-1), 6).float()
+            return elm.elm_loss(h.reshape(-1, h.shape[-1]), beta, t)
+        return loss_of
+
+    loss_h, g_h = grads_of(torch, elm_loss_of(hbeta, fh), host)
+    check(abs(float(loss_c) - float(loss_h)) <= 1e-4 * abs(float(loss_h)),
+          f"zoo (a) hubert finetune loss card {float(loss_c)} vs CPU "
+          f"{float(loss_h)}")
+    _, g_c = grads_of(torch, elm_loss_of(hbeta.to(dev), fb), card)
+    worst, by_twin = leaves_agree(
+        torch, g_c, g_h,
+        lambda: [grads_of(torch, elm_loss_of(hbeta, fh),
+                          nudged(torch, host))[1]],
+        "zoo (a) hubert finetune gradient")
+    parity["hubert_xlarge"]["finetune"] = dict(
+        lr=1e-3, loss_card=float(loss_c), loss_cpu=float(loss_h),
+        max_grad_err_over_max=worst, leaves_by_twin_rule=by_twin,
+        max_abs_grad=max(float(g.abs().max()) for g in g_h),
+        launches=ft_launches)
+    del card, host, new_c, g_c, g_h
     torch.cuda.empty_cache()
 
     cfg = replace(get_config("internvl2_26b"), num_layers=parity_layers)
@@ -2692,6 +2911,30 @@ def phase_zoo(torch, dev, parity_layers=2, vlm_layers=8, vlm_patches=1024,
           f"hubert head launches {head_launches} != {want}")
     check(acc > 0.5, f"hubert head held-out accuracy {acc} <= 0.5")
     add(head_launches)
+    # a fine-tune step of the backbone on the ELM loss (Alg. 2 lines
+    # 13-14), on the card through the non-causal swa_attention_bwd, on the
+    # held-out batch: the loss at the stepped weights below the loss before.
+    # The weights are bf16, so a step below half a bf16 ulp of a weight is
+    # lost in the cast: ``ft_lr`` is large enough to move them
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    tuned, ft_loss0 = elm_head.finetune_step(feature_fn, params, beta, held,
+                                             C, ft_lr)
+    torch.cuda.synchronize()
+    ft_ms = (time.perf_counter() - t0) * 1e3
+    ft_launches = dict(kernels.LAUNCHES)
+    want = want_launches(rmsnorm=2 * L + 1, rmsnorm_bwd=2 * L + 1,
+                         swa_attention=L, swa_attention_bwd=L)
+    check(ft_launches == want,
+          f"hubert finetune launches {ft_launches} != {want}")
+    add(ft_launches)
+    with torch.no_grad():
+        scores = elm_head.predict(feature_fn, tuned, beta, held)
+        t_ = F.one_hot(held["targets"].reshape(-1), C).float()
+        ft_loss1 = float(0.5 * ((scores - t_) ** 2).sum(-1).mean())
+    check(math.isfinite(float(ft_loss0)) and ft_loss1 < float(ft_loss0),
+          f"hubert finetune loss {float(ft_loss0)} -> {ft_loss1} at lr "
+          f"{ft_lr}: does not fall")
     emit("zoo_hubert_xlarge", arch=cfg.name, dtype="bfloat16", cut="none",
          batch=batch, frames=frames, encode_ms=encode_ms,
          encode_launches=enc_launches, profile_encode=prof_encode,
@@ -2699,8 +2942,12 @@ def phase_zoo(torch, dev, parity_layers=2, vlm_layers=8, vlm_patches=1024,
                    rows=head_batches * batch * frames, held_out_accuracy=acc,
                    launches=head_launches, ms_host_clock=head_ms,
                    max_abs_beta=float(beta.abs().max())),
+         finetune=dict(loss_before=float(ft_loss0), lr=ft_lr,
+                       loss_after=ft_loss1,
+                       launches_a_step=ft_launches,
+                       step_ms_host_clock=ft_ms),
          peak_memory_bytes=torch.cuda.max_memory_allocated())
-    del params, logits, stats, beta
+    del params, tuned, logits, stats, beta
     torch.cuda.empty_cache()
 
     # (d) InternVL2-26B at full width cut to vlm_layers layers
@@ -2751,6 +2998,232 @@ def phase_zoo(torch, dev, parity_layers=2, vlm_layers=8, vlm_patches=1024,
     del params, cache, logits
     torch.cuda.empty_cache()
     emit("zoo", wall_s=time.perf_counter() - t_phase, launches=total)
+    return total
+
+
+def phase_recurrent(torch, dev, parity_layers=2, parity_prompt=32,
+                    parity_steps=4, batch=4, prompt=128, gen=32,
+                    head_classes=16, head_lam=10.0):
+    """The LM zoo's recurrent families on the card.
+    (a) f32, full width cut to ``parity_layers`` layers (Zamba2 with
+    ``shared_attn_every`` = 2, so one shared invocation runs; chunks shrunk
+    to the prompt as ``run_lm`` does), batch 2, ``parity_prompt`` tokens:
+    RWKV6's prefill (chunked) and Zamba2's, then ``parity_steps`` greedy
+    decode steps, card vs the port's CPU path (``greedy_parity`` with
+    its twin rule); one
+    ``loss_fn`` gradient of each (launches exact: Zamba2's through
+    swa_attention_bwd at hd 64, H 32/32 and rmsnorm_bwd at 2,048 and
+    4,096), every leaf within 1e-4 · max|leaf| or twice the larger distance
+    of the CPU's two one-ulp twins' leaf.
+    (b) rwkv6_3b and zamba2_1p2b at full size in bf16 through ``run_lm``
+    (``lm_serving``; launches exact).
+    (c) the ELM head over the full RWKV6-3B in bf16: ``hidden_states`` of
+    ``batch`` × ``prompt`` tokens, ``head_classes`` classes, λ
+    ``head_lam`` (one elm_stats launch).
+    (d) two recorded numbers, with no gate: the full-depth RWKV6's
+    chunked forward against its scan, bf16 and f32, on (c)'s tokens, with
+    the deepest log-decay sum inside a chunk (the chunked form clamps at
+    -30); and ROADMAP R7 at full size, bf16 and f32: Zamba2's decode of
+    the next token after ``api.prefill`` of ``batch`` × ``prompt`` tokens
+    against ``forward`` of the prompt plus that token, beside the same
+    decode from a cache padded by 4 empty slots. Returns the launches of
+    (a)–(c)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config, replace
+    from repro_torch.core import elm_head
+    from repro_torch.models import api, rwkv6, zamba2
+    from repro_torch.tree import tree_map
+
+    t_phase = time.perf_counter()
+    total = want_launches()
+
+    def add(launches):
+        for name, n in launches.items():
+            total[name] += n
+
+    # (a) parity, f32
+    t0 = time.perf_counter()
+    parity = {}
+    for arch, seed in (("rwkv6_3b", 20), ("zamba2_1p2b", 21)):
+        cfg = replace(get_config(arch), num_layers=parity_layers)
+        if cfg.family == "hybrid_zamba2":
+            cfg = replace(cfg, shared_attn_every=2)
+        if cfg.ssm_chunk > parity_prompt:
+            cfg = replace(cfg, ssm_chunk=max(8, parity_prompt // 4))
+        g = torch.Generator(device=dev).manual_seed(seed)
+        card = api.init_params(cfg, g, torch.float32, device=dev)
+        host = tree_map(lambda a: a.cpu(), card)
+        prompts = torch.randint(0, cfg.vocab_size, (2, parity_prompt),
+                                generator=g, device=dev)
+        steps = greedy_parity(torch, dev, cfg, card, host,
+                              {"tokens": prompts}, parity_steps,
+                              f"recurrent (a) {arch}",
+                              parity_prompt + parity_steps, twin_rule=True)
+        b = {"tokens": prompts,
+             "targets": torch.randint(0, cfg.vocab_size, prompts.shape,
+                                      generator=g, device=dev)}
+        bh = {k: v.cpu() for k, v in b.items()}
+        kernels.reset_launches()
+        loss_c, g_c = grads_of(torch, lambda p: api.loss_fn(cfg, p, b)[0],
+                               card)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        if cfg.family == "hybrid_zamba2":
+            L, I = cfg.num_layers, zamba2.num_attn_invocations(cfg)
+            n = 2 * L + 2 * I + 1
+            want = want_launches(rmsnorm=n, rmsnorm_bwd=n, swa_attention=I,
+                                 swa_attention_bwd=I)
+        else:
+            want = want_launches()
+        check(launches == want, f"recurrent (a) {arch} gradient launches "
+              f"{launches} != {want}")
+        add(launches)
+        loss_h, g_h = grads_of(torch, lambda p: api.loss_fn(cfg, p, bh)[0],
+                               host)
+        twin_losses = []
+
+        def twin_grads():
+            out = []
+            for d in (math.inf, -math.inf):
+                loss, grads = grads_of(
+                    torch, lambda p: api.loss_fn(cfg, p, bh)[0],
+                    nudged(torch, host, d))
+                twin_losses.append(float(loss))
+                out.append(grads)
+            return out
+
+        worst, by_twin = leaves_agree(torch, g_c, g_h, twin_grads,
+                                      f"recurrent (a) {arch} gradient")
+        loss_err = abs(float(loss_c) - float(loss_h))
+        check(loss_err <= 1e-4 * abs(float(loss_h)) or any(
+            loss_err <= 2 * abs(t - float(loss_h)) for t in twin_losses),
+            f"recurrent (a) {arch} loss card {float(loss_c)} vs CPU "
+            f"{float(loss_h)}")
+        parity[arch] = dict(
+            layers=parity_layers, chunk=cfg.ssm_chunk, prompt=parity_prompt,
+            steps=steps, loss_card=float(loss_c), loss_cpu=float(loss_h),
+            max_grad_err_over_max=worst, leaves_by_twin_rule=by_twin,
+            gradient_launches=launches)
+        del card, host, g_c, g_h
+        torch.cuda.empty_cache()
+    emit("recurrent_parity", dtype="float32",
+         cut=f"depth {parity_layers} layers a config, full width",
+         wall_s=time.perf_counter() - t0, **parity)
+
+    # (b) both at full size through run_lm
+    for arch in ("rwkv6_3b", "zamba2_1p2b"):
+        fields, launches = lm_serving(torch, dev, arch, batch, prompt, gen)
+        add(launches)
+        emit(f"recurrent_{arch}", cut="none", **fields)
+
+    # (c) the ELM head over the full RWKV6-3B, and (d) its chunked form
+    # against its scan at full depth
+    cfg = get_config("rwkv6_3b")
+    g = torch.Generator(device=dev).manual_seed(22)
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init_params(cfg, g, device=dev)
+    hb = {"tokens": torch.randint(0, cfg.vocab_size, (batch, prompt),
+                                  generator=g, device=dev),
+          "targets": torch.randint(0, head_classes, (batch, prompt),
+                                   generator=g, device=dev)}
+
+    def feature_fn(p, b):
+        return api.hidden_states(cfg, p, b)
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    stats = elm_head.accumulate_stats(feature_fn, params, hb, head_classes)
+    beta = elm_head.solve(stats, head_lam)
+    scores = elm_head.predict(feature_fn, params, beta, hb)
+    torch.cuda.synchronize()
+    head_ms = (time.perf_counter() - t0) * 1e3
+    head_launches = dict(kernels.LAUNCHES)
+    want = want_launches(elm_stats=1)
+    check(head_launches == want,
+          f"rwkv6 head launches {head_launches} != {want}")
+    check(scores.shape == (batch * prompt, head_classes)
+          and bool(torch.isfinite(scores).all()), "rwkv6 head scores")
+    add(head_launches)
+    _, own = solve_bar(torch, beta, f64_solve(torch, stats.u, stats.v,
+                                              head_lam))
+
+    def chunk_vs_scan(p, dtype):
+        """Full-depth chunked logits against the scan's on (c)'s tokens,
+        and the deepest log-decay sum inside a chunk the chunked form met
+        (below -CLAMP its clamp engages)."""
+        deepest, chunked = [], rwkv6._wkv_chunked
+
+        def recording(r, k, v, lw, u, s0, chunk):
+            B_, S_, H_, P_ = lw.shape
+            lwp = torch.nn.functional.pad(lw, (0, 0, 0, 0, 0, (-S_) % chunk))
+            deepest.append(float(lwp.reshape(B_, -1, chunk, H_, P_)
+                                 .cumsum(2).min()))
+            return chunked(r, k, v, lw, u, s0, chunk)
+
+        with torch.no_grad():
+            rwkv6._wkv_chunked = recording
+            try:
+                lc, _ = rwkv6.forward(cfg, p, hb, mode="chunked")
+            finally:
+                rwkv6._wkv_chunked = chunked
+            ls, _ = rwkv6.forward(cfg, p, hb, mode="scan")
+        check(bool(torch.isfinite(lc).all()) and bool(
+            torch.isfinite(ls).all()), f"rwkv6 (d) {dtype} logits")
+        return dict(dtype=dtype, max_abs_diff=float((lc - ls).abs().max()),
+                    max_abs_logit=float(ls.abs().max()),
+                    deepest_log_decay_sum_in_a_chunk=min(deepest))
+
+    cvs = dict(layers=cfg.num_layers, batch=batch, tokens=prompt,
+               chunk=cfg.ssm_chunk, clamp=-rwkv6.CLAMP,
+               bf16=chunk_vs_scan(params, "bfloat16"))
+    head_peak = torch.cuda.max_memory_allocated()
+    del params, stats, beta, scores
+    torch.cuda.empty_cache()
+    # the same in f32 (the same draws, uncast), apart from bf16's own noise
+    g = torch.Generator(device=dev).manual_seed(22)
+    params = api.init_params(cfg, g, torch.float32, device=dev)
+    cvs["f32"] = chunk_vs_scan(params, "float32")
+    emit("recurrent_rwkv6_head", arch=cfg.name, dtype="bfloat16",
+         batch=batch, seq=prompt, classes=head_classes, lam=head_lam,
+         launches=head_launches, head_ms_host_clock=head_ms,
+         f32_solve_err_beta=own, chunked_vs_scan=cvs,
+         peak_memory_bytes=head_peak)
+    del params
+    torch.cuda.empty_cache()
+
+    # (d) R7 at full size: decode after the prefill against the forward,
+    # in bf16 and in f32 (the same draws, uncast), where the decode-vs-
+    # forward noise of bf16 is out of the way
+    cfg = get_config("zamba2_1p2b")
+    r7 = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        g = torch.Generator(device=dev).manual_seed(23)
+        params = api.init_params(cfg, g, dtype, device=dev)
+        toks = torch.randint(0, cfg.vocab_size, (batch, prompt + 1),
+                             generator=g, device=dev)
+        with torch.no_grad():
+            full, _ = zamba2.forward(cfg, params, {"tokens": toks})
+            _, cache = api.prefill(cfg, params, {"tokens": toks[:, :prompt]})
+            padded = {k: (torch.nn.functional.pad(a, (0, 0, 0, 0, 0, 4))
+                          if k in ("k", "v") else a.clone())
+                      for k, a in cache.items()}
+            after, _ = api.decode_step(cfg, params, cache,
+                                       toks[:, prompt:prompt + 1], prompt)
+            after_pad, _ = api.decode_step(cfg, params, padded,
+                                           toks[:, prompt:prompt + 1],
+                                           prompt)
+        ref = full[:, prompt].float()
+        r7[str(dtype)[6:]] = dict(
+            kv_slot_rows=int(cache["k"].shape[2]),
+            max_abs_gap=float((after[:, 0] - ref).abs().max()),
+            max_abs_gap_padded_cache=float((after_pad[:, 0] - ref).abs()
+                                           .max()),
+            max_abs_logit=float(ref.abs().max()))
+        del params, cache, padded, full
+        torch.cuda.empty_cache()
+    emit("recurrent_r7", arch=cfg.name, batch=batch, prompt=prompt, **r7)
+    emit("recurrent", wall_s=time.perf_counter() - t_phase, launches=total)
     return total
 
 
@@ -3123,6 +3596,7 @@ def main():
     phase_lm_parity(torch, dev)
     lm_launches = phase_lm(torch, dev)
     zoo_launches = phase_zoo(torch, dev)
+    rec_launches = phase_recurrent(torch, dev)
     train_launches = phase_train(torch, dev)
     phase_audit(torch, dev, m)
 
@@ -3140,7 +3614,7 @@ def main():
     stats = per_case[("elm_stats", "unmasked")]
     stats_err = max(per_case[("elm_stats", c)]["max_abs_err"]
                     for c in ("unmasked", "fractional_mask", "ragged",
-                              "shard", "hubert_head"))
+                              "shard", "hubert_head", "rwkv6_head"))
     line = {"kernels": [
         {"name": "conv2d", "route": "cuda",
          "source": "src/repro_torch/csrc/conv2d.cu",
@@ -3163,7 +3637,7 @@ def main():
          "replaces": "src/repro/kernels/elm_stats/kernel.py:36",
          "launches": main_launches["elm_stats"]
          + stream_launches["elm_stats"] + mesh_launches["elm_stats"]
-         + zoo_launches["elm_stats"],
+         + zoo_launches["elm_stats"] + rec_launches["elm_stats"],
          "max_abs_err": stats_err, "ms": stats["ms"],
          "plain_ms": stats["plain_ms"], "bound_ms": stats["bound_ms"],
          "bound_by": stats["bound_by"], "library_ms": stats["library_ms"]},
@@ -3200,16 +3674,19 @@ def main():
     # rmsnorm: one ln (512 x 4096) and one q_norm (16384 x 128) launch of
     # the prefill; swa_attention: one layer's prefill attention; their
     # launches from the LM serving path, the zoo's paths (the encoder's
-    # non-causal attention among them) and the train path's forwards
+    # non-causal attention among them), the recurrent paths (Zamba2's) and
+    # the train path's forwards
     rms = [per_case[("rmsnorm", c)] for c in ("ln_d4096", "qk_norm_d128")]
+    rms_err = max(per_case[("rmsnorm", c)]["max_abs_err"]
+                  for c in ("ln_d4096", "qk_norm_d128", "zamba2_ln_d2048"))
     swa = per_case[("swa_attention", "prefill_causal")]
     line["kernels"] += [
         {"name": "rmsnorm", "route": "cuda",
          "source": "src/repro_torch/csrc/rmsnorm.cu",
          "replaces": "src/repro/kernels/rmsnorm/kernel.py:23",
          "launches": lm_launches["rmsnorm"] + zoo_launches["rmsnorm"]
-         + train_launches["rmsnorm"],
-         "max_abs_err": max(c["max_abs_err"] for c in rms),
+         + rec_launches["rmsnorm"] + train_launches["rmsnorm"],
+         "max_abs_err": rms_err,
          "ms": sum(c["ms"] for c in rms),
          "plain_ms": sum(c["plain_ms"] for c in rms),
          "bound_ms": sum(c["bound_ms"] for c in rms),
@@ -3220,10 +3697,11 @@ def main():
          "source": "src/repro_torch/csrc/swa_attention.cu",
          "replaces": "src/repro/kernels/swa_attention/kernel.py:28",
          "launches": lm_launches["swa_attention"]
-         + zoo_launches["swa_attention"] + train_launches["swa_attention"],
+         + zoo_launches["swa_attention"] + rec_launches["swa_attention"]
+         + train_launches["swa_attention"],
          "max_abs_err": max(per_case[("swa_attention", c)]["max_abs_err"]
                             for c in ("prefill_causal", "window256_s1024",
-                                      "prefill_large_scores",
+                                      "prefill_large_scores", "zamba2_shared",
                                       "encoder_bidirectional",
                                       "encoder_ragged_s1000",
                                       "encoder_f32_small")),
@@ -3232,16 +3710,24 @@ def main():
          "library_ms": swa["library_ms"]},
     ]
     # the backward kernels: one ln and one q_norm backward, one layer's
-    # attention backward at the prefill shape; launches from the train path
+    # attention backward at the prefill shape; launches from the train
+    # path, the zoo's HuBERT fine-tune steps (swa_attention_bwd's non-causal
+    # mode, reported on a line of its own) and Zamba2's gradient
     rb = [per_case[("rmsnorm_bwd", c)] for c in ("ln_d4096", "qk_norm_d128")]
+    rb_err = max(per_case[("rmsnorm_bwd", c)]["max_abs_err"]
+                 for c in ("ln_d4096", "qk_norm_d128", "zamba2_ln_d2048"))
     sb = per_case[("swa_attention_bwd", "prefill_causal")]
+    emit("launches_by_mode", swa_attention_bwd_non_causal=zoo_launches[
+        "swa_attention_bwd"], swa_attention_bwd_causal=train_launches[
+        "swa_attention_bwd"] + rec_launches["swa_attention_bwd"])
     line["kernels"] += [
         {"name": "rmsnorm_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/rmsnorm_bwd.cu",
          "replaces": "src/repro/kernels/rmsnorm/kernel.py:23 (the rmsnorm "
                      "TPU kernel; it has no Pallas backward)",
-         "launches": train_launches["rmsnorm_bwd"],
-         "max_abs_err": max(c["max_abs_err"] for c in rb),
+         "launches": train_launches["rmsnorm_bwd"]
+         + zoo_launches["rmsnorm_bwd"] + rec_launches["rmsnorm_bwd"],
+         "max_abs_err": rb_err,
          "ms": sum(c["ms"] for c in rb),
          "plain_ms": sum(c["plain_ms"] for c in rb),
          "bound_ms": sum(c["bound_ms"] for c in rb),
@@ -3252,9 +3738,14 @@ def main():
          "source": "src/repro_torch/csrc/swa_attention_bwd.cu",
          "replaces": "src/repro/kernels/swa_attention/kernel.py:28 (the "
                      "swa_attention TPU kernel; it has no Pallas backward)",
-         "launches": train_launches["swa_attention_bwd"],
+         "launches": train_launches["swa_attention_bwd"]
+         + zoo_launches["swa_attention_bwd"]
+         + rec_launches["swa_attention_bwd"],
          "max_abs_err": max(per_case[("swa_attention_bwd", c)]["max_abs_err"]
-                            for c in ("prefill_causal", "window256_s1024")),
+                            for c in ("prefill_causal", "window256_s1024",
+                                      "encoder_bidirectional",
+                                      "encoder_ragged_s1000",
+                                      "encoder_f32_small")),
          "ms": sb["ms"], "plain_ms": sb["plain_ms"],
          "bound_ms": sb["bound_ms"], "bound_by": sb["bound_by"],
          "library_ms": sb["library_ms"]},

@@ -2,8 +2,8 @@
 
 Each architecture has a module ``repro_torch/configs/<id>.py`` exporting
 ``CONFIG`` and ``reduced()``. The port carries the paper's two CNN-ELM
-architectures and the LM zoo's transformer families (dense, MoE, encoder,
-VLM); the recurrent configs (rwkv6, zamba2) come with their families.
+architectures and the LM zoo: the transformer families (dense, MoE,
+encoder, VLM) and the recurrent ones (RWKV6, the Zamba2 hybrid).
 
 Configs are frozen dataclasses so they are hashable and can be shared
 between members and threads as static data.
@@ -178,9 +178,13 @@ ARCH_IDS = [
     "qwen3_8b",
     "hubert_xlarge",
     "internvl2_26b",
+    # the recurrent families (``models/rwkv6.py``, ``models/zamba2.py``)
+    "zamba2_1p2b",
+    "rwkv6_3b",
 ]
 
 _ALIAS = {a.replace("_", "-"): a for a in ARCH_IDS}
+_ALIAS.update({"zamba2-1.2b": "zamba2_1p2b"})
 
 
 def get_config(arch: str) -> ArchConfig:

@@ -3,7 +3,8 @@ generalised to any backbone; the port's counterpart of
 ``repro.core.elm_head``.
 
 Any ``feature_fn(params, batch) -> (B, S, D)`` or ``(B, D)`` (the CNN's
-``features``, the dense decoder's ``hidden_states``) can be trained with:
+``features``, any LM family's ``hidden_states``: the decoders, the
+encoder, RWKV6, Zamba2) can be trained with:
   1. ``accumulate_stats`` — the E²LM Map over batches (U += HᵀH, V += HᵀT);
   2. ``solve``            — the closed-form readout β;
   3. ``finetune_step``    — Alg. 2 lines 13-14 generalised: one SGD step of
@@ -12,9 +13,9 @@ Any ``feature_fn(params, batch) -> (B, S, D)`` or ``(B, D)`` (the CNN's
 ``accumulate_stats`` and ``predict`` differentiate nothing and run under
 ``torch.no_grad()``, so they run on the card through every kernel of the
 backbone. ``finetune_step`` runs through the backward of every kernel its
-backbone calls: the CNN's conv (conv2d_dgrad, conv2d_wgrad) and the
-decoder's rmsnorm and swa_attention (rmsnorm_bwd, swa_attention_bwd) each
-have one on the card.
+backbone calls: the CNN's conv (conv2d_dgrad, conv2d_wgrad) and the LMs'
+rmsnorm and swa_attention in either mode (rmsnorm_bwd, swa_attention_bwd)
+each have one on the card.
 """
 from __future__ import annotations
 

@@ -1,4 +1,5 @@
-// Backward of causal sliding-window flash attention with GQA. Given q, k, v,
+// Backward of causal sliding-window flash attention with GQA, and of its
+// non-causal mode (the encoder's attention over every key). Given q, k, v,
 // the forward's output o, its per-row log-sum-exp lse (natural log, of the
 // scaled masked scores) and the output cotangent do:
 //   P_ij  = exp(scale * q_i . k_j - lse_i)        (0 outside the mask)
@@ -7,8 +8,9 @@
 //   dq_i  = scale sum_j dS_ij k_j
 //   dk_j  = scale sum_{h in the group} sum_i dS_ij q_i
 //   dv_j  = sum_{h in the group} sum_i P_ij do_i
-// over keys j <= i with i - j < window; G = H / KV query heads share a kv
-// head. Every product and sum is f32; dq, dk and dv come out in q's dtype.
+// over keys j <= i with i - j < window (causal), or over every key j < S
+// (causal == 0, window unused); G = H / KV query heads share a kv head.
+// Every product and sum is f32; dq, dk and dv come out in q's dtype.
 //
 // Replaces: the backward of src/repro/kernels/swa_attention/kernel.py:28
 // `_swa_kernel`, which has no Pallas backward: the reference's models
@@ -35,13 +37,27 @@
 // 1. swa_bwd_delta: D per row, one warp a row.
 // 2. dK/dV: one block per (batch, kv head, key tile). It walks the G query
 //    heads of its group in order and, for each, the query tiles its keys
-//    can reach (from its own tile up to the one holding its last key +
-//    window - 1), recomputes P and dS tile by tile, and keeps dk and dv of
+//    can reach (causal: from its own tile up to the one holding its last
+//    key + window - 1; non-causal: every query tile), recomputes P and dS
+//    tile by tile, and keeps dk and dv of
 //    its keys in registers: the sum over the group and over the queries
 //    stays inside the block, in one fixed order, with no atomics, so the
 //    result is bitwise the same run to run.
 // 3. dQ: one block per (batch, head, 64-query tile) over the key tiles of
-//    its window, dq in registers.
+//    its window (non-causal: every key tile), dq in registers.
+//
+// The non-causal mode is a template flag (kCausal) of the dK/dV and dQ
+// kernels of both routes, as in the forward (swa_attention.cu), so the
+// causal instances compile to the code they had before the mode. In the
+// non-causal instance the ragged last tile's keys kj >= S and query rows
+// qi >= S are masked out of the sums (their staged rows are zeros, so
+// they would add nothing; the mask keeps P and dS of them 0 outright) and
+// rows >= S are never written. It reads the log-sum-exp that the forward's
+// non-causal instance writes. Its first shape is HuBERT-XLarge's encoder
+// (B 4, S 1024, H 16/16, hd 80, bf16): 32 x 64 = 2,048 dK/dV blocks of 32
+// keys, each walking all 32 query tiles, and 1,024 dQ blocks walking all
+// 16 key tiles; bound by operations, 10 hd FLOP a (q, k) pair: 53.7 GFLOP,
+// 54 us at the bf16 tensor-core rate.
 //
 // f32 route: tiles staged in shared memory as f32, rows padded by one
 // word, 64-key and 64-query tiles, 256 threads a block, products on the
@@ -65,9 +81,10 @@
 //   bf16 ulp of an output that cancels; hi + lo keeps 16 bits.
 // - dK/dV block: 32 keys, 2 warps of 16 keys each in each of SPLIT warp
 //   groups, so the prefill shape (B 4, S 128, KV 8) has 4 x 32 = 128
-//   blocks for the 132 SMs (64 with 64-key tiles, measured slower). The
-//   first key tile's blocks walk the most query tiles (the causal
-//   triangle: 4 heads x 4 tiles at the prefill shape), so the SPLIT groups
+//   blocks for the 132 SMs (64 with 64-key tiles, measured slower). In the
+//   causal mode the first key tile's blocks walk the most query tiles (the
+//   causal triangle: 4 heads x 4 tiles at the prefill shape), so the SPLIT
+//   groups
 //   take every SPLIT-th tile of the walk, and at the end group 0 adds the
 //   others' dK and dV in group order: the block's sum stays in one fixed
 //   order. SPLIT is 4 when the grid has at most 132 blocks, else 2 (two
@@ -88,7 +105,8 @@
 // - dQ block: 4 warps, 16 queries each; k and v in 64-key tiles by
 //   cp.async in two stages; q and dO stay in shared memory for the block.
 // - Only the tiles that need it are masked (the diagonal, the window's
-//   first key, rows past S); a warp skips a tile none of its rows can see.
+//   first key, rows past S; non-causal: rows or keys past S); a warp skips
+//   a tile none of its rows can see.
 // - D stays a pre-pass, so both main kernels read it.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -187,7 +205,7 @@ __device__ __forceinline__ void score_tiles(
   }
 }
 
-template <typename T>
+template <typename T, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
     swa_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ dout,
@@ -228,8 +246,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int cc = 0; cc < kC; ++cc) acc_k[jj][cc] = acc_v[jj][cc] = 0.0f;
 
   const int k_last = min(k0 + kB, S) - 1;
-  const int qt_begin = k0 / kB;
-  const int qt_end = min(S - 1, k_last + window - 1) / kB;
+  const int qt_begin = kCausal ? k0 / kB : 0;
+  const int qt_end = (kCausal ? min(S - 1, k_last + window - 1) : S - 1) / kB;
   for (int g = 0; g < G; ++g) {
     const int h = kvh * G + g;
     const long long q_off = static_cast<long long>(b) * S * q_stride +
@@ -258,8 +276,8 @@ __global__ void __launch_bounds__(kThreads)
         for (int jj = 0; jj < kR; ++jj) {
           const int jl = tk + kStride * jj;
           const int kj = k0 + jl;
-          const bool valid =
-              qi < S && kj < S && kj <= qi && qi - kj < window;
+          const bool valid = qi < S && kj < S &&
+                             (!kCausal || (kj <= qi && qi - kj < window));
           const float p = valid ? expf(s[ii][jj] * scale - lse_s[il]) : 0.0f;
           p_s[il * (kB + 1) + jl] = p;
           ds_s[il * (kB + 1) + jl] = p * (dp[ii][jj] - dl_s[il]);
@@ -308,7 +326,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
+template <typename T, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
     swa_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const T* __restrict__ dout,
@@ -355,8 +373,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int cc = 0; cc < kC; ++cc) acc[ii][cc] = 0.0f;
 
   const int q_last = min(q0 + kB, S) - 1;
-  const int kt_begin = max(0, q0 - window + 1) / kB;
-  const int kt_end = q_last / kB;
+  const int kt_begin = kCausal ? max(0, q0 - window + 1) / kB : 0;
+  const int kt_end = (kCausal ? q_last : S - 1) / kB;
   for (int kt = kt_begin; kt <= kt_end; ++kt) {
     const int k0 = kt * kB;
     __syncthreads();  // q, do, lse, delta are in; the last tile is read
@@ -374,7 +392,8 @@ __global__ void __launch_bounds__(kThreads)
       for (int jj = 0; jj < kR; ++jj) {
         const int jl = tk + kStride * jj;
         const int kj = k0 + jl;
-        const bool valid = qi < S && kj < S && kj <= qi && qi - kj < window;
+        const bool valid = qi < S && kj < S &&
+                           (!kCausal || (kj <= qi && qi - kj < window));
         const float p = valid ? expf(s[ii][jj] * scale - lse_s[il]) : 0.0f;
         ds_s[il * (kB + 1) + jl] = p * (dp[ii][jj] - dl_s[il]);
       }
@@ -413,7 +432,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
+template <typename T, bool kCausal>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* delta, void* dq,
            void* dk, void* dv, int B, int S, int H, int KV, int hd,
@@ -433,21 +452,21 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const size_t smem = bwd_smem_bytes(hd);
-  err = cudaFuncSetAttribute(swa_bwd_dkdv<T>,
+  err = cudaFuncSetAttribute(swa_bwd_dkdv<T, kCausal>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(swa_bwd_dq<T>,
+    err = cudaFuncSetAttribute(swa_bwd_dq<T, kCausal>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (S + kB - 1) / kB;
-  swa_bwd_dkdv<T><<<dim3(tiles, B * KV), kThreads, smem, stream>>>(
+  swa_bwd_dkdv<T, kCausal><<<dim3(tiles, B * KV), kThreads, smem, stream>>>(
       qt, kt, vt, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
       S, H, KV, hd, window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  swa_bwd_dq<T><<<dim3(tiles, B * H), kThreads, smem, stream>>>(
+  swa_bwd_dq<T, kCausal><<<dim3(tiles, B * H), kThreads, smem, stream>>>(
       qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), S, H, KV, hd, window,
       scale);
   return static_cast<int>(cudaGetLastError());
@@ -715,7 +734,7 @@ constexpr size_t dq_smem_bytes() {
   return sizeof(bf16) * (2 * kQRows + 4 * kQK) * tc_pitch<HDP>();
 }
 
-template <int HDP, int SPLIT>
+template <int HDP, int SPLIT, bool kCausal>
 __global__ void __launch_bounds__(32 * kKvWarps * SPLIT)
     swa_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -765,8 +784,10 @@ __global__ void __launch_bounds__(32 * kKvWarps * SPLIT)
   // the walk: tile `it` is head kvh * G + it / nq, query tile qt_begin +
   // it % nq; round r gives group sp tile r * SPLIT + sp
   const int k_last = min(k0 + kKvKeys, S) - 1;
-  const int qt_begin = k0 / kKvQ;
-  const int nq = min(S - 1, k_last + window - 1) / kKvQ - qt_begin + 1;
+  const int qt_begin = kCausal ? k0 / kKvQ : 0;
+  const int nq =
+      (kCausal ? min(S - 1, k_last + window - 1) : S - 1) / kKvQ - qt_begin +
+      1;
   const int n_it = G * nq;
   const int rounds = (n_it + SPLIT - 1) / SPLIT;
   auto stage_in = [&](int r, int st) {
@@ -817,11 +838,15 @@ __global__ void __launch_bounds__(32 * kKvWarps * SPLIT)
     const int it = r * SPLIT + sp;
     const int q0 = (qt_begin + it % nq) * kKvQ;
     // does any of this warp's keys see a query of the tile, and do all of
-    // them see all of its queries?
-    const bool live = it < n_it && kw0 < S && q0 + kKvQ - 1 >= kw0 &&
-                      q0 - (kw0 + 15) < window;
-    const bool masked = !(q0 >= kw0 + 15 && q0 + kKvQ - 1 - kw0 < window &&
-                          q0 + kKvQ - 1 < S);
+    // them see all of its queries? (non-causal: every key < S sees every
+    // query < S)
+    const bool live =
+        it < n_it && kw0 < S &&
+        (!kCausal || (q0 + kKvQ - 1 >= kw0 && q0 - (kw0 + 15) < window));
+    const bool masked =
+        kCausal ? !(q0 >= kw0 + 15 && q0 + kKvQ - 1 - kw0 < window &&
+                    q0 + kKvQ - 1 < S)
+                : kw0 + 15 >= S || q0 + kKvQ - 1 >= S;
     if (live) {
       const int at = st * SPLIT + sp;
       const bf16* qs_ = q_s + at * kTile;
@@ -861,10 +886,12 @@ __global__ void __launch_bounds__(32 * kKvWarps * SPLIT)
         for (int e = 0; e < 2; ++e) {
           const int c = n * 8 + 2 * tig + e;
           const int qi = q0 + c;
-          const bool in0 = !masked || (qi < S && kj0 <= qi &&
-                                       qi - kj0 < window);
-          const bool in1 = !masked || (qi < S && kj1 <= qi &&
-                                       qi - kj1 < window);
+          const bool in0 =
+              !masked || (kCausal ? qi < S && kj0 <= qi && qi - kj0 < window
+                                  : qi < S && kj0 < S);
+          const bool in1 =
+              !masked || (kCausal ? qi < S && kj1 <= qi && qi - kj1 < window
+                                  : qi < S && kj1 < S);
           const float p0 = in0 ? expf(s[n][e] * scale - ls_[c]) : 0.0f;
           const float p1 = in1 ? expf(s[n][2 + e] * scale - ls_[c]) : 0.0f;
           s[n][e] = p0;
@@ -895,7 +922,7 @@ __global__ void __launch_bounds__(32 * kKvWarps * SPLIT)
   tc_store_rows<HDP>(dv + kv_off, kv_stride, kw0, S, hd, vw_s, vec);
 }
 
-template <int HDP>
+template <int HDP, bool kCausal>
 __global__ void __launch_bounds__(kQThreads)
     swa_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -937,8 +964,8 @@ __global__ void __launch_bounds__(kQThreads)
   }
 
   const int q_last = min(q0 + kQRows, S) - 1;
-  const int kt_begin = max(0, q0 - window + 1) / kQK;
-  const int kt_end = q_last / kQK;
+  const int kt_begin = kCausal ? max(0, q0 - window + 1) / kQK : 0;
+  const int kt_end = (kCausal ? q_last : S - 1) / kQK;
   auto stage_in = [&](int kt, int st) {
     tc_load_tile<HDP, kQK, kQThreads>(k_s + st * kTile, k + kv_off,
                                       kv_stride, kt * kQK, S, hd, vec);
@@ -975,10 +1002,13 @@ __global__ void __launch_bounds__(kQThreads)
     cp_async_wait_prev();  // tile kt (and q, do) are in
     __syncthreads();
     const int k0 = kt * kQK;
-    const bool live = qw0 < S && k0 <= qw0 + 15 &&
-                      qw0 - (k0 + kQK - 1) < window;
-    const bool masked = k0 + kQK - 1 > qw0 || qw0 + 15 - k0 >= window ||
-                        qw0 + 15 >= S;
+    const bool live =
+        qw0 < S &&
+        (!kCausal || (k0 <= qw0 + 15 && qw0 - (k0 + kQK - 1) < window));
+    const bool masked = kCausal ? k0 + kQK - 1 > qw0 ||
+                                      qw0 + 15 - k0 >= window ||
+                                      qw0 + 15 >= S
+                                : k0 + kQK - 1 >= S || qw0 + 15 >= S;
     if (live) {
       const bf16* ks_ = k_s + st * kTile;
       const bf16* vs_ = v_s + st * kTile;
@@ -1012,10 +1042,12 @@ __global__ void __launch_bounds__(kQThreads)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int kj = k0 + n * 8 + 2 * tig + e;
-          const bool in0 = !masked || (qi0 < S && kj <= qi0 &&
-                                       qi0 - kj < window);
-          const bool in1 = !masked || (qi1 < S && kj <= qi1 &&
-                                       qi1 - kj < window);
+          const bool in0 =
+              !masked || (kCausal ? qi0 < S && kj <= qi0 && qi0 - kj < window
+                                  : qi0 < S && kj < S);
+          const bool in1 =
+              !masked || (kCausal ? qi1 < S && kj <= qi1 && qi1 - kj < window
+                                  : qi1 < S && kj < S);
           const float p0 = in0 ? expf(s[n][e] * scale - l0) : 0.0f;
           const float p1 = in1 ? expf(s[n][2 + e] * scale - l1) : 0.0f;
           s[n][e] = p0 * (dp[n][e] - d0);
@@ -1035,7 +1067,7 @@ __global__ void __launch_bounds__(kQThreads)
   tc_store_rows<HDP>(dq + q_off, q_stride, qw0, S, hd, out_s, vec);
 }
 
-template <int HDP, int SPLIT>
+template <int HDP, int SPLIT, bool kCausal>
 cudaError_t launch_dkdv(const bf16* q, const bf16* k, const bf16* v,
                         const bf16* dout, const float* lse,
                         const float* delta, void* dk, void* dv, int B, int S,
@@ -1043,10 +1075,10 @@ cudaError_t launch_dkdv(const bf16* q, const bf16* k, const bf16* v,
                         int vec16, cudaStream_t stream) {
   constexpr size_t smem = dkdv_smem_bytes<HDP, SPLIT>();
   const cudaError_t err = cudaFuncSetAttribute(
-      swa_bwd_dkdv_tc<HDP, SPLIT>,
+      swa_bwd_dkdv_tc<HDP, SPLIT, kCausal>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  swa_bwd_dkdv_tc<HDP, SPLIT>
+  swa_bwd_dkdv_tc<HDP, SPLIT, kCausal>
       <<<dim3((S + kKvKeys - 1) / kKvKeys, B * KV), 32 * kKvWarps * SPLIT,
          smem, stream>>>(q, k, v, dout, lse, delta, static_cast<bf16*>(dk),
                          static_cast<bf16*>(dv), S, H, KV, hd, window, scale,
@@ -1054,7 +1086,7 @@ cudaError_t launch_dkdv(const bf16* q, const bf16* k, const bf16* v,
   return cudaGetLastError();
 }
 
-template <int HDP>
+template <int HDP, bool kCausal>
 int launch_tc(const void* q, const void* k, const void* v, const void* o,
               const void* dout, const float* lse, float* delta, void* dq,
               void* dk, void* dv, int B, int S, int H, int KV, int hd,
@@ -1082,53 +1114,62 @@ int launch_tc(const void* q, const void* k, const void* v, const void* o,
   const long long kv_blocks =
       static_cast<long long>((S + kKvKeys - 1) / kKvKeys) * B * KV;
   err = kv_blocks <= kKvFewBlocks
-            ? launch_dkdv<HDP, 4>(qt, kt, vt, dot, lse, delta, dk, dv, B, S,
-                                  H, KV, hd, window, scale, vec16, stream)
-            : launch_dkdv<HDP, 2>(qt, kt, vt, dot, lse, delta, dk, dv, B, S,
-                                  H, KV, hd, window, scale, vec16, stream);
+            ? launch_dkdv<HDP, 4, kCausal>(qt, kt, vt, dot, lse, delta, dk,
+                                           dv, B, S, H, KV, hd, window, scale,
+                                           vec16, stream)
+            : launch_dkdv<HDP, 2, kCausal>(qt, kt, vt, dot, lse, delta, dk,
+                                           dv, B, S, H, KV, hd, window, scale,
+                                           vec16, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   constexpr size_t q_smem = dq_smem_bytes<HDP>();
-  err = cudaFuncSetAttribute(swa_bwd_dq_tc<HDP>,
+  err = cudaFuncSetAttribute(swa_bwd_dq_tc<HDP, kCausal>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(q_smem));
   // the most shared memory the SM can give, so two dQ blocks fit at hd 128
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(swa_bwd_dq_tc<HDP>,
+    err = cudaFuncSetAttribute(swa_bwd_dq_tc<HDP, kCausal>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return static_cast<int>(err);
-  swa_bwd_dq_tc<HDP><<<dim3((S + kQRows - 1) / kQRows, B * H), kQThreads,
-                       q_smem, stream>>>(qt, kt, vt, dot, lse, delta,
-                                         static_cast<bf16*>(dq), S, H, KV, hd,
-                                         window, scale, vec16);
+  swa_bwd_dq_tc<HDP, kCausal>
+      <<<dim3((S + kQRows - 1) / kQRows, B * H), kQThreads, q_smem, stream>>>(
+          qt, kt, vt, dot, lse, delta, static_cast<bf16*>(dq), S, H, KV, hd,
+          window, scale, vec16);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // bf16: 0 = float32 operands (CUDA cores), 1 = bfloat16 (tensor cores).
-// delta: (B, H, S) f32 scratch.
+// delta: (B, H, S) f32 scratch. causal: 1 = the causal sliding window,
+// 0 = every key (window unused), as the forward's entry takes it.
 extern "C" int swa_attention_bwd(const void* q, const void* k, const void* v,
                                  const void* o, const void* dout,
                                  const void* lse, void* delta, void* dq,
                                  void* dk, void* dv, int B, int S, int H,
-                                 int KV, int hd, int window, float scale,
-                                 int bf16, void* stream) {
+                                 int KV, int hd, int window, int causal,
+                                 float scale, int bf16, void* stream) {
   if (hd < 1 || hd > kHdMax || KV < 1 || H % KV != 0 || window < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   if (!bf16)
-    return launch<float>(q, k, v, o, dout, l, dl, dq, dk, dv, B, S, H, KV,
-                         hd, window, scale, s);
+    return (causal ? launch<float, true> : launch<float, false>)(
+        q, k, v, o, dout, l, dl, dq, dk, dv, B, S, H, KV, hd, window, scale,
+        s);
   using Launch = int (*)(const void*, const void*, const void*, const void*,
                          const void*, const float*, float*, void*, void*,
                          void*, int, int, int, int, int, int, float,
                          cudaStream_t);
-  constexpr Launch by_hdp[] = {launch_tc<16>, launch_tc<32>, launch_tc<48>,
-                               launch_tc<64>, launch_tc<80>, launch_tc<96>,
-                               launch_tc<112>, launch_tc<128>};
-  return by_hdp[(hd + 15) / 16 - 1](q, k, v, o, dout, l, dl, dq, dk, dv, B,
-                                    S, H, KV, hd, window, scale, s);
+  constexpr Launch causal_by_hdp[] = {
+      launch_tc<16, true>, launch_tc<32, true>,  launch_tc<48, true>,
+      launch_tc<64, true>, launch_tc<80, true>,  launch_tc<96, true>,
+      launch_tc<112, true>, launch_tc<128, true>};
+  constexpr Launch full_by_hdp[] = {
+      launch_tc<16, false>, launch_tc<32, false>,  launch_tc<48, false>,
+      launch_tc<64, false>, launch_tc<80, false>,  launch_tc<96, false>,
+      launch_tc<112, false>, launch_tc<128, false>};
+  return (causal ? causal_by_hdp : full_by_hdp)[(hd + 15) / 16 - 1](
+      q, k, v, o, dout, l, dl, dq, dk, dv, B, S, H, KV, hd, window, scale, s);
 }

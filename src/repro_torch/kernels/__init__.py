@@ -76,9 +76,9 @@ _ENTRIES = {
                       (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                        _I, _P)),
     # q, k, v, out, dout, lse, delta, dq, dk, dv, B, S, H, KV, hd, window,
-    # scale, bf16, stream
+    # causal, scale, bf16, stream
     "swa_attention_bwd": ("swa_attention_bwd",
-                          (_P,) * 10 + (_I,) * 6 + (_F, _I, _P)),
+                          (_P,) * 10 + (_I,) * 7 + (_F, _I, _P)),
 }
 
 LAUNCHES = {name: 0 for name in _ENTRIES}

@@ -8,12 +8,10 @@ or all bf16; the softmax and sums are f32 and the output has q's dtype.
 On the CPU autograd differentiates the plain version. On the card a call
 that autograd records is a ``torch.autograd.Function``: its forward also
 writes each row's log-sum-exp, and its backward is the kernels of
-``csrc/swa_attention_bwd.cu`` (one ``swa_attention_bwd`` launch a call);
-a call it does not record (serving, under ``torch.no_grad()``) passes the
-kernel a null log-sum-exp. The non-causal mode has no backward kernel yet:
-on the card a call that autograd would record is refused
-(``kernels.refuse_grad``); on the CPU autograd runs through the plain
-version as for the causal mode.
+``csrc/swa_attention_bwd.cu`` (one ``swa_attention_bwd`` launch a call),
+in either mode (the non-causal mode is a template instance of both
+kernels); a call it does not record (serving, under ``torch.no_grad()``)
+passes the kernel a null log-sum-exp.
 """
 from __future__ import annotations
 
@@ -30,23 +28,18 @@ def swa_attention(q, k, v, *, window: int, causal: bool = True):
     """Query i attends to keys j with j <= i and i - j < ``window``; with
     ``causal=False`` to every key j < S, and ``window`` must be S.
     q: (B, S, H, hd); k, v: (B, S, KV, hd) -> (B, S, H, hd)."""
-    _check(q, k, v, window)
-    if not causal and window != q.shape[1]:
-        raise ValueError(f"non-causal attention sees every key: window must "
-                         f"be S = {q.shape[1]}, got {window}")
+    _check(q, k, v, window, causal)
     if q.device.type == "cpu":
         return ref.swa_attention_ref(q, k, v, window=window, causal=causal)
     if not q.is_cuda:
         raise ValueError(f"swa_attention runs on CPU or CUDA tensors, "
                          f"got {q.device}")
     if kernels.needs_grad((q, k, v)):
-        if not causal:
-            kernels.refuse_grad("swa_attention (causal=False)", (q, k, v))
-        return _SWAAttention.apply(q, k, v, window)
+        return _SWAAttention.apply(q, k, v, window, causal)
     return _launch(q, k, v, window, with_lse=False, causal=causal)[0]
 
 
-def _check(q, k, v, window):
+def _check(q, k, v, window, causal=True):
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"swa_attention takes q (B,S,H,hd) and k, v "
                          f"(B,S,KV,hd), got {tuple(q.shape)}, "
@@ -61,6 +54,9 @@ def _check(q, k, v, window):
         raise ValueError(f"empty operand: q {tuple(q.shape)}")
     if window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
+    if not causal and window != S:
+        raise ValueError(f"non-causal attention sees every key: window must "
+                         f"be S = {S}, got {window}")
     for a in (k, v):
         if a.dtype != q.dtype:
             raise TypeError(f"q, k and v must share a dtype, got {q.dtype} "
@@ -100,25 +96,28 @@ def _launch(q, k, v, window, *, with_lse: bool, causal: bool = True):
     return out, lse
 
 
-def swa_attention_fwd(q, k, v, *, window: int):
+def swa_attention_fwd(q, k, v, *, window: int, causal: bool = True):
     """The forward kernel with its log-sum-exp: (out, lse (B, H, S) f32),
     what the backward recomputes P from. Contiguous CUDA operands; an
     operand that requires grad is refused while grad mode is on (the
     differentiable call is ``swa_attention``)."""
-    _check(q, k, v, window)
+    _check(q, k, v, window, causal)
     if not q.is_cuda:
         raise ValueError(f"swa_attention_fwd runs on CUDA tensors, "
                          f"got {q.device}")
     kernels.refuse_grad("swa_attention_fwd", (q, k, v))
-    return _launch(q, k, v, window, with_lse=True)
+    return _launch(q, k, v, window, with_lse=True, causal=causal)
 
 
-def swa_attention_bwd(q, k, v, out, lse, dout, *, window: int):
+def swa_attention_bwd(q, k, v, out, lse, dout, *, window: int,
+                      causal: bool = True):
     """The backward kernels: (dq, dk, dv) in q's dtype from the forward's
     operands, its output, its log-sum-exp and the output cotangent (copied
     once if not contiguous). dk and dv sum over the GQA group inside one
-    block each, in a fixed order, with no atomics."""
-    _check(q, k, v, window)
+    block each, in a fixed order, with no atomics. ``causal=False``: the
+    backward of the mode over every key (``window`` must be S), from the
+    log-sum-exp of the forward's non-causal mode."""
+    _check(q, k, v, window, causal)
     _launch_checks(q, k, v)
     B, S, H, hd = q.shape
     if out.shape != q.shape or dout.shape != q.shape or \
@@ -140,24 +139,26 @@ def swa_attention_bwd(q, k, v, out, lse, dout, *, window: int):
                        v.data_ptr(), out.data_ptr(), dout.data_ptr(),
                        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                        dk.data_ptr(), dv.data_ptr(), B, S, H, k.shape[2], hd,
-                       min(int(window), S), hd ** -0.5, _DTYPES[q.dtype])
+                       min(int(window), S), int(causal), hd ** -0.5,
+                       _DTYPES[q.dtype])
     return dq, dk, dv
 
 
 class _SWAAttention(torch.autograd.Function):
     """The forward kernel (with its log-sum-exp) and the backward kernels
-    under autograd; saves q, k, v, the output and the log-sum-exp."""
+    under autograd, in either mode; saves q, k, v, the output and the
+    log-sum-exp."""
 
     @staticmethod
-    def forward(ctx, q, k, v, window):
-        out, lse = _launch(q, k, v, window, with_lse=True)
+    def forward(ctx, q, k, v, window, causal):
+        out, lse = _launch(q, k, v, window, with_lse=True, causal=causal)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.window = window
+        ctx.window, ctx.causal = window, causal
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = swa_attention_bwd(q, k, v, out, lse, dout,
-                                       window=ctx.window)
-        return dq, dk, dv, None
+                                       window=ctx.window, causal=ctx.causal)
+        return dq, dk, dv, None, None

@@ -38,9 +38,9 @@ def _wide(q):
     return torch.float64 if q.dtype == torch.float64 else torch.float32
 
 
-def _scores(q, k, window):
+def _scores(q, k, window, causal=True):
     """(B, KV, G, S, S) scaled scores, -1e30 outside the mask, and the
-    mask."""
+    mask (every key without ``causal``)."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
     w = _wide(q)
@@ -48,30 +48,32 @@ def _scores(q, k, window):
     s = torch.einsum("bskgh,btkh->bkgst", qg, k.to(w)) * (hd ** -0.5)
     i = torch.arange(S, device=q.device)[:, None]
     j = torch.arange(S, device=q.device)[None, :]
-    mask = (j <= i) & (i - j < window)
+    mask = ((j <= i) & (i - j < window)) if causal else (j < S)
     return torch.where(mask, s, torch.full_like(s, NEG_INF)), mask
 
 
-def swa_attention_lse_ref(q, k, *, window: int):
+def swa_attention_lse_ref(q, k, *, window: int, causal: bool = True):
     """(B, H, S) f32: each query row's log-sum-exp of its scaled scores
     inside the mask (natural log), what the forward kernel writes for the
     backward."""
     B, S, H, _ = q.shape
-    s, _ = _scores(q, k, window)
+    s, _ = _scores(q, k, window, causal)
     return torch.logsumexp(s, dim=-1).reshape(B, H, S)
 
 
-def swa_attention_bwd_ref(q, k, v, out, lse, dout, *, window: int):
+def swa_attention_bwd_ref(q, k, v, out, lse, dout, *, window: int,
+                          causal: bool = True):
     """The backward in plain PyTorch, recomputed from the log-sum-exp as
     ``csrc/swa_attention_bwd.cu`` does: P = exp(s − lse) inside the mask,
     D = rowsum(dout ∘ out), dS = P ∘ (dout·vᵀ − D); dq = scale·dS·k,
-    dk = scale·dSᵀ·q and dv = Pᵀ·dout summed over each kv head's group.
-    f32 throughout (f64 for f64 operands); (dq, dk, dv) in q's dtype."""
+    dk = scale·dSᵀ·q and dv = Pᵀ·dout summed over each kv head's group;
+    with ``causal=False`` over every key. f32 throughout (f64 for f64
+    operands); (dq, dk, dv) in q's dtype."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
     w = _wide(q)
-    s, mask = _scores(q, k, window)
+    s, mask = _scores(q, k, window, causal)
     p = torch.where(mask, torch.exp(s - lse.to(w).reshape(B, KV, G, S, 1)),
                     torch.zeros_like(s))
     dog = dout.to(w).reshape(B, S, KV, G, hd)

@@ -10,14 +10,20 @@ tokens/s.
       --batch 4 --prompt-len 128 --gen 32          # on the card
 
 Weights are random, drawn from ``--seed`` on the chosen device. As in the
-reference, the prompt is prefilled once (timed), then replayed token by
-token into a fresh cache sized for prompt + generation, and decoding
-continues from the replay's last logits. ``--arch`` takes the transformer
-decoders (dense and MoE); as in the reference, an encoder-only config
-(``hubert_xlarge``) is refused and the launcher feeds tokens only, so the
-VLM (``internvl2_26b``) is served through ``models.api`` with its
-patches. For the MoE the replay's last logits need not equal the
-prefill's: a slot dropped at the prompt's capacity is kept at one token's.
+reference, the prompt is prefilled once (timed); for the transformer
+decoders it is then replayed token by token into a fresh cache sized for
+prompt + generation, and decoding continues from the replay's last
+logits, while the recurrent families (``rwkv6_3b``, ``zamba2_1p2b``)
+decode straight from the prefill's state, with no replay (Zamba2's shared
+attention then sees the prompt's length of positions: ROADMAP R7). A
+config whose ``ssm_chunk`` exceeds the prompt runs with chunks of
+max(8, prompt // 4), as the reference shrinks them. ``--arch`` takes the
+decoders (dense, MoE, RWKV6, Zamba2); as in the reference, an
+encoder-only config (``hubert_xlarge``) is refused and the launcher feeds
+tokens only, so the VLM (``internvl2_26b``) is served through
+``models.api`` with its patches. For the MoE the replay's last logits
+need not equal the prefill's: a slot dropped at the prompt's capacity is
+kept at one token's.
 
 **CNN-ELM ensemble** (``--ensemble``): the ``repro_torch.serve`` endpoint —
 continuous batching under a latency SLO over a ``BucketedScorer`` (one
@@ -40,7 +46,7 @@ import time
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs import get_config, get_reduced_config
+from repro_torch.configs import get_config, get_reduced_config, replace
 from repro_torch.core import trainer
 from repro_torch.models import api
 
@@ -55,6 +61,8 @@ def run_lm(args) -> dict:
     cfg = get_reduced_config(args.arch) if args.reduced else get_config(args.arch)
     if cfg.is_encoder_only:
         raise SystemExit(f"{cfg.name} is encoder-only: no decode step")
+    if cfg.ssm_chunk > args.prompt_len:
+        cfg = replace(cfg, ssm_chunk=max(8, args.prompt_len // 4))
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = api.init_params(cfg, gen, device=dev)
@@ -71,14 +79,17 @@ def run_lm(args) -> dict:
     t_prefill = time.perf_counter() - t0
     logits = prefill_logits
 
-    # the prefill cache covers the prompt only; as the reference does, a
-    # fresh cache sized for prompt + generation is filled by replaying the
-    # prompt one token at a time
-    total = args.prompt_len + args.gen
-    cache = api.init_cache(cfg, args.batch, total, device=dev)
-    for t in range(args.prompt_len):
-        logits, cache = serve_fn(params, cache, prompts[:, t:t + 1], t)
-    replay_gap = float((logits - prefill_logits).abs().max())
+    # a transformer's prefill cache covers the prompt only; as the
+    # reference does, a fresh cache sized for prompt + generation is filled
+    # by replaying the prompt one token at a time. The recurrent families
+    # decode from the prefill's state.
+    replay_gap = None
+    if cfg.family in ("dense", "moe", "vlm"):
+        total = args.prompt_len + args.gen
+        cache = api.init_cache(cfg, args.batch, total, device=dev)
+        for t in range(args.prompt_len):
+            logits, cache = serve_fn(params, cache, prompts[:, t:t + 1], t)
+        replay_gap = float((logits - prefill_logits).abs().max())
 
     tok = torch.argmax(logits[:, -1:], dim=-1)
     generated = [tok]

@@ -11,7 +11,7 @@ as in the reference, so trees convert leaf by leaf; the reference's
 Every rms_norm goes through the rmsnorm kernel and every full-sequence
 attention through the swa_attention kernel on the card (the encoder's
 bidirectional attention through its non-causal mode), forward and, under
-autograd, backward (the non-causal mode has no backward yet and refuses).
+autograd, backward (rmsnorm_bwd, swa_attention_bwd in either mode).
 The MoE's dispatch, expert products and combine are plain PyTorch, as the
 reference leaves them to XLA (``layers/mlp.py``).
 
@@ -42,14 +42,6 @@ NEG_INF = -1e30
 AUDIO_FRONTEND_DIM = 512    # wav2vec2/HuBERT conv-extractor output dim
 VISION_FRONTEND_DIM = 1024  # InternViT patch-embedding dim (stub)
 FAMILIES = ("dense", "moe", "encoder", "vlm")
-UNPORTED = ("family {!r} is not ported yet (ROADMAP queue 1, the LM model "
-            "zoo: the transformer families dense, moe, encoder and vlm are "
-            "ported)")
-
-
-def _require_transformer(cfg):
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(UNPORTED.format(cfg.family))
 
 
 # ---------------------------------------------------------------------------
@@ -60,7 +52,6 @@ def init_params(cfg, generator, dtype=torch.bfloat16, device="cuda"):
     """The reference's distributions from a ``torch.Generator``, drawn on
     the generator's device (a CUDA generator draws a full-size model on the
     card) and stored on ``device``. Padded vocab rows are zero."""
-    _require_transformer(cfg)
     dev = resolve_device(device)
     L, D, V = cfg.num_layers, cfg.d_model, cfg.padded_vocab
     layers = {
@@ -158,7 +149,6 @@ def _embed_inputs(cfg, p, batch):
     """Token / frame / patch embedding (+ the VLM prefix ahead of the
     tokens). Returns (x, positions, text_offset): where the loss-bearing
     text starts in the sequence."""
-    _require_transformer(cfg)
     if cfg.frontend == "audio":
         proj = p["frontend_proj"]
         x = batch["frames"].to(proj.dtype) @ proj
@@ -229,7 +219,6 @@ def loss_fn(cfg, p, batch):
 
 def init_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
                device="cuda"):
-    _require_transformer(cfg)
     return attn.init_kv_cache(cfg, batch, seq_len, cfg.num_layers, dtype,
                               resolve_device(device))
 
@@ -264,7 +253,6 @@ def decode_step(cfg, p, cache, token, pos: int):
     """One new token against the KV cache. token: (B, 1) integers; pos: the
     tokens so far. Returns (logits, cache); the cache is updated in place
     (see ``attention.attn_decode``)."""
-    _require_transformer(cfg)
     x = p["embed"][token]
     for i, lp in enumerate(_unbound_layers(p["layers"], cfg.num_layers)):
         h, _ = attn.attn_decode(cfg, lp["attn"],

@@ -336,23 +336,47 @@ def test_swa_non_causal_kernel_matches_plain_on_card(cuda, dt, B, S, H, KV,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-def test_swa_non_causal_refuses_grad_on_card(cuda, dt):
-    """The non-causal mode has no backward kernel: under grad mode a call
-    on operands that require grad is refused, never run through the plain
-    version; without grad it runs."""
-    q, k, v = _data(3, (1, 40, 4, 64), (1, 40, 2, 64), (1, 40, 2, 64))
-    qd, kd, vd = (torch.from_numpy(a).to(cuda, _dt(dt)) for a in (q, k, v))
-    qd.requires_grad_(True)
-    before = kernels.LAUNCHES["swa_attention"]
-    with pytest.raises(RuntimeError, match="no backward"):
-        swa_ops.swa_attention(qd, kd, vd, window=40, causal=False)
-    assert kernels.LAUNCHES["swa_attention"] == before
-    with torch.no_grad():
-        out = swa_ops.swa_attention(qd, kd, vd, window=40, causal=False)
-    assert out.shape == qd.shape and kernels.LAUNCHES["swa_attention"] == \
-        before + 1
+@pytest.mark.parametrize("B,S,H,KV,hd", [
+    (4, 1024, 16, 16, 80),         # HuBERT-XLarge's encoder
+    (1, 1000, 4, 4, 80),           # ragged last tile
+    (2, 200, 4, 2, 80),            # GQA, ragged
+    (2, 37, 4, 2, 64), (1, 33, 4, 2, 20), (3, 1, 2, 1, 32),
+    (2, 130, 8, 1, 128)])
+def test_swa_non_causal_bwd_matches_plain_on_card(cuda, dt, B, S, H, KV, hd):
+    """The non-causal mode under autograd: one forward launch with its
+    log-sum-exp (against the plain one) and one ``swa_attention_bwd``
+    launch, whose dq, dk, dv hold against the plain non-causal backward
+    within ``_grad_close``'s bars (the f64 truth and the f32 rounding of
+    each element's sums), bitwise run to run; keys and query rows past S in
+    the ragged last tile add nothing."""
+    q, k, v, do = _swa_inputs(cuda, dt, B, S, H, KV, hd, seed=11)
+    out, lse = swa_ops.swa_attention_fwd(q, k, v, window=S, causal=False)
+    ref_lse = swa_ref.swa_attention_lse_ref(q, k, window=S, causal=False)
+    np.testing.assert_allclose(lse.cpu().numpy(), ref_lse.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    leaves = [a.clone().requires_grad_(True) for a in (q, k, v)]
+    fwd = kernels.LAUNCHES["swa_attention"]
+    bwd = kernels.LAUNCHES["swa_attention_bwd"]
+    y = swa_ops.swa_attention(*leaves, window=S, causal=False)
+    got = torch.autograd.grad(y, leaves, do)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["swa_attention"] == fwd + 1
+    assert kernels.LAUNCHES["swa_attention_bwd"] == bwd + 1
+    assert torch.equal(y.detach(), out)
+    ref = swa_ref.swa_attention_bwd_ref(q, k, v, out, lse, do, window=S,
+                                        causal=False)
+    truth = swa_ref.swa_attention_bwd_ref(
+        *(a.double() for a in (q, k, v, out, lse, do)), window=S,
+        causal=False)
+    terms = _swa_bwd_terms(q, k, v, out, lse, do, S, causal=False)
+    for g, r, t, m in zip(got, ref, truth, terms):
+        _grad_close(g, r, t, m)
+    again = swa_ops.swa_attention_bwd(q, k, v, out, lse, do, window=S,
+                                      causal=False)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
     with pytest.raises(ValueError, match="window must be S"):
-        swa_ops.swa_attention(qd.detach(), kd, vd, window=8, causal=False)
+        swa_ops.swa_attention_bwd(q, k, v, out, lse, do, window=8,
+                                  causal=False)
 
 
 @pytest.mark.cuda
@@ -411,6 +435,55 @@ def test_encoder_and_moe_on_card_match_cpu(cuda):
         want, _ = api.module_of(cfg).forward(cfg, params, batch)
         assert float((got.cpu() - want).abs().max()) <= 1e-4 * float(
             want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["rwkv6_3b", "zamba2_1p2b"])
+def test_recurrent_families_on_card_match_cpu(cuda, arch):
+    """Reduced rwkv6 and zamba2 in f32 (chunk 8: 30 tokens pad): the
+    forward on the card equals the port's CPU path within 1e-4 ·
+    max|logit| (RWKV6's bf16 group-norm cast may flip a rounding under
+    another order of sums: then within twice the larger distance of the
+    CPU's two one-ulp twins, ``chip_smoke.greedy_parity``'s twin rule);
+    Zamba2 launches rmsnorm 2 L + 2 I + 1 times and swa_attention I times
+    over its I shared invocations, RWKV6 no kernel. Its loss gradient
+    launches each backward kernel as often."""
+    from repro_torch.models import zamba2
+    cfg = replace(get_reduced_config(arch), ssm_chunk=8)
+    params = api.init_params(cfg, torch.Generator().manual_seed(0),
+                             torch.float32, device="cpu")
+    on_card = tree_map(lambda a: a.to(cuda), params)
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 30)))
+    kernels.reset_launches()
+    with torch.no_grad():
+        got, _ = api.module_of(cfg).forward(cfg, on_card,
+                                            {"tokens": toks.to(cuda)})
+    torch.cuda.synchronize()
+    I = zamba2.num_attn_invocations(cfg) if arch == "zamba2_1p2b" else 0
+    n = 2 * cfg.num_layers + 2 * I + 1 if I else 0
+    assert kernels.LAUNCHES["rmsnorm"] == n
+    assert kernels.LAUNCHES["swa_attention"] == I
+    want, _ = api.module_of(cfg).forward(cfg, params, {"tokens": toks})
+    err = float((got.cpu() - want).abs().max())
+    if err > 1e-4 * float(want.abs().max()):
+        assert arch == "rwkv6_3b", err
+        own = 0.0
+        for toward in (float("inf"), float("-inf")):
+            twin = tree_map(lambda a: torch.nextafter(
+                a, torch.full_like(a, toward)), params)
+            tl, _ = api.module_of(cfg).forward(cfg, twin, {"tokens": toks})
+            own = max(own, float((tl - want).abs().max()))
+        assert err <= 2 * own, (err, own)
+    batch = {"tokens": toks.to(cuda), "targets": toks.roll(1, 1).to(cuda)}
+    leaves = [a.requires_grad_(True) for a in tree_leaves(on_card)]
+    kernels.reset_launches()
+    loss, _ = api.loss_fn(cfg, on_card, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["rmsnorm_bwd"] == n
+    assert kernels.LAUNCHES["swa_attention_bwd"] == I
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
 
 
 @pytest.mark.cuda
@@ -506,7 +579,7 @@ def _grad_close(got, ref, truth=None, terms=None):
                                                bar)
 
 
-def _swa_bwd_terms(q, k, v, out, lse, do, window):
+def _swa_bwd_terms(q, k, v, out, lse, do, window, causal=True):
     """Per element of (dq, dk, dv), in f64: the sum of the magnitudes of
     the terms it sums — P·(|dO|·|v| + |dO|·|out|) against |k| (dq) or
     |q| (dk, over the group), P against |dO| (dv) — and the length of the
@@ -520,7 +593,8 @@ def _swa_bwd_terms(q, k, v, out, lse, do, window):
     dog = do.abs().reshape(B, S, KV, G, hd)
     s = torch.einsum("bskgh,btkh->bkgst", qg, k) * hd ** -0.5
     i = torch.arange(S, device=q.device)
-    mask = (i[None] <= i[:, None]) & (i[:, None] - i[None] < window)
+    mask = ((i[None] <= i[:, None]) & (i[:, None] - i[None] < window)
+            if causal else torch.ones_like(s, dtype=torch.bool))
     p = torch.where(mask, torch.exp(s - lse.reshape(B, KV, G, S, 1)),
                     torch.zeros_like(s))
     dabs = (dog * out.abs().reshape(B, S, KV, G, hd)).sum(-1)
@@ -530,7 +604,7 @@ def _swa_bwd_terms(q, k, v, out, lse, do, window):
     m_dq = torch.einsum("bkgst,btkh->bskgh", e, k.abs()) * scale
     m_dk = torch.einsum("bkgst,bskgh->btkh", e, qg.abs()) * scale
     m_dv = torch.einsum("bkgst,bskgh->btkh", p, dog)
-    n = 2 * hd + G * min(window, S)
+    n = 2 * hd + G * (min(window, S) if causal else S)
     return [(m_dq.reshape(B, S, H, hd), n), (m_dk, n), (m_dv, n)]
 
 

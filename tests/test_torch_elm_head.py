@@ -204,9 +204,3 @@ def test_finetune_step_reduces_elm_loss():
         losses.append(float(loss))
     assert p["embed"].dtype == torch.bfloat16
     assert losses[-1] < losses[0], losses
-
-
-def test_hidden_states_of_other_families_raise():
-    lm = get_reduced_config("qwen3_8b")
-    with pytest.raises(NotImplementedError):
-        api.hidden_states(replace(lm, family="ssm_rwkv6"), None, {})

@@ -1,7 +1,6 @@
-"""The port stands alone: ``repro_torch`` imports neither JAX nor ``repro``,
-runs on the card unless asked for the CPU, and refuses what later slices
-of the port will bring (the recurrent LM families, rwkv6 and zamba2)
-instead of doing it wrongly."""
+"""The port stands alone: ``repro_torch`` imports neither JAX nor ``repro``
+and runs on the card unless asked for the CPU."""
+import glob
 import os
 import pkgutil
 import re
@@ -14,14 +13,14 @@ import torch
 
 import repro_torch
 from repro_torch.checkpoint.ckpt import restore_checkpoint
-from repro_torch.configs import get_reduced_config, replace
+from repro_torch.configs import get_reduced_config
 from repro_torch.core import e2lm, elm, executor
 from repro_torch.core.runner import (AveragingRun, Ensemble, MapConfig,
                                      ReduceConfig)
 from repro_torch.data.partition import Partition
-from repro_torch.core import trainer
 from repro_torch.launch import serve
 from repro_torch.models import api, cnn
+from repro_torch.tree import tree_leaves
 
 # the reference's threaded tests share the CPU with these workers
 torch.set_num_threads(2)
@@ -77,8 +76,8 @@ def test_no_source_imports_jax_or_repro():
              os.path.join(ROOT, "tools", "kernel_variants.py"),
              os.path.join(ROOT, "tools", "sgd_sensitivity.py"),
              os.path.join(ROOT, "tools", "train_step_turns.py"),
-             os.path.join(ROOT, "examples", "quickstart_torch.py"),
              os.path.join(ROOT, "tests", "torch_mesh_ranks.py")]
+    files += glob.glob(os.path.join(ROOT, "examples", "*_torch.py"))
     for dirpath, _, names in os.walk(PKG):
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith(".py")]
@@ -201,26 +200,33 @@ def test_executors_run_on_the_plan_device(monkeypatch, backend):
     assert torch.equal(got.stacked.beta, want.stacked.beta)
 
 
-@pytest.mark.parametrize("make", [
-    lambda: api.module_of(replace(LM, family="hybrid_zamba2")),
-    lambda: api.module_of(replace(LM, family="ssm_rwkv6")),
-    lambda: api.init_params(replace(LM, family="ssm_mamba2"), None),
-    lambda: trainer.make_prefill_step(replace(LM, family="ssm_rwkv6"))(
-        None, {"tokens": torch.zeros((1, 4), dtype=torch.int64)}),
-])
-def test_later_slices_raise_not_implemented(make):
-    with pytest.raises(NotImplementedError):
-        make()
-
-
-@pytest.mark.parametrize("family", ["ssm_mamba2", "ssm_rwkv6",
-                                    "hybrid_zamba2"])
-def test_unported_family_names_the_model_zoo(family):
-    """The refusal of a family the port lacks names the ROADMAP item that
-    brings it by its title, which does not go stale as items move."""
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP queue 1, the LM model zoo"):
-        api.module_of(replace(LM, family=family))
+@pytest.mark.parametrize("arch", ["rwkv6_3b", "zamba2_1p2b"])
+def test_recurrent_entry_points_default_to_the_card(monkeypatch, arch):
+    """The recurrent families' entry points and the examples that drive
+    them default to the card: without one they raise, naming
+    ``device='cpu'``, and with it they run."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_reduced_config(arch)
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.init_params(cfg, gen)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", arch, "--reduced", "--prompt-len", "8",
+                    "--gen", "2"])
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    try:
+        import elm_head_backbone_torch
+        import serve_batched_torch
+    finally:
+        sys.path.remove(os.path.join(ROOT, "examples"))
+    for example in (serve_batched_torch, elm_head_backbone_torch):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            example.main([])
+    params = api.init_params(cfg, gen, device="cpu")
+    cache = api.init_cache(cfg, 1, 8, device="cpu")
+    assert {a.device.type for a in tree_leaves((params, cache))} == {"cpu"}
 
 
 def test_unknown_backend_and_strategy_are_value_errors():

@@ -485,6 +485,17 @@ def test_launcher_trains_and_averages_on_cpu():
     assert res["sync_steps"] == [10, 20, 30] and len(res["step_s"]) == 30
 
 
+def test_distributed_averaging_non_iid_still_trains():
+    """``tests/test_system.py::test_distributed_averaging_non_iid_still_trains``
+    on the port's launcher: minicpm's odd vocab, 2 members on disjoint
+    data domains (``--non-iid``), 10 steps; the loss still falls."""
+    res = launch.main([
+        "--arch", "minicpm_2b", "--reduced", "--steps", "10", "--members",
+        "2", "--batch", "2", "--seq", "64", "--non-iid",
+        "--log-every", "100", "--device", "cpu"])
+    assert np.mean(res["history"][-1]) < np.mean(res["history"][0])
+
+
 def test_launcher_drift_policy_and_checkpoints(tmp_path):
     """``--sync-policy drift --drift-at``: the launcher averages exactly at
     the steps where a ``DriftDetector`` per member, fed the losses it

@@ -66,6 +66,8 @@ NEW = ["olmoe_1b_7b", "qwen3_moe_235b_a22b", "minicpm_2b", "internlm2_20b",
        "qwen3_32b", "hubert_xlarge", "internvl2_26b"]
 DECODERS = [a for a in NEW if a != "hubert_xlarge"]
 LM_ARCHS = [a for a in ARCH_IDS if not a.startswith("cnn_elm")]
+TRANSFORMER_ARCHS = [a for a in LM_ARCHS
+                     if get_config(a).family in transformer.FAMILIES]
 
 
 def _np(x):
@@ -158,6 +160,8 @@ def test_full_configs_match_assignment():
         "qwen3_8b": (36, 4096, 32, 8, 12288, 151936),
         "hubert_xlarge": (48, 1280, 16, 16, 5120, 504),
         "internvl2_26b": (48, 6144, 48, 8, 16384, 92553),
+        "zamba2_1p2b": (38, 2048, 32, 32, 8192, 32000),
+        "rwkv6_3b": (32, 2560, 0, 0, 8960, 65536),
     }
     assert sorted(spec) == sorted(LM_ARCHS)
     for arch, (L, D, H, KV, F, V) in spec.items():
@@ -525,10 +529,12 @@ def test_forward_shapes_and_finite(arch):
     assert bool(torch.isfinite(logits).all())
 
 
-@pytest.mark.parametrize("arch", LM_ARCHS)
+@pytest.mark.parametrize("arch", TRANSFORMER_ARCHS)
 def test_router_aux_only_for_the_moe(arch):
-    """Only the MoE's feed-forward gives an aux loss: the other families'
-    blocks make no aux tensor, and their forward's aux is a single 0."""
+    """Only the MoE's feed-forward gives an aux loss: the other transformer
+    families' blocks make no aux tensor, and their forward's aux is a
+    single 0 (the recurrent families' is 0 too,
+    ``tests/test_torch_recurrent.py``)."""
     cfg = get_reduced_config(arch)
     params = api.init_params(cfg, torch.Generator().manual_seed(0),
                              device="cpu")

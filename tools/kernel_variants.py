@@ -14,9 +14,11 @@ plain version is reported but not a failure.
 ``--baseline DIR`` adds, for each kernel, a build of the same-named source in
 DIR as it stands (an earlier checkout's ``src/repro_torch/csrc``: the same C
 entry point; swa_attention's gained its log-sum-exp argument with the backward
-kernels, so a baseline of that kernel must have it; one without the later
-causal argument is called without it). Each swa_attention build's output is
-also compared bit for bit with the shipped source's (``bitwise_shipped``). swa_attention_bwd's
+kernels, so a baseline of that kernel must have it; a swa_attention or
+swa_attention_bwd source without the later causal argument is called without
+it). Each swa_attention build's output, and each swa_attention_bwd build's
+dq, dk and dv, are also compared bit for bit with the shipped source's
+(``bitwise_shipped``). swa_attention_bwd's
 variants change its dK/dV key or query tile, the warp groups that share a
 block's tiles, dQ's key tile or the tiles' copy loop, or leave one kernel out;
 rmsnorm_bwd's change its chunks or leave out its dscale pass; its baseline
@@ -63,7 +65,7 @@ ENTRIES = {
     "rmsnorm_bwd": ("rmsnorm_bwd.cu", "rmsnorm_bwd",
                     (_P,) * 6 + (_I, _I, _I, _F, _I, _I, _P)),
     "swa_attention_bwd": ("swa_attention_bwd.cu", "swa_attention_bwd",
-                          (_P,) * 10 + (_I,) * 6 + (_F, _I, _P)),
+                          (_P,) * 10 + (_I,) * 7 + (_F, _I, _P)),
     "conv2d_wgrad": ("conv2d_wgrad.cu", "conv2d_wgrad_f32",
                      (_P, _P, _P, _P) + (_I,) * 9 + (_P,)),
     "conv2d_dgrad": ("conv2d_dgrad.cu", "conv2d_dgrad_f32",
@@ -152,9 +154,9 @@ VARIANTS = {
         ("one_copy_loop", [(r"if \(vec16 && hd == HDP\) \{",
                             "if (false) {")]),
         # one main kernel left out (D's pre-pass and the other run)
-        ("probe_dkdv_off", [(r"(\n  )(swa_bwd_dkdv_tc<HDP, SPLIT>"
+        ("probe_dkdv_off", [(r"(\n  )(swa_bwd_dkdv_tc<HDP, SPLIT, kCausal>"
                              r"\s*<<<)", r"\1if (false) \2")]),
-        ("probe_dq_off", [(r"(\n  )(swa_bwd_dq_tc<HDP>\s*<<<)",
+        ("probe_dq_off", [(r"(\n  )(swa_bwd_dq_tc<HDP, kCausal>\s*<<<)",
                            r"\1if (false) \2")]),
     ],
     "conv2d_wgrad": [
@@ -296,12 +298,14 @@ def build_all(names, baseline):
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {key}:\n{log}")
         _, fn_name, argtypes = ENTRIES[key[0]]
-        # a baseline swa_attention source from before its non-causal mode
-        # has no causal argument (the one after window); this branch serves
-        # only such baselines, as every later source has the argument
-        legacy = key[0] == "swa_attention" and "int causal" not in texts[key]
+        # a baseline swa_attention or swa_attention_bwd source from before
+        # its non-causal mode has no causal argument (the one after window);
+        # this branch serves only such baselines, as every later source has
+        # the argument
+        at = {"swa_attention": 11, "swa_attention_bwd": 16}.get(key[0])
+        legacy = at is not None and "int causal" not in texts[key]
         if legacy:
-            argtypes = argtypes[:11] + argtypes[12:]
+            argtypes = argtypes[:at] + argtypes[at + 1:]
         fn = getattr(ctypes.CDLL(so), fn_name)
         fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
         fn.variant, fn.legacy = key[1], legacy
@@ -571,10 +575,12 @@ def swa_bwd_cases(torch, dev, gen):
         def call(fn, q=q, k=k, v=v, o=o, do=do, lse=lse,
                  delta=delta, dq=dq, dk=dk, dv=dv, B=B, S=S, H=H, KV=KV,
                  hd=hd, W=W):
+            causal = () if fn.legacy else (1,)
             return launcher(fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                             o.data_ptr(), do.data_ptr(), lse.data_ptr(),
                             delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                            dv.data_ptr(), B, S, H, KV, hd, W, hd ** -0.5, 1)
+                            dv.data_ptr(), B, S, H, KV, hd, W, *causal,
+                            hd ** -0.5, 1)
 
         def verdict(dq=dq, dk=dk, dv=dv, want=want):
             return _two_ulps((dq, dk, dv), want)
@@ -582,7 +588,7 @@ def swa_bwd_cases(torch, dev, gen):
         def library(y=y, qt=qt, kt=kt, vt=vt, dot=dot):
             return torch.autograd.grad(y, (qt, kt, vt), dot,
                                        retain_graph=True)
-        cases[case] = (call, verdict, library)
+        cases[case] = (call, verdict, library, dq, dk, dv)
     return cases
 
 
@@ -615,16 +621,20 @@ def main(argv=None):
         for case, (call, verdict, _, *out) in cases.items():
             shipped = None
             for tag in tags:
+                # outputs filled with NaN first, so a build that leaves one
+                # unwritten fails its verdict and its bits
+                for o in out:
+                    o.fill_(float("nan"))
                 call(built[(name, tag)][0])()
                 torch.cuda.synchronize()
                 ok, err = verdict()
                 recs[tag][case] = {"ok": ok, "max_abs_err": err, "ms": []}
                 if out:
-                    # the output's bits against the shipped source's
+                    # the outputs' bits against the shipped source's
                     if shipped is None:
-                        shipped = out[0].clone()
-                    recs[tag][case]["bitwise_shipped"] = bool(
-                        torch.equal(out[0], shipped))
+                        shipped = [o.clone() for o in out]
+                    recs[tag][case]["bitwise_shipped"] = all(
+                        torch.equal(o, s_) for o, s_ in zip(out, shipped))
                 if not ok and not tag.startswith("probe_"):
                     failed.append((name, tag, case))
             for tag in tags + tags[::-1]:
