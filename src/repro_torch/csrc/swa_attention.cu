@@ -4,7 +4,8 @@
 // the output in the inputs' dtype. With causal == 0 (the encoder's
 // bidirectional attention, the reference's `_sdpa` under an all-ones mask,
 // layers/attention.py:99-105) query i sees every key j < S; window is then
-// S and unused. Scores are f32, scaled by hd^-0.5 and
+// S and unused: the entry point below sends those calls, of either dtype,
+// to swa_full_fwd.cu. Scores are f32, scaled by hd^-0.5 and
 // masked to -1e30; a masked p is exactly 0; the output is acc / max(l, 1e-30)
 // with the guard of the Pallas kernel (kernel.py:60). With a non-null lse
 // pointer the kernel also writes each row's log-sum-exp of its scaled
@@ -39,10 +40,10 @@
 // the bf16 tensor-core balance (989 TFLOP/s over 3.35 TB/s, ~295): the
 // bytes bound it, at 3.1 us. mma.sync reaches that byte bound long before
 // its own peak, so this kernel uses mma.sync with cp.async copies, not
-// wgmma and TMA; those wait for a later PR if the numbers ask for them.
-// The encoder's non-causal shape (B 4, S 1024, H 16, hd 80, HuBERT-XLarge)
-// does 4 hd S^2 B H = 21.5 GFLOP over 42 MB: ~510 FLOP per byte, above the
-// balance, so the tensor cores bound it, at 21.7 us.
+// wgmma and TMA. The encoder's non-causal shape (B 4, S 1024, H 16, hd 80,
+// HuBERT-XLarge) does 4 hd S^2 B H = 21.5 GFLOP over 42 MB: ~510 FLOP per
+// byte, above the balance, so the tensor cores bound it, at 21.7 us; its
+// kernel (swa_full_fwd.cu) is built on wgmma and TMA.
 //
 // bf16 design: 4 warps, 16 query rows each.
 // - Why the G query heads of one kv head are not packed into one block: at
@@ -85,12 +86,6 @@
 //   tile holding the window's first key (decided per warp); interior tiles
 //   skip the per-element test, and a warp skips a tile none of its rows
 //   can see. The output is staged through q's tile for 16-byte stores.
-// - Non-causal: a block walks every key tile, 0 .. ceil(S / 64) - 1, and the
-//   only mask is the ragged tail kj >= S of the last tile. That mask is
-//   needed there and not in the causal mode (where kj <= qi < S): a partial
-//   tile's zero-filled key rows would score 0, not -1e30, and take softmax
-//   weight. The mode is a template flag of the bf16 kernel (kCausal), so
-//   the causal instance compiles to the code it had before the mode.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -231,7 +226,7 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
   }
 }
 
-template <int HDP, bool kCausal>
+template <int HDP>
 __global__ void __launch_bounds__(kTcThreads)
     swa_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
@@ -276,8 +271,8 @@ __global__ void __launch_bounds__(kTcThreads)
   }
 
   const int q_last = min(q0 + kBQ, S) - 1;
-  const int kt_begin = kCausal ? max(0, q0 - window + 1) / kBK : 0;
-  const int kt_end = (kCausal ? q_last : S - 1) / kBK;
+  const int kt_begin = max(0, q0 - window + 1) / kBK;
+  const int kt_end = q_last / kBK;
   load_tile<HDP>(q_s, qb, q_stride, q0, S, hd, vec);
   load_tile<HDP>(k_s, kb, kv_stride, kt_begin * kBK, S, hd, vec);
   load_tile<HDP>(v_s, vb, kv_stride, kt_begin * kBK, S, hd, vec);
@@ -314,13 +309,9 @@ __global__ void __launch_bounds__(kTcThreads)
     }
     const int k0 = kt * kBK;
     // does any of this warp's rows see a key of the tile, and do all of
-    // them see all of its keys? (non-causal: every row sees every key
-    // below S)
-    const bool live =
-        !kCausal || (k0 <= qw0 + 15 && qw0 - (k0 + kBK - 1) < window);
-    const bool masked = kCausal
-                            ? k0 + kBK - 1 > qw0 || qw0 + 15 - k0 >= window
-                            : k0 + kBK > S;
+    // them see all of its keys?
+    const bool live = k0 <= qw0 + 15 && qw0 - (k0 + kBK - 1) < window;
+    const bool masked = k0 + kBK - 1 > qw0 || qw0 + 15 - k0 >= window;
     if (live) {
       const __nv_bfloat16* ks_ = k_s + st * kBK * kPitch;
       const __nv_bfloat16* vs_ = v_s + st * kBK * kPitch;
@@ -351,13 +342,8 @@ __global__ void __launch_bounds__(kTcThreads)
           float a1 = s[n][2 + e] * scale_log2;
           if (masked) {
             const int kj = k0 + n * 8 + 2 * tig + e;
-            if (kCausal) {
-              if (!(kj <= qi0 && qi0 - kj < window)) a0 = kNegInf;
-              if (!(kj <= qi1 && qi1 - kj < window)) a1 = kNegInf;
-            } else if (kj >= S) {
-              a0 = kNegInf;
-              a1 = kNegInf;
-            }
+            if (!(kj <= qi0 && qi0 - kj < window)) a0 = kNegInf;
+            if (!(kj <= qi1 && qi1 - kj < window)) a1 = kNegInf;
           }
           s[n][e] = a0;
           s[n][2 + e] = a1;
@@ -472,10 +458,9 @@ __global__ void __launch_bounds__(kTcThreads)
 template <int HDP>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 float* lse, int B, int S, int H, int KV, int hd, int window,
-                int causal, float scale, cudaStream_t stream) {
+                float scale, cudaStream_t stream) {
   constexpr size_t smem = tc_smem_bytes<HDP>();
-  const auto kernel =
-      causal ? swa_bf16_kernel<HDP, true> : swa_bf16_kernel<HDP, false>;
+  const auto kernel = swa_bf16_kernel<HDP>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -519,7 +504,7 @@ __global__ void __launch_bounds__(kF32Threads)
     swa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, float* __restrict__ o,
                    float* __restrict__ lse, int S, int H, int KV, int hd,
-                   int window, int causal, float scale) {
+                   int window, float scale) {
   extern __shared__ float smem[];
   const int hdp = hd + 1;
   float* q_s = smem;               // kBQ x hdp
@@ -558,8 +543,8 @@ __global__ void __launch_bounds__(kF32Threads)
   for (int j = 0; j < kHdMax / kSub; ++j) acc[j] = 0.0f;
 
   const int q_last = min(q0 + kBQ, S) - 1;
-  const int kt_begin = causal ? max(0, q0 - window + 1) / kBK : 0;
-  const int kt_end = (causal ? q_last : S - 1) / kBK;
+  const int kt_begin = max(0, q0 - window + 1) / kBK;
+  const int kt_end = q_last / kBK;
   for (int kt = kt_begin; kt <= kt_end; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the q tile is in; the last kv tile is read
@@ -585,8 +570,7 @@ __global__ void __launch_bounds__(kF32Threads)
 #pragma unroll
     for (int i = 0; i < kBK / kSub; ++i) {
       const int kj = k0 + sub + kSub * i;
-      const bool valid =
-          qi < S && (causal ? kj <= qi && qi - kj < window : kj < S);
+      const bool valid = qi < S && kj <= qi && qi - kj < window;
       s[i] = valid ? s[i] * scale : kNegInf;
       tile_max = fmaxf(tile_max, s[i]);
     }
@@ -629,7 +613,7 @@ __global__ void __launch_bounds__(kF32Threads)
 
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                float* lse, int B, int S, int H, int KV, int hd, int window,
-               int causal, float scale, cudaStream_t stream) {
+               float scale, cudaStream_t stream) {
   const size_t smem = f32_smem_bytes(hd);
   cudaError_t err = cudaFuncSetAttribute(
       swa_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -639,11 +623,16 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
   swa_f32_kernel<<<grid, kF32Threads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, S, H, KV,
-      hd, window, causal, scale);
+      hd, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
+
+// swa_full_fwd.cu: the non-causal mode
+extern "C" int swa_full_fwd(const void* q, const void* k, const void* v,
+                            void* o, void* lse, int B, int S, int H, int KV,
+                            int hd, float scale, int bf16, void* stream);
 
 // bf16: 0 = float32 operands (CUDA cores), 1 = bfloat16 (tensor cores).
 // lse: (B, H, S) f32 log-sum-exp of each row's scores, or null.
@@ -656,16 +645,17 @@ extern "C" int swa_attention_fwd(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* lse_f = static_cast<float*>(lse);
+  if (!causal)
+    return swa_full_fwd(q, k, v, o, lse, B, S, H, KV, hd, scale, bf16,
+                        stream);
   if (!bf16)
-    return launch_f32(q, k, v, o, lse_f, B, S, H, KV, hd, window, causal,
-                      scale, s);
+    return launch_f32(q, k, v, o, lse_f, B, S, H, KV, hd, window, scale, s);
   using Launch = int (*)(const void*, const void*, const void*, void*, float*,
-                         int, int, int, int, int, int, int, float,
-                         cudaStream_t);
+                         int, int, int, int, int, int, float, cudaStream_t);
   constexpr Launch by_hdp[] = {launch_bf16<16>, launch_bf16<32>,
                                launch_bf16<48>, launch_bf16<64>,
                                launch_bf16<80>, launch_bf16<96>,
                                launch_bf16<112>, launch_bf16<128>};
   return by_hdp[(hd + 15) / 16 - 1](q, k, v, o, lse_f, B, S, H, KV, hd,
-                                    window, causal, scale, s);
+                                    window, scale, s);
 }

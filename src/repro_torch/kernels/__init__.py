@@ -177,7 +177,7 @@ def library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             digest = hashlib.sha256()
-            for src in sorted(CSRC.glob("*.cu")):
+            for src in sorted(CSRC.glob("*.cu*")):     # .cu and .cuh
                 digest.update(src.name.encode() + src.read_bytes())
             digest.update(" ".join(NVCC_FLAGS).encode())
             target = BUILD_DIR / f"libkernels-{digest.hexdigest()[:16]}.so"

@@ -2,16 +2,17 @@
 or, with ``causal=False``, attention over every key (the encoder's).
 
 A CPU tensor goes to the plain version (``ref.swa_attention_ref``), a CUDA
-tensor to the hand kernel in ``csrc/swa_attention.cu``; nothing falls back
+tensor to the hand kernel in ``csrc/swa_attention.cu`` (whose entry point
+sends the non-causal mode to ``csrc/swa_full_fwd.cu``); nothing falls back
 from one to the other. q is (B, S, H, hd), k and v (B, S, KV, hd), all f32
 or all bf16; the softmax and sums are f32 and the output has q's dtype.
 On the CPU autograd differentiates the plain version. On the card a call
 that autograd records is a ``torch.autograd.Function``: its forward also
 writes each row's log-sum-exp, and its backward is the kernels of
 ``csrc/swa_attention_bwd.cu`` (one ``swa_attention_bwd`` launch a call),
-in either mode (the non-causal mode is a template instance of both
-kernels); a call it does not record (serving, under ``torch.no_grad()``)
-passes the kernel a null log-sum-exp.
+in either mode (the non-causal mode's kernels are
+``csrc/swa_full_bwd.cu``'s); a call it does not record (serving, under
+``torch.no_grad()``) passes the kernel a null log-sum-exp.
 """
 from __future__ import annotations
 

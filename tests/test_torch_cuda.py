@@ -310,7 +310,13 @@ def test_swa_kernel_large_scores_on_card(cuda, dt, window):
     (1, 15, 4, 1, 64),             # under one tile
     (2, 1, 2, 2, 32),              # a single key
     (1, 50, 2, 1, 20),             # hd 20: rows staged 2 bytes at a time
-    (1, 130, 4, 2, 72)])           # hd 72: zero-padded to 80
+    (1, 130, 4, 2, 72),            # hd 72: zero-padded to 80
+    # the wgmma kernel's edges: 128-query blocks of two 64-row warpgroup
+    # tiles, 64-key tiles; hd 96 and 112 (6 and 7 pieces of 16 columns)
+    (1, 127, 4, 2, 80), (2, 128, 4, 4, 64), (1, 129, 4, 2, 80),
+    (1, 1, 4, 2, 80),
+    (1, 200, 4, 2, 96), (1, 200, 4, 2, 112),
+    (4, 1024, 16, 16, 80)])        # HuBERT's grid: B·H = 64 at S 1024
 def test_swa_non_causal_kernel_matches_plain_on_card(cuda, dt, B, S, H, KV,
                                                      hd):
     """The non-causal mode (the encoder's attention over every key)
@@ -341,7 +347,12 @@ def test_swa_non_causal_kernel_matches_plain_on_card(cuda, dt, B, S, H, KV,
     (1, 1000, 4, 4, 80),           # ragged last tile
     (2, 200, 4, 2, 80),            # GQA, ragged
     (2, 37, 4, 2, 64), (1, 33, 4, 2, 20), (3, 1, 2, 1, 32),
-    (2, 130, 8, 1, 128)])
+    (2, 130, 8, 1, 128),
+    # the wgmma kernels' edges: 128-key dK/dV and 128-query dQ blocks of
+    # two 64-row warpgroup tiles over 64-row tiles; hd 96 and 112
+    (1, 127, 4, 2, 80), (2, 128, 4, 4, 64), (1, 129, 4, 2, 80),
+    (1, 1, 4, 2, 80),
+    (1, 200, 4, 2, 96), (1, 200, 4, 2, 112)])
 def test_swa_non_causal_bwd_matches_plain_on_card(cuda, dt, B, S, H, KV, hd):
     """The non-causal mode under autograd: one forward launch with its
     log-sum-exp (against the plain one) and one ``swa_attention_bwd``

@@ -2,25 +2,38 @@
 """Variants of the port's CUDA kernels, timed beside the shipped ones.
 
     python3 tools/kernel_variants.py [--kernels conv2d ...] [--baseline DIR]
+                                     [--variants TAG ...]
 
-Each variant is a copy of one source in ``src/repro_torch/csrc/`` with one
-edit - a tile constant of elm_stats, swa_attention's copy loop for
-hd == HDP switched off, conv2d's pixels per thread, tile size,
-instantiation or stores, the conv backward's splits, tiles and bands, or
-one phase of a block run twice - built alone with nvcc into
+Each variant is a copy of a kernel's sources in ``src/repro_torch/csrc/``
+(swa_attention and swa_attention_bwd: the causal file, the non-causal
+``swa_full_*.cu`` file and their header) with one edit - a tile constant
+of elm_stats, swa_attention's copy loop for hd == HDP switched off, the
+non-causal kernels' stages, copies or split, conv2d's pixels per thread,
+tile size, instantiation or stores, the conv backward's splits, tiles and
+bands, or one phase of a block run twice - built alone with nvcc into
 ``build/variants/``. A variant tagged ``probe_`` leaves a phase out (its
 output is wrong by design): it is timed, and its disagreement with the
 plain version is reported but not a failure.
-``--baseline DIR`` adds, for each kernel, a build of the same-named source in
-DIR as it stands (an earlier checkout's ``src/repro_torch/csrc``: the same C
-entry point; swa_attention's gained its log-sum-exp argument with the backward
+``--baseline DIR`` adds, for each kernel, a build of the same-named sources
+in DIR as they stand (an earlier checkout's ``src/repro_torch/csrc``: the
+same C entry point; those of the kernel's files that DIR lacks are left out,
+as a checkout from before the non-causal files kept that mode in the causal
+file; swa_attention's gained its log-sum-exp argument with the backward
 kernels, so a baseline of that kernel must have it; a swa_attention or
 swa_attention_bwd source without the later causal argument is called without
-it). Each swa_attention build's output, and each swa_attention_bwd build's
-dq, dk and dv, are also compared bit for bit with the shipped source's
-(``bitwise_shipped``). swa_attention_bwd's
-variants change its dK/dV key or query tile, the warp groups that share a
-block's tiles, dQ's key tile or the tiles' copy loop, or leave one kernel out;
+it and runs the causal shapes alone). Each swa_attention build's output,
+and each swa_attention_bwd build's dq, dk and dv, are also compared bit
+for bit with the shipped source's (``bitwise_shipped``); both run the
+causal shapes (prefill, a window of 256 at S 1024, hd 40) and the
+non-causal ones of chip_smoke.py (HuBERT's encoder, S 1000, a small f32
+case). swa_attention_bwd's causal variants change its dK/dV key or query
+tile, the warp groups that share a block's tiles, dQ's key tile or the
+tiles' copy loop, or leave one kernel out; the non-causal variants of
+both copy tiles by threads, not TMA, round the hi part of the split
+weights to nearest, not down, or leave out (``probe_``) the lo products,
+the exponentials or a kernel; the backward's take the IEEE exp2f, the
+forward's the hardware's exp2, and the forward's also change its
+stages, keep Q in shared memory for S or truncate lo too;
 rmsnorm_bwd's change its chunks or leave out its dscale pass; its baseline
 (the first design) is called with the chunks it chose. The shipped source is
 built the same way beside them, and all the nvcc processes run together; the
@@ -55,28 +68,48 @@ import chip_smoke  # noqa: E402  (puts src/ on the path)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # kernel -> (source, C entry point, argument types)
 ENTRIES = {
-    "conv2d": ("conv2d.cu", "conv2d_valid_f32",
+    "conv2d": (("conv2d.cu",), "conv2d_valid_f32",
                (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P)),
-    "elm_stats": ("elm_stats.cu", "elm_stats_f32",
+    "elm_stats": (("elm_stats.cu",), "elm_stats_f32",
                   (_P, _P, _P, _P, _I, _I, _I, _I, _P)),
-    "swa_attention": ("swa_attention.cu", "swa_attention_fwd",
+    "swa_attention": (("swa_attention.cu", "swa_full_fwd.cu",
+                       "swa_full.cuh"), "swa_attention_fwd",
                       (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                        _I, _P)),
-    "rmsnorm_bwd": ("rmsnorm_bwd.cu", "rmsnorm_bwd",
+    "rmsnorm_bwd": (("rmsnorm_bwd.cu",), "rmsnorm_bwd",
                     (_P,) * 6 + (_I, _I, _I, _F, _I, _I, _P)),
-    "swa_attention_bwd": ("swa_attention_bwd.cu", "swa_attention_bwd",
+    "swa_attention_bwd": (("swa_attention_bwd.cu", "swa_full_bwd.cu",
+                           "swa_full.cuh"), "swa_attention_bwd",
                           (_P,) * 10 + (_I,) * 7 + (_F, _I, _P)),
-    "conv2d_wgrad": ("conv2d_wgrad.cu", "conv2d_wgrad_f32",
+    "conv2d_wgrad": (("conv2d_wgrad.cu",), "conv2d_wgrad_f32",
                      (_P, _P, _P, _P) + (_I,) * 9 + (_P,)),
-    "conv2d_dgrad": ("conv2d_dgrad.cu", "conv2d_dgrad_f32",
+    "conv2d_dgrad": (("conv2d_dgrad.cu",), "conv2d_dgrad_f32",
                      (_P, _P, _P) + (_I,) * 8 + (_P,)),
 }
+# the non-causal kernels' hi + lo split: the shipped hi (truncated), hi
+# rounded to nearest by the bf16x2 conversion
+_SPLIT = (r"  const uint32_t h0 = __float_as_uint\(x0\) & 0xFFFF0000u;\n"
+          r"  const uint32_t h1 = __float_as_uint\(x1\) & 0xFFFF0000u;\n"
+          r"  hi = \(h0 >> 16\) \| h1;\n"
+          r"  lo = as_u32\(__floats2bfloat162_rn\(x0 - __uint_as_float\(h0\),"
+          r"\s*x1 - __uint_as_float\(h1\)\)\);")
+# lo truncated too: no conversion instruction at all (2^-14 of P kept)
+_SPLIT_TRUNC2 = """  const uint32_t h0 = __float_as_uint(x0) & 0xFFFF0000u;
+  const uint32_t h1 = __float_as_uint(x1) & 0xFFFF0000u;
+  hi = (h0 >> 16) | h1;
+  lo = ((__float_as_uint(x0 - __uint_as_float(h0)) >> 16) |
+        (__float_as_uint(x1 - __uint_as_float(h1)) & 0xFFFF0000u));"""
+_SPLIT_RN = """  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = as_u32(h);
+  lo = as_u32(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));"""
 _WALK = (r"walk<TJ, NCI, TC, COUT, SEGW, FIXED>\(\s*a, xrow, drow, ow0, "
          r"min\(OW, ow0 \+ a\.SEGW\), j0, c0, acc\);")
 _ITEM = (r"item_fixed<KH, KW, CIN, COUT, P>\(a, ws, ys \+ g \* a\.IP, h, "
          r"ylo, w0, out\);")
 # kernel -> [(variant, [(pattern, replacement), ...])]; every pattern must
-# match the shipped source exactly once
+# match the shipped source exactly once (the kernel's first file, or the
+# file named first in a (file, pattern, replacement) edit)
 VARIANTS = {
     "conv2d": [
         ("shipped", []),
@@ -124,6 +157,43 @@ VARIANTS = {
         ("shipped", []),
         ("one_copy_loop", [(r"if \(vec16 && hd == HDP\) \{",
                             "if (false) {")]),
+        # the non-causal kernel: 4 k/v stages where it ships 3
+        ("full_stages4", [("swa_full_fwd.cu", r"kFwdStages = \d+;",
+                           "kFwdStages = 4;")]),
+        # tiles copied by warpgroup 0's threads, not TMA
+        ("full_thread_copies", [("swa_full_fwd.cu", r"a\.tma = hd % 8 == 0",
+                                 "a.tma = false && hd % 8 == 0")]),
+        # S = Q.K^T with Q read from shared memory (SS form), not from
+        # registers
+        ("full_q_smem", [("swa_full_fwd.cu", r"kQRegsMax = \d+;",
+                          "kQRegsMax = 0;")]),
+        # P's hi rounded to nearest by a conversion, not truncated
+        ("full_split_rn", [("swa_full.cuh", _SPLIT, _SPLIT_RN)]),
+        ("full_split_trunc2", [("swa_full.cuh", _SPLIT, _SPLIT_TRUNC2)]),
+        # the softmax's exp2f replaced by a product: what the exponentials
+        # cost (wrong weights)
+        ("probe_full_no_exp", [
+            ("swa_full_fwd.cu", r"exp2f\(fmaf\(s\[4 \* n \+ e\], "
+             r"scale_log2, -mn0\)\)", "fmaf(s[4 * n + e], 1e-3f, 0.5f)"),
+            ("swa_full_fwd.cu",
+             r"exp2f\(fmaf\(s\[4 \* n \+ 2 \+ e\], scale_log2, -mn1\)\)",
+             "fmaf(s[4 * n + 2 + e], 1e-3f, 0.5f)")]),
+        # the hardware's exp2 (denormal results flushed) in place of the
+        # IEEE exp2f the forward keeps: what exp2f's handling costs there
+        ("full_ex2_ftz", [
+            ("swa_full_fwd.cu", r"exp2f\(fmaf\(s\[4 \* n \+ e\], "
+             r"scale_log2, -mn0\)\)",
+             "exp2_ftz(fmaf(s[4 * n + e], scale_log2, -mn0))"),
+            ("swa_full_fwd.cu",
+             r"exp2f\(fmaf\(s\[4 \* n \+ 2 \+ e\], scale_log2, -mn1\)\)",
+             "exp2_ftz(fmaf(s[4 * n + 2 + e], scale_log2, -mn1))")]),
+        # P.V with P's hi alone: what the lo products cost
+        ("probe_full_hi_only", [("swa_full_fwd.cu",
+                                 r"\n *wgmma_rs<HDP>\(o, pl \+ 4 \* kk, d\);",
+                                 "")]),
+        # the f32 route with 4 warps (rows) a block, not 8
+        ("full_f32_warps4", [("swa_full.cuh", r"kF32Warps = \d+;",
+                              "kF32Warps = 4;")]),
     ],
     "rmsnorm_bwd": [
         ("shipped", []),
@@ -154,10 +224,65 @@ VARIANTS = {
         ("one_copy_loop", [(r"if \(vec16 && hd == HDP\) \{",
                             "if (false) {")]),
         # one main kernel left out (D's pre-pass and the other run)
-        ("probe_dkdv_off", [(r"(\n  )(swa_bwd_dkdv_tc<HDP, SPLIT, kCausal>"
+        ("probe_dkdv_off", [(r"(\n  )(swa_bwd_dkdv_tc<HDP, SPLIT>"
                              r"\s*<<<)", r"\1if (false) \2")]),
-        ("probe_dq_off", [(r"(\n  )(swa_bwd_dq_tc<HDP, kCausal>\s*<<<)",
+        ("probe_dq_off", [(r"(\n  )(swa_bwd_dq_tc<HDP>\s*<<<)",
                            r"\1if (false) \2")]),
+        # the non-causal kernels: copies by warpgroup 0's threads, one
+        # main kernel left out, P's and dS's hi rounded to nearest, the lo
+        # products left out (5 stages do not fit at hd 128)
+        ("full_thread_copies", [("swa_full_bwd.cu", r"a\.tma = hd % 8 == 0",
+                                 "a.tma = false && hd % 8 == 0")]),
+        ("probe_full_dkdv_off", [("swa_full_bwd.cu",
+                                  r"(\n  )(dkdv<<<)", r"\1if (false) \2")]),
+        ("probe_full_dq_off", [("swa_full_bwd.cu",
+                                r"(\n  )(dq<<<)", r"\1if (false) \2")]),
+        # the exponentials of P replaced by a product: what they cost
+        ("probe_full_no_exp", [
+            ("swa_full_bwd.cu", r"exp2_ftz\(fmaf\(s\[4 \* n \+ e\], "
+             r"scale_log2, -ls\[c\]\)\)", "fmaf(s[4 * n + e], 1e-3f, 0.5f)"),
+            ("swa_full_bwd.cu", r"exp2_ftz\(fmaf\(s\[4 \* n \+ 2 \+ e\], "
+             r"scale_log2, -ls\[c\]\)\)",
+             "fmaf(s[4 * n + 2 + e], 1e-3f, 0.5f)"),
+            ("swa_full_bwd.cu", r"exp2_ftz\(fmaf\(s\[4 \* n \+ e\], "
+             r"scale_log2, -l0\)\)", "fmaf(s[4 * n + e], 1e-3f, 0.5f)"),
+            ("swa_full_bwd.cu", r"exp2_ftz\(fmaf\(s\[4 \* n \+ 2 \+ e\], "
+             r"scale_log2, -l1\)\)", "fmaf(s[4 * n + 2 + e], 1e-3f, 0.5f)")]),
+        # P by the IEEE exp2f, not the hardware's exp2 (denormal results
+        # flushed): what exp2f's denormal handling costs
+        ("full_exp2f", [
+            ("swa_full_bwd.cu", r"in \? exp2_ftz\(fmaf\(s\[4 \* n \+ e\], "
+             r"scale_log2, -ls\[c\]\)\)",
+             "in ? exp2f(fmaf(s[4 * n + e], scale_log2, -ls[c]))"),
+            ("swa_full_bwd.cu",
+             r"in \? exp2_ftz\(fmaf\(s\[4 \* n \+ 2 \+ e\], "
+             r"scale_log2, -ls\[c\]\)\)",
+             "in ? exp2f(fmaf(s[4 * n + 2 + e], scale_log2, -ls[c]))"),
+            ("swa_full_bwd.cu", r"in \? exp2_ftz\(fmaf\(s\[4 \* n \+ e\], "
+             r"scale_log2, -l0\)\)",
+             "in ? exp2f(fmaf(s[4 * n + e], scale_log2, -l0))"),
+            ("swa_full_bwd.cu",
+             r"in \? exp2_ftz\(fmaf\(s\[4 \* n \+ 2 \+ e\], "
+             r"scale_log2, -l1\)\)",
+             "in ? exp2f(fmaf(s[4 * n + 2 + e], scale_log2, -l1))")]),
+        ("probe_full_delta_only", [
+            ("swa_full_bwd.cu", r"(\n  )(dkdv<<<)", r"\1if (false) \2"),
+            ("swa_full_bwd.cu", r"(\n  )(dq<<<)", r"\1if (false) \2")]),
+        ("full_split_rn", [("swa_full.cuh", _SPLIT, _SPLIT_RN)]),
+        ("probe_full_hi_only", [
+            ("swa_full_bwd.cu", r"\n *wgmma_rs<HDP>\(dv, pl \+ 4 \* kk, d\);",
+             ""),
+            ("swa_full_bwd.cu", r"\n *wgmma_rs<HDP>\(dk, dl \+ 4 \* kk, d\);",
+             ""),
+            ("swa_full_bwd.cu", r"\n *wgmma_rs<HDP>\(dq, dl \+ 4 \* kk, d\);",
+             "")]),
+        ("full_f32_warps4", [("swa_full.cuh", r"kF32Warps = \d+;",
+                              "kF32Warps = 4;")]),
+        ("probe_f32_dkdv_off", [("swa_full_bwd.cu",
+                                 r"(\n  )(f32_dkdv_kernel<<<)",
+                                 r"\1if (false) \2")]),
+        ("probe_f32_dq_off", [("swa_full_bwd.cu", r"(\n  )(f32_dq_kernel<<<)",
+                               r"\1if (false) \2")]),
     ],
     "conv2d_wgrad": [
         ("shipped", []),
@@ -240,10 +365,14 @@ CONV_SHAPES = [("stage1", 4, 200, 28, 1, 6), ("stage2", 4, 200, 12, 6, 12),
 ELM_SHAPES = [("unmasked", 4, 200, 192, 10, False),
               ("fractional_mask", 4, 200, 192, 10, True),
               ("shard", 4, 12_500, 192, 10, False)]
-# (case, B, S, H, KV, hd, window)
-SWA_SHAPES = [("prefill_causal", 4, 128, 32, 8, 128, 128),
-              ("window256_s1024", 1, 1024, 32, 8, 128, 256),
-              ("prefill_hd40", 4, 128, 32, 8, 40, 128)]
+# (case, B, S, H, KV, hd, window, causal, bf16): the causal shapes, then
+# chip_smoke.py's non-causal ones (window = S)
+SWA_SHAPES = [("prefill_causal", 4, 128, 32, 8, 128, 128, 1, 1),
+              ("window256_s1024", 1, 1024, 32, 8, 128, 256, 1, 1),
+              ("prefill_hd40", 4, 128, 32, 8, 40, 128, 1, 1),
+              ("encoder_bidirectional", 4, 1024, 16, 16, 80, 1024, 0, 1),
+              ("encoder_ragged_s1000", 4, 1000, 16, 16, 80, 1000, 0, 1),
+              ("encoder_f32_small", 2, 200, 4, 2, 80, 200, 0, 0)]
 
 
 def nvcc():
@@ -253,29 +382,43 @@ def nvcc():
     return found
 
 
-def patched(text, edits):
-    for pattern, repl in edits:
-        text, hits = re.subn(pattern, repl, text)
+def patched(texts, edits):
+    """{file: text} with each edit applied: (pattern, replacement) to the
+    first file, (file, pattern, replacement) to the file named."""
+    texts = dict(texts)
+    first = next(iter(texts))
+    for edit in edits:
+        name, pattern, repl = edit if len(edit) == 3 else (first, *edit)
+        texts[name], hits = re.subn(pattern, repl, texts[name])
         if hits != 1:
-            raise RuntimeError(f"{pattern!r} matched {hits} times")
-    return text
+            raise RuntimeError(f"{pattern!r} matched {hits} times in {name}")
+    return texts
 
 
-def variants_of(name, baseline):
-    """[(tag, source text)] of kernel ``name``: the shipped source patched
-    by each variant's edits, then the baseline directory's source."""
+def variants_of(name, baseline, only=None):
+    """[(tag, {file: source text})] of kernel ``name``: the shipped sources
+    patched by each variant's edits (those tagged in ``only``, if given,
+    beside the shipped ones), then the baseline directory's sources (those
+    of the kernel's files it has)."""
     from repro_torch import kernels
-    src_name = ENTRIES[name][0]
-    with open(kernels.CSRC / src_name) as f:
-        text = f.read()
-    out = [(tag, patched(text, edits)) for tag, edits in VARIANTS[name]]
+    texts = {}
+    for src_name in ENTRIES[name][0]:
+        with open(kernels.CSRC / src_name) as f:
+            texts[src_name] = f.read()
+    out = [(tag, patched(texts, edits)) for tag, edits in VARIANTS[name]
+           if only is None or tag == "shipped" or tag in only]
     if baseline:
-        with open(os.path.join(baseline, src_name)) as f:
-            out.append(("baseline", f.read()))
+        base = {}
+        for src_name in ENTRIES[name][0]:
+            path = os.path.join(baseline, src_name)
+            if os.path.exists(path):
+                with open(path) as f:
+                    base[src_name] = f.read()
+        out.append(("baseline", base))
     return out
 
 
-def build_all(names, baseline):
+def build_all(names, baseline, only=None):
     """{(kernel, variant): (ctypes function, ptxas lines)}, built in
     parallel."""
     from repro_torch import kernels
@@ -283,14 +426,18 @@ def build_all(names, baseline):
     os.makedirs(out, exist_ok=True)
     procs, texts = {}, {}
     for name in names:
-        for tag, text in variants_of(name, baseline):
-            texts[(name, tag)] = text
-            cu = os.path.join(out, f"{name}_{tag}.cu")
-            so = cu[:-3] + ".so"
-            with open(cu, "w") as f:
-                f.write(text)
+        for tag, files in variants_of(name, baseline, only):
+            texts[(name, tag)] = files[ENTRIES[name][0][0]]
+            where = os.path.join(out, f"{name}_{tag}")
+            shutil.rmtree(where, ignore_errors=True)
+            os.makedirs(where)
+            for src_name, text in files.items():
+                with open(os.path.join(where, src_name), "w") as f:
+                    f.write(text)
+            cus = [os.path.join(where, n) for n in files if n.endswith(".cu")]
+            so = where + ".so"
             procs[(name, tag)] = (so, subprocess.Popen(
-                [nvcc(), *kernels.NVCC_FLAGS, "-shared", cu, "-o", so],
+                [nvcc(), *kernels.NVCC_FLAGS, "-shared", *cus, "-o", so],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     built = {}
     for key, (so, proc) in procs.items():
@@ -310,7 +457,8 @@ def build_all(names, baseline):
         fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
         fn.variant, fn.legacy = key[1], legacy
         built[key] = (fn, [ln.strip() for ln in log.splitlines()
-                           if "registers" in ln or "spill" in ln])
+                           if "registers" in ln or "spill" in ln
+                           or "serialized" in ln])
     return built
 
 
@@ -466,48 +614,59 @@ def dgrad_cases(torch, dev, gen):
     return cases
 
 
+def _swa_operands(torch, dev, gen, B, S, heads, hd, bf16):
+    dt = torch.bfloat16 if bf16 else torch.float32
+    return [torch.randn((B, S, n, hd), generator=gen).to(dt).to(dev)
+            for n in heads]
+
+
 def swa_cases(torch, dev, gen):
     import torch.nn.functional as F
     from repro_torch.kernels.swa_attention import ref
     cases = {}
-    for case, B, S, H, KV, hd, W in SWA_SHAPES:
-        q, k, v = (torch.randn((B, S, heads, hd), generator=gen)
-                   .to(torch.bfloat16).to(dev) for heads in (H, KV, KV))
-        want = ref.swa_attention_ref(q, k, v, window=W)
+    for case, B, S, H, KV, hd, W, causal, bf16 in SWA_SHAPES:
+        q, k, v = _swa_operands(torch, dev, gen, B, S, (H, KV, KV), hd, bf16)
+        want = ref.swa_attention_ref(q, k, v, window=W, causal=bool(causal))
         out = torch.empty_like(q)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         i = torch.arange(S, device=dev)
         mask = None if W >= S else ((i[None] <= i[:, None])
                                     & (i[:, None] - i[None] < W))
 
+        # a legacy build (no causal argument) has no non-causal mode: None
         def call(fn, q=q, k=k, v=v, out=out, B=B, S=S, H=H, KV=KV,
-                 hd=hd, W=W):
-            causal = () if fn.legacy else (1,)
+                 hd=hd, W=W, causal=causal, bf16=bf16):
+            if fn.legacy and not causal:
+                return None
+            flag = () if fn.legacy else (causal,)
             return launcher(fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                             out.data_ptr(), None, B, S, H, KV, hd, W,
-                            *causal, hd ** -0.5, 1)
+                            *flag, hd ** -0.5, bf16)
 
-        def verdict(out=out, want=want):
-            return close(out, want, chip_smoke.BF16_RTOL)
+        def verdict(out=out, want=want, bf16=bf16):
+            return close(out, want,
+                         chip_smoke.BF16_RTOL if bf16 else chip_smoke.TOL)
 
-        def library(qt=qt, kt=kt, vt=vt, mask=mask):
+        def library(qt=qt, kt=kt, vt=vt, mask=mask, causal=causal):
             return F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
-                enable_gqa=True)
+                qt, kt, vt, attn_mask=mask,
+                is_causal=bool(causal) and mask is None, enable_gqa=True)
         cases[case] = (call, verdict, library, out)
     return cases
 
 
 def _two_ulps(got, ref):
-    """(within 2 bf16 ulps of max|ref| for every output, max|err|) — the
-    bar of chip_smoke.py's backward cases on bf16 outputs."""
+    """(within 2 bf16 ulps of max|ref| for every bf16 output, within
+    1e-5 · max|ref| for an f32 one, max|err|) — the bars of chip_smoke.py's
+    backward cases."""
     import math
     ok, worst = True, 0.0
     for g, r in zip(got, ref):
         top = float(r.float().abs().max())
         ulp = 2.0 ** (math.floor(math.log2(max(top, 1e-30))) - 7)
+        bar = 2 * ulp if g.dtype.itemsize == 2 else chip_smoke.TOL * top
         err = float((g.float() - r.float()).abs().max())
-        ok, worst = ok and err <= 2 * ulp, max(worst, err)
+        ok, worst = ok and err <= bar, max(worst, err)
     return ok, worst
 
 
@@ -554,12 +713,13 @@ def swa_bwd_cases(torch, dev, gen):
     import torch.nn.functional as F
     from repro_torch.kernels.swa_attention import ops, ref
     cases = {}
-    for case, B, S, H, KV, hd, W in SWA_SHAPES:
-        q, k, v, do = (torch.randn((B, S, heads, hd), generator=gen)
-                       .to(torch.bfloat16).to(dev)
-                       for heads in (H, KV, KV, H))
-        o, lse = ops.swa_attention_fwd(q, k, v, window=W)
-        want = ref.swa_attention_bwd_ref(q, k, v, o, lse, do, window=W)
+    for case, B, S, H, KV, hd, W, causal, bf16 in SWA_SHAPES:
+        q, k, v, do = _swa_operands(torch, dev, gen, B, S, (H, KV, KV, H),
+                                    hd, bf16)
+        o, lse = ops.swa_attention_fwd(q, k, v, window=W,
+                                       causal=bool(causal))
+        want = ref.swa_attention_bwd_ref(q, k, v, o, lse, do, window=W,
+                                         causal=bool(causal))
         delta = torch.empty_like(lse)
         dq, dk, dv = (torch.empty_like(a) for a in (q, k, v))
         qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
@@ -568,19 +728,21 @@ def swa_bwd_cases(torch, dev, gen):
         mask = None if W >= S else ((i[None] <= i[:, None])
                                     & (i[:, None] - i[None] < W))
         y = F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, is_causal=mask is None,
-            enable_gqa=True)
+            qt, kt, vt, attn_mask=mask,
+            is_causal=bool(causal) and mask is None, enable_gqa=True)
         dot = do.transpose(1, 2).contiguous()
 
         def call(fn, q=q, k=k, v=v, o=o, do=do, lse=lse,
                  delta=delta, dq=dq, dk=dk, dv=dv, B=B, S=S, H=H, KV=KV,
-                 hd=hd, W=W):
-            causal = () if fn.legacy else (1,)
+                 hd=hd, W=W, causal=causal, bf16=bf16):
+            if fn.legacy and not causal:
+                return None
+            flag = () if fn.legacy else (causal,)
             return launcher(fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                             o.data_ptr(), do.data_ptr(), lse.data_ptr(),
                             delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                            dv.data_ptr(), B, S, H, KV, hd, W, *causal,
-                            hd ** -0.5, 1)
+                            dv.data_ptr(), B, S, H, KV, hd, W, *flag,
+                            hd ** -0.5, bf16)
 
         def verdict(dq=dq, dk=dk, dv=dv, want=want):
             return _two_ulps((dq, dk, dv), want)
@@ -598,6 +760,9 @@ def main(argv=None):
                         default=sorted(VARIANTS))
     parser.add_argument("--baseline", metavar="DIR",
                         help="also build each kernel's source from DIR")
+    parser.add_argument("--variants", nargs="+", metavar="TAG",
+                        help="only these variants beside the shipped build "
+                             "('none': the shipped build alone)")
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -605,7 +770,7 @@ def main(argv=None):
     import repro_torch  # noqa: F401  (sets the TF32 flags)
     dev = torch.device("cuda")
     card = chip_smoke.card_line()
-    built = build_all(args.kernels, args.baseline)
+    built = build_all(args.kernels, args.baseline, args.variants)
     gen = torch.Generator().manual_seed(0)
     make = {"conv2d": conv_cases, "elm_stats": elm_cases,
             "swa_attention": swa_cases, "conv2d_wgrad": wgrad_cases,
@@ -614,13 +779,19 @@ def main(argv=None):
     shapes = {name: make[name](torch, dev, gen) for name in args.kernels}
     failed = []
     for name, cases in shapes.items():
-        tags = [tag for tag, _ in variants_of(name, args.baseline)]
+        tags = [tag for tag, _ in variants_of(name, args.baseline,
+                                              args.variants)]
         assert tags[0] == "shipped"
         recs = {tag: {"kernel": name, "variant": tag,
                       "ptxas": built[(name, tag)][1]} for tag in tags}
         for case, (call, verdict, _, *out) in cases.items():
             shipped = None
+            runs = [tag for tag in tags
+                    if call(built[(name, tag)][0]) is not None]
             for tag in tags:
+                if tag not in runs:
+                    recs[tag][case] = {"skipped": "no causal argument"}
+            for tag in runs:
                 # outputs filled with NaN first, so a build that leaves one
                 # unwritten fails its verdict and its bits
                 for o in out:
@@ -637,7 +808,7 @@ def main(argv=None):
                         torch.equal(o, s_) for o, s_ in zip(out, shipped))
                 if not ok and not tag.startswith("probe_"):
                     failed.append((name, tag, case))
-            for tag in tags + tags[::-1]:
+            for tag in runs + runs[::-1]:
                 recs[tag][case]["ms"].append(chip_smoke.device_ms(
                     torch, call(built[(name, tag)][0])))
         for tag in tags:
