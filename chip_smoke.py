@@ -216,7 +216,19 @@ is non-zero and no result line is printed:
              ``audit_average_step`` on a bf16 two-member tree of qwen3_8b
              at full width cut to 4 layers (f32 accumulation, no
              collective). Any failed check fails the run.
-18. the kernels line (after a line of swa_attention_bwd's launches by
+18. dryrun — the dry run (``repro_torch.launch.dryrun``) held against
+             the card: the full 36-layer qwen3_8b's bf16 prefill of 4 ×
+             128 and one decode step against a cache of 160 (on phase
+             ``train``'s full-depth params), and ``train``'s member step
+             (4 layers, AdamW, 4 × 128), each traced on the meta device
+             and then run once on the card under ``FlopCounterMode``: the
+             kernel operators' calls by name equal the step's launches,
+             the argument bytes the storages the card's step takes, the
+             FLOPs the card's count, all exactly; printed: the estimated
+             peak over the card's and the device's busy time over the
+             roofline time (data-sheet rates of
+             ``launch.cost_analysis``); then the phase's wall.
+19. the kernels line (after a line of swa_attention_bwd's launches by
    mode), the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -234,7 +246,9 @@ paths (b)–(d) and the recurrent paths (a)–(c) (whose rmsnorm,
 swa_attention, elm_stats and backward counts the kernels line adds), and
 the train path's full-width run (whose rmsnorm_bwd and swa_attention_bwd
 counts the kernels line reports, and whose forwards it adds to the
-serving path's rmsnorm and swa_attention counts).
+serving path's rmsnorm and swa_attention counts), and each of the
+dryrun phase's three steps (held against the trace, not added to the
+kernels line).
 """
 from __future__ import annotations
 
@@ -248,12 +262,6 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# per-card peaks from NVIDIA's data sheets: (f32 FLOP/s on CUDA cores,
-# device-memory bytes/s, dense bf16 tensor-core FLOP/s); the SXM part
-# unless nvidia-smi names another
-PEAKS = {"H100 PCIe": (51.2e12, 2.0e12, 756e12),
-         "H100 NVL": (60e12, 3.9e12, 835e12),
-         "H100": (67e12, 3.35e12, 989e12)}
 SERVE_MAX_BATCH = 64    # the bucketed scorer's largest request
 TOL = 1e-5          # kernel vs plain version: rtol, and atol · max|ref|
 BF16_RTOL = 2.0 ** -7   # one bf16 ulp, for bf16 outputs
@@ -277,10 +285,14 @@ def card_line():
 
 
 def peaks(name):
-    for key, val in PEAKS.items():
-        if key in name:
-            return key, val
-    raise RuntimeError(f"no peak rates on record for {name!r}")
+    """(the table's key, (f32 FLOP/s on CUDA cores, device-memory bytes/s,
+    dense bf16 tensor-core FLOP/s)) of the card named ``name``, from
+    NVIDIA's data sheets in ``repro_torch.launch.cost_analysis.CARDS`` (the
+    SXM part unless nvidia-smi names another)."""
+    from repro_torch.launch.cost_analysis import CARDS, card_key
+    key = card_key(name)
+    card = CARDS[key]
+    return key, (card.f32_flops, card.hbm_bytes_per_s, card.bf16_flops)
 
 
 def call_ms(torch, fn, reps=REPS):
@@ -429,8 +441,7 @@ def elm_stats_record(torch, rates, h, t, m, tag, plain_reps=20,
     nbytes = 4 * (h.numel() + t.numel() + k * L * (L + C)
                   + (m.numel() if m is not None else 0))
     # U is symmetric: the function needs its pairs i <= j and all of V
-    flops = k * n * (L * (L + 1) + 2 * L * C) + (k * n * L if m is not None
-                                                   else 0)
+    flops = st_ops.elm_stats_flops(k, n, L, C, m is not None)
     b_ms, b_by = bound_ms(nbytes, flops, rates)
     kernel = lambda: st_ops.elm_stats(h, t, mask=m)       # noqa: E731
     plain = lambda: st_ref.elm_stats_ref(h, t, m)         # noqa: E731
@@ -495,7 +506,7 @@ def phase_kernels(torch, dev, rates):
                             .permute(1, 0, 3, 4, 2), y),
               "the cuDNN yardstick computes another function")
         nbytes = 4 * (x.numel() + w.numel() + y.numel())
-        flops = 2 * y.numel() * kh * kw * Cin
+        flops = conv_ops.conv2d_flops(y.shape, kh, kw, Cin)
         b_ms, b_by = bound_ms(nbytes, flops, rates)
         kernel = lambda: conv_ops.conv2d_valid(x, w)          # noqa: E731
         plain = lambda: conv_ref.conv2d_valid_ref(x, w)       # noqa: E731
@@ -569,7 +580,7 @@ def phase_kernels(torch, dev, rates):
         check(err <= bar, f"{tag}: max|err| {err} > {bar} (f64 rule)")
         check(same_function(as_port(library()), ref),
               "the cuDNN backward yardstick computes another function")
-        flops = 2 * dy.numel() * kh * kw * Cin        # the true products
+        flops = conv_ops.conv2d_flops(dy.shape, kh, kw, Cin)  # true products
         b_ms, b_by = bound_ms(nbytes, flops, rates)
         rec = dict(shape=f"x{xs} w{ws}", max_abs_err=err, max_abs_ref=top,
                    bar_f64_rule=bar,
@@ -622,7 +633,7 @@ def phase_kernels(torch, dev, rates):
               "the rms_norm yardstick computes another function")
         nbytes = 2 * x.element_size() * x.numel() + scale.element_size() * \
             scale.numel()
-        flops = 4 * x.numel()
+        flops = rms_ops.rmsnorm_flops(x.shape)
         b_ms, b_by = bound_ms(nbytes, flops, rates)
         kernel = lambda: rms_ops.rmsnorm(x, scale, eps=1e-6)        # noqa
         plain = lambda: rms_ref.rmsnorm_ref(x, scale, 1e-6)         # noqa
@@ -669,9 +680,9 @@ def phase_kernels(torch, dev, rates):
         check(same_function(library().transpose(1, 2).float(), y.float(),
                             2e-2),
               "the SDPA yardstick computes another function")
-        pairs = B * H * sum(min(t + 1, W) for t in range(S))
+        pairs = swa_ops.pairs_in_mask(B, S, H, W)
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-        flops = 4 * hd * pairs
+        flops = swa_ops.swa_flops(B, S, H, hd, W)
         b_ms, b_by = bound_ms(nbytes, flops, rates, bf16=True)
         kernel = lambda: swa_ops.swa_attention(q, k, v, window=W)  # noqa
         plain = lambda: swa_ref.swa_attention_ref(q, k, v,           # noqa
@@ -716,9 +727,9 @@ def phase_kernels(torch, dev, rates):
         check(same_function(library().transpose(1, 2).float(), y.float(),
                             2e-2),
               "the SDPA yardstick computes another function")
-        pairs = B * H * S * S
+        pairs = swa_ops.pairs_in_mask(B, S, H, S, causal=False)
         nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
-        flops = 4 * hd * pairs
+        flops = swa_ops.swa_flops(B, S, H, hd, S, causal=False)
         b_ms, b_by = bound_ms(nbytes, flops, rates,
                               bf16=dt == torch.bfloat16)
         kernel = lambda: swa_ops.swa_attention(                   # noqa
@@ -819,7 +830,7 @@ def phase_kernels(torch, dev, rates):
             2 * scale.element_size() * D
         keep("rmsnorm_bwd", tag, bwd_rec(
             f"rmsnorm_bwd {tag}", got, ref, truth, timed, nbytes,
-            11 * x.numel(), False,
+            rms_ops.rmsnorm_bwd_flops(x.shape), False,
             dict(shape=f"x{shape} bf16, scale {str(scale_dtype)[6:]}")))
 
     # the causal cases at the train step's shapes; the non-causal mode (the
@@ -873,13 +884,13 @@ def phase_kernels(torch, dev, rates):
                                              retain_graph=True),
                  lambda: torch.autograd.grad(y_lib, (qt, kt, vt), dot,
                                              retain_graph=True))
-        pairs = (B * H * sum(min(t + 1, W) for t in range(S)) if causal
-                 else B * H * S * S)
+        pairs = swa_ops.pairs_in_mask(B, S, H, W, causal)
         nbytes = q.element_size() * (4 * q.numel() + 2 * k.numel()
                                      + 2 * v.numel()) + 4 * lse.numel()
         keep("swa_attention_bwd", tag, bwd_rec(
             f"swa_attention_bwd {tag}", got, ref, truth, timed, nbytes,
-            10 * hd * pairs, dt == torch.bfloat16,
+            swa_ops.swa_bwd_flops(B, S, H, hd, W, causal),
+            dt == torch.bfloat16,
             dict(shape=f"B{B} S{S} H{H} KV{KV} hd{hd} "
                  + (f"W{W}" if causal else "non-causal")
                  + f" {str(dt)[6:]}", pairs_in_mask=pairs)))
@@ -3254,7 +3265,9 @@ def phase_train(torch, dev, layers=4, members=2, steps=4, batch=4, seq=128,
     rule of ``tools/sgd_sensitivity.py`` for an ill-conditioned run —
     within twice that distance. (4) ``full_depth``: one SGD step of the
     whole 36-layer qwen3_8b, one member, ``batch`` × ``seq``: wall and
-    peak memory. Checkpoints go under build/ and are removed after."""
+    peak memory. Checkpoints go under build/ and are removed after.
+    Returns (the launches, the 36-layer params after that step, or None
+    without ``full_depth``), the params for phase ``dryrun``."""
     import contextlib
     import shutil
     import numpy as np
@@ -3441,7 +3454,7 @@ def phase_train(torch, dev, layers=4, members=2, steps=4, batch=4, seq=128,
                   rules=sorted({x["rule"] for x in leaves}))
 
     # (4) the whole model: one SGD step
-    deep = None
+    deep = deep_params = None
     if full_depth:
         dcfg = get_config("qwen3_8b")
         gen = torch.Generator(device=dev).manual_seed(1)
@@ -3471,6 +3484,7 @@ def phase_train(torch, dev, layers=4, members=2, steps=4, batch=4, seq=128,
                     step_s_host_clock=deep_s,
                     peak_memory_bytes=torch.cuda.max_memory_allocated(),
                     launches=dl)
+        deep_params = params
         del params, dm, b
         torch.cuda.empty_cache()
 
@@ -3490,7 +3504,119 @@ def phase_train(torch, dev, layers=4, members=2, steps=4, batch=4, seq=128,
                      state_files_bytes=state_bytes,
                      cut_s_host_clock=cut_s, resume_s_host_clock=resume_s),
          card_vs_cpu=parity, full_depth=deep)
-    return launches
+    return launches, deep_params
+
+
+def phase_dryrun(torch, dev, deep=None, train_layers=4, batch=4, seq=128,
+                 gen=32):
+    """The dry run (``repro_torch.launch.dryrun``) held against the card:
+    three steps traced on the meta device, then run once each on the card
+    under ``FlopCounterMode`` — phase ``lm``'s 36-layer bf16 qwen3_8b
+    prefill of ``batch`` × ``seq`` and one decode step against a cache of
+    ``seq + gen`` (on ``deep["params"]``, phase ``train``'s full-depth
+    params, which this phase takes and lets go of), then phase ``train``'s
+    member step (qwen3_8b at full width cut to ``train_layers`` layers,
+    bf16, AdamW, ``batch`` × ``seq``). Each must match exactly: the kernel
+    operator calls by name against the step's launches, the argument
+    bytes against the storages of the tensors the card's step takes, and
+    the FLOPs against ``FlopCounterMode``'s count of the card's step.
+    Printed, not held: the estimated peak over the card's
+    (``max_memory_allocated`` less what was resident besides the step's
+    arguments) and the device's busy time (torch.profiler, one step) over
+    the roofline time. Then the phase's wall."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import kernels, optim
+    from repro_torch.configs import InputShape, get_config, replace
+    from repro_torch.launch import dryrun
+    from repro_torch.models import api
+    from repro_torch.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    cfg36 = get_config("qwen3_8b")
+    cfg_t = replace(cfg36, num_layers=train_layers)
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    def tokens(shape):
+        return torch.randint(0, cfg36.vocab_size, shape, generator=g,
+                             device=dev, dtype=torch.int32)
+
+    def held(args):
+        """The bytes of the storages of ``args``'s tensors, each once."""
+        return sum({t.untyped_storage().data_ptr(): t.untyped_storage()
+                    .nbytes() for t in tree_leaves(list(args))
+                    if isinstance(t, torch.Tensor)}.values())
+
+    def hold_to(tag, cfg, shape, args):
+        t0 = time.perf_counter()
+        dry = dryrun.trace_combo(cfg, shape, "single")
+        trace_s = time.perf_counter() - t0
+        fn = dryrun.step_fn(cfg, shape)
+        arg_bytes = held(args)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with FlopCounterMode(display=False) as fc:
+            out = fn(*args)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launches = {k: n for k, n in kernels.LAUNCHES.items() if n}
+        step_peak = torch.cuda.max_memory_allocated() - (resident
+                                                         - arg_bytes)
+        flops = fc.get_total_flops()
+        del out
+        prof = profile_once(torch, lambda: fn(*args))
+        check(launches == dry["kernels"], f"dryrun {tag}: kernel operator "
+              f"calls {dry['kernels']} != the card's launches {launches}")
+        check(arg_bytes == dry["memory"]["argument_bytes_per_card"],
+              f"dryrun {tag}: argument bytes {dry['memory']} != the card's "
+              f"{arg_bytes}")
+        check(flops == dry["cost"]["flops_per_card"], f"dryrun {tag}: "
+              f"FLOPs {dry['cost']['flops_per_card']} != the card's {flops}")
+        roof = dry["roofline"]
+        roof_ms = 1e3 * max(roof["t_compute_s"], roof["t_memory_s"],
+                            roof["t_collective_s"])
+        busy = prof["device_busy_ms"]
+        emit("dryrun", case=tag, arch=f"{cfg.name}, {cfg.num_layers} layers",
+             shape=[shape.global_batch, shape.seq_len], kind=shape.kind,
+             kernels=dry["kernels"], launches=launches,
+             argument_bytes=arg_bytes, flops=flops,
+             flops_by_dtype=dry["cost"]["flops_by_dtype_per_card"],
+             bytes_estimate=dry["cost"]["bytes_per_card"],
+             peak_estimate_bytes=dry["memory"]["peak_bytes_per_card"],
+             card_step_peak_bytes=step_peak,
+             peak_estimate_over_card=dry["memory"]["peak_bytes_per_card"]
+             / step_peak,
+             roofline_ms=roof_ms, dominant=roof["dominant"],
+             device_busy_ms=busy,
+             busy_over_roofline=busy / roof_ms if isinstance(busy, float)
+             else "not measured",
+             card_step_s_host_clock=card_s, trace_s_host_clock=trace_s,
+             card=dry["card"])
+
+    params36 = (deep or {}).pop("params", None)
+    if params36 is None:
+        params36 = api.init_params(cfg36, g, device=dev)
+    hold_to("prefill", cfg36, InputShape("chip_prefill", seq, batch,
+                                         "prefill"),
+            (params36, {"tokens": tokens((batch, seq))}))
+    hold_to("decode_step", cfg36, InputShape("chip_decode", seq + gen,
+                                             batch, "decode"),
+            (params36, api.init_cache(cfg36, batch, seq + gen, device=dev),
+             tokens((batch, 1)), seq + gen - 1))
+    del params36
+    torch.cuda.empty_cache()
+    params = api.init_params(cfg_t, g, device=dev)
+    toks = tokens((batch, seq + 1))
+    hold_to("member_train_step", cfg_t, InputShape("chip_train", seq,
+                                                   batch, "train"),
+            (params, optim.adamw().init(params), 0,
+             {"tokens": toks[:, :-1].contiguous(),
+              "targets": toks[:, 1:].contiguous()}))
+    del params, toks
+    torch.cuda.empty_cache()
+    emit("dryrun_wall", seconds=time.perf_counter() - t_phase)
 
 
 def phase_audit(torch, dev, m, lm_layers=4, k=4):
@@ -3597,8 +3723,11 @@ def main():
     lm_launches = phase_lm(torch, dev)
     zoo_launches = phase_zoo(torch, dev)
     rec_launches = phase_recurrent(torch, dev)
-    train_launches = phase_train(torch, dev)
+    train_launches, params36 = phase_train(torch, dev)
+    deep = {"params": params36}
+    del params36
     phase_audit(torch, dev, m)
+    phase_dryrun(torch, dev, deep)
 
     main_launches = m["launches"]
     check(all(main_launches[name] > 0 for name in ("conv2d", "elm_stats")),

@@ -7,10 +7,11 @@ eagerly, so the port runs each program once and records what it did:
 * every aten (and c10d) op the call dispatched — its output dtypes,
   whether it wrote an operand in place, and the storages it wrote —
   through ``OpRecorder``, a ``TorchDispatchMode`` (the mode
-  ``torch.utils.flop_counter`` uses). Hand kernels reached through
-  ``ctypes`` do not dispatch: their launches are the growth of
-  ``kernels.LAUNCHES`` over the call (autograd's backward threads and the
-  replays of graphs captured inside the call count there too);
+  ``torch.utils.flop_counter`` uses). A hand kernel dispatches as its
+  operator (``repro_torch::<name>``), whose ctypes launch the mode does
+  not see: the launches are the growth of ``kernels.LAUNCHES`` over the
+  call (autograd's backward threads and the replays of graphs captured
+  inside the call count there too);
 * every ``torch.distributed`` collective, by ``collectives.span``.
 
 Then it holds the record to the reference's contracts:
@@ -280,10 +281,13 @@ def check_hand_kernel_route(launches: Dict[str, int],
     """Each kernel of ``names`` was launched at least once, and no
     recorded op is the library's version of the same function — the
     ground rule "the device decides": a CUDA tensor goes through the hand
-    kernel, never a library call."""
+    kernel, never a library call. The hand kernels' own operators
+    (``repro_torch::<name>``) are not library ops."""
     missing = [k for k in names if launches.get(k, 0) < 1]
+    own = kernels.NAMESPACE + "."
     library = sorted({op.name for op in ops for k in names
                       if LIBRARY_OPS[k] is not None
+                      and not op.name.startswith(own)
                       and re.search(LIBRARY_OPS[k], op.base)})
     ok = not missing and not library
     got = {k: launches.get(k, 0) for k in names}

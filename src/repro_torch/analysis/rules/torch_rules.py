@@ -405,8 +405,26 @@ def _own_calls(fn) -> List[ast.Call]:
     return sorted(out, key=lambda c: (c.lineno, c.col_offset))
 
 
+def _operator_impls(tree, plain):
+    """Module-level names bound to a kernel's operator, ``NAME =
+    kernels.register(name, schema, cuda_impl, ...)``, mapped to the
+    function ``cuda_impl``: a call of NAME on a CUDA tensor runs it."""
+    out = {}
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and isinstance(node.value, ast.Call) \
+                and suffix_in(dotted(node.value.func), {"kernels.register"}) \
+                and len(node.value.args) > 2 \
+                and isinstance(node.value.args[2], ast.Name) \
+                and node.value.args[2].id in plain:
+            for target in node.targets:
+                if isinstance(target, ast.Name):
+                    out[target.id] = plain[node.value.args[2].id]
+    return out
+
+
 @rule("kernel-wrapper-grad",
-      "a function that reaches kernels.launch(...) must run inside a "
+      "a function that reaches kernels.launch(...) — directly or through a "
+      "kernel's operator (kernels.register) — must run inside a "
       "torch.autograd.Function or call kernels.refuse_grad(...) before its "
       "launch — a kernel's output is a buffer it fills, which silently "
       "cuts the autograd graph of an operand that requires grad (F1)")
@@ -422,6 +440,7 @@ def kernel_wrapper_grad(ctx):
     funcs = [n for n in ast.walk(ctx.tree) if isinstance(n, _FUNCS)]
     plain = {f.name: f for f in funcs
              if not isinstance(parents.get(f), ast.ClassDef)}
+    operators = _operator_impls(ctx.tree, plain)
 
     def enclosing_class(node):
         cur = parents.get(node)
@@ -432,6 +451,8 @@ def kernel_wrapper_grad(ctx):
     def callees(call):
         f = call.func
         if isinstance(f, ast.Name):
+            if f.id in operators:
+                return [operators[f.id]]
             return [plain[f.id]] if f.id in plain else []
         if isinstance(f, ast.Attribute) and isinstance(f.value, ast.Name):
             owner = (enclosing_class(call) if f.value.id in ("self", "cls")

@@ -165,6 +165,23 @@ class ArchConfig:
         return self.param_count() - inactive
 
 
+@dataclass(frozen=True)
+class InputShape:
+    """One input shape of the dry run: ``seq_len`` tokens (or frames) of
+    ``global_batch`` sequences, for a step of ``kind``."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
 ARCH_IDS = [
     # the paper's own CNN-ELM architectures
     "cnn_elm_6c12c",
@@ -201,3 +218,18 @@ def get_reduced_config(arch: str) -> ArchConfig:
 
 def replace(cfg: ArchConfig, **kw) -> ArchConfig:
     return dataclasses.replace(cfg, **kw)
+
+
+def supported_shapes(cfg: ArchConfig):
+    """Which input shapes apply to this architecture (False: a skip
+    note)."""
+    out = {}
+    for name, shp in INPUT_SHAPES.items():
+        if cfg.family == "cnn":
+            out[name] = name == "train_4k"  # CNN-ELM only trains
+            continue
+        if shp.kind == "decode" and cfg.is_encoder_only:
+            out[name] = False  # encoder-only: no autoregressive decode
+            continue
+        out[name] = True
+    return out

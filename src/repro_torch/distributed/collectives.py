@@ -17,7 +17,11 @@ Kinds:
   checkpoint written by rank 0 is on disk before any rank goes on).
 
 ``CALLS`` counts calls by ``(kind, group label)`` since ``reset``, as
-``kernels.LAUNCHES`` counts launches. ``span(label)`` isolates the calls
+``kernels.LAUNCHES`` counts launches, and ``BYTES`` adds up what each call
+sends, by the same key: an all-reduce's tensor, an all-gather's result
+(every rank's tensor), a ring exchange's one send, a barrier's one
+element — the bytes the reference's ``hlo_analysis.collective_stats``
+reads off a collective's shape, before its ring multiplier. ``span(label)`` isolates the calls
 made inside it and appends ``(label, counts)`` to ``LOG`` when it closes,
 so a run's log reads epoch by epoch and sync by sync; the ``check_*``
 functions hold one span's counts to a contract, over all kinds at once.
@@ -32,18 +36,25 @@ import torch
 import torch.distributed as dist
 
 CALLS: Counter = Counter()                  # (kind, group label) -> calls
+BYTES: Counter = Counter()                  # (kind, group label) -> bytes
 LOG: List[Tuple[str, Counter]] = []         # closed spans, in order
 _open: List[Counter] = []
 
 
 def reset():
-    """Set ``CALLS`` to zero and empty ``LOG``."""
+    """Set ``CALLS`` and ``BYTES`` to zero and empty ``LOG``."""
     CALLS.clear()
+    BYTES.clear()
     LOG.clear()
 
 
-def _count(kind: str, label: str):
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _count(kind: str, label: str, nbytes: int):
     CALLS[(kind, label)] += 1
+    BYTES[(kind, label)] += nbytes
     for counts in _open:
         counts[(kind, label)] += 1
 
@@ -65,7 +76,7 @@ def span(label: str) -> Iterator[Counter]:
 def all_reduce(t: torch.Tensor, group=None, label: str = "world"
                ) -> torch.Tensor:
     """Sum ``t`` in place over ``group`` (None: the default group)."""
-    _count("all_reduce", label)
+    _count("all_reduce", label, _nbytes(t))
     dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return t
 
@@ -75,7 +86,7 @@ def all_gather(t: torch.Tensor, group=None, label: str = "world"
     """(group size, *t.shape): every rank's ``t`` in group-rank order."""
     t = t.contiguous()
     out = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
-    _count("all_gather", label)
+    _count("all_gather", label, _nbytes(t) * len(out))
     dist.all_gather(out, t, group=group)
     return torch.stack(out)
 
@@ -88,7 +99,7 @@ def ring_exchange(send: torch.Tensor, to_rank: int, from_rank: int,
     recv = torch.empty_like(send)
     send = send.contiguous()
     g = dist.group.WORLD if group is None else group
-    _count("ring_exchange", label)
+    _count("ring_exchange", label, _nbytes(send))
     reqs = dist.batch_isend_irecv([
         dist.P2POp(dist.isend, send, dist.get_global_rank(g, to_rank), g),
         dist.P2POp(dist.irecv, recv, dist.get_global_rank(g, from_rank), g),
@@ -100,9 +111,9 @@ def ring_exchange(send: torch.Tensor, to_rank: int, from_rank: int,
 
 def barrier(device, group=None, label: str = "world"):
     """Return only once every rank of ``group`` has called it."""
-    _count("barrier", label)
-    dist.all_reduce(torch.zeros(1, device=device), op=dist.ReduceOp.SUM,
-                    group=group)
+    flag = torch.zeros(1, device=device)
+    _count("barrier", label, _nbytes(flag))
+    dist.all_reduce(flag, op=dist.ReduceOp.SUM, group=group)
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,15 @@ repository's ``build/`` directory under a name that hashes the sources, so
 an edited kernel is rebuilt and a finished build is reused.
 
 Each kernel's ``ops.py`` routes by device: a CPU tensor goes to the plain
-PyTorch version in ``ref.py``, a CUDA tensor to the kernel. Nothing falls
-back from one to the other: a failed build or launch raises.
+PyTorch version in ``ref.py``, any other tensor to the kernel's operator
+in the ``torch.ops.repro_torch`` namespace (``register``). On a CUDA
+tensor the operator launches the kernel; on a meta tensor it gives its
+outputs' shapes and dtypes and computes nothing, so a whole step can be
+traced without a card (``launch/dryrun.py``), and ``FlopCounterMode``
+counts each launch by the operator's FLOP formula. Nothing falls back
+from one route to another: a failed build or launch raises. Importing
+this package registers the operators; it neither builds nor loads the
+CUDA library.
 
 ``LAUNCHES`` counts kernel launches per kernel name; each wrapper adds one
 where it launches, and nowhere else, so a run can show that its main path
@@ -35,9 +42,10 @@ import tempfile
 import threading
 from contextlib import contextmanager
 from pathlib import Path
-from typing import Dict, Iterator
+from typing import Callable, Dict, Iterator
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -82,6 +90,10 @@ _ENTRIES = {
 }
 
 LAUNCHES = {name: 0 for name in _ENTRIES}
+
+NAMESPACE = "repro_torch"
+LIB = torch.library.Library(NAMESPACE, "DEF")
+OPS: Dict[str, "torch._ops.OpOverload"] = {}    # kernel name -> operator
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()      # a serving worker and a trainer count
@@ -131,6 +143,27 @@ def refuse_grad(name: str, tensors):
             f"the {name} kernel has no backward yet: call it under "
             f"torch.no_grad() or on operands that do not require grad "
             f"(the CPU route is differentiable)")
+
+
+def register(name: str, schema: str, cuda_impl: Callable,
+             fake_impl: Callable, flops: Callable):
+    """Define the operator ``repro_torch::<name>(<schema>)`` of kernel
+    ``name`` and return it: ``cuda_impl`` is its CUDA implementation (it
+    launches the kernel through ``launch``), ``fake_impl`` returns empty
+    outputs of the right shapes and dtypes (the meta device and fake
+    tensors), and ``flops(*shapes, out_shape=...)`` is the work one call
+    does, counted by ``torch.utils.flop_counter.FlopCounterMode``. The
+    operator is functional: every buffer the kernel writes, a workspace
+    included, is one of its outputs."""
+    if name not in _ENTRIES:
+        raise KeyError(f"no kernel entry point named {name!r}")
+    LIB.define(name + schema)
+    LIB.impl(name, cuda_impl, "CUDA")
+    torch.library.register_fake(f"{NAMESPACE}::{name}", fake_impl, lib=LIB)
+    packet = getattr(getattr(torch.ops, NAMESPACE), name)
+    register_flop_formula(packet)(flops)
+    OPS[name] = packet.default
+    return packet.default
 
 
 def _nvcc() -> str:
@@ -211,3 +244,10 @@ def launch(name: str, *args, passes: int = 1):
         return
     with _count_lock:
         LAUNCHES[name] += passes
+
+
+# the operators: each kernel's ops.py registers its own (``register``)
+from repro_torch.kernels.conv2d import ops as _conv  # noqa: E402,F401
+from repro_torch.kernels.elm_stats import ops as _elm  # noqa: E402,F401
+from repro_torch.kernels.rmsnorm import ops as _rms  # noqa: E402,F401
+from repro_torch.kernels.swa_attention import ops as _swa  # noqa: E402,F401

@@ -1,9 +1,11 @@
 """The conv2d wrappers: a valid, stride-1 NHWC convolution with HWIO weights,
 and its two gradients.
 
-A CPU tensor goes to the plain versions (``ref.py``), a CUDA tensor to the
-hand kernels in ``csrc/conv2d.cu``, ``csrc/conv2d_dgrad.cu`` and
-``csrc/conv2d_wgrad.cu``; nothing falls back from one to the other.
+A CPU tensor goes to the plain versions (``ref.py``), any other tensor to
+the operators ``repro_torch::conv2d``, ``conv2d_dgrad`` and
+``conv2d_wgrad``: on a CUDA tensor the hand kernels in ``csrc/conv2d.cu``,
+``csrc/conv2d_dgrad.cu`` and ``csrc/conv2d_wgrad.cu``, on a meta tensor
+shapes only; nothing falls back from one to the other.
 
 ``conv2d_valid`` is differentiable: where autograd records it, it runs as
 ``Conv2dValid``, whose backward is
@@ -17,6 +19,8 @@ hand kernels in ``csrc/conv2d.cu``, ``csrc/conv2d_dgrad.cu`` and
   images, then their sum in chunk order).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -128,11 +132,21 @@ def _check(x, w):
         raise ValueError(f"x on {x.device}, w on {w.device}")
 
 
+def _device(x, name):
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"{name} runs on CPU, CUDA or meta tensors, "
+                         f"got {x.device}")
+
+
 def _forward(x, w):
     if x.device.type == "cpu":
         return ref.conv2d_valid_ref(x, w)
-    if not x.is_cuda:
-        raise ValueError(f"conv2d runs on CPU or CUDA tensors, got {x.device}")
+    _device(x, "conv2d")
+    return _FWD(x, w)
+
+
+def _fwd_plan(x, w):
+    """The output's shape, for contiguous operands the kernel takes."""
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("the conv2d kernel takes contiguous x and w")
     k, B, H, W, Cin = x.shape
@@ -145,12 +159,36 @@ def _forward(x, w):
     if max(B * H * W * Cin, B * (H - kh + 1) * (W - kw + 1) * Cout) > 2**30:
         raise ValueError("one member's x or y exceeds the kernel's 32-bit "
                          "indexing; split the batch")
-    y = torch.empty((k, B, H - kh + 1, W - kw + 1, Cout),
-                    dtype=torch.float32, device=x.device)
+    return (k, B, H - kh + 1, W - kw + 1, Cout)
+
+
+def _fwd_cuda(x, w):
+    y = torch.empty(_fwd_plan(x, w), dtype=torch.float32, device=x.device)
+    k, B, H, W, Cin = x.shape
+    _, kh, kw, _, Cout = w.shape
     with torch.cuda.device(x.device):
         kernels.launch("conv2d", x.data_ptr(), w.data_ptr(), y.data_ptr(),
                        k, B, H, W, Cin, kh, kw, Cout)
     return y
+
+
+def _fwd_fake(x, w):
+    return torch.empty(_fwd_plan(x, w), dtype=torch.float32, device=x.device)
+
+
+def conv2d_flops(dy_shape, kh: int, kw: int, Cin: int) -> int:
+    """The products of the valid convolution whose output (or output
+    cotangent) has ``dy_shape``: a multiply and an add for each output,
+    tap and input channel. The forward, dW and dX each do this work
+    (conv2d_dgrad's kernel also multiplies the zero columns at the edges,
+    which are not counted)."""
+    return 2 * math.prod(dy_shape) * kh * kw * Cin
+
+
+_FWD = kernels.register(
+    "conv2d", "(Tensor x, Tensor w) -> Tensor", _fwd_cuda, _fwd_fake,
+    lambda x, w, *, out_shape=None: conv2d_flops(out_shape, w[1], w[2],
+                                                 w[3]))
 
 
 def _round4(n: int) -> int:
@@ -174,9 +212,12 @@ def wgrad_plan(B: int) -> tuple[int, int]:
 
 
 def _launch_wgrad(x, dy, kh, kw):
-    if not x.is_cuda:
-        raise ValueError(f"conv2d_weight_grad runs on CPU or CUDA tensors, "
-                         f"got {x.device}")
+    _device(x, "conv2d_weight_grad")
+    return _WGRAD(x, dy, kh, kw)[0]
+
+
+def _wgrad_plan(x, dy, kh, kw):
+    """(images a chunk, the partial sums' shape, dW's shape)."""
     if not (x.is_contiguous() and dy.is_contiguous()):
         raise ValueError("the conv2d_wgrad kernel takes contiguous x and dy")
     k, B, H, W, Cin = x.shape
@@ -190,22 +231,44 @@ def _launch_wgrad(x, dy, kh, kw):
                          f"{kh}x{kw} kernel exceeds the conv2d_wgrad "
                          f"kernel's shared memory")
     group, chunks = wgrad_plan(B)
-    outs = kh * kw * Cin * Cout
-    part = torch.empty((k, chunks, outs), dtype=torch.float32,
-                       device=x.device)
-    dw = torch.empty((k, kh, kw, Cin, Cout), dtype=torch.float32,
-                     device=x.device)
+    return (group, (k, chunks, kh * kw * Cin * Cout),
+            (k, kh, kw, Cin, Cout))
+
+
+def _wgrad_outputs(x, part, dw):
+    return (torch.empty(dw, dtype=torch.float32, device=x.device),
+            torch.empty(part, dtype=torch.float32, device=x.device))
+
+
+def _wgrad_cuda(x, dy, kh, kw):
+    group, part, dw = _wgrad_plan(x, dy, kh, kw)
+    dw, part = _wgrad_outputs(x, part, dw)
+    k, B, H, W, Cin = x.shape
     with torch.cuda.device(x.device):
         kernels.launch("conv2d_wgrad", x.data_ptr(), dy.data_ptr(),
                        part.data_ptr(), dw.data_ptr(), k, B, H, W, Cin, kh,
-                       kw, Cout, group, passes=WGRAD_PASSES)
-    return dw
+                       kw, dy.shape[-1], group, passes=WGRAD_PASSES)
+    return dw, part
+
+
+def _wgrad_fake(x, dy, kh, kw):
+    return _wgrad_outputs(x, *_wgrad_plan(x, dy, kh, kw)[1:])
+
+
+# outputs (dW, the per-chunk partial sums: a workspace)
+_WGRAD = kernels.register(
+    "conv2d_wgrad", "(Tensor x, Tensor dy, int kh, int kw) -> (Tensor, "
+    "Tensor)", _wgrad_cuda, _wgrad_fake,
+    lambda x, dy, kh, kw, *, out_shape=None: conv2d_flops(dy, kh, kw, x[4]))
 
 
 def _launch_dgrad(dy, w):
-    if not dy.is_cuda:
-        raise ValueError(f"conv2d_input_grad runs on CPU or CUDA tensors, "
-                         f"got {dy.device}")
+    _device(dy, "conv2d_input_grad")
+    return _DGRAD(dy, w)
+
+
+def _dgrad_plan(dy, w):
+    """dX's shape, for contiguous operands the kernel takes."""
     if not (dy.is_contiguous() and w.is_contiguous()):
         raise ValueError("the conv2d_dgrad kernel takes contiguous dy and w")
     k, B, OH, OW, Cout = dy.shape
@@ -224,8 +287,26 @@ def _launch_dgrad(dy, w):
         raise ValueError(f"w {tuple(w.shape)} and one dX row of "
                          f"{W} x {Cin} exceed the conv2d_dgrad kernel's "
                          f"shared memory")
-    dx = torch.empty((k, B, H, W, Cin), dtype=torch.float32, device=dy.device)
+    return (k, B, H, W, Cin)
+
+
+def _dgrad_cuda(dy, w):
+    dx = torch.empty(_dgrad_plan(dy, w), dtype=torch.float32,
+                     device=dy.device)
+    k, B, H, W, Cin = dx.shape
+    _, kh, kw, _, Cout = w.shape
     with torch.cuda.device(dy.device):
         kernels.launch("conv2d_dgrad", dy.data_ptr(), w.data_ptr(),
                        dx.data_ptr(), k, B, H, W, Cin, kh, kw, Cout)
     return dx
+
+
+def _dgrad_fake(dy, w):
+    return torch.empty(_dgrad_plan(dy, w), dtype=torch.float32,
+                       device=dy.device)
+
+
+_DGRAD = kernels.register(
+    "conv2d_dgrad", "(Tensor dy, Tensor w) -> Tensor", _dgrad_cuda,
+    _dgrad_fake, lambda dy, w, *, out_shape=None: conv2d_flops(
+        dy, w[1], w[2], w[3]))

@@ -1,8 +1,10 @@
 """The rmsnorm wrapper: row-wise x · 1/sqrt(mean(x²) + eps) · scale.
 
 A CPU tensor goes to the plain version (``ref.rmsnorm_ref``, which
-autograd differentiates), a CUDA tensor to the hand kernel in
-``csrc/rmsnorm.cu``; nothing falls back from one to the other. x is f32 or
+autograd differentiates), any other tensor to the operators
+``repro_torch::rmsnorm`` and ``repro_torch::rmsnorm_bwd``: on a CUDA
+tensor the hand kernel in ``csrc/rmsnorm.cu``, on a meta tensor shapes
+only; nothing falls back from one to the other. x is f32 or
 bf16 of any leading shape (the kernel reads a contiguous copy of a strided
 view), scale (D,) f32 or bf16; the math is f32 and the output has x's
 dtype. On the card the call is a ``torch.autograd.Function`` whose
@@ -10,6 +12,8 @@ backward is the kernel in ``csrc/rmsnorm_bwd.cu`` (dx in x's dtype, dscale
 in scale's), counted as ``rmsnorm_bwd``.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -26,8 +30,8 @@ def rmsnorm(x, scale, *, eps: float = 1e-5):
     _check(x, scale)
     if x.device.type == "cpu":
         return ref.rmsnorm_ref(x, scale, eps)
-    if not x.is_cuda:
-        raise ValueError(f"rmsnorm runs on CPU or CUDA tensors, "
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"rmsnorm runs on CPU, CUDA or meta tensors, "
                          f"got {x.device}")
     if kernels.needs_grad((x, scale)):
         return _RMSNorm.apply(x, scale, eps)
@@ -59,15 +63,49 @@ def _rows(x):
 
 def _forward(x, scale, eps):
     """The kernel on a contiguous x."""
-    if not scale.is_contiguous():
-        raise ValueError("the rmsnorm kernel takes a contiguous scale")
-    n, D = _rows(x)
+    return _FWD(x, scale, float(eps))
+
+
+def _fwd_checks(x, scale):
+    if not (x.is_contiguous() and scale.is_contiguous()):
+        raise ValueError("the rmsnorm kernel takes a contiguous x and scale")
+    return _rows(x)
+
+
+def _fwd_cuda(x, scale, eps):
+    n, D = _fwd_checks(x, scale)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         kernels.launch("rmsnorm", x.data_ptr(), scale.data_ptr(),
-                       out.data_ptr(), n, D, float(eps), _DTYPES[x.dtype],
+                       out.data_ptr(), n, D, eps, _DTYPES[x.dtype],
                        _DTYPES[scale.dtype])
     return out
+
+
+def _fwd_fake(x, scale, eps):
+    _fwd_checks(x, scale)
+    return torch.empty_like(x)
+
+
+def rmsnorm_flops(shape) -> int:
+    """The forward's work on x of ``shape``: 4 operations an element (the
+    square, its sum, the product by the row's reciprocal root and by the
+    scale); the per-row eps add, root and reciprocal are not counted."""
+    return 4 * math.prod(shape)
+
+
+def rmsnorm_bwd_flops(shape) -> int:
+    """The backward's work on x of ``shape``: 11 operations an element (the
+    square and its sum, dy·scale, its product with x and their sum, the two
+    products and the difference of dx, x·r, its product with dy and the sum
+    over rows of dscale); the per-row terms are not counted."""
+    return 11 * math.prod(shape)
+
+
+_FWD = kernels.register(
+    "rmsnorm", "(Tensor x, Tensor scale, float eps) -> Tensor",
+    _fwd_cuda, _fwd_fake,
+    lambda x, scale, eps, *, out_shape=None: rmsnorm_flops(x))
 
 
 def bwd_rows_per_chunk(n: int, D: int) -> int:
@@ -85,27 +123,50 @@ def rmsnorm_bwd(x, scale, dy, *, eps: float = 1e-5):
     dx) move in 16-byte vectors, other rows element by element. dscale
     adds per-chunk partial rows in a fixed order, no atomics: bitwise the
     same run to run."""
-    if not scale.is_contiguous():
-        raise ValueError("the rmsnorm kernel takes a contiguous scale")
     if dy.shape != x.shape or dy.dtype != x.dtype:
         raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} does not match "
                          f"x {tuple(x.shape)} {x.dtype}")
-    x, dy = x.contiguous(), dy.contiguous()
-    n, D = _rows(x)
+    dx, dscale, _ = _BWD(x.contiguous(), scale, dy.contiguous(), float(eps))
+    return dx, dscale
+
+
+def _bwd_plan(x, scale):
+    """(n, D, rows a chunk, the partial sums' shape)."""
+    n, D = _fwd_checks(x, scale)
     if D > MAX_BWD_DIM:
         raise ValueError(f"the rmsnorm backward kernel takes D <= "
                          f"{MAX_BWD_DIM}, got {D}")
     rows = bwd_rows_per_chunk(n, D)
-    dx = torch.empty_like(x)
-    partial = torch.empty((-(-n // rows), D), dtype=torch.float32,
-                          device=x.device)
-    dscale = torch.empty_like(scale)
+    return n, D, rows, (-(-n // rows), D)
+
+
+def _bwd_outputs(x, scale, partial_shape):
+    return (torch.empty_like(x), torch.empty_like(scale),
+            torch.empty(partial_shape, dtype=torch.float32,
+                        device=x.device))
+
+
+def _bwd_cuda(x, scale, dy, eps):
+    n, D, rows, part = _bwd_plan(x, scale)
+    dx, dscale, partial = _bwd_outputs(x, scale, part)
     with torch.cuda.device(x.device):
         kernels.launch("rmsnorm_bwd", x.data_ptr(), scale.data_ptr(),
                        dy.data_ptr(), dx.data_ptr(), partial.data_ptr(),
-                       dscale.data_ptr(), n, D, rows, float(eps),
+                       dscale.data_ptr(), n, D, rows, eps,
                        _DTYPES[x.dtype], _DTYPES[scale.dtype])
-    return dx, dscale
+    return dx, dscale, partial
+
+
+def _bwd_fake(x, scale, dy, eps):
+    return _bwd_outputs(x, scale, _bwd_plan(x, scale)[3])
+
+
+# outputs (dx, dscale, the per-chunk partial sums of dscale: a workspace)
+_BWD = kernels.register(
+    "rmsnorm_bwd",
+    "(Tensor x, Tensor scale, Tensor dy, float eps) -> (Tensor, Tensor, "
+    "Tensor)", _bwd_cuda, _bwd_fake,
+    lambda x, scale, dy, eps, *, out_shape=None: rmsnorm_bwd_flops(x))
 
 
 class _RMSNorm(torch.autograd.Function):

@@ -2,12 +2,24 @@
 ``repro.models.api``. The transformer families (dense, moe, encoder, vlm)
 are ``models.transformer``, RWKV6 is ``models.rwkv6`` and the Zamba2
 hybrid ``models.zamba2``; any other family (``ssm_mamba2`` included, which
-the reference's dispatch does not carry either) raises ``ValueError``."""
+the reference's dispatch does not carry either) raises ``ValueError``.
+
+``param_specs``, ``input_specs`` and ``cache_specs`` give the shapes and
+dtypes of a model's parameters, a step's inputs and the decode cache
+(``TensorSpec`` leaves) without allocating them: the dry run's contract
+(``launch/dryrun.py``). The reference's specs also carry logical axes for
+GSPMD's sharding; the port shards nothing inside a member, so its specs
+have none.
+"""
 from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Tuple
 
 import torch
 
 from repro_torch.models import rwkv6, transformer, zamba2
+from repro_torch.tree import tree_map
 
 
 def module_of(cfg):
@@ -46,3 +58,77 @@ def prefill(cfg, params, batch, max_len: int | None = None):
 
 def decode_step(cfg, params, cache, token, pos):
     return module_of(cfg).decode_step(cfg, params, cache, token, pos)
+
+
+# ---------------------------------------------------------------------------
+# specs (shapes and dtypes, nothing allocated)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class TensorSpec:
+    """The shape and dtype of one tensor (a leaf of a spec tree)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+    @property
+    def nbytes(self) -> int:
+        n = 1
+        for d in self.shape:
+            n *= d
+        return n * self.dtype.itemsize
+
+    def empty(self, device) -> torch.Tensor:
+        return torch.empty(self.shape, dtype=self.dtype, device=device)
+
+
+def _specs_of(make):
+    """The spec tree of what ``make()`` builds on the CPU, built under
+    ``FakeTensorMode``: the init's draws run on fake tensors, so nothing of
+    the model's size is allocated (a Qwen3-MoE-235B included)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        tree = make()
+    return tree_map(lambda t: TensorSpec(tuple(t.shape), t.dtype), tree)
+
+
+def param_specs(cfg, dtype=torch.bfloat16):
+    """The shapes and dtypes of ``init_params(cfg, ..., dtype)``: the
+    counterpart of the reference's ``jax.eval_shape(api.init_params)``."""
+    return _specs_of(lambda: init_params(
+        cfg, torch.Generator().manual_seed(0), dtype, device="cpu"))
+
+
+def input_specs(cfg, shape):
+    """The batch of a train or prefill step of ``shape`` (an
+    ``InputShape``): ``tokens`` (B, S) int32, or an audio encoder's
+    ``frames`` (B, S, 512) bf16, or a VLM's ``tokens`` (B, S - P) behind
+    ``patches`` (B, P, 1024) bf16; a train step adds ``targets`` of the
+    tokens' (frames') (B, S). A decode step's inputs: ``token`` (B, 1)
+    int32 and ``pos`` () int32 (the port's decode takes ``pos`` as a
+    Python int; the dry run passes S - 1). The reference's shapes and
+    dtypes."""
+    B, S = shape.global_batch, shape.seq_len
+    i32, bf16 = torch.int32, torch.bfloat16
+    if shape.kind in ("train", "prefill"):
+        if cfg.frontend == "audio":
+            specs = {"frames": TensorSpec(
+                (B, S, transformer.AUDIO_FRONTEND_DIM), bf16)}
+        elif cfg.frontend == "vision":
+            P = cfg.num_prefix_tokens
+            specs = {"tokens": TensorSpec((B, S - P), i32),
+                     "patches": TensorSpec(
+                         (B, P, transformer.VISION_FRONTEND_DIM), bf16)}
+        else:
+            specs = {"tokens": TensorSpec((B, S), i32)}
+        if shape.kind == "train":
+            lead = specs.get("tokens", specs.get("frames")).shape[:2]
+            specs["targets"] = TensorSpec(lead, i32)
+        return specs
+    return {"token": TensorSpec((B, 1), i32), "pos": TensorSpec((), i32)}
+
+
+def cache_specs(cfg, shape, dtype=torch.bfloat16):
+    """The decode cache (or recurrent state) of ``shape``'s batch and
+    length: ``init_cache``'s shapes and dtypes, nothing allocated."""
+    return _specs_of(lambda: init_cache(cfg, shape.global_batch,
+                                        shape.seq_len, dtype, device="cpu"))

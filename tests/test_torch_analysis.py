@@ -332,6 +332,34 @@ def test_kernel_wrapper_grad_reports_the_unguarded_entry(tmp_path):
     assert "fast_op" in found[0].message and "late" in found[1].message
 
 
+def test_kernel_wrapper_grad_follows_kernel_operators(tmp_path):
+    """A launch inside a kernel operator's CUDA implementation
+    (``kernels.register``) is reached by every call of the operator: the
+    wrapper that calls it without a guard is the finding, the one that
+    refuses first is not, and the implementation itself is not reported."""
+    found = _lint(tmp_path, """\
+        import torch
+        from repro_torch import kernels
+
+        def _cuda(x):
+            out = torch.empty_like(x)
+            kernels.launch("rmsnorm", x.data_ptr(), out.data_ptr())
+            return out
+
+        _OP = kernels.register("rmsnorm", "(Tensor x) -> Tensor", _cuda,
+                               torch.empty_like, lambda x, **kw: 0)
+
+        def fast_op(x):
+            return _OP(x)
+
+        def refused(x):
+            kernels.refuse_grad("rmsnorm", (x,))
+            return _OP(x)
+        """)
+    assert [(f.rule, f.line) for f in found] == [("kernel-wrapper-grad", 13)]
+    assert "fast_op" in found[0].message
+
+
 def test_no_tf32_flags_allow_tf32_keyword(tmp_path):
     found = _lint(tmp_path, """\
         import triton.language as tl

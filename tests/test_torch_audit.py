@@ -20,6 +20,7 @@ from repro_torch.configs import get_reduced_config
 from repro_torch.core.averaging import broadcast_member_dim
 from repro_torch.core.cnn_elm import StackedMembers
 from repro_torch.distributed import collectives
+from repro_torch.kernels.conv2d import ops as conv_ops
 from repro_torch.launch.mesh import make_member_mesh, process_group, run_ranks
 from repro_torch.models import cnn
 from repro_torch.serve import BucketedScorer
@@ -263,6 +264,24 @@ def test_check_hand_kernel_route_fails_on_a_library_op():
         torch.ones(3) + 1.0
     assert audit.check_hand_kernel_route(
         {"conv2d": 2, "elm_stats": 1}, rec.ops, ["conv2d", "elm_stats"]).ok
+
+
+def test_check_hand_kernel_route_passes_the_kernels_own_operators():
+    """The hand kernels dispatch as ``repro_torch::<name>`` operators (on
+    meta tensors here: shapes only); their names match the library
+    patterns (``conv2d``), but they are the hand kernels' route."""
+    m = torch.device("meta")
+    x = torch.empty((2, 3, 12, 12, 6), device=m, requires_grad=True)
+    w = torch.empty((2, 5, 5, 6, 12), device=m, requires_grad=True)
+    with audit.record() as rec:
+        conv_ops.conv2d_valid(x, w).sum().backward()
+    assert {op.name for op in rec.ops} >= {
+        "repro_torch.conv2d.default", "repro_torch.conv2d_dgrad.default",
+        "repro_torch.conv2d_wgrad.default"}
+    names = ["conv2d", "conv2d_dgrad", "conv2d_wgrad"]
+    check = audit.check_hand_kernel_route(dict.fromkeys(names, 1), rec.ops,
+                                          names)
+    assert check.ok, check.detail
 
 
 def test_check_compile_budget_fails_on_escaped_dispatch():

@@ -46,7 +46,7 @@ def test_every_module_imports_without_jax_or_repro():
     for name in ("checkpoint.ckpt", "checkpoint.run_state", "core.e2lm",
                  "core.elm_head", "core.elastic", "core.faults",
                  "distributed.collectives", "distributed.sharding",
-                 "launch.mesh",
+                 "launch.mesh", "launch.dryrun", "launch.cost_analysis",
                  "serve.scheduler", "serve.hot_reload", "serve.loadgen",
                  "stream", "stream.drift", "stream.sources", "stream.window",
                  "stream.run", "layers.mlp", "configs.olmoe_1b_7b",
