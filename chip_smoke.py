@@ -118,7 +118,8 @@ is non-zero and no result line is printed:
              phase's global β from its ``RunResult.stats``, card vs CPU,
              within the same bar; OS-ELM in 50-row blocks against the batch
              solve (rtol 5e-2, atol 5e-3); elm_stats timed at 25k, 50k,
-             100k and 200k rows a member.
+             100k and 200k rows a member (each record prints its plan;
+             the path's launches are the plans' passes).
 11. elm_head — the ELM head: over the CNN (the Map's init, its 50,000
              images, the held-out set scored, 4 ``finetune_step``s whose
              loss must fall), over the full qwen3_8b in bf16
@@ -401,16 +402,19 @@ def elm_stats_record(torch, rates, h, t, m, tag, plain_reps=20,
     timed beside its plain version, cuBLAS's bmm and its bound. The
     launches made here are comparisons and timings, not a path's.
 
-    ``long_sum``: each output of the kernel is one f32 sum over the n rows
-    in order, and over 25,000 or more rows its rounding outgrows the
-    plain version's blocked sums (at n 200,000: 5.5e-5 · max|ref|, over
-    the 1e-5 bar). There the kernel is held against the f64 function,
-    each output within the probabilistic bound of an f32 sum of n terms
-    in order, 7·√n·2⁻²⁴·Σ|terms| (Higham and Mary's bound at λ = 7: an
-    output exceeds it with probability below 5e-11)."""
+    ``long_sum``: each output of the kernel is an f32 sum over the n rows
+    in order (or over chunks of them, then the chunks' sums in order:
+    the record's ``plan``), and over 25,000 or more rows its rounding can
+    outgrow the plain version's blocked sums (one sum of 200,000 rows:
+    5.5e-5 · max|ref|, over the 1e-5 bar). There the kernel is held
+    against the f64 function, each output within the probabilistic bound
+    of an f32 sum of n terms in order, 7·√n·2⁻²⁴·Σ|terms| (Higham and
+    Mary's bound at λ = 7: an output exceeds it with probability below
+    5e-11)."""
     from repro_torch.kernels.elm_stats import ops as st_ops, ref as st_ref
     k, n, L = h.shape
     C = t.shape[-1]
+    plan = st_ops._plan(k, n, L, C)
     u, v = st_ops.elm_stats(h, t, mask=m)
     ref = st_ref.elm_stats_ref(h, t, m)
     got = torch.cat([u, v], dim=-1)
@@ -446,8 +450,11 @@ def elm_stats_record(torch, rates, h, t, m, tag, plain_reps=20,
     kernel = lambda: st_ops.elm_stats(h, t, mask=m)       # noqa: E731
     plain = lambda: st_ref.elm_stats_ref(h, t, m)         # noqa: E731
     library = lambda: torch.matmul(hmt, ht)               # noqa: E731
-    return dict(shape=f"k{k} n{n} L{L} C{C}", max_abs_err=err,
-                max_abs_ref=top, **extra,
+    return dict(shape=f"k{k} n{n} L{L} C{C}",
+                plan=dict(instantiation=plan.instantiation,
+                          chunks=plan.chunks, rows=plan.rows,
+                          passes=plan.passes),
+                max_abs_err=err, max_abs_ref=top, **extra,
                 ms=device_ms(torch, kernel),
                 plain_ms=device_ms(torch, plain, reps=plain_reps),
                 library_ms=device_ms(torch, library),
@@ -2020,6 +2027,7 @@ def phase_e2lm(torch, dev, rates, m, n=200_000, L=192, C=10, lam=100.0,
     records."""
     from repro_torch import kernels
     from repro_torch.core import e2lm, elm
+    from repro_torch.kernels.elm_stats import ops as st_ops
     from repro_torch.layers.norms import optimal_tanh
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -2049,8 +2057,12 @@ def phase_e2lm(torch, dev, rates, m, n=200_000, L=192, C=10, lam=100.0,
                          map_reduce_solve_ms_host_clock=(
                              time.perf_counter() - t0) * 1e3)
     launches = dict(kernels.LAUNCHES)
-    check(launches["elm_stats"] == 4,
-          f"e2lm path launched elm_stats {launches['elm_stats']} times")
+    # one launch of the monolithic stats and one a k, each in its plan's
+    # passes (two where the rows are split)
+    want = sum(st_ops.plan(n // k, L, C).passes for k in (1, 2, 4, 8))
+    check(launches["elm_stats"] == want,
+          f"e2lm path launched elm_stats {launches['elm_stats']} times, "
+          f"its plans {want}")
 
     # the Map's global β: the card run's member stats against the CPU run's
     cfg, card, cpu = m["cfg"], m["stacked"], m["cpu"]

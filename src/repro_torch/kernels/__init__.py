@@ -55,6 +55,7 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 # kernel name -> (C entry point, its argument types); every entry point
 # returns cudaGetLastError() as an int
@@ -70,8 +71,11 @@ _ENTRIES = {
     # dy, w, dx, k, B, H, W, Cin, kh, kw, Cout (H, W, Cin: dx's), stream
     "conv2d_dgrad": ("conv2d_dgrad_f32",
                      (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P)),
-    # h, t, mask (NULL = unmasked), out, k, n, L, C, stream
-    "elm_stats": ("elm_stats_f32", (_P, _P, _P, _P, _I, _I, _I, _I, _P)),
+    # h, t, mask (NULL = unmasked), partial sums (NULL = one chunk), their
+    # floats, out, k, n, L, C, instantiation (0 narrow, 1 wide, 2 strip),
+    # rows a chunk, stream
+    "elm_stats": ("elm_stats_f32",
+                  (_P, _P, _P, _P, _L, _P, _I, _I, _I, _I, _I, _I, _P)),
     # x, scale, out, n, D, eps, x is bf16, scale is bf16, stream
     "rmsnorm": ("rmsnorm_fwd", (_P, _P, _P, _I, _I, _F, _I, _I, _P)),
     # x, scale, dy, dx, partial sums, dscale, n, D, rows a chunk, eps, x is

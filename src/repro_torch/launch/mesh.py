@@ -11,12 +11,14 @@ member mesh says which members each rank holds
   ``run_ranks``, or ``torchrun`` and ``init_process_group``) and the
   mesh covers its ranks.
 * ``process_group`` — init and destroy one rank's group: gloo for
-  ``device="cpu"``, NCCL for ``"cuda"``, a ``file://`` store, a timeout.
+  ``device="cpu"``, NCCL for ``"cuda"``, a ``file://`` store, a timeout;
+  the ranks leave together unless one raises.
 * ``run_ranks`` — the counterpart of the reference's simulated host
   devices (``force_host_device_count``): ``world`` fresh processes, one
   rank each, started with the ``spawn`` method; each rank's result comes
-  back, and a rank that raises fails the call at once, the other ranks
-  killed rather than left waiting in a collective.
+  back, and a rank that raises fails the call once the others have
+  reported or exited (or at the deadline), those still running killed
+  rather than left waiting in a collective.
 """
 from __future__ import annotations
 
@@ -37,7 +39,6 @@ import torch.distributed as dist
 from repro_torch import resolve_device
 
 DEFAULT_TIMEOUT_S = 300.0
-_ERROR_GRACE_S = 2.0     # after a rank's error, how long to collect others'
 _BACKENDS = {"cpu": "gloo", "cuda": "nccl"}
 
 
@@ -102,9 +103,11 @@ def process_group(rank: int = 0, world: int = 1, *, device="cuda",
                   timeout_s: float = DEFAULT_TIMEOUT_S):
     """Initialise this process's rank of a ``world``-rank group (gloo on
     the CPU, NCCL on the card, which also makes card ``rank`` current),
-    yield, and destroy the group. ``store`` is the path of the ``file://``
-    rendezvous every rank names (default: a fresh temporary file, which
-    only a one-rank group can share)."""
+    yield, and destroy the group: once every rank has finished its block,
+    or at once if the block raises (its peers waiting to leave then leave
+    too). ``store`` is the path of the file store every rank names
+    (default: a fresh temporary file, which only a one-rank group can
+    share)."""
     backend = _backend(device)
     tmp = None
     if store is None:
@@ -115,26 +118,58 @@ def process_group(rank: int = 0, world: int = 1, *, device="cuda",
         store = os.path.join(tmp, "store")
     if backend == "nccl":
         torch.cuda.set_device(rank)
-    dist.init_process_group(backend, init_method=f"file://{store}",
-                            rank=rank, world_size=world,
-                            timeout=timedelta(seconds=timeout_s))
+    timeout = timedelta(seconds=timeout_s)
+    group_store = dist.FileStore(store, world)
+    group_store.set_timeout(timeout)
+    dist.init_process_group(backend, store=group_store, rank=rank,
+                            world_size=world, timeout=timeout)
+    leave = dist.PrefixStore("leave/", group_store)
     try:
         yield
+    except BaseException:
+        if world > 1:
+            leave.set("all", "1")     # the peers waiting to leave go now
+        raise
+    else:
+        if world > 1:
+            _leave_together(leave, world, timeout)
     finally:
         dist.destroy_process_group()
         if tmp is not None:
             shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _leave_together(leave, world: int, timeout: timedelta):
+    """Return once every rank of the group has called it, or a rank's
+    block has raised: counted in ``leave``, a prefix of the group's own
+    store. A rank that tore its group down and exited while a peer still
+    connected to it, or still waited for its last message of a collective,
+    failed the peer with "Connection closed by peer"; a rank whose block
+    raised leaves at once instead, so its peers' collectives fail rather
+    than wait, and a peer already here leaves with it."""
+    if leave.add("ranks", 1) == world:
+        leave.set("all", "1")
+    leave.wait(["all"], timeout)
+
+
 def _rank_main(rank, world, device, store, timeout_s, fn, args, out):
     torch.set_num_threads(1)
+    reported = False
     try:
         with process_group(rank, world, device=device, store=store,
                            timeout_s=timeout_s):
-            result = fn(rank, world, *args)
+            try:
+                result = fn(rank, world, *args)
+            except BaseException:
+                # reported before the group is torn down: the peers' lost
+                # connections follow this error, they do not precede it
+                out.put((rank, False, traceback.format_exc()))
+                reported = True
+                raise
         out.put((rank, True, pickle.dumps(result)))
     except BaseException:
-        out.put((rank, False, traceback.format_exc()))  # for the parent
+        if not reported:
+            out.put((rank, False, traceback.format_exc()))  # for the parent
         raise
 
 
@@ -146,11 +181,12 @@ def run_ranks(fn: Callable, world: int, *, device="cuda", args=(),
     ``args`` must be picklable (``fn`` a module-level function) and the
     results are pickled back, tensors copied.
 
-    A rank that raises fails the call as soon as it reports, with its
-    traceback and those the other ranks report within a moment (a peer's
-    lost connection), and the other ranks are killed. So does a rank that
-    dies without reporting, and a rank still running after ``timeout_s``
-    (which also bounds each rank's collectives)."""
+    A rank that raises reports its traceback before its group is torn
+    down, and fails the call once every other rank has reported (a peer's
+    lost connection) or exited, or at ``timeout_s``; the ranks still
+    running are then killed. So does a rank that dies without reporting,
+    and a rank still running after ``timeout_s`` (which also bounds each
+    rank's collectives)."""
     if world < 1:
         raise ValueError(f"world must be >= 1, got {world}")
     _backend(device)
@@ -163,30 +199,46 @@ def run_ranks(fn: Callable, world: int, *, device="cuda", args=(),
         args, out)) for rank in range(world)]
     results, errors = {}, {}
     deadline = time.monotonic() + timeout_s
+
+    def take(item):
+        rank, ok, payload = item
+        if ok:
+            results[rank] = pickle.loads(payload)
+        else:
+            errors[rank] = payload
+
+    def silent():
+        """Ranks that exited without a report."""
+        return [r for r, p in enumerate(procs) if r not in results
+                and r not in errors and p.exitcode is not None]
+
     try:
         for p in procs:
             p.start()
         while len(results) + len(errors) < world:
             left = deadline - time.monotonic()
-            if errors:          # the others' reports follow within moments
-                left = min(left, grace - time.monotonic())
             if left <= 0:
                 break
             try:
-                rank, ok, payload = out.get(timeout=min(left, 1.0))
-            except queue.Empty:
-                dead = [r for r, p in enumerate(procs) if r not in results
-                        and r not in errors and p.exitcode is not None]
-                if dead and not errors:
-                    raise RuntimeError(f"run_ranks: rank(s) {dead} exited "
-                                       f"without a result")
+                take(out.get(timeout=min(left, 1.0)))
                 continue
-            if ok:
-                results[rank] = pickle.loads(payload)
-            else:
-                if not errors:
-                    grace = time.monotonic() + _ERROR_GRACE_S
-                errors[rank] = payload
+            except queue.Empty:
+                pass
+            if not silent():
+                continue
+            # a report sent just before its rank exited is still read
+            while True:
+                try:
+                    take(out.get(timeout=0.1))
+                except queue.Empty:
+                    break
+            if silent() and not errors:
+                raise RuntimeError(f"run_ranks: rank(s) {silent()} exited "
+                                   f"without a result")
+            # after an error, wait until each other rank has reported (a
+            # peer's lost connection) or exited
+            if errors and len(silent()) + len(results) + len(errors) == world:
+                break
         if errors:
             raise RuntimeError("run_ranks: " + "\n".join(
                 f"rank {r} raised:\n{errors[r]}" for r in sorted(errors)))

@@ -104,9 +104,15 @@ ELM_SHAPES = [(4, 200, 192, 10), (1, 137, 144, 20), (3, 17, 7, 2),
               (2, 33, 24, 1),            # C 1
               (3, 1, 16, 4),             # one row
               (2, 12_500, 192, 10),      # a whole shard of the Map
-              (1, 512, 4096, 16)]        # the LM head: B 4 × S 128, d 4096
-# E²LM shards of 200,000 rows (k 1 and 2): sums too long for the 1e-5 bar
-LONG_SHAPES = [(2, 100_000, 192, 10), (1, 200_000, 192, 10)]
+              (1, 512, 4096, 16),        # the LM head: B 4 × S 128, d 4096
+              (1, 4096, 1280, 6),        # the HuBERT-XLarge head
+              (1, 512, 2560, 16),        # the RWKV6-3B head
+              (1, 300, 1281, 5)]         # wide tiles by cp.async (L % 4)
+# E²LM shards of 200,000 rows (k 1, 2, 4 and 8) and another split of
+# rows: sums too long for the 1e-5 bar
+LONG_SHAPES = [(2, 100_000, 192, 10), (1, 200_000, 192, 10),
+               (4, 50_000, 192, 10), (8, 25_000, 192, 10),
+               (2, 50_000, 150, 7)]       # the strip by cp.async (L % 4)
 
 
 @pytest.mark.cuda
@@ -125,7 +131,8 @@ def test_elm_stats_kernel_matches_plain_on_card(cuda, k, n, L, C, mask_kind):
     before = kernels.LAUNCHES["elm_stats"]
     u, v = stats_ops.elm_stats(hd, td, mask=md)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["elm_stats"] == before + 1
+    assert kernels.LAUNCHES["elm_stats"] == \
+        before + stats_ops._plan(k, n, L, C).passes
     ref = stats_ref.elm_stats_ref(hd, td, md).cpu().numpy()
     _close(u.cpu().numpy(), ref[..., :L])
     _close(v.cpu().numpy(), ref[..., L:])
@@ -178,6 +185,28 @@ def test_elm_stats_u_is_symmetric_and_deterministic_on_card(cuda, k, n, L, C,
     torch.cuda.synchronize()
     assert torch.equal(u, u.transpose(1, 2))
     assert torch.equal(u, u2) and torch.equal(v, v2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n,L,C", [(50_000, 192, 10), (200, 192, 10)])
+def test_elm_stats_member_block_is_the_same_bits_whatever_k_on_card(
+        cuda, n, L, C, masked):
+    """The plan depends on (n, L, C) alone, and a split's chunks are added
+    in a fixed order: a member's block from a launch of 4 members is
+    bitwise its block from a launch of its own, split (n 50,000) or not
+    (the Map's batch)."""
+    k = 4
+    h, t = _data(n + L + 2, (k, n, L), (k, n, C))
+    hd, td = torch.from_numpy(h).to(cuda), torch.from_numpy(t).to(cuda)
+    md = (torch.from_numpy(_mask("fractional", k * n, n).reshape(k, n)
+                           ).to(cuda) if masked else None)
+    u, v = stats_ops.elm_stats(hd, td, mask=md)
+    for i in range(k):
+        ui, vi = stats_ops.elm_stats(
+            hd[i:i + 1].contiguous(), td[i:i + 1].contiguous(),
+            mask=None if md is None else md[i:i + 1].contiguous())
+        assert torch.equal(ui[0], u[i]) and torch.equal(vi[0], v[i])
 
 
 @pytest.mark.cuda

@@ -11,6 +11,7 @@ after the epochs=0 pass, rtol 1e-4 (atol 2e-5) after SGD epochs at
 """
 import os
 import re
+import time
 
 import numpy as np
 import pytest
@@ -134,6 +135,18 @@ def test_run_ranks_returns_each_rank_and_fails_fast():
     with pytest.raises(RuntimeError, match="rank 1 fails on purpose"):
         run_ranks(ranks.fail_on_rank_1, 2, device="cpu",
                   timeout_s=100)
+
+
+@bounded(150)
+def test_run_ranks_fails_fast_with_no_collective_pending():
+    """Rank 1 raises after rank 0 has finished its block: rank 0 leaves
+    its group at once, not at the group's timeout, and the call fails
+    with rank 1's error far under it."""
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="rank 1 fails on purpose"):
+        run_ranks(ranks.fail_alone_on_rank_1, 2, device="cpu",
+                  timeout_s=300)
+    assert time.monotonic() - t0 < 100
 
 
 # ---------------------------------------------------------------------------

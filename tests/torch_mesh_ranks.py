@@ -239,6 +239,13 @@ def fail_on_rank_1(rank, world):
     return rank
 
 
+def fail_alone_on_rank_1(rank, world):
+    """Rank 1 raises; the others return at once, with no collective."""
+    if rank == 1:
+        raise ValueError("rank 1 fails on purpose")
+    return rank
+
+
 def lm_average_step(rank, world, stacked, weights):
     """``trainer.make_average_step`` over the default group on this rank's
     equal slice of the stacked LM members: (its averaged stack, whether

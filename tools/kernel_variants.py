@@ -6,8 +6,8 @@
 
 Each variant is a copy of a kernel's sources in ``src/repro_torch/csrc/``
 (swa_attention and swa_attention_bwd: the causal file, the non-causal
-``swa_full_*.cu`` file and their header) with one edit - a tile constant
-of elm_stats, swa_attention's copy loop for hd == HDP switched off, the
+``swa_full_*.cu`` file and their header) with one edit - elm_stats's
+stages or unrolls, swa_attention's copy loop for hd == HDP switched off, the
 non-causal kernels' stages, copies or split, conv2d's pixels per thread,
 tile size, instantiation or stores, the conv backward's splits, tiles and
 bands, or one phase of a block run twice - built alone with nvcc into
@@ -35,7 +35,17 @@ the exponentials or a kernel; the backward's take the IEEE exp2f, the
 forward's the hardware's exp2, and the forward's also change its
 stages, keep Q in shared memory for S or truncate lo too;
 rmsnorm_bwd's change its chunks or leave out its dscale pass; its baseline
-(the first design) is called with the chunks it chose. The shipped source is
+(the first design) is called with the chunks it chose. elm_stats's builds
+run the Map's and the stream's batches, a whole shard, E²LM's shards, the
+three heads and one-chunk shapes between them, each called with its plan
+(``kernels/elm_stats/ops.py``), and the shipped build again under the
+tags of ``CALLS``: a split with other rows a chunk, a one-chunk shape
+through the other of the narrow and wide tiles; over 25,000 rows a member
+they are held against f64 within the f32 summation bound, and a shape
+whose plan has one chunk must come out bit for bit the shipped build's in
+every build and call but a ``probe_`` one, the baseline's included (a
+baseline from before the row split is called with its old arguments). The
+shipped source is
 built the same way beside them, and all the nvcc processes run together; the
 port's own build is not touched. Every build is called through its C entry
 point on the same inputs, checked against the kernel's plain version at
@@ -66,12 +76,13 @@ sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402  (puts src/ on the path)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # kernel -> (source, C entry point, argument types)
 ENTRIES = {
     "conv2d": (("conv2d.cu",), "conv2d_valid_f32",
                (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P)),
     "elm_stats": (("elm_stats.cu",), "elm_stats_f32",
-                  (_P, _P, _P, _P, _I, _I, _I, _I, _P)),
+                  (_P, _P, _P, _P, _L, _P, _I, _I, _I, _I, _I, _I, _P)),
     "swa_attention": (("swa_attention.cu", "swa_full_fwd.cu",
                        "swa_full.cuh"), "swa_attention_fwd",
                       (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
@@ -107,6 +118,18 @@ _WALK = (r"walk<TJ, NCI, TC, COUT, SEGW, FIXED>\(\s*a, xrow, drow, ow0, "
          r"min\(OW, ow0 \+ a\.SEGW\), j0, c0, acc\);")
 _ITEM = (r"item_fixed<KH, KW, CIN, COUT, P>\(a, ws, ys \+ g \* a\.IP, h, "
          r"ylo, w0, out\);")
+# elm_stats's wide kernel without copies or waits: the producer issues no
+# stage, the consumers wait for none
+_ELM_NO_COPIES = [
+    (r"for \(int s = 0; s < stages; \+\+s\) \{\n(\s*)const int st = "
+     r"s % kWST, round", r"for (int s = 0; s < 0; ++s) {\n\1const int st = "
+     r"s % kWST, round"),
+    (r"\n\s*bar_wait\(full\(st\), \(s / kWST\) & 1\);", "")]
+# the FMA loops' unroll pragmas: the wide kernel's, the strip's
+_ELM_WIDE_LOOP = (r"#pragma unroll 8\n(\s*for \(int rr = 0; rr < kWKC; "
+                  r"\+\+rr\) \{\n\s*float av\[kWTM\])")
+_ELM_STRIP_LOOP = (r"#pragma unroll 8\n(\s*for \(int rr = 0; rr < kWKC; "
+                   r"\+\+rr\) \{\n\s*float av\[kSub\])")
 # kernel -> [(variant, [(pattern, replacement), ...])]; every pattern must
 # match the shipped source exactly once (the kernel's first file, or the
 # file named first in a (file, pattern, replacement) edit)
@@ -145,13 +168,25 @@ VARIANTS = {
     ],
     "elm_stats": [
         ("shipped", []),
-        ("tile32_kc64_st2", [(r"kKC = \d+;", "kKC = 64;"),
-                             (r"kST = \d+;", "kST = 2;")]),
-        ("tile32_kc32_st2", [(r"kST = \d+;", "kST = 2;")]),
-        ("tile16_kc32_st3", [(r"kTile = \d+;", "kTile = 16;")]),
-        ("tile16_kc64_st2", [(r"kTile = \d+;", "kTile = 16;"),
-                             (r"kKC = \d+;", "kKC = 64;"),
-                             (r"kST = \d+;", "kST = 2;")]),
+        # the wide ring's stages: 2 or 4 where it ships 3; its FMA loop's
+        # rows unrolled by 4, where it ships 8
+        ("wide_st2", [(r"kWST = \d+;", "kWST = 2;")]),
+        ("wide_st4", [(r"kWST = \d+;", "kWST = 4;")]),
+        ("wide_unroll4", [(_ELM_WIDE_LOOP, r"#pragma unroll 4\n\1")]),
+        # the strip's stages: 2 or 4 where it ships 3; its FMA loop's rows
+        # unrolled by 4, where it ships 8
+        ("strip_st2", [(r"kSST = \d+;", "kSST = 2;")]),
+        ("strip_st4", [(r"kSST = \d+;", "kSST = 4;")]),
+        ("strip_unroll4", [(_ELM_STRIP_LOOP, r"#pragma unroll 4\n\1")]),
+        # every tile by the producer warp's cp.async, not TMA
+        ("cp_async", [(r"const bool tma = L % 4 == 0",
+                       "const bool tma = false && L")]),
+        # the wide kernel's consumers skip every stage's loads and FMAs
+        # (what its copies and barriers alone take), or it issues no copy
+        # and waits for none (what its loads and FMAs alone take)
+        ("probe_copies_only", [(r"const bool active = ",
+                                "const bool active = false && ")]),
+        ("probe_compute_only", _ELM_NO_COPIES),
     ],
     "swa_attention": [
         ("shipped", []),
@@ -361,10 +396,43 @@ CONV_SHAPES = [("stage1", 4, 200, 28, 1, 6), ("stage2", 4, 200, 12, 6, 12),
                ("seq_stage2", 1, 200, 12, 6, 12),
                ("score1_stage1", 4, 1, 28, 1, 6),
                ("score1_stage2", 4, 1, 12, 6, 12)]
-# (case, k, n, L, C, masked)
+# (case, k, n, L, C, masked): the Map's batches, the stream's, a whole
+# shard, E²LM's shards of 200,000 rows, the ELM heads over the LM zoo, and
+# one-chunk shapes between the Map's L and the heads' (the narrow tiles
+# against the wide ones, which set ``WIDE_MIN_L``)
 ELM_SHAPES = [("unmasked", 4, 200, 192, 10, False),
               ("fractional_mask", 4, 200, 192, 10, True),
-              ("shard", 4, 12_500, 192, 10, False)]
+              ("ragged", 4, 137, 144, 20, True),
+              ("stream_batch", 4, 32, 192, 10, False),
+              ("k4_n200_l256", 4, 200, 256, 10, False),
+              ("k4_n200_l384", 4, 200, 384, 10, False),
+              ("k1_n512_l256", 1, 512, 256, 16, False),
+              ("k1_n512_l512", 1, 512, 512, 16, False),
+              ("k1_n512_l1024", 1, 512, 1024, 16, False),
+              ("shard", 4, 12_500, 192, 10, False),
+              ("e2lm_k1", 1, 200_000, 192, 10, False),
+              ("e2lm_k2", 2, 100_000, 192, 10, False),
+              ("e2lm_k4", 4, 50_000, 192, 10, False),
+              ("e2lm_k8", 8, 25_000, 192, 10, False),
+              ("hubert_head", 1, 4096, 1280, 6, False),
+              ("lm_head", 1, 512, 4096, 16, False),
+              ("rwkv6_head", 1, 512, 2560, 16, False)]
+# the shipped build called with another plan, timed beside the variants
+# (elm_stats: the split's chunks twice as many, half the rows, or half as
+# many; a one-chunk shape through the other of the narrow and wide tiles)
+CALLS = {"elm_stats": ["chunks_x2", "chunks_half", "as_wide", "as_narrow"]}
+ELM_CHUNKS = {"chunks_x2": 2.0, "chunks_half": 0.5}
+
+
+class ShippedCall:
+    """The shipped build of a kernel under the tag of a call in ``CALLS``,
+    which its cases' ``call`` reads to pick the arguments."""
+
+    def __init__(self, fn, tag):
+        self.fn, self.variant, self.legacy = fn, tag, False
+
+    def __call__(self, *args):
+        return self.fn(*args)
 # (case, B, S, H, KV, hd, window, causal, bf16): the causal shapes, then
 # chip_smoke.py's non-causal ones (window = S)
 SWA_SHAPES = [("prefill_causal", 4, 128, 32, 8, 128, 128, 1, 1),
@@ -453,6 +521,11 @@ def build_all(names, baseline, only=None):
         legacy = at is not None and "int causal" not in texts[key]
         if legacy:
             argtypes = argtypes[:at] + argtypes[at + 1:]
+        # a baseline elm_stats source from before the row split takes no
+        # partial sums, instantiation or rows a chunk
+        if key[0] == "elm_stats" and "float* part" not in texts[key]:
+            legacy = True
+            argtypes = argtypes[:3] + argtypes[5:10] + argtypes[-1:]
         fn = getattr(ctypes.CDLL(so), fn_name)
         fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
         fn.variant, fn.legacy = key[1], legacy
@@ -507,8 +580,17 @@ def conv_cases(torch, dev, gen):
 
 
 def elm_cases(torch, dev, gen):
+    """The elm_stats shapes: each build called with the plan's
+    instantiation and rows a chunk (a ``chunks_`` call with its factor on
+    the chunks, an ``as_`` call of a one-chunk shape with the other of the
+    narrow and wide tiles; a baseline from before the row split with the
+    old arguments). Held against the plain version at the 1e-5 bar, or, at
+    25,000 rows or more a member, against f64 within the f32 summation
+    bound (chip_smoke's ``long_sum``); U bitwise symmetric. A shape the
+    plan gives one chunk must come out bitwise the shipped build's in
+    every build, the baseline's included (each output one ordered sum)."""
     import torch.nn.functional as F
-    from repro_torch.kernels.elm_stats import ref
+    from repro_torch.kernels.elm_stats import ops, ref
     cases = {}
     for case, k, n, L, C, masked in ELM_SHAPES:
         h = torch.tanh(torch.randn((k, n, L), generator=gen)).to(dev)
@@ -516,23 +598,63 @@ def elm_cases(torch, dev, gen):
                       C).float().to(dev)
         m = torch.rand((k, n), generator=gen).to(dev) if masked else None
         want = ref.elm_stats_ref(h, t, m)
+        long_sum = n >= 25_000
+        if long_sum:
+            truth = chip_smoke.f64_stats(torch, h, t, m)
+            bound = 7 * n ** 0.5 * 2.0 ** -24 * chip_smoke.f64_stats(
+                torch, h, t, m, True)
         out = torch.empty_like(want)
+        plan = ops._plan(k, n, L, C)
+        subs = ops.strip_subs(L, C)
+
+        def split(rows, k=k, n=n, subs=subs):
+            return (ops.KINDS["strip"], rows,
+                    k * -(-n // rows) * ops.SUB ** 2 * subs)
+        # (instantiation, rows a chunk, the workspace's floats) by call
+        # tag; the shipped build and the variants take the plan's (None)
+        args = {}
+        if plan.chunks > 1:
+            args[None] = split(plan.rows)
+            for tag, f in ELM_CHUNKS.items():
+                c = max(2, round(plan.chunks * f))
+                args[tag] = split(-(-n // (c * ops.STAGE_ROWS))
+                                  * ops.STAGE_ROWS)
+        else:
+            args[None] = (plan.kind, n, 0)
+            other = "wide" if plan.instantiation == "narrow" else "narrow"
+            args[f"as_{other}"] = (ops.KINDS[other], n, 0)
+        part = torch.empty(max(e for _, _, e in args.values()), device=dev)
         hm = h if m is None else h * m[..., None]
         a = hm.transpose(1, 2).contiguous()
         b = torch.cat([h, t], dim=-1).contiguous()
 
         # the closure holds m itself, not its address: the mask must stay
         # alive while later cases allocate
-        def call(fn, h=h, t=t, m=m, out=out, k=k, n=n, L=L, C=C):
-            return launcher(fn, h.data_ptr(), t.data_ptr(),
-                            None if m is None else m.data_ptr(),
-                            out.data_ptr(), k, n, L, C)
+        def call(fn, h=h, t=t, m=m, out=out, part=part, k=k, n=n, L=L, C=C,
+                 args=args):
+            mp = None if m is None else m.data_ptr()
+            if fn.legacy:
+                return launcher(fn, h.data_ptr(), t.data_ptr(), mp,
+                                out.data_ptr(), k, n, L, C)
+            kind, rows, elems = args.get(fn.variant, args[None])
+            return launcher(fn, h.data_ptr(), t.data_ptr(), mp,
+                            part.data_ptr() if elems else None, elems,
+                            out.data_ptr(), k, n, L, C, kind, rows)
 
-        def verdict(out=out, want=want, L=L):
-            ok, err = close(out, want, chip_smoke.TOL)
+        def verdict(out=out, want=want, L=L, long_sum=long_sum,
+                    truth=truth if long_sum else None,
+                    bound=bound if long_sum else None):
+            if long_sum:
+                dev64 = (out.double() - truth).abs()
+                ok = bool((dev64 <= bound).all())
+                err = float(dev64.max())
+            else:
+                ok, err = close(out, want, chip_smoke.TOL)
             u = out[..., :L]
             return ok and torch.equal(u, u.transpose(1, 2)), err
-        cases[case] = (call, verdict, lambda a=a, b=b: torch.matmul(a, b))
+        cases[case] = (call, verdict, lambda a=a, b=b: torch.matmul(a, b),
+                       out)
+        cases[case][1].one_pass = plan.chunks == 1
     return cases
 
 
@@ -771,6 +893,11 @@ def main(argv=None):
     dev = torch.device("cuda")
     card = chip_smoke.card_line()
     built = build_all(args.kernels, args.baseline, args.variants)
+    for name in args.kernels:
+        for tag in CALLS.get(name, []):
+            if args.variants is None or tag in args.variants:
+                fn, ptxas = built[(name, "shipped")]
+                built[(name, tag)] = (ShippedCall(fn, tag), ptxas)
     gen = torch.Generator().manual_seed(0)
     make = {"conv2d": conv_cases, "elm_stats": elm_cases,
             "swa_attention": swa_cases, "conv2d_wgrad": wgrad_cases,
@@ -781,6 +908,7 @@ def main(argv=None):
     for name, cases in shapes.items():
         tags = [tag for tag, _ in variants_of(name, args.baseline,
                                               args.variants)]
+        tags += [tag for tag in CALLS.get(name, []) if (name, tag) in built]
         assert tags[0] == "shipped"
         recs = {tag: {"kernel": name, "variant": tag,
                       "ptxas": built[(name, tag)][1]} for tag in tags}
@@ -808,6 +936,12 @@ def main(argv=None):
                         torch.equal(o, s_) for o, s_ in zip(out, shipped))
                 if not ok and not tag.startswith("probe_"):
                     failed.append((name, tag, case))
+                # elm_stats: a one-chunk shape is the same bits in every
+                # build (each output one ordered sum over its rows)
+                if getattr(verdict, "one_pass", False) and \
+                        not tag.startswith("probe_") and \
+                        not recs[tag][case]["bitwise_shipped"]:
+                    failed.append((name, tag, case, "bits"))
             for tag in runs + runs[::-1]:
                 recs[tag][case]["ms"].append(chip_smoke.device_ms(
                     torch, call(built[(name, tag)][0])))
