@@ -29,11 +29,16 @@ is non-zero and no result line is printed:
              kernels' backward at the train step's shapes — rmsnorm_bwd at
              ln 512 × 4096, q_norm 16384 × 128 and Zamba2's ln 512 × 2048,
              swa_attention_bwd at the
-             prefill shape and at S 1024, window 256, bf16 — against their
+             prefill shape, at S 1024, window 256, at OLMoE-1B-7B's prefill
+             (H 16/16) and at one 4,096-token sequence of Qwen3-8B (B 1,
+             H 32/8, the reference's train_4k shape), bf16 — against their
              plain versions (2 bf16 ulps of max|ref|, or twice the plain
              version's own distance from the f64 function) and bitwise the
              same run to run; plain = torch autograd of the plain forward,
-             library = the backward of ``F.rms_norm`` and of SDPA. Also
+             library = the backward of ``F.rms_norm`` and of SDPA. The
+             causal swa_attention forward at the prefill, S 1024 W 256, q
+             scaled by 8, Zamba2's shared block, OLMoE-1B-7B's prefill and
+             the 4,096-token sequence, each bitwise the same run to run. Also
              swa_attention's non-causal mode (the encoder's) at
              HuBERT-XLarge's B 4, S 1024, H 16, hd 80 in bf16, a ragged S
              1000 and a small f32 case (library: SDPA with
@@ -659,12 +664,16 @@ def phase_kernels(torch, dev, rates):
     # the prefill's attention (B 4, S 128, 32 heads over 8 kv heads, hd 128,
     # window = S), one windowed case, the prefill with q scaled by 8 (scores
     # of large magnitude stress the online rescale and the hi/lo split of
-    # p), and Zamba2-1.2B's shared block over a batch-4, prompt-128 prefill
-    # (32 heads over 32 kv heads, hd 64, its window 4,096 clamped to S)
+    # p), Zamba2-1.2B's shared block over a batch-4, prompt-128 prefill
+    # (32 heads over 32 kv heads, hd 64, its window 4,096 clamped to S),
+    # OLMoE-1B-7B's prefill (16 heads of 128, no GQA) and one 4,096-token
+    # sequence of Qwen3-8B (the reference's train_4k shape, window = S)
     swa_cases = [("prefill_causal", 4, 128, 32, 8, 128, 128, 1.0),
                  ("window256_s1024", 1, 1024, 32, 8, 128, 256, 1.0),
                  ("prefill_large_scores", 4, 128, 32, 8, 128, 128, 8.0),
-                 ("zamba2_shared", 4, 128, 32, 32, 64, 128, 1.0)]
+                 ("zamba2_shared", 4, 128, 32, 32, 64, 128, 1.0),
+                 ("olmoe_prefill", 4, 128, 16, 16, 128, 128, 1.0),
+                 ("train4k_seq", 1, 4096, 32, 8, 128, 4096, 1.0)]
     for tag, B, S, H, KV, hd, W, q_scale in swa_cases:
         q = (randn(B, S, H, hd) * q_scale).to(torch.bfloat16)
         k = randn(B, S, KV, hd).to(torch.bfloat16)
@@ -673,6 +682,8 @@ def phase_kernels(torch, dev, rates):
         err, top, ok = compare(torch, y, swa_ref.swa_attention_ref(
             q, k, v, window=W))
         check(ok, f"swa_attention {tag}: max|err| {err} at max|ref| {top}")
+        check(torch.equal(y, swa_ops.swa_attention(q, k, v, window=W)),
+              f"swa_attention {tag}: not bitwise the same run to run")
         # the library yardstick: SDPA on (B, H, S, hd) copies made outside
         # the timed region, causal or with the window's boolean mask
         qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
@@ -847,6 +858,8 @@ def phase_kernels(torch, dev, rates):
     swa_bwd_cases = [
         ("prefill_causal", 4, 128, 32, 8, 128, 128, True, torch.bfloat16),
         ("window256_s1024", 1, 1024, 32, 8, 128, 256, True, torch.bfloat16),
+        ("olmoe_prefill", 4, 128, 16, 16, 128, 128, True, torch.bfloat16),
+        ("train4k_seq", 1, 4096, 32, 8, 128, 4096, True, torch.bfloat16),
         ("encoder_bidirectional", 4, 1024, 16, 16, 80, 1024, False,
          torch.bfloat16),
         ("encoder_ragged_s1000", 4, 1000, 16, 16, 80, 1000, False,
@@ -3835,7 +3848,7 @@ def main():
          >= sum(c["flops"] for c in rms) / rates[0] else "operations",
          "library_ms": sum(c["library_ms"] for c in rms)},
         {"name": "swa_attention", "route": "cuda",
-         "source": "src/repro_torch/csrc/swa_attention.cu",
+         "source": "src/repro_torch/csrc/swa_full_fwd.cu",
          "replaces": "src/repro/kernels/swa_attention/kernel.py:28",
          "launches": lm_launches["swa_attention"]
          + zoo_launches["swa_attention"] + rec_launches["swa_attention"]
@@ -3843,6 +3856,7 @@ def main():
          "max_abs_err": max(per_case[("swa_attention", c)]["max_abs_err"]
                             for c in ("prefill_causal", "window256_s1024",
                                       "prefill_large_scores", "zamba2_shared",
+                                      "olmoe_prefill", "train4k_seq",
                                       "encoder_bidirectional",
                                       "encoder_ragged_s1000",
                                       "encoder_f32_small")),
@@ -3876,7 +3890,7 @@ def main():
          >= sum(c["flops"] for c in rb) / rates[0] else "operations",
          "library_ms": sum(c["library_ms"] for c in rb)},
         {"name": "swa_attention_bwd", "route": "cuda",
-         "source": "src/repro_torch/csrc/swa_attention_bwd.cu",
+         "source": "src/repro_torch/csrc/swa_full_bwd.cu",
          "replaces": "src/repro/kernels/swa_attention/kernel.py:28 (the "
                      "swa_attention TPU kernel; it has no Pallas backward)",
          "launches": train_launches["swa_attention_bwd"]
@@ -3884,6 +3898,7 @@ def main():
          + rec_launches["swa_attention_bwd"],
          "max_abs_err": max(per_case[("swa_attention_bwd", c)]["max_abs_err"]
                             for c in ("prefill_causal", "window256_s1024",
+                                      "olmoe_prefill", "train4k_seq",
                                       "encoder_bidirectional",
                                       "encoder_ragged_s1000",
                                       "encoder_f32_small")),

@@ -1,8 +1,10 @@
-// Building blocks of the non-causal attention kernels written for the
-// H100's tensor cores and copy engine (swa_full_fwd.cu, swa_full_bwd.cu):
-// warpgroup products (wgmma), tiles copied by the Tensor Memory Accelerator
-// (TMA) into a ring of shared-memory stages, mbarriers between the loading
-// threads and the two warpgroups whose products read the stages.
+// Building blocks of the attention kernels written for the H100's tensor
+// cores and copy engine (swa_full_fwd.cu, swa_full_bwd.cu), which serve
+// both modes: non-causal (the encoder's) and the causal
+// sliding window (the decoders', every bf16 call): warpgroup products (wgmma), tiles copied by the Tensor
+// Memory Accelerator (TMA) into a ring of shared-memory stages, mbarriers
+// between the loading threads and the two warpgroups whose products read
+// the stages.
 //
 // Tiles in shared memory. A tile of R rows (R a multiple of 64) of a bf16
 // operand with hd columns, zero-padded to HDP (a multiple of 16), is kept
@@ -41,7 +43,9 @@
 //   starts, then, at the end of its tile t, tile t - 1 + stages into the
 //   stage that held tile t - 1 (the other warpgroup, a little behind, may
 //   hold warpgroup 0 there a moment, and nothing it waits for waits on
-//   warpgroup 0). A producer warpgroup handing its registers to the
+//   warpgroup 0). The causal dK/dV blocks differ: each warpgroup reads
+//   every other stage and refills the stage it has just read itself, so
+//   no `empty` barrier is needed there. A producer warpgroup handing its registers to the
 //   others by setmaxnreg (384 threads) left ptxas at 168 registers for
 //   them: the dK/dV kernel spilled and ptxas serialized its wgmma; 288
 //   threads at 201 registers failed to launch (PERF.md).
@@ -413,6 +417,22 @@ __device__ __forceinline__ void proxy_fence() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// 4 bytes global -> shared address dst by cp.async; where in is false
+// nothing is read and the 4 bytes are written as zeros
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+// an arrival on bar (one of its expected arrivals) once this thread's
+// earlier cp.async copies have landed: the thread does not wait for them
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(bar)
+               : "memory");
+}
+
 // one TMA box (16 columns x 64 rows of head h, batch b from column col,
 // row row) -> shared address dst,
 // its bytes counted on bar
@@ -436,6 +456,43 @@ __device__ __forceinline__ void tma_rows(uint32_t tile, int R, int r0,
 #pragma unroll
   for (int p = 0; p < HDP / kPiece; ++p)
     tma_load(tile + R * 32 * p + r0 * 32, &map, bar, kPiece * p, row0, h, b);
+}
+
+// one TMA box (16 columns x 64 rows) from shared address src to head h,
+// batch b, column col, row row of the operand: rows >= S and columns >=
+// hd are not written
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          uint32_t src, int col, int row,
+                                          int h, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(col), "r"(row), "r"(h), "r"(b)
+      : "memory");
+}
+
+// rows r0 .. r0 + 63 of a tile of R rows at shared address tile -> rows
+// row0 .. row0 + 63 of head h, batch b, by TMA (one box a piece)
+template <int HDP>
+__device__ __forceinline__ void tma_store_rows(uint32_t tile, int R, int r0,
+                                               const CUtensorMap& map,
+                                               int row0, int h, int b) {
+#pragma unroll
+  for (int p = 0; p < HDP / kPiece; ++p)
+    tma_store(&map, tile + R * 32 * p + r0 * 32, kPiece * p, row0, h, b);
+}
+// until the thread's TMA stores have read their boxes out of shared memory
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// an output pair (x0, x1) at row r, column c (even) of a tile of R rows
+// in shared memory, as bf16
+__device__ __forceinline__ void put_pair(unsigned char* tile, int R, int r,
+                                         int c, float x0, float x1) {
+  *reinterpret_cast<__nv_bfloat162*>(tile + tile_offset(R, r, c)) =
+      __floats2bfloat162_rn(x0, x1);
 }
 
 // the same by n threads (t = 0 .. n - 1), 2 bytes at a time; src: the

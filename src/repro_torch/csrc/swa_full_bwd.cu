@@ -1,64 +1,95 @@
-// Backward of non-causal attention (every query sees every key j < S) with
-// GQA; swa_attention_bwd.cu's entry point `swa_attention_bwd` sends its
-// non-causal calls here. Given q, k, v, the forward's output o, its per-row
-// log-sum-exp lse (natural log) and the output cotangent do:
-//   P_ij  = exp(scale * q_i . k_j - lse_i)
+// Backward of flash attention with GQA, in the two modes of
+// swa_full_fwd.cu: non-causal (every query sees every key j < S) and
+// causal (keys j <= i with i - j < window). swa_attention_bwd.cu's entry
+// point `swa_attention_bwd` sends its non-causal calls here, and its
+// causal bf16 calls.
+// Given q, k, v, the forward's output o, its per-row log-sum-exp lse
+// (natural log) and the output cotangent do:
+//   P_ij  = exp(scale * q_i . k_j - lse_i)        (0 outside the mask)
 //   D_i   = sum_d do_i,d o_i,d
 //   dP_ij = do_i . v_j,    dS_ij = P_ij (dP_ij - D_i)
 //   dq_i  = scale sum_j dS_ij k_j
 //   dk_j  = scale sum_{h in the group} sum_i dS_ij q_i
 //   dv_j  = sum_{h in the group} sum_i P_ij do_i
-// over i, j < S; G = H / KV query heads share a kv head. Every product and
-// sum is f32; dq, dk and dv come out in q's dtype.
+// over the pairs (i, j) of the mask, i, j < S; G = H / KV query heads share
+// a kv head. Every product and sum is f32; dq, dk and dv come out in q's
+// dtype.
 //
-// Replaces, for the non-causal mode: the backward of src/repro/kernels/
-// swa_attention/kernel.py:28 `_swa_kernel`, which has no Pallas backward
-// (the reference differentiates the encoder's `_sdpa`, layers/
-// attention.py:99-105).
+// Replaces: the backward of src/repro/kernels/swa_attention/kernel.py:28
+// `_swa_kernel`, which has no Pallas backward (the reference
+// differentiates its plain `_sdpa`, layers/attention.py:65, and under an
+// all-ones mask the encoder's, :99-105).
 //
 // Shapes: q, o, do, dq (B, S, H, hd); k, v, dk, dv (B, S, KV, hd); lse and
 // the scratch delta (B, H, S) f32; all contiguous; hd <= 128.
 //
-// What bounds it on an H100: 10 hd FLOP a (query, key) pair (q.k again,
-// do.v, and the products into dq, dk, dv): HuBERT-XLarge's encoder (B 4,
-// S 1024, H 16, hd 80, bf16) does 53.7 GFLOP, 54 us at the bf16 tensor-core
-// rate, over 63 MB.
+// What bounds it on an H100: 10 hd FLOP a (query, key) pair inside the
+// mask (q.k again, do.v, and the products into dq, dk, dv): HuBERT-XLarge's
+// encoder (B 4, S 1024, H 16, hd 80, bf16) does 53.7 GFLOP, 54 us at the
+// bf16 tensor-core rate, over 63 MB; a causal 4,096-token sequence of
+// Qwen3-8B (B 1, H 32/8, hd 128) 344 GFLOP, 0.35 ms.
 //
-// Three launches: the D pre-pass (a thread a row), dK/dV, dQ. Each output
+// Launches: the D pre-pass (8 lanes a row), then dK/dV and dQ (the
+// causal mode: one launch of both, dK/dV's blocks first). Each output
 // element is one sum in one fixed order, with no atomics: the result is the
 // same bits run to run.
 //
 // bf16: wgmma and TMA (building blocks in swa_full.cuh), 256 threads a
-// block, two warpgroups; warpgroup 0 also issues the loads.
-// - dK/dV: a block per (batch, kv head, 128 keys), each warpgroup's 64
-//   keys one wgmma M tile; k and v of the block arrive once. It walks the
-//   G heads of its group and, for each, every 64-query tile, in that
-//   order: q, dO, lse and D of a tile arrive by TMA (lse, in log2 units,
-//   and D by warp 0's loads) in a ring of kBwdStages stages.
+// block, two warpgroups that also issue the loads.
+// - dK/dV, non-causal: a block per (batch, kv head, 128 keys), each
+//   warpgroup's 64 keys one wgmma M tile; k and v of the block arrive
+//   once. It walks the G heads of its group and, for each, every 64-query
+//   tile, in that order: q, dO, lse and D of a tile arrive by TMA (lse, in
+//   log2 units, and D by warp 0's loads) in a ring of kBwdStages stages
+//   that warpgroup 0 fills.
 //   S^T = K.Q^T and dP^T = V.dO^T are SS-form wgmma (the keys as rows), so
 //   P^T and dS^T come out in the accumulator layout that is the A operand
 //   of dV += P^T.dO and dK += dS^T.Q, RS-form wgmma with dO and Q
 //   MN-major. P^T and dS^T are f32: each is split into bf16 hi + lo and
 //   both products accumulate into the one f32 sum (rounding them once to
 //   bf16 errs by up to 2^-8 of every weight, more than a bf16 ulp of an
-//   output that cancels; hi + lo keeps 15 bits). No warp-group split of the
-//   walk: the non-causal walk is the same length for every key tile.
-//   Tile it's dV and dK products run while P^T and dS^T of tile it + 1
-//   are computed (its S^T and dP^T are issued first and waited for alone).
+//   output that cancels; hi + lo keeps 15 bits). Tile it's dV and dK
+//   products run while P^T and dS^T of tile it + 1 are computed (its S^T
+//   and dP^T are issued first and waited for alone).
+// - dK/dV, causal: a block per (batch, kv head, 64 keys), so the LM
+//   prefill (B 4, S 128, KV 8) has 64 blocks, not 32, and a 4,096-token
+//   sequence 512. The block walks, for each head of its group, the query
+//   tiles from its own to the one holding its last key + window - 1 (all
+//   of which see some key of the block, so no tile is skipped). Both
+//   warpgroups hold the block's 64 keys and take every other tile of the
+//   walk (warpgroup it % 2 takes tile it, each loading its own tiles into
+//   its own half of the ring, so neither waits on the other); at the end
+//   warpgroup 1's dK and dV pass through shared memory and warpgroup 0 adds
+//   them to its own, in that order. lse and D of a tile come by cp.async
+//   from the loading warp's lanes, which arrive on the stage's `full` as
+//   the copies land, so no warp waits on them. A tile's products run one
+//   after the other inside a warpgroup (S^T and dP^T, then P^T and dS^T,
+//   then dV and dK), while the other warpgroup's run: dk and dv (64 f32
+//   registers a thread each at hd 128), S^T, dP^T and the split fragments
+//   of one tile fit in 245 registers (ptxas -v, no spills), where the
+//   non-causal kernel's overlap of two tiles spills at hd 112 and 128.
 // - dQ: a block per (batch, head, 128 queries), each warpgroup's 64
 //   queries one M tile; q and dO arrive once, k and v tiles of 64 keys
 //   stream through the stages. S and dP are recomputed (SS-form), then
 //   dQ += dS.K (RS-form, dS split hi + lo, K MN-major); a tile's dQ
-//   products run while the next tile's dS is computed.
+//   products run while the next tile's dS is computed. The causal walk is
+//   the forward's: the block's key tiles from the one holding max(0, q0 -
+//   window + 1) to its last query's, each warpgroup the part its rows can
+//   see (a tile it cannot see it waits for and releases, without a
+//   product); the last query tiles run first.
 // - P = 2^(s scale log2(e) - lse log2(e)), one fmaf and the hardware's
 //   exp2 (exp2_ftz, swa_full.cuh: exp2f's handling of denormal results,
 //   which no f32 sum here keeps, cost 22 % of the backward).
-// - Masks: query columns qi >= S of a ragged query tile take P = 0 in the
-//   dK/dV block, keys kj >= S of a ragged key tile P = 0 in the dQ block
-//   (the TMA's zero rows would score 0); rows >= S are never written.
+// - Masks, P = 0 on the accumulators after the product, only in the tiles
+//   that hold a masked pair: query columns qi >= S of a ragged query tile
+//   (dK/dV), keys kj >= S of a ragged key tile (dQ; in the causal mode
+//   they lie past every row < S), and, in the causal mode, pairs past the
+//   diagonal or outside the window (the TMA's zero rows would score 0);
+//   rows >= S are never written.
 //
 // f32 (the f32 card-vs-CPU parity runs; the tensor cores take f32 only as
-// TF32, which the port keeps off): CUDA-core kernels, a warp a row: a dQ
+// TF32, which the port keeps off), non-causal only (the causal f32 kernels
+// are swa_attention_bwd.cu's): CUDA-core kernels, a warp a row: a dQ
 // warp walks its query's keys 32 at a time, a lane a key for S and dP
 // (four fmaf chains), then the warp's 32 dS times k, a lane an output
 // column; a dK/dV warp walks its key's queries (over the group) likewise.
@@ -88,34 +119,57 @@ __device__ __forceinline__ float to_f32<bf16>(bf16 v) {
   return __bfloat162float(v);
 }
 
-// D_i = do_i . o_i, one fmaf chain over d, a thread a row (16-byte loads
-// where vec16: rows of a multiple of 16 bytes, 16-byte aligned), into
-// (B, H, S). (A warp a row, lanes striding the row, left each warp one
-// or two loads in flight: PERF.md.)
+// D_i = do_i . o_i into (B, H, S): a row per 8 lanes. Lane j of a row's
+// 8 reads the row's 16-byte pieces j, j + 8, ... of both operands (where
+// vec16: rows of a multiple of 16 bytes, 16-byte aligned; else elements j,
+// j + 8, ...), every load issued before the first product, one fmaf chain
+// each; the 8 chains meet by shuffles in a fixed order (xor 4, 2, 1).
+// (A thread a row left each warp's loads half-used 32-byte sectors and 5.7
+// us at the LM prefill's 16,384 rows; a warp a row, one or two loads in
+// flight a warp: PERF.md.)
+constexpr int kDeltaLanes = 8;   // lanes a row
 template <typename T>
 __global__ void __launch_bounds__(256)
     full_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
                    float* __restrict__ delta, int S, int H, int hd,
                    long long rows, int vec16) {
-  constexpr int kVec = 16 / sizeof(T);
-  const long long row = static_cast<long long>(blockIdx.x) * 256 +
-                        threadIdx.x;
-  if (row >= rows) return;
-  const T* orow = o + row * hd;
-  const T* drow = dout + row * hd;
+  constexpr int kVec = 16 / sizeof(T);              // elements a piece
+  constexpr int kPieces = 128 / kVec / kDeltaLanes;  // a lane's, hd <= 128
+  const long long row =
+      (static_cast<long long>(blockIdx.x) * 256 + threadIdx.x) / kDeltaLanes;
+  const int j = threadIdx.x % kDeltaLanes;
   float s = 0.0f;
-  if (vec16) {
-    for (int c = 0; c < hd; c += kVec) {
-      const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
-      const uint4 dv = *reinterpret_cast<const uint4*>(drow + c);
-      const T* op = reinterpret_cast<const T*>(&ov);
-      const T* dp = reinterpret_cast<const T*>(&dv);
+  if (row < rows) {
+    const T* orow = o + row * hd;
+    const T* drow = dout + row * hd;
+    if (vec16) {
+      uint4 ov[kPieces], dv[kPieces];
 #pragma unroll
-      for (int j = 0; j < kVec; ++j) s = fmaf(to_f32(dp[j]), to_f32(op[j]), s);
+      for (int u = 0; u < kPieces; ++u) {
+        const int c = (j + kDeltaLanes * u) * kVec;
+        if (c < hd) {
+          ov[u] = *reinterpret_cast<const uint4*>(orow + c);
+          dv[u] = *reinterpret_cast<const uint4*>(drow + c);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kPieces; ++u) {
+        if ((j + kDeltaLanes * u) * kVec >= hd) break;
+        const T* op = reinterpret_cast<const T*>(&ov[u]);
+        const T* dp = reinterpret_cast<const T*>(&dv[u]);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e)
+          s = fmaf(to_f32(dp[e]), to_f32(op[e]), s);
+      }
+    } else {
+      for (int d = j; d < hd; d += kDeltaLanes)
+        s = fmaf(to_f32(drow[d]), to_f32(orow[d]), s);
     }
-  } else {
-    for (int d = 0; d < hd; ++d) s = fmaf(to_f32(drow[d]), to_f32(orow[d]), s);
   }
+#pragma unroll
+  for (int off = kDeltaLanes / 2; off > 0; off /= 2)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (row >= rows || j != 0) return;
   // row = (b * S + i) * H + h  ->  delta[(b * H + h) * S + i]
   const long long h = row % H;
   const long long bi = row / H;
@@ -125,6 +179,7 @@ __global__ void __launch_bounds__(256)
 
 struct BwdArgs {
   CUtensorMap q, k, v, dout;
+  CUtensorMap dq_map, dk_map, dv_map;
   const bf16* qp;
   const bf16* kp;
   const bf16* vp;
@@ -134,10 +189,12 @@ struct BwdArgs {
   bf16* dq;
   bf16* dk;
   bf16* dv;
-  int S, H, KV, hd;
+  int B, S, H, KV, hd;
+  int window;  // the causal mode's window (keys j <= i, i - j < window)
   float scale;
-  int tma;    // copies by TMA (else warpgroup 0's threads)
-  int pair;   // 4-byte output stores
+  int tma;      // copies by TMA (else the loading warpgroup's threads)
+  int tma_out;  // the causal mode's outputs by TMA (else 4-byte stores)
+  int pair;     // 4-byte output stores
 };
 
 // ---------------------------------------------------------------------------
@@ -405,6 +462,293 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// bf16 dK/dV, causal
+// ---------------------------------------------------------------------------
+
+template <int HDP, int STAGES>
+struct CausalDkdvLayout {
+  static constexpr int kTile = kRows * HDP * 2;      // 64 rows
+  static constexpr int kK = 0;                       // 64 rows
+  static constexpr int kV = kK + kTile;              // 64 rows
+  static constexpr int kQ = kV + kTile;              // [STAGES] tiles
+  static constexpr int kDo = kQ + STAGES * kTile;    // [STAGES] tiles
+  static constexpr int kLse = kDo + STAGES * kTile;  // [STAGES][64] f32
+  static constexpr int kDl = kLse + STAGES * kRows * 4;
+  static constexpr int kBar = kDl + STAGES * kRows * 4;
+  // kv_full, full[STAGES]
+  static constexpr int kBytes = kBar + 8 * (1 + STAGES) + 1024;
+  // warpgroup 1's dK and dV at the end (f32, HDP a thread), over the q
+  // and dO stages once the walk is done
+  static constexpr int kPart = kQ;
+  static_assert(kThreads / 2 * HDP * 4 <= 2 * STAGES * kTile, "partials");
+};
+
+// the block of (batch, kv head) bkv and the 64 keys from key tile kt's
+// first
+template <int HDP, int STAGES>
+__device__ __forceinline__ void causal_dkdv_block(const BwdArgs& a,
+                                                  unsigned char* smem_raw,
+                                                  int bkv, int kt) {
+  // warpgroup w takes the walk's tiles w, w + 2, ...: tile it + STAGES
+  // is its own again, loaded into the stage it has just read
+  static_assert(STAGES % 2 == 0, "a stage serves one warpgroup");
+  using L = CausalDkdvLayout<HDP, STAGES>;
+  unsigned char* sm = align1024(smem_raw);
+  const uint32_t sa = smem_addr(sm);
+  const uint32_t kv_full = sa + L::kBar;
+  const auto full = [&](int st) { return sa + L::kBar + 8 * (1 + st); };
+  float* lse_s = reinterpret_cast<float*>(sm + L::kLse);
+  float* dl_s = reinterpret_cast<float*>(sm + L::kDl);
+  const int t = threadIdx.x, wg = t / 128, tl = t % 128;
+  const int S = a.S, H = a.H, W = a.window;
+  const int G = H / a.KV;
+  const int b = bkv / a.KV, kvh = bkv % a.KV;
+  const int k0 = kt * kRows;
+  // the walk: for each head of the group, the query tiles qa .. qa + nq - 1
+  // that see a key of the block; tile it is head kvh G + it / nq, query
+  // tile qa + it % nq
+  const int qa = kt;
+  const int nq = min(k0 + kRows - 1 + W - 1, S - 1) / kRows - qa + 1;
+  const int n_it = G * nq;
+
+  if (t == 0) {
+    bar_init(kv_full, a.tma ? 1 : 128);
+    for (int st = 0; st < STAGES; ++st) bar_init(full(st), a.tma ? 33 : 128);
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  const long long q_stride = static_cast<long long>(H) * a.hd;
+  // walk tile it's q, dO (TMA: the warpgroup's thread 0; else its 128
+  // threads), lse and D (by cp.async from its warp 0's lanes, which
+  // arrive on `full` as their copies land instead of waiting for them,
+  // so warp 0 does not hold its warpgroup's next products back; or by
+  // its 128 threads) into its stage, by warpgroup it % 2
+  const auto load_q = [&](int it) {
+    const int st = it % STAGES;
+    const int hh = kvh * G + it / nq, q0 = (qa + it % nq) * kRows;
+    if (a.tma) {
+      if (tl >= 32) return;
+      if (tl == 0) {
+        bar_expect(full(st), 2 * L::kTile);
+        tma_rows<HDP>(sa + L::kQ + st * L::kTile, kRows, 0, a.q, full(st),
+                      q0, hh, b);
+        tma_rows<HDP>(sa + L::kDo + st * L::kTile, kRows, 0, a.dout,
+                      full(st), q0, hh, b);
+      }
+    } else {
+      const long long q_off = static_cast<long long>(b) * S * q_stride +
+                              static_cast<long long>(hh) * a.hd;
+      copy_rows<HDP>(sm + L::kQ + st * L::kTile, kRows, 0, a.qp + q_off,
+                     q_stride, q0, S, a.hd, tl, 128);
+      copy_rows<HDP>(sm + L::kDo + st * L::kTile, kRows, 0, a.dop + q_off,
+                     q_stride, q0, S, a.hd, tl, 128);
+    }
+    const long long row = (static_cast<long long>(b) * H + hh) * S;
+    if (a.tma) {
+      for (int e = tl; e < kRows; e += 32) {
+        const int qi = q0 + e;
+        const long long at = row + (qi < S ? qi : 0);
+        cp_async4(sa + L::kLse + 4 * (st * kRows + e), a.lse + at, qi < S);
+        cp_async4(sa + L::kDl + 4 * (st * kRows + e), a.delta + at, qi < S);
+      }
+      cp_async_arrive(full(st));
+      return;
+    }
+    for (int e = tl; e < kRows; e += 128) {
+      const int qi = q0 + e;
+      lse_s[st * kRows + e] = qi < S ? a.lse[row + qi] : 0.0f;
+      dl_s[st * kRows + e] = qi < S ? a.delta[row + qi] : 0.0f;
+    }
+    proxy_fence();
+    bar_arrive(full(st));
+  };
+  if (wg == 0) {
+    if (a.tma) {
+      if (t == 0) {
+        bar_expect(kv_full, 2 * L::kTile);
+        tma_rows<HDP>(sa + L::kK, kRows, 0, a.k, kv_full, k0, kvh, b);
+        tma_rows<HDP>(sa + L::kV, kRows, 0, a.v, kv_full, k0, kvh, b);
+      }
+    } else {
+      const long long kv_stride = static_cast<long long>(a.KV) * a.hd;
+      const long long kv_off = static_cast<long long>(b) * S * kv_stride +
+                               static_cast<long long>(kvh) * a.hd;
+      copy_rows<HDP>(sm + L::kK, kRows, 0, a.kp + kv_off, kv_stride, k0, S,
+                     a.hd, t, 128);
+      copy_rows<HDP>(sm + L::kV, kRows, 0, a.vp + kv_off, kv_stride, k0, S,
+                     a.hd, t, 128);
+      proxy_fence();
+      bar_arrive(kv_full);
+    }
+  }
+  for (int it = wg; it < STAGES && it < n_it; it += 2) load_q(it);
+
+  // ---- both warpgroups: the block's keys k0 .. k0 + 63 as rows
+  const int warp = tl / 32, lane = t % 32;
+  const int g = lane / 4, tig = lane % 4;
+  const int r0 = warp * 16 + g;  // this thread's rows of the key tile
+  const int kj0 = k0 + r0;       // and its keys
+  const int kj1 = kj0 + 8;
+  const float scale = a.scale, scale_log2 = a.scale * kLog2e;
+  float dk[HDP / 2], dv[HDP / 2], s[32], dp[32];
+  uint32_t ph[16], pl[16], dh[16], dl[16];
+#pragma unroll
+  for (int i = 0; i < HDP / 2; ++i) dk[i] = dv[i] = 0.0f;
+
+  const uint64_t k_desc = make_desc(sa + L::kK, 16);
+  const uint64_t v_desc = make_desc(sa + L::kV, 16);
+  const uint64_t q_desc = make_desc(sa + L::kQ, 16);
+  const uint64_t do_desc = make_desc(sa + L::kDo, 16);
+  const uint64_t q_mn = make_desc(sa + L::kQ, kRows * 32);
+  const uint64_t do_mn = make_desc(sa + L::kDo, kRows * 32);
+  // P^T in s, dS^T in dp of walk tile it: rows kj0, kj1, query column
+  // 8n + 2tig + e; P = 0 outside the mask, in the tiles that hold a pair
+  // outside it (the diagonal, the window's end, rows past S)
+  const auto p_ds = [&](int it) {
+    const int st = it % STAGES;
+    const int q0 = (qa + it % nq) * kRows;
+    const bool masked = q0 < k0 + kRows - 1 || q0 + kRows - 1 - k0 >= W ||
+                        q0 + kRows > S;
+    const float* ls = lse_s + st * kRows;
+    const float* dls = dl_s + st * kRows;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = n * 8 + 2 * tig + e;
+        const int qi = q0 + c;
+        const bool in0 = !masked || (qi >= kj0 && qi - kj0 < W && qi < S);
+        const bool in1 = !masked || (qi >= kj1 && qi - kj1 < W && qi < S);
+        const float lc = ls[c] * kLog2e;  // lse in log2 units
+        const float p0 =
+            in0 ? exp2_ftz(fmaf(s[4 * n + e], scale_log2, -lc)) : 0.0f;
+        const float p1 =
+            in1 ? exp2_ftz(fmaf(s[4 * n + 2 + e], scale_log2, -lc)) : 0.0f;
+        s[4 * n + e] = p0;
+        s[4 * n + 2 + e] = p1;
+        dp[4 * n + e] = p0 * (dp[4 * n + e] - dls[c]);
+        dp[4 * n + 2 + e] = p1 * (dp[4 * n + 2 + e] - dls[c]);
+      }
+    }
+  };
+
+  bar_wait(kv_full, 0);
+  for (int it = wg; it < n_it; it += 2) {
+    const int st = it % STAGES;
+    bar_wait(full(st), (it / STAGES) & 1);
+    // S^T = K.Q^T, dP^T = V.dO^T: 64 keys x 64 queries
+    fence_regs(dk);
+    fence_regs(dv);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < HDP / kPiece; ++ks) {
+      const uint32_t rows = kRows * 32 * ks;
+      const uint32_t cols = st * L::kTile + kRows * 32 * ks;
+      wgmma_ss64(s, desc_at(k_desc, rows), desc_at(q_desc, cols), ks > 0);
+      wgmma_ss64(dp, desc_at(v_desc, rows), desc_at(do_desc, cols),
+                 ks > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    p_ds(it);
+    split_acc(s, ph, pl);
+    split_acc(dp, dh, dl);
+    // dV += P^T.dO, then dK += dS^T.Q, a k-step of 16 queries at a time
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kRows / 16; ++kk) {
+      const uint64_t d = desc_at(do_mn, st * L::kTile + 16 * kk * 32);
+      wgmma_rs<HDP>(dv, ph + 4 * kk, d);
+      wgmma_rs<HDP>(dv, pl + 4 * kk, d);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kRows / 16; ++kk) {
+      const uint64_t d = desc_at(q_mn, st * L::kTile + 16 * kk * 32);
+      wgmma_rs<HDP>(dk, dh + 4 * kk, d);
+      wgmma_rs<HDP>(dk, dl + 4 * kk, d);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dk);
+    fence_regs(dv);
+    fence_regs(ph);
+    fence_regs(pl);
+    fence_regs(dh);
+    fence_regs(dl);
+    if (it + STAGES < n_it) {
+      // every warp of the warpgroup is done with the stage (its products
+      // and its lse and D reads): refill it with this warpgroup's next
+      named_sync(1 + wg, 128);
+      load_q(it + STAGES);
+    }
+  }
+
+  // warpgroup 1's sums through shared memory (every tile's copy has been
+  // waited for, every product read), added to warpgroup 0's in that order
+  __syncthreads();
+  float* part = reinterpret_cast<float*>(sm + L::kPart);
+  if (wg == 1) {
+#pragma unroll
+    for (int i = 0; i < HDP / 2; ++i) {
+      part[i * 128 + tl] = dk[i];
+      part[(HDP / 2 + i) * 128 + tl] = dv[i];
+    }
+  }
+  __syncthreads();
+  if (wg == 1) return;
+#pragma unroll
+  for (int i = 0; i < HDP / 2; ++i) {
+    dk[i] += part[i * 128 + tl];
+    dv[i] += part[(HDP / 2 + i) * 128 + tl];
+  }
+  if (a.tma_out) {
+    // dK and dV through k's and v's tiles (every product is done), then
+    // out by TMA
+#pragma unroll
+    for (int i = 0; i < HDP / 8; ++i) {
+      const int c = 8 * i + 2 * tig;
+      put_pair(sm + L::kK, kRows, r0, c, dk[4 * i] * scale,
+               dk[4 * i + 1] * scale);
+      put_pair(sm + L::kK, kRows, r0 + 8, c, dk[4 * i + 2] * scale,
+               dk[4 * i + 3] * scale);
+      put_pair(sm + L::kV, kRows, r0, c, dv[4 * i], dv[4 * i + 1]);
+      put_pair(sm + L::kV, kRows, r0 + 8, c, dv[4 * i + 2], dv[4 * i + 3]);
+    }
+    proxy_fence();
+    named_sync(3, 128);
+    if (t == 0) {
+      tma_store_rows<HDP>(sa + L::kK, kRows, 0, a.dk_map, k0, kvh, b);
+      tma_store_rows<HDP>(sa + L::kV, kRows, 0, a.dv_map, k0, kvh, b);
+      tma_store_wait();
+    }
+    return;
+  }
+  const long long kv_stride = static_cast<long long>(a.KV) * a.hd;
+  const long long kv_off = static_cast<long long>(b) * S * kv_stride +
+                           static_cast<long long>(kvh) * a.hd;
+  const bool pair = a.pair != 0;
+#pragma unroll
+  for (int i = 0; i < HDP / 8; ++i) {
+    const int c = 8 * i + 2 * tig;
+    if (kj0 < S) {
+      store_pair(a.dk + kv_off + kj0 * kv_stride, c, a.hd,
+                 dk[4 * i] * scale, dk[4 * i + 1] * scale, pair);
+      store_pair(a.dv + kv_off + kj0 * kv_stride, c, a.hd, dv[4 * i],
+                 dv[4 * i + 1], pair);
+    }
+    if (kj1 < S) {
+      store_pair(a.dk + kv_off + kj1 * kv_stride, c, a.hd,
+                 dk[4 * i + 2] * scale, dk[4 * i + 3] * scale, pair);
+      store_pair(a.dv + kv_off + kj1 * kv_stride, c, a.hd, dv[4 * i + 2],
+                 dv[4 * i + 3], pair);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // bf16 dQ
 // ---------------------------------------------------------------------------
 
@@ -425,12 +769,14 @@ struct DqLayout {
 static_assert(kBwdStages >= kLag + 2, "a stage is refilled before its tile");
 static_assert(DkdvLayout<128, kBwdStages>::kBytes <= 232448, "smem");
 static_assert(DqLayout<128, kBwdStages>::kBytes <= 232448, "smem");
+static_assert(CausalDkdvLayout<128, kBwdStages>::kBytes <= 232448, "smem");
 
-template <int HDP, int STAGES>
-__global__ void __launch_bounds__(kThreads, 1)
-    full_dq_kernel(const __grid_constant__ BwdArgs a) {
+// the block of (batch, head) bh and 128 queries from q0
+template <int HDP, int STAGES, bool CAUSAL>
+__device__ __forceinline__ void dq_block(const BwdArgs& a,
+                                         unsigned char* smem_raw, int bh,
+                                         int q0) {
   using L = DqLayout<HDP, STAGES>;
-  extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = align1024(smem_raw);
   const uint32_t sa = smem_addr(sm);
   const uint32_t q_full = sa + L::kBar;
@@ -440,10 +786,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   };
   const int wg = threadIdx.x / 128;
   const int S = a.S;
-  const int q0 = blockIdx.x * 2 * kRows;
-  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
+  const int b = bh / a.H, h = bh % a.H;
   const int kvh = h / (a.H / a.KV);
-  const int nkt = (S + kRows - 1) / kRows;
+  // the block's walk: key tiles kb .. kb + nkt - 1, tile i of the walk in
+  // stage i % STAGES (block indices i throughout below)
+  const int kb = CAUSAL ? max(0, q0 - a.window + 1) / kRows : 0;
+  const int nkt =
+      (CAUSAL ? min(q0 + 2 * kRows, S) - 1 : S - 1) / kRows - kb + 1;
 
   if (threadIdx.x == 0) {
     const int fill = a.tma ? 1 : 128;
@@ -463,20 +812,20 @@ __global__ void __launch_bounds__(kThreads, 1)
   const long long kv_off = static_cast<long long>(b) * S * kv_stride +
                            static_cast<long long>(kvh) * a.hd;
   const auto load_kv = [&](int kt) {  // tile kt into its (free) stage
-    const int st = kt % STAGES;
+    const int st = kt % STAGES, row0 = (kb + kt) * kRows;
     if (a.tma) {
       if (t == 0) {
         bar_expect(full(st), 2 * L::kTile);
         tma_rows<HDP>(sa + L::kK + st * L::kTile, kRows, 0, a.k, full(st),
-                      kt * kRows, kvh, b);
+                      row0, kvh, b);
         tma_rows<HDP>(sa + L::kV + st * L::kTile, kRows, 0, a.v, full(st),
-                      kt * kRows, kvh, b);
+                      row0, kvh, b);
       }
     } else {
       copy_rows<HDP>(sm + L::kK + st * L::kTile, kRows, 0, a.kp + kv_off,
-                     kv_stride, kt * kRows, S, a.hd, t, 128);
+                     kv_stride, row0, S, a.hd, t, 128);
       copy_rows<HDP>(sm + L::kV + st * L::kTile, kRows, 0, a.vp + kv_off,
-                     kv_stride, kt * kRows, S, a.hd, t, 128);
+                     kv_stride, row0, S, a.hd, t, 128);
       proxy_fence();
       bar_arrive(full(st));
     }
@@ -521,8 +870,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int qi0 = q0 + wg * kRows + warp * 16 + g;  // this thread's rows
   const int qi1 = qi0 + 8;
   const float scale = a.scale, scale_log2 = a.scale * kLog2e;
-  const float* lse_bh = a.lse + static_cast<long long>(blockIdx.y) * S;
-  const float* dl_bh = a.delta + static_cast<long long>(blockIdx.y) * S;
+  const float* lse_bh = a.lse + static_cast<long long>(bh) * S;
+  const float* dl_bh = a.delta + static_cast<long long>(bh) * S;
   // lse in log2 units: P = exp2(s scale log2(e) - lse log2(e))
   const float l0 = qi0 < S ? lse_bh[qi0] * kLog2e : 0.0f;
   const float l1 = qi1 < S ? lse_bh[qi1] * kLog2e : 0.0f;
@@ -555,21 +904,30 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     wgmma_commit();
   };
-  // dS of key tile kt in dp (rows qi0, qi1, key column 8n + 2tig + e)
+  // dS of walk tile kt in dp (rows qi0, qi1, key column 8n + 2tig + e);
+  // P = 0 outside the mask, in the tiles that hold a pair outside it: the
+  // ragged tail kj >= S, or, in the causal mode, keys past some row of
+  // this warpgroup (the diagonal) or behind its window
   const auto ds = [&](int kt) {
-    const int k0 = kt * kRows;
-    const bool ragged = k0 + kRows > S;
+    const int k0 = (kb + kt) * kRows, x0 = q0 + wg * kRows;
+    const bool masked =
+        CAUSAL ? k0 + kRows - 1 > x0 || x0 + kRows - 1 - k0 >= a.window
+               : k0 + kRows > S;
     fence_regs(s);
     fence_regs(dp);
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const bool in = !ragged || k0 + n * 8 + 2 * tig + e < S;
+        const int kj = k0 + n * 8 + 2 * tig + e;
+        const bool in0 = !masked || (CAUSAL ? kj <= qi0 && qi0 - kj < a.window
+                                            : kj < S);
+        const bool in1 = !masked || (CAUSAL ? kj <= qi1 && qi1 - kj < a.window
+                                            : kj < S);
         const float p0 =
-            in ? exp2_ftz(fmaf(s[4 * n + e], scale_log2, -l0)) : 0.0f;
+            in0 ? exp2_ftz(fmaf(s[4 * n + e], scale_log2, -l0)) : 0.0f;
         const float p1 =
-            in ? exp2_ftz(fmaf(s[4 * n + 2 + e], scale_log2, -l1)) : 0.0f;
+            in1 ? exp2_ftz(fmaf(s[4 * n + 2 + e], scale_log2, -l1)) : 0.0f;
         dp[4 * n + e] = p0 * (dp[4 * n + e] - d0);
         dp[4 * n + 2 + e] = p1 * (dp[4 * n + 2 + e] - d1);
       }
@@ -596,15 +954,32 @@ __global__ void __launch_bounds__(kThreads, 1)
     bar_arrive(empty(kt % STAGES));
   };
 
+  // this warpgroup's part of the walk: tiles i0 .. i1 (the causal mode:
+  // those its rows, clamped to S - 1, can see; i0 <= 1 and i1 >= nkt - 2,
+  // and warpgroup 0's i0 is 0, so it refills every stage in time). A tile
+  // it cannot see it waits for and releases.
+  int i0 = 0, i1 = nkt - 1;
+  if (CAUSAL) {
+    const int r0 = min(q0 + wg * kRows, S - 1);
+    const int r1 = min(q0 + wg * kRows + kRows - 1, S - 1);
+    i0 = max(0, r0 - a.window + 1) / kRows - kb;
+    i1 = r1 / kRows - kb;
+  }
+  const auto skip = [&](int i) {
+    bar_wait(full(i % STAGES), (i / STAGES) & 1);
+    bar_arrive(empty(i % STAGES));
+  };
+  for (int i = 0; i < i0; ++i) skip(i);
+
   // Tile kt's dQ products run while the next tile's dS is computed (its
   // S and dP are issued first and waited for alone); the loop issues
   // unconditionally, the last tile's products after it
   bar_wait(q_full, 0);
-  sdp_product(0);
+  sdp_product(i0);
   wgmma_wait<0>();
-  ds(0);
+  ds(i0);
   split_acc(dp, dh, dl);
-  for (int kt = 0; kt + 1 < nkt; ++kt) {
+  for (int kt = i0; kt < i1; ++kt) {
     fence_regs(dq);  // read by no other instruction while in flight
     sdp_product(kt + 1);
     dq_product(kt);
@@ -615,9 +990,31 @@ __global__ void __launch_bounds__(kThreads, 1)
     split_acc(dp, dh, dl);
   }
   fence_regs(dq);
-  dq_product(nkt - 1);
-  retire(nkt - 1);
+  dq_product(i1);
+  retire(i1);
+  for (int i = i1 + 1; i < nkt; ++i) skip(i);
 
+  if (CAUSAL && a.tma_out) {
+    // dQ through this warpgroup's 64 rows of q's tile (which only its own
+    // products, all done, read), then out by TMA
+    const int r = wg * kRows + warp * 16 + g;
+#pragma unroll
+    for (int i = 0; i < HDP / 8; ++i) {
+      const int c = 8 * i + 2 * tig;
+      put_pair(sm + L::kQ, 2 * kRows, r, c, dq[4 * i] * scale,
+               dq[4 * i + 1] * scale);
+      put_pair(sm + L::kQ, 2 * kRows, r + 8, c, dq[4 * i + 2] * scale,
+               dq[4 * i + 3] * scale);
+    }
+    proxy_fence();
+    named_sync(1 + wg, 128);
+    if (threadIdx.x % 128 == 0) {
+      tma_store_rows<HDP>(sa + L::kQ, 2 * kRows, wg * kRows, a.dq_map,
+                          q0 + wg * kRows, h, b);
+      tma_store_wait();
+    }
+    return;
+  }
   const long long q_stride = static_cast<long long>(a.H) * a.hd;
   bf16* dqb = a.dq + static_cast<long long>(b) * S * q_stride +
               static_cast<long long>(h) * a.hd;
@@ -634,7 +1031,38 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int HDP>
+template <int HDP, int STAGES>
+__global__ void __launch_bounds__(kThreads, 1)
+    full_dq_kernel(const __grid_constant__ BwdArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  dq_block<HDP, STAGES, false>(a, smem_raw, blockIdx.y,
+                               blockIdx.x * 2 * kRows);
+}
+
+// The causal mode's dK/dV and dQ blocks in one launch (both read D, which
+// the pre-pass writes, and nothing the other writes): the dK/dV blocks
+// first, key tile by key tile from the first (the longest walks), then the
+// dQ blocks from the last query tile (the longest walks). At the LM
+// prefill the 64 dK/dV blocks alone left half the card idle, and in a
+// launch before dQ's took 22 of the backward's 44 us (PERF.md).
+template <int HDP, int STAGES>
+__global__ void __launch_bounds__(kThreads, 1)
+    causal_bwd_kernel(const __grid_constant__ BwdArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  const int n_bkv = a.B * a.KV, n_bh = a.B * a.H;
+  const int n_kv = n_bkv * ((a.S + kRows - 1) / kRows);
+  const int nqt = (a.S + 2 * kRows - 1) / (2 * kRows);
+  const int x = blockIdx.x;
+  if (x < n_kv) {
+    causal_dkdv_block<HDP, STAGES>(a, smem_raw, x % n_bkv, x / n_bkv);
+  } else {
+    const int y = x - n_kv;
+    dq_block<HDP, STAGES, true>(a, smem_raw, y % n_bh,
+                                (nqt - 1 - y / n_bh) * 2 * kRows);
+  }
+}
+
+template <int HDP, bool CAUSAL>
 int launch_bf16(BwdArgs& a, int B, int S, int H, int KV, int hd,
                 cudaStream_t stream) {
   if (a.tma && !(make_map(&a.q, a.qp, B, S, H, hd) &&
@@ -642,8 +1070,29 @@ int launch_bf16(BwdArgs& a, int B, int S, int H, int KV, int hd,
                  make_map(&a.k, a.kp, B, S, KV, hd) &&
                  make_map(&a.v, a.vp, B, S, KV, hd)))
     return static_cast<int>(cudaErrorNotSupported);
+  a.tma_out = CAUSAL && a.tma && aligned16(a.dq) && aligned16(a.dk) &&
+              aligned16(a.dv);
+  if (a.tma_out && !(make_map(&a.dq_map, a.dq, B, S, H, hd) &&
+                     make_map(&a.dk_map, a.dk, B, S, KV, hd) &&
+                     make_map(&a.dv_map, a.dv, B, S, KV, hd)))
+    return static_cast<int>(cudaErrorNotSupported);
   using LK = DkdvLayout<HDP, kBwdStages>;
+  using LC = CausalDkdvLayout<HDP, kBwdStages>;
   using LQ = DqLayout<HDP, kBwdStages>;
+  const int tiles = (S + 2 * kRows - 1) / (2 * kRows);
+  if (CAUSAL) {
+    const auto kernel = causal_bwd_kernel<HDP, kBwdStages>;
+    const int bytes = LC::kBytes > LQ::kBytes ? LC::kBytes : LQ::kBytes;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long long blocks =
+        static_cast<long long>(B) * KV * ((S + kRows - 1) / kRows) +
+        static_cast<long long>(B) * H * tiles;
+    if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+    kernel<<<static_cast<unsigned>(blocks), kThreads, bytes, stream>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
   const auto dkdv = full_dkdv_kernel<HDP, kBwdStages>;
   const auto dq = full_dq_kernel<HDP, kBwdStages>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -652,7 +1101,6 @@ int launch_bf16(BwdArgs& a, int B, int S, int H, int KV, int hd,
     err = cudaFuncSetAttribute(
         dq, cudaFuncAttributeMaxDynamicSharedMemorySize, LQ::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = (S + 2 * kRows - 1) / (2 * kRows);
   dkdv<<<dim3(tiles, B * KV), kThreads, LK::kBytes, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -860,20 +1308,23 @@ int launch_f32(const BwdArgs& a, const void* q, const void* k, const void* v,
 }  // namespace
 }  // namespace swa_full
 
-// The non-causal backward: arguments as swa_attention_bwd takes them
-// (without window and causal); is_bf16: 0 = float32 operands, 1 =
-// bfloat16.
+// Arguments as swa_attention_bwd takes them; causal:
+// 1 = the causal sliding window (bf16 only), 0 = every key (window
+// unused); is_bf16: 0 = float32 operands, 1 = bfloat16.
 extern "C" int swa_full_bwd(const void* q, const void* k, const void* v,
                             const void* o, const void* dout, const void* lse,
                             void* delta, void* dq, void* dk, void* dv, int B,
-                            int S, int H, int KV, int hd, float scale,
-                            int is_bf16, void* stream) {
+                            int S, int H, int KV, int hd, int window,
+                            int causal, float scale, int is_bf16,
+                            void* stream) {
   using namespace swa_full;
-  if (hd < 1 || hd > 128 || KV < 1 || H % KV != 0)
+  if (hd < 1 || hd > 128 || KV < 1 || H % KV != 0 || window < 1 ||
+      (causal && !is_bf16))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long rows = static_cast<long long>(B) * S * H;
-  const long long delta_blocks = (rows + 255) / 256;
+  const long long delta_blocks =
+      (rows * kDeltaLanes + 255) / 256;  // 32 rows a block
   if (delta_blocks > 2147483647LL)
     return static_cast<int>(cudaErrorInvalidValue);
   float* dl = static_cast<float*>(delta);
@@ -900,10 +1351,12 @@ extern "C" int swa_full_bwd(const void* q, const void* k, const void* v,
   a.dq = static_cast<bf16*>(dq);
   a.dk = static_cast<bf16*>(dk);
   a.dv = static_cast<bf16*>(dv);
+  a.B = B;
   a.S = S;
   a.H = H;
   a.KV = KV;
   a.hd = hd;
+  a.window = window;
   a.scale = scale;
   if (!is_bf16) return launch_f32(a, q, k, v, dout, dq, dk, dv, B, s);
   a.tma = hd % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
@@ -912,9 +1365,13 @@ extern "C" int swa_full_bwd(const void* q, const void* k, const void* v,
            reinterpret_cast<uintptr_t>(dk) % 4 == 0 &&
            reinterpret_cast<uintptr_t>(dv) % 4 == 0;
   using Launch = int (*)(BwdArgs&, int, int, int, int, int, cudaStream_t);
-  constexpr Launch by_hdp[] = {launch_bf16<16>, launch_bf16<32>,
-                               launch_bf16<48>, launch_bf16<64>,
-                               launch_bf16<80>, launch_bf16<96>,
-                               launch_bf16<112>, launch_bf16<128>};
-  return by_hdp[(hd + 15) / 16 - 1](a, B, S, H, KV, hd, s);
+  constexpr Launch by_hdp[2][8] = {
+      {launch_bf16<16, false>, launch_bf16<32, false>,
+       launch_bf16<48, false>, launch_bf16<64, false>,
+       launch_bf16<80, false>, launch_bf16<96, false>,
+       launch_bf16<112, false>, launch_bf16<128, false>},
+      {launch_bf16<16, true>, launch_bf16<32, true>, launch_bf16<48, true>,
+       launch_bf16<64, true>, launch_bf16<80, true>, launch_bf16<96, true>,
+       launch_bf16<112, true>, launch_bf16<128, true>}};
+  return by_hdp[causal ? 1 : 0][(hd + 15) / 16 - 1](a, B, S, H, KV, hd, s);
 }

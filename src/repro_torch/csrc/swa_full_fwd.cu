@@ -1,36 +1,63 @@
-// Non-causal flash attention (every query sees every key j < S) with GQA,
-// bf16 operands, f32 softmax and sums, on the H100's warpgroup products:
+// Flash attention with GQA, bf16 operands, f32 softmax and sums, on the
+// H100's warpgroup products, in two modes:
 //   o[b, i, h] = sum_j softmax_j(q[b, i, h] . k[b, j, h / G] * scale) v[b, j, h / G]
-// The encoder's bidirectional attention (the reference's `_sdpa` under an
-// all-ones mask, layers/attention.py:99-105); swa_attention.cu's entry point
-// `swa_attention_fwd` sends its bf16 non-causal calls here. Scores are f32,
-// scaled by hd^-0.5 and masked to -1e30 past S; the output is
+// - non-causal: every query sees every key j < S (the encoder's
+//   bidirectional attention, the reference's `_sdpa` under an all-ones
+//   mask, layers/attention.py:99-105);
+// - causal: query i sees keys j <= i with i - j < window (the decoders'
+//   sliding window, layers/attention.py:89-93).
+// swa_attention.cu's entry point `swa_attention_fwd` sends its non-causal
+// calls here, and its causal bf16 calls. Scores are f32, scaled by hd^-0.5; the output is
 // acc / max(l, 1e-30) with the Pallas kernel's guard
 // (src/repro/kernels/swa_attention/kernel.py:60); with a non-null lse it
 // also writes each row's log-sum-exp, (B, H, S) f32 in natural-log units,
 // which the backward (swa_full_bwd.cu) recomputes P from.
 //
-// Replaces, for the non-causal mode: src/repro/kernels/swa_attention/
-// kernel.py:28 `_swa_kernel` (pallas_call at :84), whose mask it drops.
+// Replaces: src/repro/kernels/swa_attention/kernel.py:28 `_swa_kernel`
+// (pallas_call at :84); the non-causal mode drops its mask.
 //
 // Shapes: q, o (B, S, H, hd), k, v (B, S, KV, hd), contiguous; hd <= 128.
-// Grid (ceil(S / 128) query tiles, B * H); 288 threads: two warpgroups of
-// 64 queries each and a producer warp.
+// Grid: (ceil(S / 128) query tiles, B * H), or in the causal mode (B * H,
+// query tiles) with the last query tiles (the longest walks) first; 288
+// threads: two warpgroups of 64 queries each and a producer warp.
 //
-// What bounds it on an H100: 4 hd FLOP a (query, key) pair; HuBERT-XLarge's
-// encoder (B 4, S 1024, H 16, hd 80) does 21.5 GFLOP over 42 MB, ~510 FLOP
-// a byte, above the bf16 balance (~295): the tensor cores, 21.7 us at 989
-// TFLOP/s. So the products run as wgmma, the only route to that rate.
+// What bounds it on an H100: 4 hd FLOP a (query, key) pair inside the
+// mask. HuBERT-XLarge's encoder (B 4, S 1024, H 16, hd 80) does 21.5 GFLOP
+// over 42 MB, ~510 FLOP a byte, above the bf16 balance (~295): the tensor
+// cores, 21.7 us at 989 TFLOP/s. A 4,096-token causal sequence of Qwen3-8B
+// (B 1, H 32/8, hd 128) does 137 GFLOP over 84 MB, ~1,640 FLOP a byte:
+// 0.139 ms. The LM prefill (B 4, S 128, H 32/8, hd 128) does 0.54 GFLOP
+// over 10.5 MB, ~52 FLOP a byte: its bytes bound it at 3.1 us, but a
+// kernel that waits on each tile's copy, product and softmax in turn runs
+// at 3.3x that bound (the mma.sync kernel of swa_attention.cu). So the
+// products run as wgmma, the only route to the tensor-core rate, and the
+// copies as TMA under them.
 //
 // Design (building blocks in swa_full.cuh):
 // - A block owns (batch, head, 128 queries): each warpgroup's 64
 //   queries are one wgmma M tile, and the two share every k and v tile
-//   (HuBERT: 512 blocks).
+//   (HuBERT: 512 blocks). Blocks of 64 queries, two an SM, were slower
+//   at every causal shape measured, the LM prefill's 128 blocks included
+//   (PERF.md).
 // - q arrives once; k and v tiles of 64 keys stream through kFwdStages
 //   stages by TMA, issued by a producer warp of the block's own (or
 //   copied by its threads where TMA cannot take the operands), so the
 //   copies of later tiles run under this tile's products.
+// - The causal walk: the block's key tiles run from the one holding
+//   max(0, q0 - W + 1) to the one holding its last query. A warpgroup
+//   walks the part its own 64 rows can see: on the diagonal warpgroup 0
+//   sees one tile fewer than warpgroup 1, and at the window's start
+//   warpgroup 1 may see one fewer than warpgroup 0. A tile it cannot see
+//   it skips whole: it waits for the tile, releases its stage (`empty`)
+//   and takes its turn without a product, so the loop that issues the
+//   products stays free of branches (one wgmma under a branch serializes
+//   every wgmma of the kernel: PERF.md).
 // - S = Q.K^T: SS-form wgmma m64n64k16, Q and K K-major, hd/16 k-steps.
+// - Masks go on S in registers after the product: the ragged tail kj >= S
+//   (the TMA's zero fill would score 0 and take weight) to -1e30, and, in
+//   the causal mode, pairs outside the window to -inf in the tiles that
+//   hold some (the diagonal and the window's first): exp2f(-inf) is 0, and
+//   a row none of whose keys a tile holds keeps its max and sum.
 // - The online softmax runs on the accumulator in registers (a thread
 //   holds 16 scores of each of 2 rows; a quad meets by shuffles), in log2
 //   units with the IEEE exp2f, no fast math, each weight one fmaf of the
@@ -49,9 +76,12 @@
 //   stage of t-1 released and P of t split. Across the two warpgroups:
 //   they take turns to issue their products (named barriers 1 and 2), so
 //   one's softmax runs under the other's products (measured 1.5-4 %
-//   faster than issuing as they come; PERF.md).
-// - The ragged tail kj >= S of the last tile is masked to -1e30 (the TMA's
-//   zero fill would score 0 and take weight); rows >= S are never written.
+//   faster than issuing as they come; PERF.md). Both take one turn a tile
+//   of the block's walk and one more.
+// - The output leaves through shared memory (each warpgroup's rows of q's
+//   tile, free once its products are done) by TMA stores, which write no
+//   row >= S (else by 4-byte stores, rows >= S skipped): the stores
+//   themselves took ~3 us of the prefill's ~10 (PERF.md).
 // - Every sum is in one fixed order: the output is the same bits run to run.
 #include "swa_full.cuh"
 
@@ -79,19 +109,21 @@ struct FwdLayout {
 static_assert(FwdLayout<128, kFwdStages>::kBytes <= 232448, "smem");
 
 struct FwdArgs {
-  CUtensorMap q, k, v;
+  CUtensorMap q, k, v, o_map;
   const bf16* qp;
   const bf16* kp;
   const bf16* vp;
   bf16* o;
   float* lse;
   int S, H, KV, hd;
+  int window;  // the causal mode's window (keys j <= i, i - j < window)
   float scale;
   int tma;    // copies by TMA (else the producer warp's threads)
+  int tma_o;  // the output by TMA (else 4-byte or 2-byte stores)
   int pair;   // 4-byte output stores
 };
 
-template <int HDP, int STAGES>
+template <int HDP, int STAGES, bool CAUSAL>
 __global__ void __launch_bounds__(kFwdThreads, 1)
     swa_full_fwd_kernel(const __grid_constant__ FwdArgs a) {
   using L = FwdLayout<HDP, STAGES>;
@@ -105,10 +137,18 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   };
   const int wg = threadIdx.x / 128;
   const int S = a.S;
-  const int q0 = blockIdx.x * 2 * kRows;
-  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
+  // (batch, head) and query tile: the causal grid runs the last query
+  // tiles, the longest walks, first
+  const int bh = CAUSAL ? blockIdx.x : blockIdx.y;
+  const int q0 = (CAUSAL ? gridDim.y - 1 - blockIdx.y : blockIdx.x) * 2 *
+                 kRows;
+  const int b = bh / a.H, h = bh % a.H;
   const int kvh = h / (a.H / a.KV);
-  const int nkt = (S + kRows - 1) / kRows;
+  // the block's walk: key tiles kb .. kb + nkt - 1, tile i of the walk in
+  // stage i % STAGES
+  const int kb = CAUSAL ? max(0, q0 - a.window + 1) / kRows : 0;
+  const int nkt =
+      (CAUSAL ? min(q0 + 2 * kRows, S) - 1 : S - 1) / kRows - kb + 1;
 
   if (threadIdx.x == 0) {
     const int fill = a.tma ? 1 : 32;
@@ -127,17 +167,17 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     if (a.tma) {
       if (t == 0) {
         bar_expect(q_full, 2 * L::kTile);
-        tma_rows<HDP>(sa + L::kQ, 2 * kRows, 0, a.q, q_full, q0, h, b);
-        tma_rows<HDP>(sa + L::kQ, 2 * kRows, kRows, a.q, q_full, q0 + kRows,
-                      h, b);
-        for (int kt = 0; kt < nkt; ++kt) {
-          const int st = kt % STAGES, n = kt / STAGES;
+        for (int w = 0; w < 2; ++w)
+          tma_rows<HDP>(sa + L::kQ, 2 * kRows, w * kRows, a.q, q_full,
+                        q0 + w * kRows, h, b);
+        for (int i = 0; i < nkt; ++i) {
+          const int st = i % STAGES, n = i / STAGES;
           if (n > 0) bar_wait(empty(st), (n - 1) & 1);
           bar_expect(full(st), 2 * L::kTile);
           tma_rows<HDP>(sa + L::kK + st * L::kTile, kRows, 0, a.k, full(st),
-                        kt * kRows, kvh, b);
+                        (kb + i) * kRows, kvh, b);
           tma_rows<HDP>(sa + L::kV + st * L::kTile, kRows, 0, a.v, full(st),
-                        kt * kRows, kvh, b);
+                        (kb + i) * kRows, kvh, b);
         }
       }
     } else {
@@ -147,19 +187,18 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
                        static_cast<long long>(h) * a.hd;
       const long long kv_off = static_cast<long long>(b) * S * kv_stride +
                                static_cast<long long>(kvh) * a.hd;
-      copy_rows<HDP>(sm + L::kQ, 2 * kRows, 0, qb, q_stride, q0, S, a.hd, t,
-                     32);
-      copy_rows<HDP>(sm + L::kQ, 2 * kRows, kRows, qb, q_stride, q0 + kRows,
-                     S, a.hd, t, 32);
+      for (int w = 0; w < 2; ++w)
+        copy_rows<HDP>(sm + L::kQ, 2 * kRows, w * kRows, qb, q_stride,
+                       q0 + w * kRows, S, a.hd, t, 32);
       proxy_fence();
       bar_arrive(q_full);
-      for (int kt = 0; kt < nkt; ++kt) {
-        const int st = kt % STAGES, n = kt / STAGES;
+      for (int i = 0; i < nkt; ++i) {
+        const int st = i % STAGES, n = i / STAGES;
         if (n > 0) bar_wait(empty(st), (n - 1) & 1);
         copy_rows<HDP>(sm + L::kK + st * L::kTile, kRows, 0, a.kp + kv_off,
-                       kv_stride, kt * kRows, S, a.hd, t, 32);
+                       kv_stride, (kb + i) * kRows, S, a.hd, t, 32);
         copy_rows<HDP>(sm + L::kV + st * L::kTile, kRows, 0, a.vp + kv_off,
-                       kv_stride, kt * kRows, S, a.hd, t, 32);
+                       kv_stride, (kb + i) * kRows, S, a.hd, t, 32);
         proxy_fence();
         bar_arrive(full(st));
       }
@@ -209,11 +248,28 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     // the online softmax of tile kt's scores in s: p in place, the running
     // max and sum, alpha for the output's rescale. The max is taken over
     // the raw scores (scale_log2 > 0), and each p = exp2f(s scale_log2 -
-    // m) is one fmaf and the IEEE exp2f; a masked score (-1e30) gives
-    // exp2f(-huge) = 0, so no select.
+    // m) is one fmaf and the IEEE exp2f; a masked score (-1e30, or -inf)
+    // gives exp2f(-huge) = 0, so no select. A row whose keys the tile
+    // holds none of (-inf throughout) keeps m: alpha = 1, p = 0.
     const auto softmax = [&](int kt) {
       const int k0 = kt * kRows;
-      if (k0 + kRows > S) {
+      if (CAUSAL) {
+        // the tile holds a key past some row of this warpgroup (the
+        // diagonal) or one that some row's window has left behind; keys
+        // kj >= S lie past every row < S
+        const int x0 = q0 + wg * kRows;
+        if (k0 + kRows - 1 > x0 || x0 + kRows - 1 - k0 >= a.window) {
+          const float out = __uint_as_float(0xff800000u);  // -inf
+#pragma unroll
+          for (int n = 0; n < 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int kj = k0 + n * 8 + 2 * tig + e;
+              if (kj > qi0 || qi0 - kj >= a.window) s[4 * n + e] = out;
+              if (kj > qi1 || qi1 - kj >= a.window) s[4 * n + 2 + e] = out;
+            }
+        }
+      } else if (k0 + kRows > S) {
 #pragma unroll
         for (int n = 0; n < 8; ++n)
 #pragma unroll
@@ -273,6 +329,25 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     };
     if (wg == 1) named_arrive(1, kThreads);
 
+    // this warpgroup's part of the walk: tiles i0 .. i1 (the causal mode:
+    // those its rows, clamped to S - 1, can see; i0 <= 1 and i1 >= nkt - 2)
+    int i0 = 0, i1 = nkt - 1;
+    if (CAUSAL) {
+      const int r0 = min(q0 + wg * kRows, S - 1);
+      const int r1 = min(q0 + wg * kRows + kRows - 1, S - 1);
+      i0 = max(0, r0 - a.window + 1) / kRows - kb;
+      i1 = r1 / kRows - kb;
+    }
+    // a tile of the walk this warpgroup cannot see: wait until it is in
+    // its stage, release the stage, and take the turn without a product
+    const auto skip = [&](int i, bool last) {
+      bar_wait(full(i % STAGES), (i / STAGES) & 1);
+      bar_arrive(empty(i % STAGES));
+      my_turn();
+      their_turn(last);
+    };
+    for (int i = 0; i < i0; ++i) skip(i, false);
+
     bar_wait(q_full, 0);
     if (kQRegs) {
       // rows g, g + 8 of this warp's 16, columns 2 tig (+ 8) of each
@@ -287,19 +362,19 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
               tile_offset(2 * kRows, r0 + 8 * (j % 2), 16 * ks + 2 * tig +
                                                        8 * (j / 2)));
     }
-    bar_wait(full(0), 0);
+    bar_wait(full(i0 % STAGES), (i0 / STAGES) & 1);
     my_turn();
     wgmma_fence();
-    s_product(0);
+    s_product(i0 % STAGES);
     wgmma_commit();
     their_turn(false);
     wgmma_wait<0>();
     fence_regs(s);
-    softmax(0);
+    softmax(kb + i0);
     split_acc(s, ph, pl);
-    for (int kt = 1; kt < nkt; ++kt) {
-      const int st = kt % STAGES, prev = (kt - 1) % STAGES;
-      bar_wait(full(st), (kt / STAGES) & 1);
+    for (int i = i0 + 1; i <= i1; ++i) {
+      const int st = i % STAGES, prev = (i - 1) % STAGES;
+      bar_wait(full(st), (i / STAGES) & 1);
       fence_regs(o);
       fence_regs(ph);
       fence_regs(pl);
@@ -310,10 +385,10 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
       pv_product(prev);
       wgmma_commit();
       their_turn(false);
-      wgmma_wait<1>();  // S of tile kt
+      wgmma_wait<1>();  // S of tile i
       fence_regs(s);
-      softmax(kt);
-      wgmma_wait<0>();  // P.V of tile kt - 1
+      softmax(kb + i);
+      wgmma_wait<0>();  // P.V of tile i - 1
       fence_regs(o);
       fence_regs(ph);
       fence_regs(pl);
@@ -326,21 +401,43 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     fence_regs(pl);
     my_turn();
     wgmma_fence();
-    pv_product((nkt - 1) % STAGES);
+    pv_product(i1 % STAGES);
     wgmma_commit();
-    their_turn(true);
+    their_turn(i1 == nkt - 1);
     wgmma_wait<0>();
     fence_regs(o);
+    for (int i = i1 + 1; i < nkt; ++i) skip(i, i == nkt - 1);
 
     const float inv0 = 1.0f / fmaxf(l0, 1e-30f);
     const float inv1 = 1.0f / fmaxf(l1, 1e-30f);
     if (a.lse != nullptr && tig == 0) {
       // m is in log2 units: lse = m ln 2 + log(l); a quad shares m and l
-      float* lse_bh = a.lse + static_cast<long long>(blockIdx.y) * S;
+      float* lse_bh = a.lse + static_cast<long long>(bh) * S;
       if (qi0 < S)
         lse_bh[qi0] = m0 * 0.6931471805599453f + logf(fmaxf(l0, 1e-30f));
       if (qi1 < S)
         lse_bh[qi1] = m1 * 0.6931471805599453f + logf(fmaxf(l1, 1e-30f));
+    }
+    if (a.tma_o) {
+      // O through this warpgroup's 64 rows of q's tile (which only its
+      // own products, all done, read), then out by TMA
+      const int r = wg * kRows + warp * 16 + g;
+#pragma unroll
+      for (int i = 0; i < HDP / 8; ++i) {
+        const int c = 8 * i + 2 * tig;
+        put_pair(sm + L::kQ, 2 * kRows, r, c, o[4 * i] * inv0,
+                 o[4 * i + 1] * inv0);
+        put_pair(sm + L::kQ, 2 * kRows, r + 8, c, o[4 * i + 2] * inv1,
+                 o[4 * i + 3] * inv1);
+      }
+      proxy_fence();
+      named_sync(3 + wg, 128);
+      if (threadIdx.x % 128 == 0) {
+        tma_store_rows<HDP>(sa + L::kQ, 2 * kRows, wg * kRows, a.o_map,
+                            q0 + wg * kRows, h, b);
+        tma_store_wait();
+      }
+      return;
     }
     const long long q_stride = static_cast<long long>(a.H) * a.hd;
     bf16* ob = a.o + static_cast<long long>(b) * S * q_stride +
@@ -359,11 +456,10 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   }
 }
 
-template <int HDP>
+template <int HDP, bool CAUSAL>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
-               float* lse, int B, int S, int H, int KV, int hd, float scale,
-               cudaStream_t stream) {
-  using L = FwdLayout<HDP, kFwdStages>;
+               float* lse, int B, int S, int H, int KV, int hd, int window,
+               float scale, cudaStream_t stream) {
   FwdArgs a;
   a.qp = static_cast<const bf16*>(q);
   a.kp = static_cast<const bf16*>(k);
@@ -374,18 +470,24 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
   a.H = H;
   a.KV = KV;
   a.hd = hd;
+  a.window = window;
   a.scale = scale;
   a.tma = hd % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
   a.pair = hd % 2 == 0 && reinterpret_cast<uintptr_t>(o) % 4 == 0;
+  a.tma_o = a.tma && aligned16(o);
   if (a.tma && !(make_map(&a.q, q, B, S, H, hd) &&
                  make_map(&a.k, k, B, S, KV, hd) &&
                  make_map(&a.v, v, B, S, KV, hd)))
     return static_cast<int>(cudaErrorNotSupported);
-  const auto kernel = swa_full_fwd_kernel<HDP, kFwdStages>;
+  if (a.tma_o && !make_map(&a.o_map, o, B, S, H, hd))
+    return static_cast<int>(cudaErrorNotSupported);
+  using L = FwdLayout<HDP, kFwdStages>;
+  const auto kernel = swa_full_fwd_kernel<HDP, kFwdStages, CAUSAL>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((S + 2 * kRows - 1) / (2 * kRows), B * H);
+  const int tiles = (S + 2 * kRows - 1) / (2 * kRows);
+  const dim3 grid = CAUSAL ? dim3(B * H, tiles) : dim3(tiles, B * H);
   kernel<<<grid, kFwdThreads, L::kBytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -498,22 +600,29 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 }  // namespace swa_full
 
-// The non-causal forward: q, k, v, o as swa_attention_fwd takes them, lse
-// (B, H, S) f32 or null; is_bf16: 0 = float32 operands, 1 = bfloat16.
+// q, k, v, o as swa_attention_fwd takes them, lse (B, H, S) f32 or null;
+// causal: 1 = the causal sliding window (bf16 only), 0 = every key (window
+// unused); is_bf16: 0 = float32 operands, 1 = bfloat16.
 extern "C" int swa_full_fwd(const void* q, const void* k, const void* v,
                             void* o, void* lse, int B, int S, int H, int KV,
-                            int hd, float scale, int is_bf16, void* stream) {
+                            int hd, int window, int causal, float scale,
+                            int is_bf16, void* stream) {
   using namespace swa_full;
-  if (hd < 1 || hd > 128 || KV < 1 || H % KV != 0)
+  if (hd < 1 || hd > 128 || KV < 1 || H % KV != 0 || window < 1 ||
+      (causal && !is_bf16))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* lse_f = static_cast<float*>(lse);
   if (!is_bf16) return launch_f32(q, k, v, o, lse_f, B, S, H, KV, hd, scale, s);
   using Launch = int (*)(const void*, const void*, const void*, void*, float*,
-                         int, int, int, int, int, float, cudaStream_t);
-  constexpr Launch by_hdp[] = {launch_fwd<16>, launch_fwd<32>,  launch_fwd<48>,
-                               launch_fwd<64>, launch_fwd<80>,  launch_fwd<96>,
-                               launch_fwd<112>, launch_fwd<128>};
-  return by_hdp[(hd + 15) / 16 - 1](q, k, v, o, lse_f, B, S, H, KV, hd, scale,
-                                    s);
+                         int, int, int, int, int, int, float, cudaStream_t);
+  constexpr Launch by_hdp[2][8] = {
+      {launch_fwd<16, false>, launch_fwd<32, false>, launch_fwd<48, false>,
+       launch_fwd<64, false>, launch_fwd<80, false>, launch_fwd<96, false>,
+       launch_fwd<112, false>, launch_fwd<128, false>},
+      {launch_fwd<16, true>, launch_fwd<32, true>, launch_fwd<48, true>,
+       launch_fwd<64, true>, launch_fwd<80, true>, launch_fwd<96, true>,
+       launch_fwd<112, true>, launch_fwd<128, true>}};
+  return by_hdp[causal ? 1 : 0][(hd + 15) / 16 - 1](
+      q, k, v, o, lse_f, B, S, H, KV, hd, window, scale, s);
 }

@@ -3,11 +3,14 @@ or, with ``causal=False``, attention over every key (the encoder's).
 
 A CPU tensor goes to the plain version (``ref.swa_attention_ref``), any
 other tensor to the operators ``repro_torch::swa_attention`` and
-``repro_torch::swa_attention_bwd``: on a CUDA tensor the hand kernel in
-``csrc/swa_attention.cu`` (whose entry point sends the non-causal mode to
-``csrc/swa_full_fwd.cu``), on a meta tensor shapes only; nothing falls
-back from one to the other. q is (B, S, H, hd), k and v (B, S, KV, hd), all f32
-or all bf16; the softmax and sums are f32 and the output has q's dtype.
+``repro_torch::swa_attention_bwd``: on a CUDA tensor the hand kernels
+behind the entry points of ``csrc/swa_attention.cu`` and
+``csrc/swa_attention_bwd.cu``, on a meta tensor shapes only; nothing
+falls back from one to the other. The entry points pick the kernels by
+dtype: bf16 on the ``wgmma`` and TMA kernels of ``csrc/swa_full_fwd.cu``
+and ``csrc/swa_full_bwd.cu`` (both modes), f32 on the CUDA cores. q is
+(B, S, H, hd), k and v (B, S, KV, hd), all f32 or all bf16; the softmax
+and sums are f32 and the output has q's dtype.
 On the CPU autograd differentiates the plain version. On the card a call
 that autograd records is a ``torch.autograd.Function``: its forward also
 writes each row's log-sum-exp, and its backward is the kernels of

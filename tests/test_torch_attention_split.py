@@ -1,8 +1,10 @@
-"""The arithmetic of the non-causal attention kernels on the card
-(``csrc/swa_full_fwd.cu``, ``csrc/swa_full_bwd.cu``), modelled in plain
-PyTorch on the CPU and held against the plain versions
+"""The arithmetic of the bf16 attention kernels on the card
+(``csrc/swa_full_fwd.cu``, ``csrc/swa_full_bwd.cu``), in both modes,
+modelled in plain PyTorch on the CPU and held against the plain versions
 (``swa_attention_ref``, ``swa_attention_bwd_ref``) within the card tests'
-bars.
+bars. In the causal mode the kernels mask S after the product: the
+forward's scores outside the window to -inf (a row whose keys a tile
+holds none of keeps its running max and sum), the backward's P to 0.
 
 The kernels' products are warpgroup products of bf16 operands with f32
 sums, 16 columns (a k-step) at a time; the weights P of P.V, and P and dS
@@ -75,8 +77,16 @@ def _split_product(x, b, split=True):
     return out
 
 
-def model_forward(q, k, v, split=True):
-    """The forward kernel's arithmetic: (out in q's dtype, lse)."""
+def _causal_mask(S, window, k0=0, n=None):
+    """(S, n) bool: query i sees key k0 + j (j < n) of the causal window."""
+    i = torch.arange(S)[:, None]
+    j = torch.arange(k0, k0 + (S if n is None else n))[None, :]
+    return (j <= i) & (i - j < window)
+
+
+def model_forward(q, k, v, split=True, window=None):
+    """The forward kernel's arithmetic: (out in q's dtype, lse); with a
+    ``window``, the causal mode's."""
     B, S, H, hd = q.shape
     G = H // k.shape[2]
     scale_log2 = np.float32(hd ** -0.5) * np.float32(math.log2(math.e))
@@ -92,6 +102,9 @@ def model_forward(q, k, v, split=True):
             for k0 in range(0, S, TILE):
                 kt, vt = kh[k0:k0 + TILE], vh[k0:k0 + TILE]
                 a = _kstep(qh, kt.T)
+                if window is not None:
+                    a = torch.where(_causal_mask(S, window, k0, len(kt)), a,
+                                    torch.full_like(a, -math.inf))
                 m_new = torch.maximum(m, a.max(-1).values * scale_log2)
                 alpha = torch.exp2(m - m_new)
                 p = _fma_exp2(a, float(scale_log2), m_new[:, None])
@@ -104,8 +117,9 @@ def model_forward(q, k, v, split=True):
     return out.to(q.dtype), lse
 
 
-def model_backward(q, k, v, o, lse, do):
-    """The backward kernels' arithmetic: (dq, dk, dv) in q's dtype."""
+def model_backward(q, k, v, o, lse, do, window=None):
+    """The backward kernels' arithmetic: (dq, dk, dv) in q's dtype; with a
+    ``window``, the causal mode's."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -125,6 +139,9 @@ def model_backward(q, k, v, o, lse, do):
                 # P = exp2(s scale log2(e) - lse log2(e))
                 p = _fma_exp2(s, float(scale * log2e),
                               lse[b, h][:, None] * log2e)
+                if window is not None:
+                    p = torch.where(_causal_mask(S, window), p,
+                                    torch.zeros_like(p))
                 dp = _kstep(doh, vh.T)
                 ds = p * (dp - delta[b, :, h][:, None])
                 # dK/dV: over the group's heads, then query k-steps
@@ -176,6 +193,30 @@ def test_split_model_matches_plain_versions(KV):
     truth = ref.swa_attention_bwd_ref(
         *(a.double() for a in (q, k, v, want, want_lse, do)), window=S,
         causal=False)
+    for g, p, t in zip(got, plain, truth):
+        assert g.shape == p.shape and g.dtype == torch.bfloat16
+        err = float((g.double() - t).abs().max())
+        assert err <= _bwd_bar(p, t), (err, _bwd_bar(p, t))
+
+
+@pytest.mark.parametrize("S,window", [(100, 100), (150, 40), (64, 1)])
+def test_causal_split_model_matches_plain_versions(S, window):
+    """The causal mode (hd 128, G 2): the window at S, a window of 40
+    ending mid-tile, the diagonal alone; the model's forward, log-sum-exp
+    and gradients within the bars of the non-causal case."""
+    B, H, KV, hd = 1, 4, 2, 128
+    q, k, v, do = _inputs(S + window, B, S, H, KV, hd)
+    out, lse = model_forward(q, k, v, window=window)
+    want = ref.swa_attention_ref(q, k, v, window=window)
+    assert _fwd_close(out, want)
+    want_lse = ref.swa_attention_lse_ref(q, k, window=window)
+    np.testing.assert_allclose(lse.numpy(), want_lse.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    got = model_backward(q, k, v, want, want_lse, do, window=window)
+    plain = ref.swa_attention_bwd_ref(q, k, v, want, want_lse, do,
+                                      window=window)
+    truth = ref.swa_attention_bwd_ref(
+        *(a.double() for a in (q, k, v, want, want_lse, do)), window=window)
     for g, p, t in zip(got, plain, truth):
         assert g.shape == p.shape and g.dtype == torch.bfloat16
         err = float((g.double() - t).abs().max())

@@ -274,6 +274,25 @@ def test_rmsnorm_kernel_matches_plain_on_card(cuda, shape, x_dt, s_dt):
         _close(got.cpu().numpy(), ref.cpu().numpy())
 
 
+# the LM zoo's causal heads at the prefill (B 4, S 128): OLMoE-1B-7B (G
+# 1), MiniCPM-2B (hd 64), Qwen3-MoE (G 16), Qwen3-32B; one 4,096-token
+# sequence of Qwen3-8B (the reference's train_4k shape, W = S) and a
+# ragged long windowed one; then the wgmma kernels' causal walk: a
+# 128-query block whose second warpgroup holds no row < S (S 129), a
+# window whose first key tile differs between a block's warpgroups, and
+# 64-key dK/dV blocks whose walks end mid-tile
+SWA_ZOO_SHAPES = [
+    (4, 128, 16, 16, 128, 128),
+    (4, 128, 36, 36, 64, 128),
+    (4, 128, 64, 4, 128, 128),
+    (4, 128, 64, 8, 128, 128),
+    (1, 4096, 32, 8, 128, 4096),
+    (1, 4000, 32, 8, 128, 1000),
+    (1, 129, 4, 2, 80, 129),
+    (2, 320, 4, 2, 64, 70),
+    (1, 300, 8, 2, 96, 100)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("B,S,H,KV,hd,window", [
@@ -290,8 +309,10 @@ def test_rmsnorm_kernel_matches_plain_on_card(cuda, shape, x_dt, s_dt):
     (1, 200, 4, 2, 64, 1),         # window 1: the diagonal alone
     (1, 200, 4, 2, 64, 17),        # window 17: inside a tile, and across two
     (2, 96, 8, 1, 128, 96),        # G = 8: eight query heads per kv head
-    (1, 50, 2, 1, 20, 50)])        # hd 20: rows staged 2 bytes at a time
+    (1, 50, 2, 1, 20, 50)] + SWA_ZOO_SHAPES)   # hd 20: 2-byte staging
 def test_swa_kernel_matches_plain_on_card(cuda, dt, B, S, H, KV, hd, window):
+    """The forward against the plain version, one launch a call, bitwise
+    the same on a second call."""
     q, k, v = _data(S + window, (B, S, H, hd), (B, S, KV, hd),
                     (B, S, KV, hd))
     qd, kd, vd = (torch.from_numpy(a).to(cuda, _dt(dt)) for a in (q, k, v))
@@ -299,6 +320,7 @@ def test_swa_kernel_matches_plain_on_card(cuda, dt, B, S, H, KV, hd, window):
     got = swa_ops.swa_attention(qd, kd, vd, window=window)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["swa_attention"] == before + 1
+    assert torch.equal(got, swa_ops.swa_attention(qd, kd, vd, window=window))
     ref = swa_ref.swa_attention_ref(qd, kd, vd, window=window)
     assert got.dtype == qd.dtype
     if dt == "bf16":
@@ -713,13 +735,14 @@ SWA_BWD_SHAPES = [
     (1, 200, 4, 2, 64, 17),
     (2, 96, 8, 1, 128, 96),        # G = 8
     (1, 50, 2, 1, 20, 50),
-    # the tensor-core route's edges: 32-key dK/dV blocks and 32-query
-    # tiles, 64-query dQ blocks and 64-key tiles, 16-row warps
+    # tile edges: 32-key and 64-key dK/dV blocks, 32- and 64-query tiles,
+    # 64- and 128-query dQ blocks, 16-row warps
     (2, 20, 4, 2, 16, 20),         # S below one tile, hd 16
     (1, 33, 4, 2, 20, 33),         # one key past a 32-key block, hd 20
     (1, 100, 8, 2, 64, 40),        # key-tile boundaries inside the window
     (2, 130, 4, 1, 128, 48),       # window ending mid-tile, G = 4
-    (1, 64, 2, 2, 32, 16)]         # S one dQ tile, window half a tile
+    (1, 64, 2, 2, 32, 16)          # S one dQ tile, window half a tile
+] + SWA_ZOO_SHAPES
 
 
 @pytest.mark.cuda
@@ -767,7 +790,7 @@ def _off_by(a, elems):
     (2, 37, 4, 2, 64, 37), (1, 100, 8, 2, 128, 40)])
 def test_swa_bwd_unaligned_operands_on_card(cuda, B, S, H, KV, hd, window):
     """bf16 operands 2 bytes past a 16-byte boundary take the 2-byte
-    staging of the tensor-core route: within the bars of
+    staging of the tensor-core kernels: within the bars of
     ``test_swa_bwd_kernel_matches_plain_on_card``, bitwise run to run."""
     q, k, v, do = (_off_by(a, 1) for a in
                    _swa_inputs(cuda, "bf16", B, S, H, KV, hd, seed=5))

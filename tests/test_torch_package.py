@@ -102,6 +102,20 @@ def test_kernel_variants_patch_the_shipped_sources():
             assert (text == shipped) == (tag == "shipped"), (name, tag)
 
 
+def test_kernel_variants_call_the_entries_as_the_operators_do():
+    """tools/kernel_variants.py binds each C entry point with the same
+    function name and argument types as ``repro_torch.kernels``."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    try:
+        import kernel_variants
+    finally:
+        sys.path.remove(os.path.join(ROOT, "tools"))
+    from repro_torch import kernels
+    for name, (_files, fn_name, argtypes) in kernel_variants.ENTRIES.items():
+        assert kernels._ENTRIES[name][0] == fn_name, name
+        assert tuple(kernels._ENTRIES[name][1]) == tuple(argtypes), name
+
+
 def test_tf32_is_off():
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False

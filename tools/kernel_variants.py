@@ -5,10 +5,10 @@
                                      [--variants TAG ...]
 
 Each variant is a copy of a kernel's sources in ``src/repro_torch/csrc/``
-(swa_attention and swa_attention_bwd: the causal file, the non-causal
-``swa_full_*.cu`` file and their header) with one edit - elm_stats's
-stages or unrolls, swa_attention's copy loop for hd == HDP switched off, the
-non-causal kernels' stages, copies or split, conv2d's pixels per thread,
+(swa_attention and swa_attention_bwd: the entry's file with the causal f32
+kernels, the wgmma ``swa_full_*.cu`` file and their header) with one edit
+- elm_stats's stages or unrolls, the attention kernels' stages, copies,
+split or block order, conv2d's pixels per thread,
 tile size, instantiation or stores, the conv backward's splits, tiles and
 bands, or one phase of a block run twice - built alone with nvcc into
 ``build/variants/``. A variant tagged ``probe_`` leaves a phase out (its
@@ -21,19 +21,23 @@ as a checkout from before the non-causal files kept that mode in the causal
 file; swa_attention's gained its log-sum-exp argument with the backward
 kernels, so a baseline of that kernel must have it; a swa_attention or
 swa_attention_bwd source without the later causal argument is called without
-it and runs the causal shapes alone). Each swa_attention build's output,
-and each swa_attention_bwd build's dq, dk and dv, are also compared bit
-for bit with the shipped source's (``bitwise_shipped``); both run the
-causal shapes (prefill, a window of 256 at S 1024, hd 40) and the
-non-causal ones of chip_smoke.py (HuBERT's encoder, S 1000, a small f32
-case). swa_attention_bwd's causal variants change its dK/dV key or query
-tile, the warp groups that share a block's tiles, dQ's key tile or the
-tiles' copy loop, or leave one kernel out; the non-causal variants of
-both copy tiles by threads, not TMA, round the hi part of the split
-weights to nearest, not down, or leave out (``probe_``) the lo products,
-the exponentials or a kernel; the backward's take the IEEE exp2f, the
-forward's the hardware's exp2, and the forward's also change its
-stages, keep Q in shared memory for S or truncate lo too;
+it and runs the causal shapes alone; the parent of the causal wgmma
+kernels, whose causal bf16 kernels were its mma.sync ones, takes the same
+arguments as the shipped build). Each
+swa_attention build's output, and each swa_attention_bwd build's dq, dk
+and dv, are also compared bit for bit with the shipped source's
+(``bitwise_shipped``); both run the causal cases of chip_smoke.py's phase
+kernel (the prefill, a window of 256 at S 1024, q scaled by 8, Zamba2's
+shared block, OLMoE's prefill, a 4,096-token sequence; the backward
+without the scaled q), hd 40 and its non-causal ones (HuBERT's encoder,
+S 1000, a small f32 case). The attention variants copy tiles by threads,
+not TMA, round the hi part of the split weights to nearest, not down,
+run the causal blocks in the grid's order, not the longest walks first,
+or leave out (``probe_``) the lo products, the exponentials, the
+forward's output stores, a kernel, or the causal launch's dK/dV or dQ
+blocks; the backward's take the IEEE exp2f, the forward's the
+hardware's exp2, and the forward's also change its stages, keep Q in
+shared memory for S or truncate lo too;
 rmsnorm_bwd's change its chunks or leave out its dscale pass; its baseline
 (the first design) is called with the chunks it chose. elm_stats's builds
 run the Map's and the stream's batches, a whole shard, E²LM's shards, the
@@ -190,11 +194,31 @@ VARIANTS = {
     ],
     "swa_attention": [
         ("shipped", []),
-        ("one_copy_loop", [(r"if \(vec16 && hd == HDP\) \{",
-                            "if (false) {")]),
-        # the non-causal kernel: 4 k/v stages where it ships 3
+        # the wgmma kernel (both modes): 4 or 2 k/v stages where it ships 3
         ("full_stages4", [("swa_full_fwd.cu", r"kFwdStages = \d+;",
                            "kFwdStages = 4;")]),
+        ("full_stages2", [("swa_full_fwd.cu", r"kFwdStages = \d+;",
+                           "kFwdStages = 2;")]),
+        # the warpgroups issue their products as they come, not in turns
+        ("fwd_no_turns", [
+            ("swa_full_fwd.cu", r"const auto my_turn = \[&\]\(\) \{ "
+             r"named_sync\(1 \+ wg, kThreads\); \};",
+             "const auto my_turn = [&]() {};"),
+            ("swa_full_fwd.cu", r"if \(!\(last && wg == 1\)\) "
+             r"named_arrive\(2 - wg, kThreads\);", "(void)last;"),
+            ("swa_full_fwd.cu", r"if \(wg == 1\) named_arrive\(1, kThreads\);",
+             "")]),
+        # no output stores (the lse's stay): what the epilogue's stores
+        # take
+        ("probe_fwd_no_store", [("swa_full_fwd.cu",
+                                 r"\n    if \(a\.tma_o\) \{",
+                                 "\n    if (qi0 >= 0) return;\n"
+                                 "    if (a.tma_o) {")]),
+        # its causal query tiles in the grid's order, not the last (the
+        # longest walks) first
+        ("causal_first_tiles_first", [
+            ("swa_full_fwd.cu", r"CAUSAL \? gridDim\.y - 1 - blockIdx\.y",
+             "CAUSAL ? blockIdx.y")]),
         # tiles copied by warpgroup 0's threads, not TMA
         ("full_thread_copies", [("swa_full_fwd.cu", r"a\.tma = hd % 8 == 0",
                                  "a.tma = false && hd % 8 == 0")]),
@@ -241,28 +265,6 @@ VARIANTS = {
     ],
     "swa_attention_bwd": [
         ("shipped", []),
-        # 64 keys (4 warps) a dK/dV block: 64 blocks at the prefill shape
-        # against the shipped 128
-        ("keys64", [(r"kKvWarps = \d+;", "kKvWarps = 4;")]),
-        # the query tiles of a dK/dV block walked by 2 or 4 warp groups
-        # at every shape (summed in group order at the end)
-        ("kv_split2", [(r"kKvFewBlocks = \d+;", "kKvFewBlocks = 0;")]),
-        ("kv_split4", [(r"kKvFewBlocks = \d+;",
-                        "kKvFewBlocks = 1 << 30;")]),
-        # 16-query tiles in the dK/dV block: half the S^T and dP^T
-        # registers of the shipped 32 (which spills at hd 112 and 128)
-        ("kv_q16", [(r"kKvQ = \d+;", "kKvQ = 16;")]),
-        # 32-key tiles in the dQ block
-        ("dq_keys32", [(r"kQK = \d+;", "kQK = 32;")]),
-        # the tiles' copy loop for hd == HDP switched off (the general
-        # 16-byte loop at every hd)
-        ("one_copy_loop", [(r"if \(vec16 && hd == HDP\) \{",
-                            "if (false) {")]),
-        # one main kernel left out (D's pre-pass and the other run)
-        ("probe_dkdv_off", [(r"(\n  )(swa_bwd_dkdv_tc<HDP, SPLIT>"
-                             r"\s*<<<)", r"\1if (false) \2")]),
-        ("probe_dq_off", [(r"(\n  )(swa_bwd_dq_tc<HDP>\s*<<<)",
-                           r"\1if (false) \2")]),
         # the non-causal kernels: copies by warpgroup 0's threads, one
         # main kernel left out, P's and dS's hi rounded to nearest, the lo
         # products left out (5 stages do not fit at hd 128)
@@ -274,10 +276,11 @@ VARIANTS = {
                                 r"(\n  )(dq<<<)", r"\1if (false) \2")]),
         # the exponentials of P replaced by a product: what they cost
         ("probe_full_no_exp", [
-            ("swa_full_bwd.cu", r"exp2_ftz\(fmaf\(s\[4 \* n \+ e\], "
-             r"scale_log2, -ls\[c\]\)\)", "fmaf(s[4 * n + e], 1e-3f, 0.5f)"),
-            ("swa_full_bwd.cu", r"exp2_ftz\(fmaf\(s\[4 \* n \+ 2 \+ e\], "
-             r"scale_log2, -ls\[c\]\)\)",
+            ("swa_full_bwd.cu", r"(?<=in \? )exp2_ftz\(fmaf\(s\[4 \* n "
+             r"\+ e\], scale_log2, -ls\[c\]\)\)",
+             "fmaf(s[4 * n + e], 1e-3f, 0.5f)"),
+            ("swa_full_bwd.cu", r"(?<=in \? )exp2_ftz\(fmaf\(s\[4 \* n "
+             r"\+ 2 \+ e\], scale_log2, -ls\[c\]\)\)",
              "fmaf(s[4 * n + 2 + e], 1e-3f, 0.5f)"),
             ("swa_full_bwd.cu", r"exp2_ftz\(fmaf\(s\[4 \* n \+ e\], "
              r"scale_log2, -l0\)\)", "fmaf(s[4 * n + e], 1e-3f, 0.5f)"),
@@ -293,22 +296,39 @@ VARIANTS = {
              r"in \? exp2_ftz\(fmaf\(s\[4 \* n \+ 2 \+ e\], "
              r"scale_log2, -ls\[c\]\)\)",
              "in ? exp2f(fmaf(s[4 * n + 2 + e], scale_log2, -ls[c]))"),
-            ("swa_full_bwd.cu", r"in \? exp2_ftz\(fmaf\(s\[4 \* n \+ e\], "
+            ("swa_full_bwd.cu", r"in0 \? exp2_ftz\(fmaf\(s\[4 \* n \+ e\], "
              r"scale_log2, -l0\)\)",
-             "in ? exp2f(fmaf(s[4 * n + e], scale_log2, -l0))"),
+             "in0 ? exp2f(fmaf(s[4 * n + e], scale_log2, -l0))"),
             ("swa_full_bwd.cu",
-             r"in \? exp2_ftz\(fmaf\(s\[4 \* n \+ 2 \+ e\], "
+             r"in1 \? exp2_ftz\(fmaf\(s\[4 \* n \+ 2 \+ e\], "
              r"scale_log2, -l1\)\)",
-             "in ? exp2f(fmaf(s[4 * n + 2 + e], scale_log2, -l1))")]),
+             "in1 ? exp2f(fmaf(s[4 * n + 2 + e], scale_log2, -l1))"),
+            ("swa_full_bwd.cu", r"in0 \? exp2_ftz\(fmaf\(s\[4 \* n \+ e\], "
+             r"scale_log2, -lc\)\)",
+             "in0 ? exp2f(fmaf(s[4 * n + e], scale_log2, -lc))"),
+            ("swa_full_bwd.cu",
+             r"in1 \? exp2_ftz\(fmaf\(s\[4 \* n \+ 2 \+ e\], "
+             r"scale_log2, -lc\)\)",
+             "in1 ? exp2f(fmaf(s[4 * n + 2 + e], scale_log2, -lc))")]),
         ("probe_full_delta_only", [
             ("swa_full_bwd.cu", r"(\n  )(dkdv<<<)", r"\1if (false) \2"),
-            ("swa_full_bwd.cu", r"(\n  )(dq<<<)", r"\1if (false) \2")]),
+            ("swa_full_bwd.cu", r"(\n  )(dq<<<)", r"\1if (false) \2"),
+            ("swa_full_bwd.cu", r"(\n    )(kernel<<<)", r"\1if (false) \2")]),
+        # the causal launch's dK/dV or dQ blocks return at once: what the
+        # other role's blocks and the D pre-pass take
+        ("probe_causal_dkdv_off", [
+            ("swa_full_bwd.cu", r"causal_dkdv_block<HDP, STAGES>\(a, smem_raw, "
+             r"x % n_bkv, x / n_bkv\);", ";")]),
+        ("probe_causal_dq_off", [
+            ("swa_full_bwd.cu", r"dq_block<HDP, STAGES, true>\(a, smem_raw, "
+             r"y % n_bh,\s*\(nqt - 1 - y / n_bh\) \* 2 \* kRows\);",
+             "(void)y;")]),
         ("full_split_rn", [("swa_full.cuh", _SPLIT, _SPLIT_RN)]),
         ("probe_full_hi_only", [
             ("swa_full_bwd.cu", r"\n *wgmma_rs<HDP>\(dv, pl \+ 4 \* kk, d\);",
-             ""),
+             "", 2),
             ("swa_full_bwd.cu", r"\n *wgmma_rs<HDP>\(dk, dl \+ 4 \* kk, d\);",
-             ""),
+             "", 2),
             ("swa_full_bwd.cu", r"\n *wgmma_rs<HDP>\(dq, dl \+ 4 \* kk, d\);",
              "")]),
         ("full_f32_warps4", [("swa_full.cuh", r"kF32Warps = \d+;",
@@ -318,6 +338,15 @@ VARIANTS = {
                                  r"\1if (false) \2")]),
         ("probe_f32_dq_off", [("swa_full_bwd.cu", r"(\n  )(f32_dq_kernel<<<)",
                                r"\1if (false) \2")]),
+        # the causal wgmma kernels' grid order: dQ's query tiles first to
+        # last, not the last (the longest walks) first; dK/dV's key tiles
+        # last to first, not the first (the longest walks) first
+        ("causal_dq_first_tiles_first", [
+            ("swa_full_bwd.cu", r"\(nqt - 1 - y / n_bh\) \* 2 \* kRows",
+             "(y / n_bh) * 2 * kRows")]),
+        ("causal_dkdv_last_keys_first", [
+            ("swa_full_bwd.cu", r"x % n_bkv, x / n_bkv\);",
+             "x % n_bkv, n_kv / n_bkv - 1 - x / n_bkv);")]),
     ],
     "conv2d_wgrad": [
         ("shipped", []),
@@ -433,14 +462,22 @@ class ShippedCall:
 
     def __call__(self, *args):
         return self.fn(*args)
-# (case, B, S, H, KV, hd, window, causal, bf16): the causal shapes, then
-# chip_smoke.py's non-causal ones (window = S)
-SWA_SHAPES = [("prefill_causal", 4, 128, 32, 8, 128, 128, 1, 1),
-              ("window256_s1024", 1, 1024, 32, 8, 128, 256, 1, 1),
-              ("prefill_hd40", 4, 128, 32, 8, 40, 128, 1, 1),
-              ("encoder_bidirectional", 4, 1024, 16, 16, 80, 1024, 0, 1),
-              ("encoder_ragged_s1000", 4, 1000, 16, 16, 80, 1000, 0, 1),
-              ("encoder_f32_small", 2, 200, 4, 2, 80, 200, 0, 0)]
+# (case, B, S, H, KV, hd, window, causal, bf16, q's scale): the causal
+# cases of chip_smoke.py's phase kernel, hd 40 and 36, then its non-causal
+# ones (window = S)
+SWA_SHAPES = [("prefill_causal", 4, 128, 32, 8, 128, 128, 1, 1, 1.0),
+              ("window256_s1024", 1, 1024, 32, 8, 128, 256, 1, 1, 1.0),
+              ("prefill_large_scores", 4, 128, 32, 8, 128, 128, 1, 1, 8.0),
+              ("zamba2_shared", 4, 128, 32, 32, 64, 128, 1, 1, 1.0),
+              ("olmoe_prefill", 4, 128, 16, 16, 128, 128, 1, 1, 1.0),
+              ("train4k_seq", 1, 4096, 32, 8, 128, 4096, 1, 1, 1.0),
+              ("prefill_hd40", 4, 128, 32, 8, 40, 128, 1, 1, 1.0),
+              # rows TMA cannot copy: the tiles by threads, 2 bytes at a
+              # time
+              ("prefill_hd36", 4, 128, 32, 8, 36, 128, 1, 1, 1.0),
+              ("encoder_bidirectional", 4, 1024, 16, 16, 80, 1024, 0, 1, 1.0),
+              ("encoder_ragged_s1000", 4, 1000, 16, 16, 80, 1000, 0, 1, 1.0),
+              ("encoder_f32_small", 2, 200, 4, 2, 80, 200, 0, 0, 1.0)]
 
 
 def nvcc():
@@ -452,13 +489,16 @@ def nvcc():
 
 def patched(texts, edits):
     """{file: text} with each edit applied: (pattern, replacement) to the
-    first file, (file, pattern, replacement) to the file named."""
+    first file, (file, pattern, replacement) to the file named, (file,
+    pattern, replacement, n) where it must match n times, not once."""
     texts = dict(texts)
     first = next(iter(texts))
     for edit in edits:
-        name, pattern, repl = edit if len(edit) == 3 else (first, *edit)
+        name, pattern, repl, want = ((first, *edit, 1) if len(edit) == 2
+                                     else (*edit, 1) if len(edit) == 3
+                                     else edit)
         texts[name], hits = re.subn(pattern, repl, texts[name])
-        if hits != 1:
+        if hits != want:
             raise RuntimeError(f"{pattern!r} matched {hits} times in {name}")
     return texts
 
@@ -736,18 +776,20 @@ def dgrad_cases(torch, dev, gen):
     return cases
 
 
-def _swa_operands(torch, dev, gen, B, S, heads, hd, bf16):
+def _swa_operands(torch, dev, gen, B, S, heads, hd, bf16, q_scale=1.0):
     dt = torch.bfloat16 if bf16 else torch.float32
-    return [torch.randn((B, S, n, hd), generator=gen).to(dt).to(dev)
-            for n in heads]
+    return [(torch.randn((B, S, n, hd), generator=gen)
+             * (q_scale if i == 0 else 1.0)).to(dt).to(dev)
+            for i, n in enumerate(heads)]
 
 
 def swa_cases(torch, dev, gen):
     import torch.nn.functional as F
     from repro_torch.kernels.swa_attention import ref
     cases = {}
-    for case, B, S, H, KV, hd, W, causal, bf16 in SWA_SHAPES:
-        q, k, v = _swa_operands(torch, dev, gen, B, S, (H, KV, KV), hd, bf16)
+    for case, B, S, H, KV, hd, W, causal, bf16, q_scale in SWA_SHAPES:
+        q, k, v = _swa_operands(torch, dev, gen, B, S, (H, KV, KV), hd, bf16,
+                                q_scale)
         want = ref.swa_attention_ref(q, k, v, window=W, causal=bool(causal))
         out = torch.empty_like(q)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -835,7 +877,9 @@ def swa_bwd_cases(torch, dev, gen):
     import torch.nn.functional as F
     from repro_torch.kernels.swa_attention import ops, ref
     cases = {}
-    for case, B, S, H, KV, hd, W, causal, bf16 in SWA_SHAPES:
+    for case, B, S, H, KV, hd, W, causal, bf16, q_scale in SWA_SHAPES:
+        if q_scale != 1.0:
+            continue      # chip_smoke.py's backward cases have none
         q, k, v, do = _swa_operands(torch, dev, gen, B, S, (H, KV, KV, H),
                                     hd, bf16)
         o, lse = ops.swa_attention_fwd(q, k, v, window=W,
