@@ -149,6 +149,24 @@ is non-zero and no result line is printed:
              device-idle share of a decode step: its device busy time
              (torch.profiler, one step) over the mean step of 10 unprofiled
              steps and over the mean step of run_lm's own decode loop.
+13a. lm_mesh — (b) again under ``distributed.ctx.use_mesh_rules`` on a
+             (data 1 × model 1) ``make_lm_mesh`` mesh over NCCL at world
+             size 1 in this process: the same tokens, the prefill's and
+             the last step's logits bitwise equal to (b)'s, the same
+             launches, and no collective (an axis of size 1 moves
+             nothing); its prefill ms and tokens/s beside (b)'s first
+             run's.
+13b. pod   — rank 0 of the reference's 16 × 16 (data, model) mesh at its
+             own local shapes, under a fake process group of 256 ranks
+             (``launch.dryrun.lm_mesh``): Qwen3-8B's prefill_32k (B 2 of
+             32, S 32,768, 2 q heads and their one KV head), its
+             decode_32k (B 8 of 128, 2,048 cache positions) and
+             OLMoE-1B-7B's prefill_32k (4 of 64 experts, 1 head), each on
+             random blocks and held against the dry run's trace of the
+             same combo: operator calls, argument bytes (the reference
+             layout's per-chip bytes), FLOPs, and the collectives' calls
+             and bytes by axis, all exactly; printed, not held: the peak
+             over the trace's and the busy time over the roofline.
 14. zoo    — the LM zoo's transformer families: (a) f32, full
              width cut to 2 layers, the card against the port's CPU path
              within 1e-4 · max|logit|: olmoe_1b_7b's prefill and 4 greedy
@@ -252,7 +270,9 @@ paths (b)–(d) and the recurrent paths (a)–(c) (whose rmsnorm,
 swa_attention, elm_stats and backward counts the kernels line adds), and
 the train path's full-width run (whose rmsnorm_bwd and swa_attention_bwd
 counts the kernels line reports, and whose forwards it adds to the
-serving path's rmsnorm and swa_attention counts), and each of the
+serving path's rmsnorm and swa_attention counts), the LM path under the
+world-1 mesh and each of the pod phase's three steps (whose rmsnorm and
+swa_attention counts the kernels line adds), and each of the
 dryrun phase's three steps (held against the trace, not added to the
 kernels line).
 """
@@ -489,7 +509,13 @@ def phase_kernels(torch, dev, rates):
 
     out = {}
 
+    last = [time.perf_counter()]
+
     def keep(name, tag, rec):
+        # host seconds since the previous case was kept: what the case
+        # adds to the run
+        now = time.perf_counter()
+        rec["case_s_host_clock"], last[0] = now - last[0], now
         rec["vs_library"] = rec["ms"] / rec["library_ms"]
         emit("kernel", name=name, case=tag, **rec)
         out[(name, tag)] = rec
@@ -668,16 +694,27 @@ def phase_kernels(torch, dev, rates):
     # (32 heads over 32 kv heads, hd 64, its window 4,096 clamped to S),
     # OLMoE-1B-7B's prefill (16 heads of 128, no GQA) and one 4,096-token
     # sequence of Qwen3-8B (the reference's train_4k shape, window = S)
-    swa_cases = [("prefill_causal", 4, 128, 32, 8, 128, 128, 1.0),
-                 ("window256_s1024", 1, 1024, 32, 8, 128, 256, 1.0),
-                 ("prefill_large_scores", 4, 128, 32, 8, 128, 128, 8.0),
-                 ("zamba2_shared", 4, 128, 32, 32, 64, 128, 1.0),
-                 ("olmoe_prefill", 4, 128, 16, 16, 128, 128, 1.0),
-                 ("train4k_seq", 1, 4096, 32, 8, 128, 4096, 1.0)]
-    for tag, B, S, H, KV, hd, W, q_scale in swa_cases:
-        q = (randn(B, S, H, hd) * q_scale).to(torch.bfloat16)
-        k = randn(B, S, KV, hd).to(torch.bfloat16)
-        v = randn(B, S, KV, hd).to(torch.bfloat16)
+    # (B 4, S 128, 32 heads over 8 kv heads, hd 128, window = S), one
+    # sequence of Qwen3-8B (the reference's train_4k shape, window = S),
+    # rank 0's local heads of Qwen3-8B's prefill_32k on the 16 × 16 mesh
+    # (B 2 of 32, 2 q heads and their one KV head) and the causal f32
+    # route of phase lm_parity's 2-layer f32 path (B 2, S 16)
+    bf16 = torch.bfloat16
+    swa_cases = [("prefill_causal", 4, 128, 32, 8, 128, 128, 1.0, bf16),
+                 ("window256_s1024", 1, 1024, 32, 8, 128, 256, 1.0, bf16),
+                 ("prefill_large_scores", 4, 128, 32, 8, 128, 128, 8.0,
+                  bf16),
+                 ("zamba2_shared", 4, 128, 32, 32, 64, 128, 1.0, bf16),
+                 ("olmoe_prefill", 4, 128, 16, 16, 128, 128, 1.0, bf16),
+                 ("train4k_seq", 1, 4096, 32, 8, 128, 4096, 1.0, bf16),
+                 ("pod_local_heads_s32k", 2, 32768, 2, 1, 128, 32768, 1.0,
+                  bf16),
+                 ("lm_parity_causal_f32", 2, 16, 32, 8, 128, 16, 1.0,
+                  torch.float32)]
+    for tag, B, S, H, KV, hd, W, q_scale, dt in swa_cases:
+        q = (randn(B, S, H, hd) * q_scale).to(dt)
+        k = randn(B, S, KV, hd).to(dt)
+        v = randn(B, S, KV, hd).to(dt)
         y = swa_ops.swa_attention(q, k, v, window=W)
         err, top, ok = compare(torch, y, swa_ref.swa_attention_ref(
             q, k, v, window=W))
@@ -699,24 +736,30 @@ def phase_kernels(torch, dev, rates):
                             2e-2),
               "the SDPA yardstick computes another function")
         pairs = swa_ops.pairs_in_mask(B, S, H, W)
-        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
         flops = swa_ops.swa_flops(B, S, H, hd, W)
-        b_ms, b_by = bound_ms(nbytes, flops, rates, bf16=True)
+        b_ms, b_by = bound_ms(nbytes, flops, rates, bf16=dt == bf16)
         kernel = lambda: swa_ops.swa_attention(q, k, v, window=W)  # noqa
         plain = lambda: swa_ref.swa_attention_ref(q, k, v,           # noqa
                                                   window=W)
-        rec = dict(shape=f"B{B} S{S} H{H} KV{KV} hd{hd} W{W} bf16"
+        # the plain version of a 32k sequence holds its (S, S) scores:
+        # 17 GB a copy, so few calls
+        plain_reps = 3 if S > 8192 else 20
+        rec = dict(shape=f"B{B} S{S} H{H} KV{KV} hd{hd} W{W} "
+                   f"{str(dt)[6:]}"
                    + (f", q x {q_scale:g}" if q_scale != 1.0 else ""),
                    max_abs_err=err, max_abs_ref=top,
                    ms=device_ms(torch, kernel),
-                   plain_ms=device_ms(torch, plain, reps=20),
+                   plain_ms=device_ms(torch, plain, reps=plain_reps),
                    library_ms=device_ms(torch, library),
                    call_ms=call_ms(torch, kernel),
-                   plain_call_ms=call_ms(torch, plain, reps=20),
+                   plain_call_ms=call_ms(torch, plain, reps=plain_reps),
                    library_call_ms=call_ms(torch, library),
                    bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops,
                    pairs_in_mask=pairs)
         keep("swa_attention", tag, rec)
+        del q, k, v, qt, kt, vt, y, library, kernel, plain
+        torch.cuda.empty_cache()
 
     # the encoder's non-causal attention (HuBERT-XLarge: 16 heads of 80 over
     # 4 × 1,024 frames), a ragged S 1000, and a small f32 case (the f32
@@ -864,7 +907,10 @@ def phase_kernels(torch, dev, rates):
          torch.bfloat16),
         ("encoder_ragged_s1000", 4, 1000, 16, 16, 80, 1000, False,
          torch.bfloat16),
-        ("encoder_f32_small", 2, 200, 4, 2, 80, 200, False, torch.float32)]
+        ("encoder_f32_small", 2, 200, 4, 2, 80, 200, False, torch.float32),
+        # the causal f32 route at phase lm_parity's shape
+        ("lm_parity_causal_f32", 2, 16, 32, 8, 128, 16, True,
+         torch.float32)]
     for tag, B, S, H, KV, hd, W, causal, dt in swa_bwd_cases:
         q = randn(B, S, H, hd).to(dt)
         k = randn(B, S, KV, hd).to(dt)
@@ -2675,7 +2721,7 @@ def lm_serving(torch, dev, arch, batch=4, prompt=128, gen=32):
         prof_decode["idle_share_run_lm_loop"] = 1 - min(busy / loop_ms, 1.0)
     del params, cache
     torch.cuda.empty_cache()
-    return dict(arch=cfg.name, dtype="bfloat16", batch=batch, prompt=prompt,
+    return (dict(arch=cfg.name, dtype="bfloat16", batch=batch, prompt=prompt,
                 gen=gen, launches=launches, peak_memory_bytes=peak,
                 prefill_ms_first=first["prefill_ms"],
                 tokens_per_s_first=first["tokens_per_s"],
@@ -2686,16 +2732,161 @@ def lm_serving(torch, dev, arch, batch=4, prompt=128, gen=32):
                 tokens=toks[0, :16].tolist(),
                 same_tokens_warm=bool(np.array_equal(toks, warm["tokens"])),
                 profile_prefill=prof_prefill,
-                profile_decode_step=prof_decode), launches
+                profile_decode_step=prof_decode), launches, first)
 
 
 def phase_lm(torch, dev, batch=4, prompt=128, gen=32):
     """(b) the slice itself: the full qwen3_8b in bf16 through the port's
     ``launch.serve.run_lm``, as a user calls it; then a warm run and one
     profiled prefill and decode step."""
-    fields, launches = lm_serving(torch, dev, "qwen3_8b", batch, prompt, gen)
+    fields, launches, first = lm_serving(torch, dev, "qwen3_8b", batch,
+                                         prompt, gen)
     emit("lm", **fields)
+    return launches, first
+
+
+def phase_lm_mesh(torch, dev, lm_first, lm_launches, batch=4, prompt=128,
+                  gen=32):
+    """(b) under the mesh context at world size 1 over NCCL: the same
+    ``run_lm`` on a (data 1 × model 1) mesh, whose axes of size 1 move
+    nothing, so the tokens and logits must be phase ``lm``'s bit for bit,
+    the launches its own and no collective called; its prefill ms and
+    tokens/s beside phase ``lm``'s first run. Returns the launches."""
+    import argparse
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.distributed import collectives, ctx
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_lm_mesh, process_group
+
+    args = argparse.Namespace(arch="qwen3_8b", reduced=False, seed=0,
+                              device=str(dev), batch=batch, prompt_len=prompt,
+                              gen=gen, greedy=True)
+    t0 = time.perf_counter()
+    with process_group(device=dev):
+        mesh = make_lm_mesh({"data": 1, "model": 1})
+        collectives.reset()
+        kernels.reset_launches()
+        with ctx.use_mesh_rules(mesh):
+            out = serve.run_lm(args)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        calls = {f"{kind}/{label}": n for (kind, label), n in
+                 collectives.CALLS.items()}
+    wall = time.perf_counter() - t0
+    check(np.array_equal(out["tokens"], lm_first["tokens"]),
+          "lm_mesh: tokens differ from phase lm's")
+    check(torch.equal(out["prefill_logits"], lm_first["prefill_logits"]),
+          "lm_mesh: prefill logits not bitwise phase lm's")
+    check(torch.equal(out["last_logits"], lm_first["last_logits"]),
+          "lm_mesh: last decode logits not bitwise phase lm's")
+    check(launches == lm_launches, f"lm_mesh: launches {launches} != "
+          f"phase lm's {lm_launches}")
+    check(not calls, f"lm_mesh: collectives over axes of size 1 {calls}")
+    emit("lm_mesh", mesh=dict(mesh.shape), world=1,
+         tokens_equal=True, logits_bitwise=True, launches=launches,
+         collectives=calls, prefill_ms_first=out["prefill_ms"],
+         tokens_per_s_first=out["tokens_per_s"],
+         lm_prefill_ms_first=lm_first["prefill_ms"],
+         lm_tokens_per_s_first=lm_first["tokens_per_s"], wall_s=wall)
+    del out
+    torch.cuda.empty_cache()
     return launches
+
+
+def phase_pod(torch, dev):
+    """Rank 0 of the reference's 16 × 16 (data, model) mesh on the card,
+    under a fake process group of 256 ranks (its collectives send nothing;
+    what they leave in the gathered blocks is not checked), at three
+    combos, each held against the dry run's trace of the same combo
+    exactly: the kernel operators' calls against the launches, the
+    argument bytes against the storages the card's step takes, the FLOPs
+    against ``FlopCounterMode``'s count, and the collectives' calls and
+    bytes by axis. Printed: the trace's peak over the card's and the
+    device's busy time (one profiled step) over the roofline. Returns the
+    launches."""
+    from collections import Counter
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import kernels
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.distributed import collectives
+    from repro_torch.launch import dryrun
+    from repro_torch.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(4)
+    total = Counter()
+    for arch, shape_name in (("qwen3_8b", "prefill_32k"),
+                             ("qwen3_8b", "decode_32k"),
+                             ("olmoe_1b_7b", "prefill_32k")):
+        shape = INPUT_SHAPES[shape_name]
+        cfg = dryrun.shape_cfg(get_config(arch), shape)
+        t0 = time.perf_counter()
+        dry = dryrun.trace_mesh_combo(cfg, shape, "pod")
+        trace_s = time.perf_counter() - t0
+        with dryrun.lm_mesh("pod") as frame:
+            args = dryrun.mesh_step_args(cfg, shape, device=dev,
+                                         generator=g)
+            fn = dryrun.step_fn(cfg, shape)
+            arg_bytes = sum({t.untyped_storage().data_ptr():
+                             t.untyped_storage().nbytes()
+                             for t in tree_leaves(list(args))
+                             if isinstance(t, torch.Tensor)}.values())
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            calls0 = Counter(collectives.CALLS)
+            bytes0 = Counter(collectives.BYTES)
+            t0 = time.perf_counter()
+            with FlopCounterMode(display=False) as fc:
+                out = fn(*args)
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            launches = {k: n for k, n in kernels.LAUNCHES.items() if n}
+            coll = dryrun._coll_growth(calls0, bytes0).as_dict()
+            step_peak = torch.cuda.max_memory_allocated() - (resident
+                                                             - arg_bytes)
+            flops = fc.get_total_flops()
+            del out
+            prof = profile_once(torch, lambda: fn(*args))
+            coord = dict(frame.mesh.coord)
+        tag = f"{arch} {shape_name}"
+        check(launches == dry["kernels"], f"pod {tag}: kernel operator "
+              f"calls {dry['kernels']} != the card's launches {launches}")
+        check(arg_bytes == dry["memory"]["argument_bytes_per_card"],
+              f"pod {tag}: argument bytes {dry['memory']} != the card's "
+              f"{arg_bytes}")
+        check(flops == dry["cost"]["flops_per_card"], f"pod {tag}: FLOPs "
+              f"{dry['cost']['flops_per_card']} != the card's {flops}")
+        check(coll == dry["collectives"], f"pod {tag}: collectives "
+              f"{dry['collectives']} != the card's {coll}")
+        total.update(launches)
+        roof = dry["roofline"]
+        roof_ms = 1e3 * max(roof["t_compute_s"], roof["t_memory_s"],
+                            roof["t_collective_s"])
+        busy = prof["device_busy_ms"]
+        emit("pod", case=tag, mesh=dry["mesh_shape"], rank=0, coord=coord,
+             arch=cfg.name, shape=[shape.global_batch, shape.seq_len],
+             kind=shape.kind, kernels=dry["kernels"], launches=launches,
+             argument_bytes=arg_bytes, flops=flops,
+             collectives=dry["collectives"],
+             peak_estimate_bytes=dry["memory"]["peak_bytes_per_card"],
+             card_step_peak_bytes=step_peak,
+             peak_estimate_over_card=dry["memory"]["peak_bytes_per_card"]
+             / step_peak,
+             roofline_ms=roof_ms, dominant=roof["dominant"],
+             roofline_terms_ms={k: 1e3 * v for k, v in roof.items()
+                                if k.startswith("t_")},
+             device_busy_ms=busy,
+             busy_over_roofline=busy / roof_ms if isinstance(busy, float)
+             else "not measured",
+             card_step_s_host_clock=card_s, trace_s_host_clock=trace_s,
+             card=dry["card"])
+        del args
+        torch.cuda.empty_cache()
+    emit("pod_wall", seconds=time.perf_counter() - t_phase)
+    return dict(total)
 
 
 def phase_zoo(torch, dev, parity_layers=2, vlm_layers=8, vlm_patches=1024,
@@ -2756,8 +2947,8 @@ def phase_zoo(torch, dev, parity_layers=2, vlm_layers=8, vlm_patches=1024,
                             device=dev)
     routes, route = [], mlp.route
 
-    def recording(p, x, k):
-        out = route(p, x, k)
+    def recording(p, x, k, *rest):
+        out = route(p, x, k, *rest)
         routes.append((x.is_cuda, out[0].detach().cpu(),
                        out[2].detach().cpu()))
         return out
@@ -2886,7 +3077,8 @@ def phase_zoo(torch, dev, parity_layers=2, vlm_layers=8, vlm_patches=1024,
 
     # (b) OLMoE-1B-7B and MiniCPM-2B at full size through run_lm
     for arch in ("olmoe_1b_7b", "minicpm_2b"):
-        fields, launches = lm_serving(torch, dev, arch, batch, prompt, gen)
+        fields, launches, _ = lm_serving(torch, dev, arch, batch, prompt,
+                                         gen)
         add(launches)
         emit(f"zoo_{arch}", cut="none", **fields)
 
@@ -3148,7 +3340,8 @@ def phase_recurrent(torch, dev, parity_layers=2, parity_prompt=32,
 
     # (b) both at full size through run_lm
     for arch in ("rwkv6_3b", "zamba2_1p2b"):
-        fields, launches = lm_serving(torch, dev, arch, batch, prompt, gen)
+        fields, launches, _ = lm_serving(torch, dev, arch, batch, prompt,
+                                         gen)
         add(launches)
         emit(f"recurrent_{arch}", cut="none", **fields)
 
@@ -3745,7 +3938,10 @@ def main():
     phase_elm_head(torch, dev, rates, m)
     phase_resume(torch, dev, m, sgd)
     phase_lm_parity(torch, dev)
-    lm_launches = phase_lm(torch, dev)
+    lm_launches, lm_first = phase_lm(torch, dev)
+    mesh_lm_launches = phase_lm_mesh(torch, dev, lm_first, lm_launches)
+    del lm_first
+    pod_launches = phase_pod(torch, dev)
     zoo_launches = phase_zoo(torch, dev)
     rec_launches = phase_recurrent(torch, dev)
     train_launches, params36 = phase_train(torch, dev)
@@ -3839,7 +4035,8 @@ def main():
          "source": "src/repro_torch/csrc/rmsnorm.cu",
          "replaces": "src/repro/kernels/rmsnorm/kernel.py:23",
          "launches": lm_launches["rmsnorm"] + zoo_launches["rmsnorm"]
-         + rec_launches["rmsnorm"] + train_launches["rmsnorm"],
+         + rec_launches["rmsnorm"] + train_launches["rmsnorm"]
+         + mesh_lm_launches["rmsnorm"] + pod_launches.get("rmsnorm", 0),
          "max_abs_err": rms_err,
          "ms": sum(c["ms"] for c in rms),
          "plain_ms": sum(c["plain_ms"] for c in rms),
@@ -3852,11 +4049,15 @@ def main():
          "replaces": "src/repro/kernels/swa_attention/kernel.py:28",
          "launches": lm_launches["swa_attention"]
          + zoo_launches["swa_attention"] + rec_launches["swa_attention"]
-         + train_launches["swa_attention"],
+         + train_launches["swa_attention"]
+         + mesh_lm_launches["swa_attention"]
+         + pod_launches.get("swa_attention", 0),
          "max_abs_err": max(per_case[("swa_attention", c)]["max_abs_err"]
                             for c in ("prefill_causal", "window256_s1024",
                                       "prefill_large_scores", "zamba2_shared",
                                       "olmoe_prefill", "train4k_seq",
+                                      "pod_local_heads_s32k",
+                                      "lm_parity_causal_f32",
                                       "encoder_bidirectional",
                                       "encoder_ragged_s1000",
                                       "encoder_f32_small")),
@@ -3899,6 +4100,7 @@ def main():
          "max_abs_err": max(per_case[("swa_attention_bwd", c)]["max_abs_err"]
                             for c in ("prefill_causal", "window256_s1024",
                                       "olmoe_prefill", "train4k_seq",
+                                      "lm_parity_causal_f32",
                                       "encoder_bidirectional",
                                       "encoder_ragged_s1000",
                                       "encoder_f32_small")),

@@ -5,7 +5,8 @@ kernels and an (F, C) β, and its LM tree has (in, out) weights stacked
 with a leading layer dim and a (L, B, T, KV, hd) KV cache — the port keeps
 the same layouts, so converting is a leaf-wise copy, never a transpose.
 CNN trees become f32 (``params_from_numpy``); LM trees keep each leaf's
-dtype (``lm_tree_from_numpy``). This module takes and returns numpy arrays
+dtype (``lm_tree_from_numpy``), whole or cut to one rank's blocks of a
+mesh (``lm_shard_from_numpy``). This module takes and returns numpy arrays
 only (e.g. ``jax.tree.map(np.asarray, tree)`` on the reference's side) and
 never imports JAX.
 """
@@ -41,6 +42,19 @@ def lm_tree_from_numpy(tree, device="cuda"):
     of tensors on ``device``, each leaf in its own dtype (bf16 stays bf16)."""
     dev = resolve_device(device)
     return tree_map(lambda a: _keep_dtype(a, dev), tree)
+
+
+def lm_shard_from_numpy(tree, logical_tree, mesh, coord, rules=None,
+                        device="cuda"):
+    """The block of a whole LM tree (numpy: params, or a cache) that mesh
+    coordinate ``coord`` (axis -> index) holds on ``mesh`` (anything with
+    ``.shape``, a dict of axis sizes) under ``rules``, as
+    ``sharding.resolve_spec`` lays out ``logical_tree`` (``api.logical_axes``
+    or ``api.cache_logical``): the port's tensors on ``device``, each leaf in
+    its own dtype. Only the block is copied."""
+    from repro_torch.distributed import sharding
+    return lm_tree_from_numpy(sharding.shard_tree(
+        tree, logical_tree, mesh, coord, rules), device)
 
 
 def model_from_numpy(cnn_params, beta, device="cuda") -> CNNELMModel:

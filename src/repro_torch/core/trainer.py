@@ -5,7 +5,11 @@
 ``make_member_train_step`` + ``make_average_step`` — the members on a
                              leading member dim, and the Reduce over it
                              (with a process group: one all-reduce).
-``make_prefill_step`` / ``make_serve_step`` — the LM serving steps.
+``make_prefill_step`` / ``make_serve_step`` — the LM serving steps; under
+                             ``distributed.ctx.use_mesh_rules`` they run
+                             this rank's blocks (the context is read when
+                             the step runs, as the reference's dry run
+                             traces them inside the context).
 
 PyTorch runs eagerly, so a step is the plain function the reference would
 jit. The gradient is ``torch.autograd.grad`` at the pre-update params; on

@@ -9,8 +9,9 @@ as they are made. No other module of ``repro_torch`` calls a
 
 Kinds:
 
-* ``all_reduce``    — an in-place sum over a group;
-* ``all_gather``    — every rank's tensor, stacked in group-rank order;
+* ``all_reduce``    — an in-place sum (or max) over a group;
+* ``all_gather``    — every rank's tensor, stacked in group-rank order
+  (with ``dim``: concatenated along one dimension);
 * ``ring_exchange`` — one ``batch_isend_irecv`` of one send to a
   neighbour and one receive from the other (half a gossip mixing round);
 * ``barrier``       — a one-element sum that only orders the ranks (a
@@ -25,12 +26,15 @@ reads off a collective's shape, before its ring multiplier. ``span(label)`` isol
 made inside it and appends ``(label, counts)`` to ``LOG`` when it closes,
 so a run's log reads epoch by epoch and sync by sync; the ``check_*``
 functions hold one span's counts to a contract, over all kinds at once.
+On an LM mesh (``launch.mesh.LMMesh``) a call's label is the mesh axis
+it runs over (``"model"``, ``"data"``, or ``"pod+model"`` for a tuple of
+axes), so a step's traffic reads axis by axis.
 """
 from __future__ import annotations
 
 from collections import Counter
 from contextlib import contextmanager
-from typing import Dict, Iterator, List, NamedTuple, Tuple
+from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -73,22 +77,28 @@ def span(label: str) -> Iterator[Counter]:
         LOG.append((label, counts))
 
 
-def all_reduce(t: torch.Tensor, group=None, label: str = "world"
-               ) -> torch.Tensor:
-    """Sum ``t`` in place over ``group`` (None: the default group)."""
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def all_reduce(t: torch.Tensor, group=None, label: str = "world",
+               op: str = "sum") -> torch.Tensor:
+    """Sum (``op="max"``: the maximum of) ``t`` in place over ``group``
+    (None: the default group)."""
     _count("all_reduce", label, _nbytes(t))
-    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    dist.all_reduce(t, op=_OPS[op], group=group)
     return t
 
 
-def all_gather(t: torch.Tensor, group=None, label: str = "world"
-               ) -> torch.Tensor:
-    """(group size, *t.shape): every rank's ``t`` in group-rank order."""
+def all_gather(t: torch.Tensor, group=None, label: str = "world",
+               dim: Optional[int] = None) -> torch.Tensor:
+    """(group size, *t.shape): every rank's ``t`` in group-rank order;
+    with ``dim``, concatenated along ``dim`` instead (the whole of a
+    dimension sharded over ``group``)."""
     t = t.contiguous()
     out = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     _count("all_gather", label, _nbytes(t) * len(out))
     dist.all_gather(out, t, group=group)
-    return torch.stack(out)
+    return torch.stack(out) if dim is None else torch.cat(out, dim=dim)
 
 
 def ring_exchange(send: torch.Tensor, to_rank: int, from_rank: int,

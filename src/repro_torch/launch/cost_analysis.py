@@ -20,7 +20,10 @@ table.
 The collective multipliers are the reference's ring-algorithm traffic
 factors (all-reduce 2x: a reduce-scatter and an all-gather; the others
 1x), applied to the port's kinds: a ring exchange is a
-collective-permute, a barrier a one-element all-reduce.
+collective-permute, a barrier a one-element all-reduce. On an LM mesh
+each call's group label is its mesh axis (``"model"``, ``"data"``,
+``"pod+model"``), so ``CollectiveStats`` also splits the bytes and calls
+per chip by axis; the reference prices the sum (its per-chip link time).
 """
 from __future__ import annotations
 
@@ -80,11 +83,15 @@ class CollectiveStats:
     per_card_bytes: float = 0.0
     raw_bytes_by_kind: Dict[str, int] = field(default_factory=dict)
     count_by_kind: Dict[str, int] = field(default_factory=dict)
+    per_card_bytes_by_axis: Dict[str, float] = field(default_factory=dict)
+    count_by_axis: Dict[str, int] = field(default_factory=dict)
 
     def as_dict(self):
         return {"per_card_bytes": self.per_card_bytes,
                 "raw_bytes_by_kind": self.raw_bytes_by_kind,
-                "count_by_kind": self.count_by_kind}
+                "count_by_kind": self.count_by_kind,
+                "per_card_bytes_by_axis": self.per_card_bytes_by_axis,
+                "count_by_axis": self.count_by_axis}
 
 
 def collective_stats(calls: Mapping, nbytes: Mapping) -> CollectiveStats:
@@ -95,11 +102,14 @@ def collective_stats(calls: Mapping, nbytes: Mapping) -> CollectiveStats:
     for key, n in calls.items():
         if not n:
             continue
-        hlo = HLO_KIND[key[0]]
+        hlo, axis = HLO_KIND[key[0]], key[1]
         b = nbytes.get(key, 0)
         st.per_card_bytes += _MULT[hlo] * b
         st.raw_bytes_by_kind[hlo] = st.raw_bytes_by_kind.get(hlo, 0) + b
         st.count_by_kind[hlo] = st.count_by_kind.get(hlo, 0) + n
+        st.per_card_bytes_by_axis[axis] = (
+            st.per_card_bytes_by_axis.get(axis, 0.0) + _MULT[hlo] * b)
+        st.count_by_axis[axis] = st.count_by_axis.get(axis, 0) + n
     return st
 
 

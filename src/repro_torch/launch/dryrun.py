@@ -3,7 +3,7 @@ device and report what one card would hold and do — the port's
 counterpart of ``repro.launch.dryrun``.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A]
-        [--shape S] [--mesh single|multi|both] [--out DIR]
+        [--shape S] [--mesh single|multi|both|pod|multipod] [--out DIR]
         [--optimizer adamw|sgd|momentum]
 
 The reference lowers and compiles each step on shape stand-ins and reads
@@ -34,14 +34,27 @@ card: a train step is one member's step on its own batch, then
 ``average_step`` is ``trainer.make_average_step(group=...)`` over a fake
 process group of ``MEMBERS`` ranks, whose collectives are read from
 ``distributed.collectives`` as the code sends them; a prefill or decode
-batch is split over the cards as the reference shards it over
-``('pod', 'data')`` (a batch of one is replicated). The roofline is priced
-at ``cost_analysis.CARD``'s data-sheet rates.
+batch is split evenly over the cards (a batch of one is replicated) —
+a split of the batch only, not the reference's layout.
+
+``pod`` and ``multipod`` are the reference's own meshes and layout: its
+16 × 16 (data, model) ``single`` mesh under ``DEFAULT_RULES``, and its
+2 × 16 × 16 (pod, data, model) ``multi`` mesh under ``MULTIPOD_RULES``.
+The step runs as rank 0 of a fake process group of the mesh's size, under
+``distributed.ctx.use_mesh_rules``, on rank 0's blocks of the parameters,
+inputs and cache (``sharding.resolve_spec``'s layout, so its argument
+bytes are the reference's per-chip bytes); the collectives it sends are
+counted by mesh axis. Serving of the transformer families only: the
+train shapes (sharded training) and RWKV6 and Zamba2 (their sharded
+execution) write a skip note naming the slice that brings them. The
+roofline is priced at ``cost_analysis.CARD``'s data-sheet rates: the
+figures are build-host estimates from the trace, not card readings.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import time
 import traceback
@@ -61,12 +74,28 @@ from repro_torch import kernels, optim
 from repro_torch.configs.base import (ARCH_IDS, INPUT_SHAPES, InputShape,
                                       get_config, replace, supported_shapes)
 from repro_torch.core import trainer
-from repro_torch.distributed import collectives
+from repro_torch.distributed import collectives, ctx, sharding
 from repro_torch.launch import cost_analysis
-from repro_torch.models import api
+from repro_torch.launch.mesh import PRODUCTION_MESHES, make_production_mesh
+from repro_torch.models import api, transformer
 from repro_torch.tree import tree_map
 
 MEMBERS = 2          # multi: one distributed-averaging member a card
+# the reference's rules on two pods (its launch/dryrun.py:50): serving
+# shards the batch over (pod, data) where it divides, and the decode
+# cache's sequence may spill onto the pod axis
+MULTIPOD_RULES = {
+    "batch": (("pod", "data"), "data"),
+    "kv_seq": (("pod", "model"), "model"),
+    "member": ("pod",),
+}
+LM_RULES = {"pod": None, "multipod": MULTIPOD_RULES}
+MESH_TRAIN_NOTE = ("sharded training on the pod meshes (the collectives' "
+                   "backward, the member dim over 'pod') is the next slice "
+                   "of the port (ROADMAP queue 1)")
+MESH_FAMILY_NOTE = ("{family}'s sharded execution on the pod meshes is the "
+                    "slice after sharded training (ROADMAP queue 1); its "
+                    "logical axes resolve already")
 META = torch.device("meta")
 _OPTS = {"adamw": optim.adamw, "sgd": optim.sgd, "momentum": optim.momentum}
 # kernels whose arithmetic is f32 on the CUDA cores whatever x's dtype
@@ -305,6 +334,83 @@ def trace_average(cfg, dtype=torch.bfloat16) -> Traced:
         return trace(trainer.make_average_step(group=group), params)
 
 
+def mesh_skip(cfg, shape):
+    """Why a combo is not traced on the pod meshes (None: it is)."""
+    if cfg.family not in transformer.FAMILIES:
+        return MESH_FAMILY_NOTE.format(family=cfg.family)
+    if shape.kind == "train":
+        return MESH_TRAIN_NOTE
+    return None
+
+
+def _blocks(specs, logical, device=META, generator=None, high=1):
+    """This rank's blocks of a spec tree under the active mesh context:
+    meta tensors, or on a real ``device`` drawn from ``generator``
+    (floating leaves N(0, 0.02²), integer leaves in [0, ``high``))."""
+    frame = ctx.current()
+
+    def block(log, s):
+        shape = sharding.block_shape(s.shape, frame.spec(s.shape, log),
+                                     frame.mesh.shape)
+        if device == META:
+            return torch.empty(shape, dtype=s.dtype, device=META)
+        if s.dtype.is_floating_point:
+            return (0.02 * torch.randn(shape, generator=generator,
+                                       device=device)).to(s.dtype)
+        return torch.randint(0, high, shape, generator=generator,
+                             device=device, dtype=s.dtype)
+
+    return sharding.map_logical(block, logical, specs)
+
+
+def mesh_step_args(cfg, shape, dtype=torch.bfloat16, device=META,
+                   generator=None):
+    """The arguments of ``step_fn``'s serving step on this rank of the
+    active mesh context: its blocks of the params, and of the prefill
+    batch, or of the cache and the token (``pos = S - 1``); the global
+    batch and cache length declared. Meta tensors, or drawn on a real
+    ``device`` from ``generator``, token ids below the vocab size."""
+    def blocks(specs, logical):
+        return _blocks(specs, logical, device, generator, cfg.vocab_size)
+
+    params = blocks(api.param_specs(cfg, dtype), api.logical_axes(cfg))
+    specs, logical = api.input_specs(cfg, shape, with_logical=True)
+    ctx.declare(batch=shape.global_batch)
+    if shape.kind == "prefill":
+        return params, blocks(specs, logical)
+    cache, c_logical = api.cache_specs(cfg, shape, dtype, with_logical=True)
+    ctx.declare(cache_len=cache["k"].shape[2])
+    token = blocks({"token": specs["token"]},
+                   {"token": logical["token"]})["token"]
+    return params, blocks(cache, c_logical), token, shape.seq_len - 1
+
+
+@contextmanager
+def lm_mesh(name: str):
+    """Rank 0 of the reference's ``pod`` or ``multipod`` mesh under a fake
+    process group of its size, with its rules in force; yields the
+    context's frame."""
+    with fake_process_group(math.prod(PRODUCTION_MESHES[name].values())):
+        mesh = make_production_mesh(multi_pod=name == "multipod")
+        with ctx.use_mesh_rules(mesh, LM_RULES[name]) as frame:
+            yield frame
+
+
+def trace_mesh_combo(cfg, shape, mesh: str = "pod") -> dict:
+    """Trace rank 0's serving step of ``cfg`` at ``shape`` on the ``pod``
+    or ``multipod`` mesh and return the report (per-chip figures)."""
+    with lm_mesh(mesh) as frame:
+        traced = trace(step_fn(cfg, shape), *mesh_step_args(cfg, shape))
+        report = report_of(cfg, shape, traced,
+                           cards=math.prod(frame.mesh.shape.values()),
+                           mesh=mesh)
+        report["mesh_shape"] = dict(frame.mesh.shape)
+        report["rules"] = {k: list(v) for k, v in
+                           (frame.rules or {}).items()}
+        report["coord"] = dict(frame.mesh.coord)
+    return report
+
+
 def report_of(cfg, shape, traced: Traced, *, cards: int, mesh: str,
               average: Traced = None) -> dict:
     """The report of one traced step on ``cards`` cards (per-card figures
@@ -388,8 +494,10 @@ def lower_combo(arch: str, shape_name: str, mesh: str,
                 optimizer_name: str = "adamw") -> dict:
     """The report of one (arch, shape, mesh) combo of the sweep."""
     shape = INPUT_SHAPES[shape_name]
-    return trace_combo(shape_cfg(get_config(arch), shape), shape, mesh,
-                       optimizer_name)
+    cfg = shape_cfg(get_config(arch), shape)
+    if mesh in LM_RULES:
+        return trace_mesh_combo(cfg, shape, mesh)
+    return trace_combo(cfg, shape, mesh, optimizer_name)
 
 
 def combos():
@@ -419,15 +527,16 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch")
     ap.add_argument("--shape")
-    ap.add_argument("--mesh", choices=["single", "multi", "both"],
-                    default="both")
+    ap.add_argument("--mesh", choices=["single", "multi", "both", "pod",
+                                       "multipod"], default="both")
     ap.add_argument("--out", default="experiments/dryrun_torch")
     ap.add_argument("--optimizer", choices=sorted(_OPTS), default="adamw")
     args = ap.parse_args(argv)
 
     os.makedirs(args.out, exist_ok=True)
     meshes = {"single": ["single"], "multi": ["multi"],
-              "both": ["single", "multi"]}[args.mesh]
+              "both": ["single", "multi"], "pod": ["pod"],
+              "multipod": ["multipod"]}[args.mesh]
     n_ok = n_skip = n_fail = 0
     t_all = time.perf_counter()
     for arch, shape_name, supported in combos():
@@ -446,6 +555,16 @@ def main(argv=None):
                               f, indent=1)
                 print(f"[skip] {tag} (encoder-only, documented)",
                       flush=True)
+                n_skip += 1
+                continue
+            reason = mesh_skip(get_config(arch), INPUT_SHAPES[shape_name]) \
+                if mesh in LM_RULES else None
+            if reason:
+                with open(path, "w") as f:
+                    json.dump({"arch": arch, "shape": shape_name,
+                               "mesh": mesh, "skipped": True,
+                               "reason": reason}, f, indent=1)
+                print(f"[skip] {tag} ({reason})", flush=True)
                 n_skip += 1
                 continue
             try:

@@ -10,6 +10,13 @@ member mesh says which members each rank holds
   creates the group: the caller initialises it (``process_group``,
   ``run_ranks``, or ``torchrun`` and ``init_process_group``) and the
   mesh covers its ranks.
+* ``make_lm_mesh`` — the LM's named (data, model) mesh, or (pod, data,
+  model), over an initialised group (``LMMesh``: its axis sizes, this
+  rank's coordinate and a sub-group per axis and per tuple of axes):
+  NCCL on the card, gloo on CPU ranks, or the dry run's fake group;
+  ``make_production_mesh`` builds the reference's 16 × 16 and 2 × 16 × 16
+  shapes on it, ``make_host_mesh`` its (n, 1). ``distributed/ctx.py``
+  runs a model on it.
 * ``process_group`` — init and destroy one rank's group: gloo for
   ``device="cpu"``, NCCL for ``"cuda"``, a ``file://`` store, a timeout;
   the ranks leave together unless one raises.
@@ -22,6 +29,8 @@ member mesh says which members each rank holds
 """
 from __future__ import annotations
 
+import itertools
+import math
 import os
 import pickle
 import queue
@@ -31,14 +40,18 @@ import time
 import traceback
 from contextlib import contextmanager
 from datetime import timedelta
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 from repro_torch import resolve_device
+from repro_torch.distributed import sharding
 
 DEFAULT_TIMEOUT_S = 300.0
+# the reference's production meshes (its make_production_mesh)
+PRODUCTION_MESHES = {"pod": {"data": 16, "model": 16},
+                     "multipod": {"pod": 2, "data": 16, "model": 16}}
 _BACKENDS = {"cpu": "gloo", "cuda": "nccl"}
 
 
@@ -89,6 +102,93 @@ def make_member_mesh(num_pods: Optional[int] = None, *,
         raise ValueError(f"make_member_mesh: {n} pods, the group has "
                          f"{world} ranks (one rank per pod)")
     return init_device_mesh(device_type, (n,), mesh_dim_names=("pod",))
+
+
+class LMMesh:
+    """A named mesh of an LM over the ranks of an initialised process
+    group, the counterpart of the reference's ``jax.make_mesh(shape,
+    axes)``: ``shape`` maps axis names to sizes in the mesh's order
+    (``sharding.resolve_spec`` reads it), ranks lie on it row-major, and
+    ``coord`` is this rank's coordinate. ``group(entry)`` is the sub-group
+    of the ranks that differ from this one only along an axis or a tuple
+    of axes (a spec entry), in rank order, which is the order of the
+    entry's blocks; ``label(entry)`` names it for
+    ``distributed.collectives``."""
+
+    def __init__(self, shape: Mapping[str, int], rank: int):
+        self.shape = dict(shape)
+        self.rank = rank
+        self.coord, rest = {}, rank
+        for axis in reversed(self.shape):
+            self.coord[axis] = rest % self.shape[axis]
+            rest //= self.shape[axis]
+        self.coord = {a: self.coord[a] for a in self.shape}
+        self._groups: Dict[Tuple[str, ...], object] = {}
+
+    def group(self, entry):
+        axes = sharding.entry_axes(entry)
+        return self._groups[tuple(a for a in self.shape if a in axes)]
+
+    def label(self, entry) -> str:
+        return "+".join(sharding.entry_axes(entry))
+
+    def size(self, entry) -> int:
+        return sharding.entry_size(entry, self.shape)
+
+    def index(self, entry) -> int:
+        """This rank's block along a dimension sharded by ``entry``."""
+        return sharding.entry_index(entry, self.coord, self.shape)
+
+    def __repr__(self):
+        return f"LMMesh({self.shape}, rank={self.rank}, coord={self.coord})"
+
+
+def make_lm_mesh(shape: Mapping[str, int]) -> LMMesh:
+    """An ``LMMesh`` of ``shape`` (axis name -> size, e.g. ``{"data": 2,
+    "model": 2}``) over every rank of the initialised process group, whose
+    size must be the mesh's. Each rank makes the sub-groups it belongs to
+    (one per non-empty set of axes; the whole group where a set spans
+    every rank), with local synchronisation, so no rank waits on groups
+    it is not in."""
+    if not dist.is_available() or not dist.is_initialized():
+        raise RuntimeError(
+            "make_lm_mesh needs an initialised torch.distributed process "
+            "group (launch.mesh.process_group, run_ranks, "
+            "init_process_group under torchrun, or the dry run's fake "
+            "group)")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    n = math.prod(shape.values())
+    if n != world:
+        raise ValueError(f"make_lm_mesh: a {dict(shape)} mesh needs {n} "
+                         f"ranks, the group has {world}")
+    mesh = LMMesh(shape, rank)
+    strides, stride = {}, 1
+    for a in reversed(list(shape)):
+        strides[a] = stride
+        stride *= shape[a]
+    for r in range(1, len(shape) + 1):
+        for subset in itertools.combinations(shape, r):
+            base = rank - sum(mesh.coord[a] * strides[a] for a in subset)
+            ranks = sorted(base + sum(i * strides[a] for a, i in
+                                      zip(subset, idx))
+                           for idx in itertools.product(
+                               *(range(shape[a]) for a in subset)))
+            mesh._groups[subset] = dist.group.WORLD if len(ranks) == world \
+                else dist.new_group(ranks, use_local_synchronization=True)
+    return mesh
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> LMMesh:
+    """The reference's 16 × 16 (data, model) mesh, or its 2 × 16 × 16
+    (pod, data, model) one, over a group of 256 (512) ranks — on this
+    port, the dry run's fake group (``launch.dryrun``)."""
+    return make_lm_mesh(PRODUCTION_MESHES["multipod" if multi_pod
+                                          else "pod"])
+
+
+def make_host_mesh() -> LMMesh:
+    """An (n, 1) (data, model) mesh over the group's n ranks."""
+    return make_lm_mesh({"data": dist.get_world_size(), "model": 1})
 
 
 def axis_size(mesh, name: str) -> int:

@@ -9,7 +9,17 @@ tokens/s.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_8b \\
       --batch 4 --prompt-len 128 --gen 32          # on the card
 
-Weights are random, drawn from ``--seed`` on the chosen device. As in the
+Weights are random, drawn from ``--seed`` on the chosen device. Under a
+mesh context (``distributed.ctx.use_mesh_rules`` on a
+``launch.mesh.make_lm_mesh`` mesh, one process a rank) ``run_lm`` serves
+this rank's blocks of the model, the prompts and the cache (the
+transformer families). It draws the whole model on each rank first and
+then keeps the rank's blocks, so it serves only a model that fits one
+card: the same model as without a mesh, from the same seed. A model
+larger than a card is served from its blocks alone, drawn per rank
+(``launch.dryrun.mesh_step_args``) or cut from its whole tree on the
+host (``convert.lm_shard_from_numpy``); a launcher that serves it so
+is queued (ROADMAP queue 1). As in the
 reference, the prompt is prefilled once (timed); for the transformer
 decoders it is then replayed token by token into a fresh cache sized for
 prompt + generation, and decoding continues from the replay's last
@@ -48,6 +58,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_reduced_config, replace
 from repro_torch.core import trainer
+from repro_torch.distributed import ctx
 from repro_torch.models import api
 
 
@@ -68,6 +79,10 @@ def run_lm(args) -> dict:
     params = api.init_params(cfg, gen, device=dev)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=gen, device=dev)
+    # under a mesh context, this rank's blocks of the model and the prompts
+    params = ctx.shard_params(params, api.logical_axes(cfg))
+    prompts = ctx.place({"tokens": prompts},
+                        {"tokens": ("batch", "seq")})["tokens"]
 
     prefill_fn = trainer.make_prefill_step(cfg)
     serve_fn = trainer.make_serve_step(cfg)
@@ -111,6 +126,7 @@ def run_lm(args) -> dict:
     assert (out >= 0).all()
     return {"prefill_ms": t_prefill * 1e3, "tokens_per_s": tps,
             "tokens": out, "vocab_size": cfg.vocab_size,
+            "prefill_logits": prefill_logits, "last_logits": logits,
             "prefill_replay_gap": replay_gap,
             "max_abs_logit": float(prefill_logits.abs().max()),
             "logits_finite": bool(torch.isfinite(prefill_logits).all()

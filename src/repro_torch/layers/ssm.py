@@ -57,6 +57,24 @@ def init_mamba2(cfg, generator, dtype=torch.bfloat16,
     }
 
 
+def mamba2_logical(stacked: bool = False):
+    lead = ("layers",) if stacked else ()
+    return {
+        "in_proj": lead + ("embed", "ssm_heads"),
+        "conv_w": lead + (None, "ssm_heads"),
+        "A_log": lead + ("ssm_heads",),
+        "dt_bias": lead + ("ssm_heads",),
+        "D_skip": lead + ("ssm_heads",),
+        "gate_norm": lead + ("ssm_heads",),
+        "out_proj": lead + ("ssm_heads", "embed"),
+    }
+
+
+def mamba2_state_logical():
+    return {"h": ("batch", "ssm_heads", None, None),
+            "conv": ("batch", None, "ssm_heads")}
+
+
 def _split_proj(cfg, proj):
     H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     din = H * P

@@ -7,9 +7,12 @@ the reference's dispatch does not carry either) raises ``ValueError``.
 ``param_specs``, ``input_specs`` and ``cache_specs`` give the shapes and
 dtypes of a model's parameters, a step's inputs and the decode cache
 (``TensorSpec`` leaves) without allocating them: the dry run's contract
-(``launch/dryrun.py``). The reference's specs also carry logical axes for
-GSPMD's sharding; the port shards nothing inside a member, so its specs
-have none.
+(``launch/dryrun.py``). ``logical_axes`` and ``cache_logical`` name every
+dimension of the parameters and the cache with a logical axis, and
+``input_specs`` / ``cache_specs`` give the inputs' and the cache's with
+``with_logical=True``, as the reference's return them:
+``distributed.sharding.resolve_spec`` turns them into a mesh's layout and
+``distributed/ctx.py`` runs a model on it.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.distributed import ctx
 from repro_torch.models import rwkv6, transformer, zamba2
 from repro_torch.tree import tree_map
 
@@ -34,6 +38,14 @@ def module_of(cfg):
 
 def init_params(cfg, generator, dtype=torch.bfloat16, device="cuda"):
     return module_of(cfg).init_params(cfg, generator, dtype, device)
+
+
+def logical_axes(cfg):
+    return module_of(cfg).logical_axes(cfg)
+
+
+def cache_logical(cfg):
+    return module_of(cfg).cache_logical(cfg)
 
 
 def loss_fn(cfg, params, batch):
@@ -98,7 +110,7 @@ def param_specs(cfg, dtype=torch.bfloat16):
         cfg, torch.Generator().manual_seed(0), dtype, device="cpu"))
 
 
-def input_specs(cfg, shape):
+def input_specs(cfg, shape, with_logical: bool = False):
     """The batch of a train or prefill step of ``shape`` (an
     ``InputShape``): ``tokens`` (B, S) int32, or an audio encoder's
     ``frames`` (B, S, 512) bf16, or a VLM's ``tokens`` (B, S - P) behind
@@ -106,29 +118,42 @@ def input_specs(cfg, shape):
     tokens' (frames') (B, S). A decode step's inputs: ``token`` (B, 1)
     int32 and ``pos`` () int32 (the port's decode takes ``pos`` as a
     Python int; the dry run passes S - 1). The reference's shapes and
-    dtypes."""
+    dtypes; with ``with_logical``, (specs, their logical axes)."""
     B, S = shape.global_batch, shape.seq_len
     i32, bf16 = torch.int32, torch.bfloat16
     if shape.kind in ("train", "prefill"):
         if cfg.frontend == "audio":
             specs = {"frames": TensorSpec(
                 (B, S, transformer.AUDIO_FRONTEND_DIM), bf16)}
+            logical = {"frames": ("batch", "seq", "feature")}
         elif cfg.frontend == "vision":
             P = cfg.num_prefix_tokens
             specs = {"tokens": TensorSpec((B, S - P), i32),
                      "patches": TensorSpec(
                          (B, P, transformer.VISION_FRONTEND_DIM), bf16)}
+            logical = {"tokens": ("batch", "seq"),
+                       "patches": ("batch", "seq", "feature")}
         else:
             specs = {"tokens": TensorSpec((B, S), i32)}
+            logical = {"tokens": ("batch", "seq")}
         if shape.kind == "train":
             lead = specs.get("tokens", specs.get("frames")).shape[:2]
             specs["targets"] = TensorSpec(lead, i32)
-        return specs
-    return {"token": TensorSpec((B, 1), i32), "pos": TensorSpec((), i32)}
+            logical["targets"] = ("batch", "seq")
+    else:
+        specs = {"token": TensorSpec((B, 1), i32),
+                 "pos": TensorSpec((), i32)}
+        logical = {"token": ("batch", None), "pos": ()}
+    return (specs, logical) if with_logical else specs
 
 
-def cache_specs(cfg, shape, dtype=torch.bfloat16):
+def cache_specs(cfg, shape, dtype=torch.bfloat16,
+                with_logical: bool = False):
     """The decode cache (or recurrent state) of ``shape``'s batch and
-    length: ``init_cache``'s shapes and dtypes, nothing allocated."""
-    return _specs_of(lambda: init_cache(cfg, shape.global_batch,
-                                        shape.seq_len, dtype, device="cpu"))
+    length: ``init_cache``'s shapes and dtypes, nothing allocated (the
+    whole cache, also under a mesh context); with ``with_logical``,
+    (specs, ``cache_logical``)."""
+    with ctx.suspended():
+        specs = _specs_of(lambda: init_cache(
+            cfg, shape.global_batch, shape.seq_len, dtype, device="cpu"))
+    return (specs, cache_logical(cfg)) if with_logical else specs

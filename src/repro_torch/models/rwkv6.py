@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
+from repro_torch.distributed import ctx
 from repro_torch.layers.init import normal
 from repro_torch.layers.norms import layer_norm
 from repro_torch.models.transformer import _unbound_layers
@@ -105,6 +106,42 @@ def init_params(cfg, generator, dtype=torch.bfloat16, device="cuda"):
         "unembed": normal(generator, (D, V), D ** -0.5, dtype, dev),
         "layers": layers,
     }
+
+
+def logical_axes(cfg):
+    """The logical axes of every leaf of ``init_params(cfg)``, the
+    reference's. Under a mesh context the forward paths refuse: RWKV6's
+    sharded execution is a later slice."""
+    lead = ("layers",)
+    layers = {
+        "mu": lead + (None, "embed"),
+        "w_r": lead + ("embed", "heads"),
+        "w_k": lead + ("embed", "heads"),
+        "w_v": lead + ("embed", "heads"),
+        "w_g": lead + ("embed", "heads"),
+        "w_o": lead + ("heads", "embed"),
+        "decay_base": lead + ("embed",),
+        "decay_A": lead + ("embed", None),
+        "decay_B": lead + (None, "embed"),
+        "bonus_u": lead + ("heads", None),
+        "ln_x": lead + ("embed",),
+        "mu_cm": lead + (None, "embed"),
+        "w_ck": lead + ("embed", "ff"),
+        "w_cv": lead + ("ff", "embed"),
+        "w_cr": lead + ("embed", "heads"),
+        "ln1_s": lead + ("embed",),
+        "ln1_b": lead + ("embed",),
+        "ln2_s": lead + ("embed",),
+        "ln2_b": lead + ("embed",),
+    }
+    return {"embed": ("vocab", "embed"), "ln_out": ("embed",),
+            "unembed": ("embed", "vocab"), "layers": layers}
+
+
+def cache_logical(cfg):
+    return {"S": ("layers", "batch", "heads", None, None),
+            "x_tm": ("layers", "batch", "embed"),
+            "x_cm": ("layers", "batch", "embed")}
 
 
 def _shift(x, prev=None):
@@ -274,12 +311,14 @@ def _layers(cfg, p, x, mode):
 
 def forward(cfg, p, batch, *, mode: str | None = None):
     """Full-sequence forward: (logits f32, aux 0)."""
+    ctx.refuse("RWKV6")
     x = _layers(cfg, p, p["embed"][batch["tokens"]], mode or cfg.rwkv_mode)
     logits = _unembed(p, _final_norm(cfg, p, x))
     return logits, torch.zeros((), device=logits.device)
 
 
 def loss_fn(cfg, p, batch, mode: str | None = None):
+    ctx.refuse("RWKV6")
     logits, _ = forward(cfg, p, batch, mode=mode)
     tgt = batch["targets"].long()
     logz = torch.logsumexp(logits, dim=-1)
@@ -290,6 +329,7 @@ def loss_fn(cfg, p, batch, mode: str | None = None):
 
 def hidden_states(cfg, p, batch, *, mode: str | None = None):
     """The final-norm hidden states (B, S, D) — the ELM head's H."""
+    ctx.refuse("RWKV6")
     x = _layers(cfg, p, p["embed"][batch["tokens"]], mode or cfg.rwkv_mode)
     return _final_norm(cfg, p, x)
 
@@ -300,6 +340,7 @@ def hidden_states(cfg, p, batch, *, mode: str | None = None):
 
 def init_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
                device="cuda"):
+    ctx.refuse("RWKV6")
     del seq_len  # constant-size state
     dev = resolve_device(device)
     L, D, H = cfg.num_layers, cfg.d_model, _heads_padded(cfg)
@@ -311,6 +352,7 @@ def init_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
 
 def prefill(cfg, p, batch, *, mode: str | None = None):
     """Encode a prompt; returns (last-position logits, per-layer state)."""
+    ctx.refuse("RWKV6")
     mode = mode or cfg.rwkv_mode
     x = p["embed"][batch["tokens"]]
     B = x.shape[0]
@@ -336,6 +378,7 @@ def decode_step(cfg, p, cache, token, pos):
     """One token through the exact recurrence. Returns (logits, cache); the
     cache's tensors are updated in place (the reference donates its cache
     to the step, so nothing reads the old one) and returned."""
+    ctx.refuse("RWKV6")
     del pos  # the recurrent state carries position implicitly
     x = p["embed"][token]  # (B, 1, D)
     for i, lp in enumerate(_unbound_layers(p["layers"], cfg.num_layers)):

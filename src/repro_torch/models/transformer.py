@@ -19,6 +19,18 @@ Stub frontends, as in the reference: audio frame embeddings
 (``batch["frames"]``) and vision patch embeddings (``batch["patches"]``)
 arrive precomputed, and a learned projection maps them into d_model.
 
+Under a mesh context (``distributed/ctx.py``, the reference's
+``use_mesh_rules``) every rank runs the same code on its blocks of the
+parameters (``logical_axes``), the batch and the cache
+(``cache_logical``): the vocab-sharded embedding is a masked lookup whose
+partial sums are all-reduced over ``model``, the unembedding gives this
+rank's vocab columns (prefill's and the forward's logits stay sharded as
+``("batch", None, "vocab")``; decode's are all-gathered, as the reference
+returns them replicated), and the layers shard as ``layers/attention.py``
+and ``layers/mlp.py`` say. Serving sends nothing over ``data``. Training
+under a mesh (its collectives' backward) is the next slice:
+``loss_fn`` refuses a context.
+
 The reference wraps each layer of the forward in ``jax.checkpoint``, a
 memory policy of its autodiff (recompute a layer's activations in the
 backward rather than keep them). PyTorch's autograd keeps them: at the
@@ -32,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
+from repro_torch.distributed import ctx
 from repro_torch.layers import attention as attn
 from repro_torch.layers import mlp as mlp_lib
 from repro_torch.layers.init import normal
@@ -89,11 +102,38 @@ def init_params(cfg, generator, dtype=torch.bfloat16, device="cuda"):
     return p
 
 
-def _mask_padded_logits(cfg, logits):
-    """-1e30 on padded vocab slots."""
+def logical_axes(cfg):
+    """The logical axes of every leaf of ``init_params(cfg)``."""
+    layers = {
+        "attn": attn.attention_logical(cfg, stacked=True),
+        "ln1": ("layers", "embed"),
+        "ln2": ("layers", "embed"),
+    }
+    if cfg.family == "moe":
+        layers["moe"] = mlp_lib.moe_logical(stacked=True)
+    else:
+        layers["mlp"] = mlp_lib.swiglu_logical(stacked=True)
+    p = {
+        "embed": ("vocab", "embed"),
+        "final_norm": ("embed",),
+        "layers": layers,
+    }
+    if not cfg.tie_embeddings:
+        p["unembed"] = ("embed", "vocab")
+    if cfg.frontend == "audio":
+        p["frontend_proj"] = ("feature", "embed")
+    if cfg.frontend == "vision":
+        p["projector"] = {"w1": ("feature", "embed"), "w2": ("embed", "embed")}
+    return p
+
+
+def _mask_padded_logits(cfg, logits, offset: int = 0):
+    """-1e30 on padded vocab slots (``offset``: the first column's vocab
+    id)."""
     if cfg.padded_vocab == cfg.vocab_size:
         return logits
-    idx = torch.arange(logits.shape[-1], device=logits.device)
+    idx = torch.arange(offset, offset + logits.shape[-1],
+                       device=logits.device)
     return torch.where(idx < cfg.vocab_size, logits,
                        torch.full_like(logits, NEG_INF))
 
@@ -112,9 +152,45 @@ def _unbound_layers(layers, num_layers: int):
     return out
 
 
+def _vocab_entry(cfg):
+    """The entry of the vocab dim of the (un)embedding under the active
+    context."""
+    V, D = cfg.padded_vocab, cfg.d_model
+    if cfg.tie_embeddings:
+        return ctx.spec((V, D), ("vocab", "embed"))[0]
+    return ctx.spec((D, V), ("embed", "vocab"))[1]
+
+
+def _embed_tokens(cfg, p, tokens):
+    """The embedding rows of ``tokens``. Under a mesh context with the
+    vocab sharded: this rank's rows where the token is its own, zero
+    elsewhere, all-reduced over the vocab's axis (one term is nonzero, so
+    the sum is exact)."""
+    ve = ctx.spec((cfg.padded_vocab, cfg.d_model), ("vocab", "embed"))[0]
+    if ctx.size(ve) == 1:
+        return p["embed"][tokens]
+    Vl = p["embed"].shape[0]
+    idx = tokens.long() - ctx.index(ve) * Vl
+    here = (idx >= 0) & (idx < Vl)
+    x = p["embed"][idx.clamp(0, Vl - 1)]
+    x = torch.where(here[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                    device=x.device))
+    return ctx.reduce_partial(x, ve)
+
+
 def _unembed(cfg, p, x):
     unembed = p["embed"].T if cfg.tie_embeddings else p["unembed"]
-    return _mask_padded_logits(cfg, (x @ unembed).float())
+    ve = _vocab_entry(cfg)
+    off = ctx.index(ve) * unembed.shape[1]
+    logits = _mask_padded_logits(cfg, (x @ unembed).float(), off)
+    return ctx.maybe_constrain(logits, ("batch", None, "vocab"),
+                               have=(ctx.batch_entry(), None, ve))
+
+
+def _gathered_logits(cfg, logits):
+    """Decode's logits whole over the vocab (replicated over ``model``)."""
+    return ctx.relayout(logits, (None, None, _vocab_entry(cfg)),
+                        (None, None, None))
 
 
 # ---------------------------------------------------------------------------
@@ -125,8 +201,11 @@ def _ffn(cfg, lp, x):
     """The block's feed-forward: (y, aux); aux is None but for the MoE."""
     if cfg.family == "moe":
         return mlp_lib.moe_apply(lp["moe"], x, cfg.experts_per_token,
-                                 capacity_factor=cfg.moe_capacity_factor)
-    return mlp_lib.swiglu(lp["mlp"], x), None
+                                 capacity_factor=cfg.moe_capacity_factor,
+                                 combine_sharding=cfg.moe_combine_sharding,
+                                 num_experts=cfg.num_experts,
+                                 d_ff=cfg.moe_d_ff or cfg.d_ff)
+    return mlp_lib.swiglu(lp["mlp"], x, d_ff=cfg.d_ff), None
 
 
 def _block(cfg, lp, x, positions, window, bidirectional=False):
@@ -154,7 +233,7 @@ def _embed_inputs(cfg, p, batch):
         x = batch["frames"].to(proj.dtype) @ proj
         B, S = x.shape[:2]
         return x, torch.arange(S, device=x.device).expand(B, S), 0
-    tok = p["embed"][batch["tokens"]]
+    tok = _embed_tokens(cfg, p, batch["tokens"])
     if cfg.frontend == "vision":
         w1, w2 = p["projector"]["w1"], p["projector"]["w2"]
         patches = batch["patches"].to(w1.dtype)
@@ -173,6 +252,8 @@ def _encode(cfg, p, batch, window):
     per-layer aux losses of the MoE, else [])."""
     window = cfg.sliding_window if window is None else window
     x, positions, offset = _embed_inputs(cfg, p, batch)
+    x = ctx.maybe_constrain(x, ("batch", None, None),
+                            have=(ctx.batch_entry(), None, None))
     auxes = []
     for lp in _unbound_layers(p["layers"], cfg.num_layers):
         x, _, aux = _block(cfg, lp, x, positions, window,
@@ -203,7 +284,13 @@ def loss_fn(cfg, p, batch):
     ``loss_fn`` (transformer.py:215) — the mean over tokens of
     logsumexp(logits) minus the gold logit, padded vocab slots masked to
     -1e30 in the logits; the MoE adds ``router_aux_coef`` times the aux
-    loss."""
+    loss. Not under a mesh context: sharded training (the collectives'
+    backward) is the next slice of the port."""
+    if ctx.current() is not None:
+        raise NotImplementedError(
+            "training under a mesh context (the collectives' backward) "
+            "comes with the sharded-training slice; serve (prefill, "
+            "decode_step) or run forward under the mesh")
     logits, aux = forward(cfg, p, batch)
     tgt = batch["targets"].long()
     logz = torch.logsumexp(logits, dim=-1)
@@ -217,8 +304,14 @@ def loss_fn(cfg, p, batch):
 # serving
 # ---------------------------------------------------------------------------
 
+def cache_logical(cfg):
+    return attn.kv_cache_logical(cfg)
+
+
 def init_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
                device="cuda"):
+    """The zero KV cache of a global ``batch`` and ``seq_len``; under a
+    mesh context this rank's block of it (and the sizes declared)."""
     return attn.init_kv_cache(cfg, batch, seq_len, cfg.num_layers, dtype,
                               resolve_device(device))
 
@@ -227,33 +320,48 @@ def prefill(cfg, p, batch, max_len: int | None = None):
     """Encode a prompt, returning last-position logits + the KV cache.
     ``max_len`` pads the cache so decoding can continue past the prompt.
     Every family runs the causal attention here, the encoder too, as the
-    reference's ``prefill`` does."""
+    reference's ``prefill`` does. Each layer's k and v, in the layout the
+    attention's constraint gave them, are cut to the window or padded to
+    ``max_len`` and moved to the cache's layout: under a mesh context
+    gathered over the heads, then this rank's positions kept, so the
+    logits are this rank's vocab columns and the cache its blocks."""
     x, positions, _ = _embed_inputs(cfg, p, batch)
-    window = cfg.sliding_window
+    B, S = x.shape[:2]
+    W = cfg.sliding_window
+    T = W if W and S > W else S
+    if max_len is not None and not W:
+        T = max(T, max_len)
+    ctx.declare(cache_len=T)
+    Bg, be = ctx.global_size("batch", B), ctx.batch_entry()
+    kv_have = (be, None, ctx.spec((Bg, S, cfg.num_kv_heads, cfg.head_dim),
+                                  ("batch", None, "kv_heads", None))[2],
+               None)
+    kv_want = attn.cache_entries(cfg, T, B) + (None,)
+
+    def place(t):
+        if T < S:
+            t = t[:, -T:]
+        elif T > S:
+            t = F.pad(t, (0, 0, 0, 0, 0, T - S))
+        return ctx.compact(ctx.relayout(t, kv_have, kv_want))
+
     ks, vs = [], []
     for lp in _unbound_layers(p["layers"], cfg.num_layers):
-        x, (k, v), _ = _block(cfg, lp, x, positions, window)
-        ks.append(k)
-        vs.append(v)
+        x, (k, v), _ = _block(cfg, lp, x, positions, W)
+        ks.append(place(k))
+        vs.append(place(v))
     ks, vs = torch.stack(ks), torch.stack(vs)
     x = rms_norm(x[:, -1:], p["final_norm"], cfg.norm_eps)
-    logits = _unembed(cfg, p, x)
-    if cfg.sliding_window and ks.shape[2] > cfg.sliding_window:
-        ks = ks[:, :, -cfg.sliding_window:].contiguous()
-        vs = vs[:, :, -cfg.sliding_window:].contiguous()
-    if max_len is not None and not cfg.sliding_window:
-        pad = max_len - ks.shape[2]
-        if pad > 0:  # decode headroom beyond the prompt
-            ks = torch.nn.functional.pad(ks, (0, 0, 0, 0, 0, pad))
-            vs = torch.nn.functional.pad(vs, (0, 0, 0, 0, 0, pad))
-    return logits, {"k": ks, "v": vs}
+    return _unembed(cfg, p, x), {"k": ks, "v": vs}
 
 
 def decode_step(cfg, p, cache, token, pos: int):
     """One new token against the KV cache. token: (B, 1) integers; pos: the
     tokens so far. Returns (logits, cache); the cache is updated in place
-    (see ``attention.attn_decode``)."""
-    x = p["embed"][token]
+    (see ``attention.attn_decode``). Under a mesh context the cache and
+    the token are this rank's blocks and the logits come out whole over
+    the vocab."""
+    x = _embed_tokens(cfg, p, token)
     for i, lp in enumerate(_unbound_layers(p["layers"], cfg.num_layers)):
         h, _ = attn.attn_decode(cfg, lp["attn"],
                                 rms_norm(x, lp["ln1"], cfg.norm_eps),
@@ -262,4 +370,4 @@ def decode_step(cfg, p, cache, token, pos: int):
         h, _ = _ffn(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps))
         x = x + h
     x = rms_norm(x, p["final_norm"], cfg.norm_eps)
-    return _unembed(cfg, p, x), cache
+    return _gathered_logits(cfg, _unembed(cfg, p, x)), cache

@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.distributed import ctx
 from repro_torch.layers import attention as attn
 from repro_torch.layers import mlp as mlp_lib
 from repro_torch.layers import ssm
@@ -74,6 +75,34 @@ def init_params(cfg, generator, dtype=torch.bfloat16, device="cuda"):
     }
 
 
+def logical_axes(cfg):
+    """The logical axes of every leaf of ``init_params(cfg)``, the
+    reference's. Under a mesh context the forward paths refuse: Zamba2's
+    sharded execution is a later slice."""
+    return {
+        "embed": ("vocab", "embed"),
+        "unembed": ("embed", "vocab"),
+        "final_norm": ("embed",),
+        "mamba": {
+            "mix": ssm.mamba2_logical(stacked=True),
+            "ln": ("layers", "embed"),
+        },
+        "shared": {
+            "attn": attn.attention_logical(cfg, stacked=False),
+            "ln1": ("embed",),
+            "mlp": mlp_lib.swiglu_logical(stacked=False),
+            "ln2": ("embed",),
+        },
+    }
+
+
+def cache_logical(cfg):
+    return {"h": ("layers", "batch", "ssm_heads", None, None),
+            "conv": ("layers", "batch", None, "ssm_heads"),
+            "k": (None, "batch", "kv_seq", "kv_heads", "head_dim"),
+            "v": (None, "batch", "kv_seq", "kv_heads", "head_dim")}
+
+
 def _stages(cfg, p):
     """(start, size, the stage's per-layer trees) for each stage."""
     layers = _unbound_layers(p["mamba"], cfg.num_layers)
@@ -119,6 +148,7 @@ def _unembed(p, x):
 
 def forward(cfg, p, batch):
     """Full-sequence forward: (logits f32, aux 0)."""
+    ctx.refuse("Zamba2")
     x = rms_norm(_encode(cfg, p, batch), p["final_norm"], cfg.norm_eps)
     logits = _unembed(p, x)
     return logits, torch.zeros((), device=logits.device)
@@ -126,10 +156,12 @@ def forward(cfg, p, batch):
 
 def hidden_states(cfg, p, batch):
     """The final-norm hidden states (B, S, D) — the ELM head's H."""
+    ctx.refuse("Zamba2")
     return rms_norm(_encode(cfg, p, batch), p["final_norm"], cfg.norm_eps)
 
 
 def loss_fn(cfg, p, batch):
+    ctx.refuse("Zamba2")
     logits, _ = forward(cfg, p, batch)
     tgt = batch["targets"].long()
     logz = torch.logsumexp(logits, dim=-1)
@@ -142,6 +174,7 @@ def prefill(cfg, p, batch):
     """Encode a prompt; returns (last-position logits, decode cache). Each
     invocation's KV slot holds the last W = min(S, sliding_window)
     positions (the reference's sizing: R7)."""
+    ctx.refuse("Zamba2")
     x = p["embed"][batch["tokens"]]
     B, S = x.shape[:2]
     positions = _positions(x)
@@ -176,6 +209,7 @@ def prefill(cfg, p, batch):
 
 def init_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
                device="cuda"):
+    ctx.refuse("Zamba2")
     dev = resolve_device(device)
     L = cfg.num_layers
     H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
@@ -197,6 +231,7 @@ def decode_step(cfg, p, cache, token, pos):
     """One new token. Returns (logits, cache); the cache's tensors are
     updated in place (the reference donates its cache to the step, so
     nothing reads the old one) and returned."""
+    ctx.refuse("Zamba2")
     x = p["embed"][token]  # (B, 1, D)
     inv = 0
     for start, size, stage in _stages(cfg, p):
