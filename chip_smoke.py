@@ -38,7 +38,10 @@ is non-zero and no result line is printed:
              library = the backward of ``F.rms_norm`` and of SDPA. The
              causal swa_attention forward at the prefill, S 1024 W 256, q
              scaled by 8, Zamba2's shared block, OLMoE-1B-7B's prefill and
-             the 4,096-token sequence, each bitwise the same run to run. Also
+             the 4,096-token sequence, each bitwise the same run to run;
+             the causal f32 route (the parity path's), forward and
+             backward, at phase lm_parity's B 2, S 16 and phase elm_head's
+             B 4, S 128 (H 32/8, hd 128), under the same bars. Also
              swa_attention's non-causal mode (the encoder's) at
              HuBERT-XLarge's B 4, S 1024, H 16, hd 80 in bf16, a ragged S
              1000 and a small f32 case (library: SDPA with
@@ -698,7 +701,8 @@ def phase_kernels(torch, dev, rates):
     # sequence of Qwen3-8B (the reference's train_4k shape, window = S),
     # rank 0's local heads of Qwen3-8B's prefill_32k on the 16 × 16 mesh
     # (B 2 of 32, 2 q heads and their one KV head) and the causal f32
-    # route of phase lm_parity's 2-layer f32 path (B 2, S 16)
+    # route of phase lm_parity's 2-layer f32 path (B 2, S 16) and of phase
+    # elm_head's (B 4, S 128)
     bf16 = torch.bfloat16
     swa_cases = [("prefill_causal", 4, 128, 32, 8, 128, 128, 1.0, bf16),
                  ("window256_s1024", 1, 1024, 32, 8, 128, 256, 1.0, bf16),
@@ -710,7 +714,9 @@ def phase_kernels(torch, dev, rates):
                  ("pod_local_heads_s32k", 2, 32768, 2, 1, 128, 32768, 1.0,
                   bf16),
                  ("lm_parity_causal_f32", 2, 16, 32, 8, 128, 16, 1.0,
-                  torch.float32)]
+                  torch.float32),
+                 ("elm_head_parity_causal_f32", 4, 128, 32, 8, 128, 128,
+                  1.0, torch.float32)]
     for tag, B, S, H, KV, hd, W, q_scale, dt in swa_cases:
         q = (randn(B, S, H, hd) * q_scale).to(dt)
         k = randn(B, S, KV, hd).to(dt)
@@ -908,8 +914,11 @@ def phase_kernels(torch, dev, rates):
         ("encoder_ragged_s1000", 4, 1000, 16, 16, 80, 1000, False,
          torch.bfloat16),
         ("encoder_f32_small", 2, 200, 4, 2, 80, 200, False, torch.float32),
-        # the causal f32 route at phase lm_parity's shape
+        # the causal f32 route at phase lm_parity's and phase elm_head's
+        # shapes
         ("lm_parity_causal_f32", 2, 16, 32, 8, 128, 16, True,
+         torch.float32),
+        ("elm_head_parity_causal_f32", 4, 128, 32, 8, 128, 128, True,
          torch.float32)]
     for tag, B, S, H, KV, hd, W, causal, dt in swa_bwd_cases:
         q = randn(B, S, H, hd).to(dt)
@@ -4058,6 +4067,7 @@ def main():
                                       "olmoe_prefill", "train4k_seq",
                                       "pod_local_heads_s32k",
                                       "lm_parity_causal_f32",
+                                      "elm_head_parity_causal_f32",
                                       "encoder_bidirectional",
                                       "encoder_ragged_s1000",
                                       "encoder_f32_small")),
@@ -4101,6 +4111,7 @@ def main():
                             for c in ("prefill_causal", "window256_s1024",
                                       "olmoe_prefill", "train4k_seq",
                                       "lm_parity_causal_f32",
+                                      "elm_head_parity_causal_f32",
                                       "encoder_bidirectional",
                                       "encoder_ragged_s1000",
                                       "encoder_f32_small")),

@@ -1,10 +1,12 @@
-// Building blocks of the attention kernels written for the H100's tensor
-// cores and copy engine (swa_full_fwd.cu, swa_full_bwd.cu), which serve
-// both modes: non-causal (the encoder's) and the causal
-// sliding window (the decoders', every bf16 call): warpgroup products (wgmma), tiles copied by the Tensor
-// Memory Accelerator (TMA) into a ring of shared-memory stages, mbarriers
-// between the loading threads and the two warpgroups whose products read
-// the stages.
+// Building blocks of the attention kernels (swa_full_fwd.cu,
+// swa_full_bwd.cu), which serve both modes: non-causal (the encoder's)
+// and the causal sliding window (the decoders'). bf16, on the H100's
+// tensor cores and copy engine: warpgroup products (wgmma), tiles copied
+// by the Tensor Memory Accelerator (TMA) into a ring of shared-memory
+// stages, mbarriers between the loading threads and the two warpgroups
+// whose products read the stages. f32, on the CUDA cores: GQA-packed
+// register tiles fed by cp.async (the f32 section at the end; the
+// non-causal forward is a warp a row, in swa_full_fwd.cu).
 //
 // Tiles in shared memory. A tile of R rows (R a multiple of 64) of a bf16
 // operand with hd columns, zero-padded to HDP (a multiple of 16), is kept
@@ -562,7 +564,7 @@ inline bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-// ---- the online softmax and the hi + lo split (as in swa_attention.cu)
+// ---- the online softmax and the hi + lo split
 // 2^x by the hardware's approximation, ex2.approx.ftz (2 ulps, as exp2f
 // in the normal range; a result below 2^-126 flushes to 0): the
 // backward's P. exp2f's handling of denormal results cost 22 % of the
@@ -625,77 +627,213 @@ __device__ __forceinline__ void store_pair(bf16* out, int c, int hd, float x0,
   }
 }
 
-// ---- f32: CUDA cores, a warp a row (the f32 card-vs-CPU parity route)
+// ---- f32: CUDA cores, GQA-packed register tiles (the f32 card-vs-CPU
+// parity route: the tensor cores take f32 only as TF32, which the port
+// keeps off). The kernels are swa_full_fwd.cu's f32_fwd_kernel (the causal
+// mode; the non-causal forward is that file's warp-a-row kernel, faster
+// there: PERF.md) and swa_full_bwd.cu's f32_bwd_kernel (both modes).
+//
+// Packed rows. For one (batch, kv head) the query-side operands (q, o,
+// dO, dq; lse and D) are seen as S G rows: row p is query p / G of head
+// kvh G + p % G, query-major, so the G heads that share a kv head share
+// every staged k and v tile, and a tile of R rows holds R / G queries of
+// every head of the group (at S 16, G 4 a 64-row tile is the whole
+// sequence, every row real). The mask of row p is its query's. The
+// kv-side operands (k, v, dk, dv) are the same with G = 1.
+//
+// Tiles are staged row-major in shared memory by cp.async (16 bytes where
+// hd % 4 == 0 and the operands are 16-byte aligned, else 4), rows of
+// f32_pitch(hd) floats, and read back as float4 along the head dim: a
+// thread's register tile of scores (rows x keys: 1, 2 or 4 x 4 in the
+// forward; 4 x 4 over half the head dim, a lane pair's, in the backward)
+// takes one float4 of each of its rows and keys a 4-column step. Every
+// output is one fmaf chain in a fixed order: the results are the same
+// bits run to run.
 
-constexpr int kF32Warps = 8;    // rows a block
-constexpr int kF32Tile = 32;    // keys (dQ) or queries (dK/dV) a tile
-constexpr int kF32Cols = 4;     // output columns a lane: hd <= 128
+constexpr int kF32Threads = 128;   // a block: 4 warps
+constexpr int kF32Chunks = 32;     // 16-byte chunks of a row at hd 128
 
-// the staged tiles' row pitch: odd, so 32 lanes reading 32 rows at one
-// column hit 32 banks
-__host__ __device__ inline int f32_pitch(int hd) { return hd | 1; }
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+// the staged tiles' row pitch in floats: hd rounded up to 4 (16-byte
+// rows) plus 4, plus 4 more where that gives an even count of 16-byte
+// units, so 8 consecutive rows start in 8 distinct 16-byte bank groups
+// (a quarter warp's float4 reads of 8 rows at one column meet no
+// conflict)
+__host__ __device__ inline int f32_pitch(int hd) {
+  const int p = (hd + 3) / 4 * 4 + 4;
+  return (p / 4) % 2 ? p : p + 4;
 }
 
-// rows row0 .. row0 + 31 of a (S, stride) f32 operand in registers, on
-// their way to a tile in shared memory: warp w holds rows w + kF32Warps i,
-// a lane columns lane + 32 u. Every load of a tile is issued before the
-// first is used, and a walk loads its next tile before it computes on
-// this one: one memory latency a tile, hidden under the tile before
+// rows of a (B, S, NH, hd) f32 operand for one (batch, kv head): row p is
+// position p / G, head head0 + p % G; `n` rows (S G)
 struct F32Rows {
-  float x[kF32Tile / kF32Warps][kF32Cols];
+  long long base;  // element offset of position 0, head head0
+  long long pos;   // elements from a position to the next: NH hd
+  int G, hd, n;
+  __device__ __forceinline__ long long off(int p) const {
+    return base + static_cast<long long>(p / G) * pos +
+           static_cast<long long>(p % G) * hd;
+  }
 };
 
-// rows >= S are zeros
-__device__ __forceinline__ void f32_load(F32Rows& t, const float* src,
-                                         long long stride, int row0, int S,
-                                         int hd) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-#pragma unroll
-  for (int i = 0; i < kF32Tile / kF32Warps; ++i) {
-    const int gr = row0 + warp + kF32Warps * i;
-#pragma unroll
-    for (int u = 0; u < kF32Cols; ++u) {
-      const int c = lane + 32 * u;
-      t.x[i][u] = gr < S && c < hd ? src[gr * stride + c] : 0.0f;
+__device__ __forceinline__ F32Rows f32_rows(int b, int S, int NH, int hd,
+                                            int head0, int G) {
+  F32Rows r;
+  r.base = (static_cast<long long>(b) * S * NH + head0) * hd;
+  r.pos = static_cast<long long>(NH) * hd;
+  r.G = G;
+  r.hd = hd;
+  r.n = S * G;
+  return r;
+}
+
+// 16 bytes global -> shared address dst by cp.async (.cg: through L2
+// only); where in is false nothing is read and 16 zero bytes are written
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// a walk over rows p, p + step, ... of F32Rows: position q = p / G and
+// head g = p % G advanced without a division (dq, dg: step / G, step % G)
+struct F32Cursor {
+  int q, g, dq, dg;
+  __device__ __forceinline__ void init(int p, int step, int G) {
+    q = p / G;
+    g = p - q * G;
+    dq = step / G;
+    dg = step - dq * G;
+  }
+  __device__ __forceinline__ void next(int G) {
+    q += dq;
+    g += dg;
+    if (g >= G) {
+      g -= G;
+      ++q;
     }
+  }
+  __device__ __forceinline__ long long off(const F32Rows& r) const {
+    return r.base + static_cast<long long>(q) * r.pos +
+           static_cast<long long>(g) * r.hd;
+  }
+};
+
+// rows p0 .. p0 + NR - 1 of `rows` of operand x -> a tile of NR rows of
+// `pitch` floats at shared address dst, by cp.async from the block's NT
+// threads: warp w copies rows w, w + NT / 32, ..., lane l 16-byte chunk l
+// of each (vec: hd % 4 == 0 and 16-byte aligned rows) or its columns l,
+// l + 32, ... (4 bytes); rows >= rows.n and columns >= hd (up to hd
+// rounded to 4) as zeros. The caller commits and waits.
+template <int NR, int NT>
+__device__ __forceinline__ void f32_stage(uint32_t dst, const float* x,
+                                          const F32Rows& rows, int p0,
+                                          int pitch, bool vec) {
+  constexpr int NW = NT / 32;
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int hd = rows.hd, w4 = (hd + 3) / 4 * 4;
+  F32Cursor c;
+  c.init(p0 + w, NW, rows.G);
+#pragma unroll 4
+  for (int r = w; r < NR; r += NW) {
+    const bool in = p0 + r < rows.n;
+    const long long off = in ? c.off(rows) : 0;
+    const uint32_t d = dst + 4 * r * pitch;
+    if (vec) {
+      if (4 * lane < hd) cp_async16(d + 16 * lane, x + off + 4 * lane, in);
+    } else {
+      for (int e = lane; e < w4; e += 32)
+        cp_async4(d + 4 * e, x + (in && e < hd ? off + e : 0), in && e < hd);
+    }
+    c.next(rows.G);
   }
 }
 
-// -> a tile of pitch f32_pitch(hd)
-__device__ __forceinline__ void f32_store(float* dst, const F32Rows& t,
-                                          int hd) {
-  const int pitch = f32_pitch(hd);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-#pragma unroll
-  for (int i = 0; i < kF32Tile / kF32Warps; ++i) {
-    const int r = warp + kF32Warps * i;
-#pragma unroll
-    for (int u = 0; u < kF32Cols; ++u) {
-      const int c = lane + 32 * u;
-      if (c < hd) dst[r * pitch + c] = t.x[i][u];
-    }
-  }
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+// s += a . b over the 4 columns, in column order
+__device__ __forceinline__ float dot4(float4 a, float4 b, float s) {
+  s = fmaf(a.x, b.x, s);
+  s = fmaf(a.y, b.y, s);
+  s = fmaf(a.z, b.z, s);
+  return fmaf(a.w, b.w, s);
+}
+// acc += w b
+__device__ __forceinline__ void axpy4(float w, float4 b, float4& acc) {
+  acc.x = fmaf(w, b.x, acc.x);
+  acc.y = fmaf(w, b.y, acc.y);
+  acc.z = fmaf(w, b.z, acc.z);
+  acc.w = fmaf(w, b.w, acc.w);
+}
+__device__ __forceinline__ float4 scale4(float4 a, float w) {
+  return make_float4(a.x * w, a.y * w, a.z * w, a.w * w);
 }
 
-// a . b over hd (a row of the warp's own, b a staged row): four fmaf
-// chains over d mod 4, added in a fixed order
-__device__ __forceinline__ float f32_dot(const float* a, const float* b,
-                                         int hd) {
-  float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
-  int d = 0;
-  for (; d + 3 < hd; d += 4) {
-    s0 = fmaf(a[d], b[d], s0);
-    s1 = fmaf(a[d + 1], b[d + 1], s1);
-    s2 = fmaf(a[d + 2], b[d + 2], s2);
-    s3 = fmaf(a[d + 3], b[d + 3], s3);
+// chunk ch (columns 4 ch .. 4 ch + 3) of an output row at x: one 16-byte
+// store (vec), else the columns < hd one by one
+__device__ __forceinline__ void f32_put(float* x, int ch, int hd, float4 a,
+                                        bool vec) {
+  if (vec) {
+    *reinterpret_cast<float4*>(x + 4 * ch) = a;
+    return;
   }
-  for (; d < hd; ++d) s0 = fmaf(a[d], b[d], s0);
-  return (s0 + s1) + (s2 + s3);
+  const float e[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (4 * ch + i < hd) x[4 * ch + i] = e[i];
+}
+
+// the mask of query qi and key kj (qi < S): causal, keys kj <= qi with
+// qi - kj < window; else every key kj < S
+__device__ __forceinline__ bool f32_sees(int qi, int kj, int S, int window,
+                                         bool causal) {
+  return causal ? kj <= qi && qi - kj < window : kj < S;
+}
+
+// a kernel's cudaFuncAttributeMaxDynamicSharedMemorySize, set on a device
+// once a process (`done`: a bit a device, 32 devices; a device past them
+// sets it every call) to the largest footprint any call of the kernel asks
+// for, on the current device `dev`
+template <typename Kernel>
+cudaError_t smem_attr_once(Kernel kernel, int bytes, unsigned& done,
+                           int dev) {
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (bit & __atomic_load_n(&done, __ATOMIC_ACQUIRE)) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) __atomic_fetch_or(&done, bit, __ATOMIC_RELEASE);
+  return err;
+}
+
+template <typename Kernel>
+cudaError_t smem_attr_once(Kernel kernel, int bytes, unsigned& done) {
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  return err != cudaSuccess ? err : smem_attr_once(kernel, bytes, done, dev);
+}
+
+// device `dev`'s SM count into `sms`, asked of the runtime once a process
+// (32 devices; a device past them asks every call)
+inline cudaError_t sm_count(int dev, int& sms) {
+  static int known[32] = {};
+  if (dev < 32) {
+    sms = __atomic_load_n(&known[dev], __ATOMIC_ACQUIRE);
+    if (sms > 0) return cudaSuccess;
+  }
+  const cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && dev < 32)
+    __atomic_store_n(&known[dev], sms, __ATOMIC_RELEASE);
+  return err;
 }
 
 }  // namespace swa_full

@@ -1,8 +1,9 @@
 // Backward of flash attention with GQA, in the two modes of
 // swa_full_fwd.cu: non-causal (every query sees every key j < S) and
-// causal (keys j <= i with i - j < window). swa_attention_bwd.cu's entry
-// point `swa_attention_bwd` sends its non-causal calls here, and its
-// causal bf16 calls.
+// causal (keys j <= i with i - j < window). The C entry point
+// `swa_attention_bwd` (end of file) takes every call: the D pre-pass,
+// then the kernels of its dtype, bf16 on the tensor cores, f32 on the CUDA
+// cores.
 // Given q, k, v, the forward's output o, its per-row log-sum-exp lse
 // (natural log) and the output cotangent do:
 //   P_ij  = exp(scale * q_i . k_j - lse_i)        (0 outside the mask)
@@ -29,10 +30,10 @@
 // bf16 tensor-core rate, over 63 MB; a causal 4,096-token sequence of
 // Qwen3-8B (B 1, H 32/8, hd 128) 344 GFLOP, 0.35 ms.
 //
-// Launches: the D pre-pass (8 lanes a row), then dK/dV and dQ (the
-// causal mode: one launch of both, dK/dV's blocks first). Each output
-// element is one sum in one fixed order, with no atomics: the result is the
-// same bits run to run.
+// Launches: the D pre-pass (8 lanes a row), then dK/dV and dQ (the causal bf16
+// mode and f32: one launch of both, dK/dV's blocks first). Each output element
+// is one sum in one fixed order, with no atomics: the result is the same bits
+// run to run.
 //
 // bf16: wgmma and TMA (building blocks in swa_full.cuh), 256 threads a
 // block, two warpgroups that also issue the loads.
@@ -88,17 +89,9 @@
 //   rows >= S are never written.
 //
 // f32 (the f32 card-vs-CPU parity runs; the tensor cores take f32 only as
-// TF32, which the port keeps off), non-causal only (the causal f32 kernels
-// are swa_attention_bwd.cu's): CUDA-core kernels, a warp a row: a dQ
-// warp walks its query's keys 32 at a time, a lane a key for S and dP
-// (four fmaf chains), then the warp's 32 dS times k, a lane an output
-// column; a dK/dV warp walks its key's queries (over the group) likewise.
-// 8 warps a block share the staged tiles, the next tile loaded into
-// registers while this one is computed. The grid has a block per 8 rows
-// (B 2, S 200, H 4/2: 200 dQ and 100 dK/dV blocks against 32 and 16 of
-// the 64-row tiles this replaced, which left most of the 132 SMs idle and
-// walked 64 x 64 tiles through one block's 256 threads, a tile's copy
-// waiting on each row's loads: PERF.md).
+// TF32, which the port keeps off), on the CUDA cores: both modes one
+// kernel of GQA-packed register tiles, dK/dV and dQ blocks in one launch
+// (the f32 section below).
 #include "swa_full.cuh"
 
 namespace swa_full {
@@ -1083,8 +1076,8 @@ int launch_bf16(BwdArgs& a, int B, int S, int H, int KV, int hd,
   if (CAUSAL) {
     const auto kernel = causal_bwd_kernel<HDP, kBwdStages>;
     const int bytes = LC::kBytes > LQ::kBytes ? LC::kBytes : LQ::kBytes;
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    static unsigned attr_set = 0;
+    const cudaError_t err = smem_attr_once(kernel, bytes, attr_set);
     if (err != cudaSuccess) return static_cast<int>(err);
     const long long blocks =
         static_cast<long long>(B) * KV * ((S + kRows - 1) / kRows) +
@@ -1095,11 +1088,9 @@ int launch_bf16(BwdArgs& a, int B, int S, int H, int KV, int hd,
   }
   const auto dkdv = full_dkdv_kernel<HDP, kBwdStages>;
   const auto dq = full_dq_kernel<HDP, kBwdStages>;
-  cudaError_t err = cudaFuncSetAttribute(
-      dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, LK::kBytes);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(
-        dq, cudaFuncAttributeMaxDynamicSharedMemorySize, LQ::kBytes);
+  static unsigned dkdv_set = 0, dq_set = 0;
+  cudaError_t err = smem_attr_once(dkdv, LK::kBytes, dkdv_set);
+  if (err == cudaSuccess) err = smem_attr_once(dq, LQ::kBytes, dq_set);
   if (err != cudaSuccess) return static_cast<int>(err);
   dkdv<<<dim3(tiles, B * KV), kThreads, LK::kBytes, stream>>>(a);
   err = cudaGetLastError();
@@ -1109,217 +1100,510 @@ int launch_bf16(BwdArgs& a, int B, int S, int H, int KV, int hd,
 }
 
 // ---------------------------------------------------------------------------
-// f32: CUDA cores, a warp a row
+// f32, both modes: CUDA cores, GQA-packed register tiles (swa_full.cuh),
+// in one launch after the D pre-pass:
+// the dK/dV blocks first (key tile 0, the longest causal walk, first),
+// then the dQ blocks (the last query rows first; the two roles taken in
+// turns measured the same, PERF.md). No atomics: each output is one fmaf
+// chain in a fixed order, so the result is the same bits run to run. 128
+// threads a block.
+// - dK/dV: a block per (batch, kv head, CK keys) holds k and v of its
+//   keys and walks the packed query rows that see them (the causal mode:
+//   rows k0 G .. min(S, k_last + W) G - 1; every row otherwise), RQ rows
+//   a step: q, dO, lse and D of a step by cp.async. The G heads of the
+//   group are rows of the walk: the sum over the group and the queries is
+//   one chain a key and column.
+// - dQ: a block per (batch, kv head, RQ packed rows) holds q, dO, lse and
+//   D of its rows and walks the key tiles they see (as the forward), k
+//   and v of a tile by cp.async into one of two stages.
+// Scores (S^T and dP^T, or S and dP) are 4 x 4 register tiles of a lane
+// pair, neighbouring pairs on neighbouring keys of one row group: each
+// lane sums half the head dim (columns 32 m + 16 h .. + 15, h its
+// parity), then the pair trades the half of the tile the other keeps by
+// one shuffle a value (the two halves added in one order), so 16 float4
+// loads feed 64 FMAs of each lane. P and dS go through shared memory to
+// the products into dv and dk (a thread: 4 keys, chunks tr + TRo u) and
+// into dq (a thread: 4 rows, chunks cg + CGq u: a float4 of dS and one of
+// k a key feed 16 FMAs a chunk).
+// The tiles: CK 16 keys and RQ 64 rows at every S. (The rule fixed before
+// the first card reading took CK 32, RQ 32 above S 16; at B4 S128 H32/8
+// that reading put 195 of the backward's 210 us in the dK/dV blocks,
+// whose longest walk, key tile 0's, was 16 steps: 16-key tiles halve it,
+// PERF.md.) At B2 S16 H32/8 the 16 dK/dV blocks take the whole sequence,
+// 64 rows, in one step and 16 dQ blocks one key tile each; at B4 S128
+// H32/8 256 dK/dV blocks walk 1-8 steps and 256 dQ blocks 1-8. The dK/dV
+// walk keeps one stage of q and dO (the next step's copies start when
+// this step's products are done), so the footprint is 106 KB at hd 128
+// and two blocks share an SM, one's copies under the other's products
+// (two stages, 163 KB, one block an SM, were slower: PERF.md). Staging
+// and the walk's rows advance (query, head) cursors, with no division a
+// row (F32Cursor, swa_full.cuh), and the product loops clamp a chunk past
+// the row instead of branching.
+// What bounds it: 10 hd FLOP a pair inside the mask at the f32 CUDA-core
+// rate: at B4 S128 H32/8 (1.35 GFLOP) 20 us; the dQ blocks recompute S and
+// dP, 14 hd a pair in all. At B2 S16 its bytes (0.8 us), below two
+// launches' latency.
+// (It replaces the first causal kernels, three launches of 64 x 64 tiles
+// whose dK/dV blocks walked the group's heads one after another, and the
+// non-causal warp-a-row kernels, slower at the encoder's f32 shape B2 S200
+// H4/2 hd80: PERF.md.)
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(32 * kF32Warps)
-    f32_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ delta, float* __restrict__ dq,
-                  int S, int H, int KV, int hd, float scale) {
-  extern __shared__ float fsm[];
-  const int pitch = f32_pitch(hd);
-  float* k_s = fsm;                       // [32][pitch]
-  float* v_s = k_s + kF32Tile * pitch;    // [32][pitch]
-  float* row_s = v_s + kF32Tile * pitch;  // [8][2][hd]: q, do of each warp
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int kvh = h / (H / KV);
-  const int qi = blockIdx.x * kF32Warps + warp;
-  const long long q_stride = static_cast<long long>(H) * hd;
-  const long long kv_stride = static_cast<long long>(KV) * hd;
-  const long long q_off = static_cast<long long>(b) * S * q_stride +
-                          static_cast<long long>(h) * hd;
-  const long long kv_off = static_cast<long long>(b) * S * kv_stride +
-                           static_cast<long long>(kvh) * hd;
-  float* qr = row_s + warp * 2 * hd;
-  float* dor = qr + hd;
-  for (int c = lane; c < hd; c += 32) {
-    qr[c] = qi < S ? q[q_off + qi * q_stride + c] : 0.0f;
-    dor[c] = qi < S ? dout[q_off + qi * q_stride + c] : 0.0f;
-  }
-  const long long bh = static_cast<long long>(blockIdx.y) * S;
-  const float l = qi < S ? lse[bh + qi] : 0.0f;
-  const float dl = qi < S ? delta[bh + qi] : 0.0f;
-  float acc[kF32Cols];
-#pragma unroll
-  for (int u = 0; u < kF32Cols; ++u) acc[u] = 0.0f;
+struct F32BwdArgs {
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* dout;
+  const float* lse;
+  const float* delta;
+  float* dq;
+  float* dk;
+  float* dv;
+  int B, S, H, KV, hd, window;
+  int causal;
+  float scale;
+  int vec;  // 16-byte copies and stores
+};
 
-  F32Rows nk, nv;  // the next tile of k and v
-  f32_load(nk, k + kv_off, kv_stride, 0, S, hd);
-  f32_load(nv, v + kv_off, kv_stride, 0, S, hd);
-  for (int k0 = 0; k0 < S; k0 += kF32Tile) {
-    __syncthreads();  // the last tile is read (and the rows are in)
-    f32_store(k_s, nk, hd);
-    f32_store(v_s, nv, hd);
-    __syncthreads();
-    if (k0 + kF32Tile < S) {
-      f32_load(nk, k + kv_off, kv_stride, k0 + kF32Tile, S, hd);
-      f32_load(nv, v + kv_off, kv_stride, k0 + kF32Tile, S, hd);
-    }
-    const int kj = k0 + lane;
-    const float s = f32_dot(qr, k_s + lane * pitch, hd);
-    const float dp = f32_dot(dor, v_s + lane * pitch, hd);
-    const float p = qi < S && kj < S ? expf(s * scale - l) : 0.0f;
-    const float ds = p * (dp - dl);
-    for (int j = 0; j < kF32Tile; ++j) {
-      const float dsj = __shfl_sync(0xffffffffu, ds, j);
-#pragma unroll
-      for (int u = 0; u < kF32Cols; ++u) {
-        const int c = lane + 32 * u;
-        if (c < hd) acc[u] = fmaf(dsj, k_s[j * pitch + c], acc[u]);
-      }
-    }
+// stages of the dK/dV walk's q, dO, lse and D (1: a step's copies start
+// when the step before is done; the dQ blocks' k and v take two)
+constexpr int kF32DkdvStages = 1;
+
+template <int CK, int RQ>
+struct F32Bwd {
+  static_assert(CK * RQ == 8 * kF32Threads, "64 lane pairs of 4 x 4 tiles");
+  // dK/dV products: thread (tro, tko), keys 4 tko + j, chunks tro + TRo u
+  static constexpr int kTRo = 4 * kF32Threads / CK;
+  static constexpr int kNCHk = (kF32Chunks + kTRo - 1) / kTRo;
+  // dQ products: thread (cg, rg), rows 4 rg + i, chunks cg + CGq u
+  static constexpr int kCGq = 4 * kF32Threads / RQ;
+  static constexpr int kNCHq = (kF32Chunks + kCGq - 1) / kCGq;
+  // floats of a dK/dV stage: q, dO, lse, D
+  static __host__ __device__ int stage(int P) { return 2 * RQ * P + 2 * RQ; }
+  // bytes of shared memory at row pitch P, the larger of the two roles'
+  static int bytes(int P) {
+    const int dkdv =
+        2 * CK * P + kF32DkdvStages * stage(P) + 2 * RQ * (CK + 4);
+    const int dq = 2 * RQ * P + 4 * CK * P + CK * (RQ + 4);
+    return 4 * (dkdv > dq ? dkdv : dq);
   }
-  if (qi < S) {
+};
+
+// a lane's half of the head dim in a score product: columns 32 m + 16 h
+// .. + 15 (h the lane's parity), four at a time; f(d) adds column d .. d
+// + 3. Halves 16 columns apart start 4 bank groups apart, so a quarter
+// warp's 8 lanes read 8 distinct groups from 4 rows
+template <typename F>
+__device__ __forceinline__ void f32_half_cols(int hd4, F f) {
+  const int h = threadIdx.x & 1;
+  for (int d0 = 16 * h; d0 < hd4; d0 += 32)
 #pragma unroll
-    for (int u = 0; u < kF32Cols; ++u) {
-      const int c = lane + 32 * u;
-      if (c < hd) dq[q_off + qi * q_stride + c] = acc[u] * scale;
-    }
-  }
+    for (int e = 0; e < 16; e += 4)
+      if (d0 + e < hd4) f(d0 + e);
 }
 
-__global__ void __launch_bounds__(32 * kF32Warps)
-    f32_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v,
-                    const float* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dk,
-                    float* __restrict__ dv, int S, int H, int KV, int hd,
-                    float scale) {
-  extern __shared__ float fsm[];
-  const int pitch = f32_pitch(hd);
-  float* q_s = fsm;                          // [32][pitch]
-  float* do_s = q_s + kF32Tile * pitch;      // [32][pitch]
-  float* lse_s = do_s + kF32Tile * pitch;    // [32]
-  float* dl_s = lse_s + kF32Tile;            // [32]
-  float* row_s = dl_s + kF32Tile;            // [8][2][hd]: k, v a warp
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int b = blockIdx.y / KV, kvh = blockIdx.y % KV;
-  const int G = H / KV;
-  const int kj = blockIdx.x * kF32Warps + warp;
-  const long long q_stride = static_cast<long long>(H) * hd;
-  const long long kv_stride = static_cast<long long>(KV) * hd;
-  const long long kv_off = static_cast<long long>(b) * S * kv_stride +
-                           static_cast<long long>(kvh) * hd;
-  float* kr = row_s + warp * 2 * hd;
-  float* vr = kr + hd;
-  for (int c = lane; c < hd; c += 32) {
-    kr[c] = kj < S ? k[kv_off + kj * kv_stride + c] : 0.0f;
-    vr[c] = kj < S ? v[kv_off + kj * kv_stride + c] : 0.0f;
-  }
-  float acc_k[kF32Cols], acc_v[kF32Cols];
+// the lane pair's trade: x[a][i] are this lane's partial sums over its
+// half; afterwards y[a][i'] is the whole sum of x[a][2 h + i'], the half
+// of the tile this lane keeps
+__device__ __forceinline__ void f32_pair_sum(const float (&x)[4][4],
+                                             float (&y)[4][2]) {
+  const bool h = threadIdx.x & 1;
 #pragma unroll
-  for (int u = 0; u < kF32Cols; ++u) acc_k[u] = acc_v[u] = 0.0f;
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float give = h ? x[a][i] : x[a][i + 2];
+      const float keep = h ? x[a][i + 2] : x[a][i];
+      y[a][i] = keep + __shfl_xor_sync(0xffffffffu, give, 1);
+    }
+}
 
-  // the walk: tile it is head kvh G + it / nq, queries (it % nq) 32 ..
-  const int nq = (S + kF32Tile - 1) / kF32Tile;
-  F32Rows nxq, nxdo;  // the next tile's q and dO, and its lse and D (the
-  float nl = 0.0f, nd = 0.0f;  // block's first 32 threads, a row each)
-  const auto load = [&](int it) {
-    const int h = kvh * G + it / nq, q0 = (it % nq) * kF32Tile;
-    const long long q_off = static_cast<long long>(b) * S * q_stride +
-                            static_cast<long long>(h) * hd;
-    f32_load(nxq, q + q_off, q_stride, q0, S, hd);
-    f32_load(nxdo, dout + q_off, q_stride, q0, S, hd);
-    if (threadIdx.x < kF32Tile) {
-      const long long bh = (static_cast<long long>(b) * H + h) * S;
-      const int qi = q0 + threadIdx.x;
-      nl = qi < S ? lse[bh + qi] : 0.0f;
-      nd = qi < S ? delta[bh + qi] : 0.0f;
+template <int CK, int RQ>
+__device__ __forceinline__ void f32_dkdv_block(const F32BwdArgs& a,
+                                               float* fsm, int bkv, int kt) {
+  using L = F32Bwd<CK, RQ>;
+  constexpr int TRo = L::kTRo, NCH = L::kNCHk, PS = CK + 4, RG = RQ / 4;
+  constexpr int KG = CK / 4;
+  const int P = f32_pitch(a.hd);
+  const int S = a.S, G = a.H / a.KV, n = S * G;
+  const bool causal = a.causal != 0, vec = a.vec != 0;
+  const int b = bkv / a.KV, kvh = bkv % a.KV;
+  const F32Rows qrows = f32_rows(b, S, a.H, a.hd, kvh * G, G);
+  const F32Rows krows = f32_rows(b, S, a.KV, a.hd, kvh, 1);
+  float* k_s = fsm;                      // CK x P
+  float* v_s = k_s + CK * P;             // CK x P
+  float* st_s = v_s + CK * P;            // stages: q, dO, lse, D
+  float* p_s = st_s + kF32DkdvStages * L::stage(P);  // P^T: RQ x PS
+  float* ds_s = p_s + RQ * PS;           // dS^T: RQ rows x PS
+  // the packed rows that see keys k0 .. klast
+  const int k0 = kt * CK, klast = min(k0 + CK, S) - 1;
+  const int pbeg = causal ? k0 * G : 0;
+  const int pend =
+      causal ? (a.window >= S - klast ? S : klast + a.window) * G : n;
+  const int steps = (pend - pbeg + RQ - 1) / RQ;
+
+  // lse (threads t < RQ) and D (t - RQ) of row t % RQ of each step: its
+  // (query, head) by a cursor, one step of RQ rows at a time
+  const int t = threadIdx.x;
+  F32Cursor lrow;
+  lrow.init(pbeg + t % RQ, RQ, G);
+  const uint32_t sst = smem_addr(st_s);
+  const auto stage = [&](int it) {
+    const int pb = pbeg + it * RQ;
+    const uint32_t base = sst + 4 * ((it % kF32DkdvStages) * L::stage(P));
+    f32_stage<RQ, kF32Threads>(base, a.q, qrows, pb, P, vec);
+    f32_stage<RQ, kF32Threads>(base + 4 * RQ * P, a.dout, qrows, pb, P,
+                               vec);
+    if (t < 2 * RQ) {
+      const bool in = pb + t % RQ < n;
+      const long long at =
+          in ? (static_cast<long long>(b) * a.H + kvh * G + lrow.g) * S +
+                   lrow.q
+             : 0;
+      cp_async4(base + 4 * (2 * RQ * P + t),
+                (t < RQ ? a.lse : a.delta) + at, in);
+      lrow.next(G);
     }
   };
-  load(0);
-  for (int it = 0; it < G * nq; ++it) {
-    const int q0 = (it % nq) * kF32Tile;
-    __syncthreads();  // the last tile is read (and the rows are in)
-    f32_store(q_s, nxq, hd);
-    f32_store(do_s, nxdo, hd);
-    if (threadIdx.x < kF32Tile) {
-      lse_s[threadIdx.x] = nl;
-      dl_s[threadIdx.x] = nd;
-    }
-    __syncthreads();
-    if (it + 1 < G * nq) load(it + 1);
-    const int qi = q0 + lane;
-    const float s = f32_dot(kr, q_s + lane * pitch, hd);
-    const float dp = f32_dot(vr, do_s + lane * pitch, hd);
-    const float p = qi < S && kj < S ? expf(s * scale - lse_s[lane]) : 0.0f;
-    const float ds = p * (dp - dl_s[lane]);
-    for (int i = 0; i < kF32Tile; ++i) {
-      const float pi = __shfl_sync(0xffffffffu, p, i);
-      const float dsi = __shfl_sync(0xffffffffu, ds, i);
+  f32_stage<CK, kF32Threads>(smem_addr(k_s), a.k, krows, k0, P, vec);
+  f32_stage<CK, kF32Threads>(smem_addr(v_s), a.v, krows, k0, P, vec);
+  stage(0);
+  cp_async_commit();
+
+  const int nch = (a.hd + 3) / 4, hd4 = 4 * nch;
+  // scores: lane pair (tk, tr) of tile t / 2, keys tk + KG j, rows tr + RG
+  // i; this lane keeps rows i = 2 h + i'. Neighbouring pairs take
+  // neighbouring keys of one row group: a warp's loads touch 4 rows and 4
+  // keys of each half (8 distinct 16-byte pieces), where 32 rows a warp
+  // made the score products wait on shared memory (PERF.md)
+  const int h = t & 1, tk = (t >> 1) % KG, tr = (t >> 1) / KG;
+  F32Cursor qrow[2];  // the queries of the kept rows, a step at a time
 #pragma unroll
-      for (int u = 0; u < kF32Cols; ++u) {
-        const int c = lane + 32 * u;
-        if (c < hd) {
-          acc_v[u] = fmaf(pi, do_s[i * pitch + c], acc_v[u]);
-          acc_k[u] = fmaf(dsi, q_s[i * pitch + c], acc_k[u]);
+  for (int i = 0; i < 2; ++i)
+    qrow[i].init(pbeg + tr + RG * (2 * h + i), RQ, G);
+  // products: keys 4 tko + j, chunks tro + TRo u, clamped to the row (a
+  // chunk past it repeats the last one's products and is never stored)
+  const int tro = t % TRo, tko = t / TRo;
+  int chs[NCH];
+#pragma unroll
+  for (int u = 0; u < NCH; ++u) chs[u] = min(tro + TRo * u, nch - 1);
+  float4 dk[4][NCH], dv[4][NCH];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int u = 0; u < NCH; ++u)
+      dk[j][u] = dv[j][u] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int it = 0; it < steps; ++it) {
+    if (kF32DkdvStages > 1 && it + 1 < steps) {
+      stage(it + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // step it (and k, v) is in every thread's view
+    const float* q_s = st_s + (it % kF32DkdvStages) * L::stage(P);
+    const float* do_s = q_s + RQ * P;
+    const float* lse_s = do_s + RQ * P;
+    const float* dl_s = lse_s + RQ;
+    const int pb = pbeg + it * RQ;
+
+    float s[4][4], dp[4][4];  // [key j][row i], this lane's half
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.0f;
+    f32_half_cols(hd4, [&](int d) {
+      float4 kb[4], vb[4], qa[4], da[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        kb[j] = ld4(k_s + (tk + KG * j) * P + d);
+        vb[j] = ld4(v_s + (tk + KG * j) * P + d);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        qa[i] = ld4(q_s + (tr + RG * i) * P + d);
+        da[i] = ld4(do_s + (tr + RG * i) * P + d);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          s[j][i] = dot4(kb[j], qa[i], s[j][i]);
+          dp[j][i] = dot4(vb[j], da[i], dp[j][i]);
         }
+    });
+    float sk[4][2], dpk[4][2];
+    f32_pair_sum(s, sk);
+    f32_pair_sum(dp, dpk);
+    // P = exp(s scale - lse) inside the mask (0 outside it and on rows
+    // past S G), dS = P (dP - D)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = tr + RG * (2 * h + i), qi = qrow[i].q;
+      const bool live = pb + r < n;
+      qrow[i].next(G);
+      const float ls = lse_s[r], dl = dl_s[r];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tk + KG * j, kj = k0 + c;
+        const bool in =
+            live && kj < S && f32_sees(qi, kj, S, a.window, causal);
+        const float pr = in ? expf(sk[j][i] * a.scale - ls) : 0.0f;
+        p_s[r * PS + c] = pr;
+        ds_s[r * PS + c] = pr * (dpk[j][i] - dl);
       }
     }
-  }
-  if (kj < S) {
+    __syncthreads();  // every row's P^T and dS^T are in
+
+    const int rows = min(RQ, pend - pb);  // rows past the walk add 0
+    for (int r = 0; r < rows; ++r) {
+      const float4 pv = ld4(p_s + r * PS + 4 * tko);
+      const float4 dsv = ld4(ds_s + r * PS + 4 * tko);
 #pragma unroll
-    for (int u = 0; u < kF32Cols; ++u) {
-      const int c = lane + 32 * u;
-      if (c < hd) {
-        dk[kv_off + kj * kv_stride + c] = acc_k[u] * scale;
-        dv[kv_off + kj * kv_stride + c] = acc_v[u];
+      for (int u = 0; u < NCH; ++u) {
+        const float4 dov = ld4(do_s + r * P + 4 * chs[u]);
+        const float4 qv = ld4(q_s + r * P + 4 * chs[u]);
+        axpy4(pv.x, dov, dv[0][u]);
+        axpy4(pv.y, dov, dv[1][u]);
+        axpy4(pv.z, dov, dv[2][u]);
+        axpy4(pv.w, dov, dv[3][u]);
+        axpy4(dsv.x, qv, dk[0][u]);
+        axpy4(dsv.y, qv, dk[1][u]);
+        axpy4(dsv.z, qv, dk[2][u]);
+        axpy4(dsv.w, qv, dk[3][u]);
+      }
+    }
+    __syncthreads();  // this stage, P^T and dS^T are read
+    if (kF32DkdvStages == 1 && it + 1 < steps) {
+      stage(it + 1);
+      cp_async_commit();
+    }
+  }
+
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int kj = k0 + 4 * tko + j;
+    if (kj >= S) continue;
+    float* dkr = a.dk + krows.off(kj);
+    float* dvr = a.dv + krows.off(kj);
+#pragma unroll
+    for (int u = 0; u < NCH; ++u) {
+      const int ch = tro + TRo * u;
+      if (ch < nch) {
+        f32_put(dkr, ch, a.hd, scale4(dk[j][u], a.scale), vec);
+        f32_put(dvr, ch, a.hd, dv[j][u], vec);
       }
     }
   }
 }
 
-int launch_f32(const BwdArgs& a, const void* q, const void* k, const void* v,
-               const void* dout, void* dq, void* dk, void* dv, int B,
-               cudaStream_t stream) {
-  const int S = a.S, H = a.H, KV = a.KV, hd = a.hd;
-  const size_t tiles = sizeof(float) * 2 * kF32Tile * f32_pitch(hd);
-  const size_t rows = sizeof(float) * kF32Warps * 2 * hd;
-  const size_t dq_smem = tiles + rows;
-  const size_t kv_smem = tiles + rows + sizeof(float) * 2 * kF32Tile;
-  cudaError_t err = cudaFuncSetAttribute(
-      f32_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(dq_smem));
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(f32_dkdv_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(kv_smem));
+template <int CK, int RQ>
+__device__ __forceinline__ void f32_dq_block(const F32BwdArgs& a, float* fsm,
+                                             int bkv, int p0) {
+  using L = F32Bwd<CK, RQ>;
+  constexpr int CGq = L::kCGq, NCH = L::kNCHq, KG = CK / 4, RG = RQ / 4;
+  constexpr int DS = RQ + 4;  // dS: CK keys x DS
+  const int P = f32_pitch(a.hd);
+  const int S = a.S, G = a.H / a.KV, n = S * G;
+  const bool causal = a.causal != 0, vec = a.vec != 0;
+  const int b = bkv / a.KV, kvh = bkv % a.KV;
+  const F32Rows qrows = f32_rows(b, S, a.H, a.hd, kvh * G, G);
+  const F32Rows krows = f32_rows(b, S, a.KV, a.hd, kvh, 1);
+  float* q_s = fsm;                  // RQ x P
+  float* do_s = q_s + RQ * P;        // RQ x P
+  float* kv_s = do_s + RQ * P;       // stage st: k at st 2 CK P, v CK P on
+  float* ds_s = kv_s + 4 * CK * P;   // CK x DS
+  // the keys the block's queries i0 .. i1 see
+  const int i0 = p0 / G, i1 = (min(p0 + RQ, n) - 1) / G;
+  const int kbeg = causal ? max(0, i0 - a.window + 1) : 0;
+  const int kend = causal ? i1 + 1 : S;
+  const int steps = (kend - kbeg + CK - 1) / CK;
+
+  const uint32_t skv = smem_addr(kv_s);
+  const auto stage = [&](int it) {
+    const uint32_t st = skv + 4 * ((it & 1) * 2 * CK * P);
+    f32_stage<CK, kF32Threads>(st, a.k, krows, kbeg + it * CK, P, vec);
+    f32_stage<CK, kF32Threads>(st + 4 * CK * P, a.v, krows, kbeg + it * CK,
+                               P, vec);
+  };
+  f32_stage<RQ, kF32Threads>(smem_addr(q_s), a.q, qrows, p0, P, vec);
+  f32_stage<RQ, kF32Threads>(smem_addr(do_s), a.dout, qrows, p0, P, vec);
+  stage(0);
+  cp_async_commit();
+
+  const int t = threadIdx.x;
+  const int nch = (a.hd + 3) / 4, hd4 = 4 * nch;
+  // scores: lane pair (tr, tc) of tile t / 2, rows tr + RG i, keys tc + KG
+  // j; this lane keeps rows i = 2 h + i'
+  const int h = t & 1, tc = (t >> 1) % KG, tr = (t >> 1) / KG;
+  int qi[2];
+  bool live[2];
+  float ls[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int p = p0 + tr + RG * (2 * h + i);
+    live[i] = p < n;
+    qi[i] = p / G;
+    const long long at =
+        (static_cast<long long>(b) * a.H + kvh * G + p % G) * S + p / G;
+    ls[i] = live[i] ? a.lse[at] : 0.0f;
+    dl[i] = live[i] ? a.delta[at] : 0.0f;
+  }
+  // products: rows 4 rg + i, chunks cg + CGq u, clamped to the row
+  const int cg = t % CGq, rg = t / CGq;
+  int chs[NCH];
+#pragma unroll
+  for (int u = 0; u < NCH; ++u) chs[u] = min(cg + CGq * u, nch - 1);
+  float4 acc[4][NCH];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int u = 0; u < NCH; ++u) acc[i][u] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int it = 0; it < steps; ++it) {
+    if (it + 1 < steps) {
+      stage(it + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile it (and q, dO) is in every thread's view
+    const float* k_s = kv_s + (it & 1) * 2 * CK * P;
+    const float* v_s = k_s + CK * P;
+    const int k0 = kbeg + it * CK;
+
+    float s[4][4], dp[4][4];  // [row i][key j], this lane's half
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.0f;
+    f32_half_cols(hd4, [&](int d) {
+      float4 qa[4], da[4], kb[4], vb[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        qa[i] = ld4(q_s + (tr + RG * i) * P + d);
+        da[i] = ld4(do_s + (tr + RG * i) * P + d);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        kb[j] = ld4(k_s + (tc + KG * j) * P + d);
+        vb[j] = ld4(v_s + (tc + KG * j) * P + d);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = dot4(qa[i], kb[j], s[i][j]);
+          dp[i][j] = dot4(da[i], vb[j], dp[i][j]);
+        }
+    });
+    // this lane keeps rows 2 h + i': [key j][row i'] after the trade
+    float sT[4][4], dpT[4][4], sk[4][2], dpk[4][2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        sT[j][i] = s[i][j];
+        dpT[j][i] = dp[i][j];
+      }
+    f32_pair_sum(sT, sk);
+    f32_pair_sum(dpT, dpk);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kj = k0 + tc + KG * j;
+        const bool in =
+            live[i] && kj < S && f32_sees(qi[i], kj, S, a.window, causal);
+        const float pr = in ? expf(sk[j][i] * a.scale - ls[i]) : 0.0f;
+        ds_s[(tc + KG * j) * DS + tr + RG * (2 * h + i)] =
+            pr * (dpk[j][i] - dl[i]);
+      }
+    __syncthreads();  // every row's dS is in
+
+    const int keys = min(CK, kend - k0);  // keys past the walk add 0
+    for (int c = 0; c < keys; ++c) {
+      const float4 dsv = ld4(ds_s + c * DS + 4 * rg);  // rows 4 rg ..
+#pragma unroll
+      for (int u = 0; u < NCH; ++u) {
+        const float4 kb = ld4(k_s + c * P + 4 * chs[u]);
+        axpy4(dsv.x, kb, acc[0][u]);
+        axpy4(dsv.y, kb, acc[1][u]);
+        axpy4(dsv.z, kb, acc[2][u]);
+        axpy4(dsv.w, kb, acc[3][u]);
+      }
+    }
+    __syncthreads();  // this stage and dS are read: the next copy may land
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int p = p0 + 4 * rg + i;
+    if (p >= n) continue;
+    float* dqr = a.dq + qrows.off(p);
+#pragma unroll
+    for (int u = 0; u < NCH; ++u)
+      if (cg + CGq * u < nch)
+        f32_put(dqr, cg + CGq * u, a.hd, scale4(acc[i][u], a.scale), vec);
+  }
+}
+
+template <int CK, int RQ>
+__global__ void __launch_bounds__(kF32Threads)
+    f32_bwd_kernel(const F32BwdArgs a) {
+  extern __shared__ float fsm[];
+  const int nbkv = a.B * a.KV;
+  const int nkv = nbkv * ((a.S + CK - 1) / CK);
+  const int x = blockIdx.x;
+  if (x < nkv) {
+    f32_dkdv_block<CK, RQ>(a, fsm, x % nbkv, x / nbkv);
+  } else {
+    const int y = x - nkv;
+    const int nqt = (a.S * (a.H / a.KV) + RQ - 1) / RQ;
+    f32_dq_block<CK, RQ>(a, fsm, y % nbkv, (nqt - 1 - y / nbkv) * RQ);
+  }
+}
+
+template <int CK, int RQ>
+int launch_f32_bwd(const F32BwdArgs& a, cudaStream_t stream) {
+  using L = F32Bwd<CK, RQ>;
+  static unsigned attr_set = 0;
+  const auto kernel = f32_bwd_kernel<CK, RQ>;
+  const cudaError_t err =
+      smem_attr_once(kernel, L::bytes(f32_pitch(128)), attr_set);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (S + kF32Warps - 1) / kF32Warps;
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  const float* df = static_cast<const float*>(dout);
-  f32_dkdv_kernel<<<dim3(blocks, B * KV), 32 * kF32Warps, kv_smem, stream>>>(
-      qf, kf, vf, df, a.lse, a.delta, static_cast<float*>(dk),
-      static_cast<float*>(dv), S, H, KV, hd, a.scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  f32_dq_kernel<<<dim3(blocks, B * H), 32 * kF32Warps, dq_smem, stream>>>(
-      qf, kf, vf, df, a.lse, a.delta, static_cast<float*>(dq), S, H, KV, hd,
-      a.scale);
+  const long long nbkv = static_cast<long long>(a.B) * a.KV;
+  const long long n = static_cast<long long>(a.S) * (a.H / a.KV);
+  const long long blocks =
+      nbkv * ((a.S + CK - 1) / CK) + nbkv * ((n + RQ - 1) / RQ);
+  if (n > 2147483647LL || blocks > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(blocks), kF32Threads,
+           L::bytes(f32_pitch(a.hd)), stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 }  // namespace swa_full
 
-// Arguments as swa_attention_bwd takes them; causal:
-// 1 = the causal sliding window (bf16 only), 0 = every key (window
-// unused); is_bf16: 0 = float32 operands, 1 = bfloat16.
-extern "C" int swa_full_bwd(const void* q, const void* k, const void* v,
-                            const void* o, const void* dout, const void* lse,
-                            void* delta, void* dq, void* dk, void* dv, int B,
-                            int S, int H, int KV, int hd, int window,
-                            int causal, float scale, int is_bf16,
-                            void* stream) {
+// The backward's C entry point, every call (kernels/__init__.py): the D
+// pre-pass, then the kernels of the dtype and mode (f32: the packed-tile
+// kernel, both modes; bf16: the wgmma ones). q,
+// k, v, o, dout and dq, dk, dv: (B, S, H or KV, hd), contiguous; lse: the
+// forward's (B, H, S) f32 log-sum-exp; delta: (B, H, S) f32 scratch. causal: 1
+// = the causal sliding window, 0 = every key (window unused). bf16: 0 =
+// float32 operands (the CUDA cores), 1 = bfloat16 (the tensor cores).
+extern "C" int swa_attention_bwd(const void* q, const void* k, const void* v,
+                                 const void* o, const void* dout,
+                                 const void* lse, void* delta, void* dq,
+                                 void* dk, void* dv, int B, int S, int H,
+                                 int KV, int hd, int window, int causal,
+                                 float scale, int is_bf16, void* stream) {
   using namespace swa_full;
-  if (hd < 1 || hd > 128 || KV < 1 || H % KV != 0 || window < 1 ||
-      (causal && !is_bf16))
+  if (hd < 1 || hd > 128 || KV < 1 || H % KV != 0 || window < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long rows = static_cast<long long>(B) * S * H;
@@ -1341,6 +1625,30 @@ extern "C" int swa_full_bwd(const void* q, const void* k, const void* v,
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
+  if (!is_bf16) {
+    F32BwdArgs f;
+    f.q = static_cast<const float*>(q);
+    f.k = static_cast<const float*>(k);
+    f.v = static_cast<const float*>(v);
+    f.dout = static_cast<const float*>(dout);
+    f.lse = static_cast<const float*>(lse);
+    f.delta = dl;
+    f.dq = static_cast<float*>(dq);
+    f.dk = static_cast<float*>(dk);
+    f.dv = static_cast<float*>(dv);
+    f.B = B;
+    f.S = S;
+    f.H = H;
+    f.KV = KV;
+    f.hd = hd;
+    f.window = window;
+    f.causal = causal;
+    f.scale = scale;
+    f.vec = hd % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
+            aligned16(dout) && aligned16(dq) && aligned16(dk) &&
+            aligned16(dv);
+    return launch_f32_bwd<16, 64>(f, s);
+  }
   BwdArgs a;
   a.qp = static_cast<const bf16*>(q);
   a.kp = static_cast<const bf16*>(k);
@@ -1358,7 +1666,6 @@ extern "C" int swa_full_bwd(const void* q, const void* k, const void* v,
   a.hd = hd;
   a.window = window;
   a.scale = scale;
-  if (!is_bf16) return launch_f32(a, q, k, v, dout, dq, dk, dv, B, s);
   a.tma = hd % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
           aligned16(dout);
   a.pair = hd % 2 == 0 && reinterpret_cast<uintptr_t>(dq) % 4 == 0 &&

@@ -1,17 +1,20 @@
-// Flash attention with GQA, bf16 operands, f32 softmax and sums, on the
-// H100's warpgroup products, in two modes:
+// Flash attention with GQA, f32 softmax and sums, in two modes:
 //   o[b, i, h] = sum_j softmax_j(q[b, i, h] . k[b, j, h / G] * scale) v[b, j, h / G]
 // - non-causal: every query sees every key j < S (the encoder's
 //   bidirectional attention, the reference's `_sdpa` under an all-ones
 //   mask, layers/attention.py:99-105);
 // - causal: query i sees keys j <= i with i - j < window (the decoders'
 //   sliding window, layers/attention.py:89-93).
-// swa_attention.cu's entry point `swa_attention_fwd` sends its non-causal
-// calls here, and its causal bf16 calls. Scores are f32, scaled by hd^-0.5; the output is
-// acc / max(l, 1e-30) with the Pallas kernel's guard
-// (src/repro/kernels/swa_attention/kernel.py:60); with a non-null lse it
-// also writes each row's log-sum-exp, (B, H, S) f32 in natural-log units,
-// which the backward (swa_full_bwd.cu) recomputes P from.
+// The C entry point `swa_attention_fwd` (end of file) takes every call
+// and picks the kernel by dtype and mode: bf16 operands on the H100's
+// warpgroup products (below), f32 on the CUDA cores (the tensor cores take
+// f32 only as TF32, which the port keeps off): the causal mode in
+// GQA-packed register tiles, the non-causal mode a warp a row. Scores are f32,
+// scaled by hd^-0.5; the output is acc / max(l, 1e-30) with the Pallas
+// kernel's guard (src/repro/kernels/swa_attention/kernel.py:60); with a
+// non-null lse it also writes each row's log-sum-exp, (B, H, S) f32 in
+// natural-log units, which the backward (swa_full_bwd.cu) recomputes P
+// from; a null lse (the serving path) changes no other bit.
 //
 // Replaces: src/repro/kernels/swa_attention/kernel.py:28 `_swa_kernel`
 // (pallas_call at :84); the non-causal mode drops its mask.
@@ -29,11 +32,11 @@
 // 0.139 ms. The LM prefill (B 4, S 128, H 32/8, hd 128) does 0.54 GFLOP
 // over 10.5 MB, ~52 FLOP a byte: its bytes bound it at 3.1 us, but a
 // kernel that waits on each tile's copy, product and softmax in turn runs
-// at 3.3x that bound (the mma.sync kernel of swa_attention.cu). So the
+// at 3.3x that bound (an mma.sync kernel, since removed). So the
 // products run as wgmma, the only route to the tensor-core rate, and the
 // copies as TMA under them.
 //
-// Design (building blocks in swa_full.cuh):
+// The bf16 design (building blocks in swa_full.cuh):
 // - A block owns (batch, head, 128 queries): each warpgroup's 64
 //   queries are one wgmma M tile, and the two share every k and v tile
 //   (HuBERT: 512 blocks). Blocks of 64 queries, two an SM, were slower
@@ -483,8 +486,8 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
     return static_cast<int>(cudaErrorNotSupported);
   using L = FwdLayout<HDP, kFwdStages>;
   const auto kernel = swa_full_fwd_kernel<HDP, kFwdStages, CAUSAL>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  static unsigned attr_set = 0;
+  const cudaError_t err = smem_attr_once(kernel, L::kBytes, attr_set);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (S + 2 * kRows - 1) / (2 * kRows);
   const dim3 grid = CAUSAL ? dim3(B * H, tiles) : dim3(tiles, B * H);
@@ -493,8 +496,285 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
 }
 
 // ---------------------------------------------------------------------------
-// f32: CUDA cores, a warp a query row (the f32 card-vs-CPU parity route;
-// the tensor cores take f32 only as TF32, which the port keeps off). A
+// f32, the causal mode: CUDA cores, GQA-packed register tiles
+// (swa_full.cuh; the non-causal mode takes the warp-a-row kernel below,
+// faster there: PERF.md). A block owns R packed rows of one (batch, kv head)
+// (R 64, 32 or 16: the rule below), R / G queries of each of the group's G
+// heads, and walks the key tiles they see, CK keys a tile: from the one
+// holding max(0, i0 - W + 1) (i0 its first query) to its last query's. The
+// query tile arrives with the first
+// key tile; each next k and v tile is copied by cp.async into the other of two
+// stages while this one is computed. 128 threads: thread (tr, tc) scores rows
+// tr + TR i (i < TM) against keys tc + TC j (j < 4) of the tile (TC = CK / 4
+// lanes a row, neighbours in one warp, which meet by shuffles for the rows'
+// running max and sum), then adds the tile's P.V into its rows' output chunks
+// tc + TC u (16-byte column groups), P passing through shared memory within
+// the warp.
+// The tiles:
+// - CK 16 up to S 16 (the whole sequence of the parity path's B2 S16),
+//   TR 32 rows a tile of keys, else CK 32, TR 16;
+// - TM rows a thread, R = TR TM a block: R 64 (TM 2 or 4, scores 2 x 4 or
+//   4 x 4 a thread, 64 output floats at hd 128) where that grid has a
+//   block for every SM, else R 32, else the smallest R (1 x 4 scores a
+//   thread): a grid too small to fill the card waits on each thread's
+//   chain of products, which fewer rows a thread shorten. (The rule fixed
+//   before the first card reading took R 64 at every shape; B2 S16 H32/8
+//   then ran 16 blocks, 0.0085 ms against 0.0066 at R 32: PERF.md.)
+// What bounds it: 4 hd FLOP a pair inside the mask at the f32 CUDA-core
+// rate (67 TFLOP/s): at B4 S128 H32/8 (0.54 GFLOP) 8.1 us; at B2 S16 its
+// bytes (0.4 us), below a launch's latency.
+// The footprint (q, two stages of k and v, P) is at most 110 KB at hd
+// 128, so two or more blocks share an SM. The grid: a block per (batch,
+// kv head, R rows), the last rows (the longest causal walks) first: B2
+// S16 H32/8 runs 32 blocks of one step, B4 S128 H32/8 256 of 1-4 steps.
+// Staging advances (query, head) cursors, with no division a row
+// (F32Cursor, swa_full.cuh); the P.V loop clamps a chunk past the row
+// instead of branching; the output is scaled by 1 / max(l, 1e-30).
+// (It replaces the first causal kernel, 64-query x 64-key tiles of one head
+// at 113 KB a block: at S 16 48 of each tile's 64 rows and keys were
+// padding, the G heads of a group staged the same k and v tile G times,
+// and each tile's copy waited on a barrier before its products: PERF.md.)
+// ---------------------------------------------------------------------------
+
+struct F32FwdArgs {
+  const float* q;
+  const float* k;
+  const float* v;
+  float* o;
+  float* lse;
+  int B, S, H, KV, hd, window;
+  float scale;
+  int vec;  // 16-byte copies and stores
+};
+
+template <int TM, int CK>
+struct F32Fwd {
+  static constexpr int kTC = CK / 4;               // lanes a row
+  static constexpr int kTR = kF32Threads / kTC;    // row groups
+  static constexpr int kR = kTR * TM;              // rows a block
+  static constexpr int kNCH = kF32Chunks / kTC;    // output chunks a thread
+  // bytes of shared memory at row pitch P: q, two stages of k and v, P
+  static int bytes(int P) {
+    return 4 * (kR * P + 4 * CK * P + kR * (CK + 1));
+  }
+};
+
+template <int TM, int CK>
+__global__ void __launch_bounds__(kF32Threads)
+    f32_fwd_kernel(const F32FwdArgs a) {
+  using L = F32Fwd<TM, CK>;
+  constexpr int TC = L::kTC, TR = L::kTR, R = L::kR, NCH = L::kNCH;
+  extern __shared__ float fsm[];
+  const int P = f32_pitch(a.hd);
+  float* q_s = fsm;                  // R x P
+  float* kv_s = q_s + R * P;         // stage st: k at st 2 CK P, v CK P on
+  float* p_s = kv_s + 4 * CK * P;    // R x (CK + 1)
+  const int S = a.S, G = a.H / a.KV, n = S * G;
+  const bool vec = a.vec != 0;
+  const int nbkv = a.B * a.KV;
+  const int bkv = blockIdx.x % nbkv;
+  const int p0 = ((n + R - 1) / R - 1 - static_cast<int>(blockIdx.x / nbkv)) *
+                 R;
+  const int b = bkv / a.KV, kvh = bkv % a.KV;
+  const F32Rows qrows = f32_rows(b, S, a.H, a.hd, kvh * G, G);
+  const F32Rows krows = f32_rows(b, S, a.KV, a.hd, kvh, 1);
+  // the keys the block's queries i0 .. i1 see
+  const int i0 = p0 / G, i1 = (min(p0 + R, n) - 1) / G;
+  const int kbeg = max(0, i0 - a.window + 1), kend = i1 + 1;
+  const int steps = (kend - kbeg + CK - 1) / CK;
+
+  const uint32_t skv = smem_addr(kv_s);
+  const auto stage = [&](int it) {
+    const uint32_t st = skv + 4 * ((it & 1) * 2 * CK * P);
+    f32_stage<CK, kF32Threads>(st, a.k, krows, kbeg + it * CK, P, vec);
+    f32_stage<CK, kF32Threads>(st + 4 * CK * P, a.v, krows, kbeg + it * CK,
+                               P, vec);
+  };
+  f32_stage<R, kF32Threads>(smem_addr(q_s), a.q, qrows, p0, P, vec);
+  stage(0);
+  cp_async_commit();
+
+  const int tc = threadIdx.x % TC, tr = threadIdx.x / TC;
+  const int nch = (a.hd + 3) / 4, hd4 = 4 * nch;
+  // this thread's output chunks tc + TC u, clamped to the row: a chunk
+  // past it repeats the last one's products and is never stored, so the
+  // product loop has no branch
+  int chs[NCH];
+#pragma unroll
+  for (int u = 0; u < NCH; ++u) chs[u] = min(tc + TC * u, nch - 1);
+  int qi[TM];
+  bool live[TM];
+  float m[TM], l[TM];
+  float4 acc[TM][NCH];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int p = p0 + tr + TR * i;
+    live[i] = p < n;
+    qi[i] = p / G;
+    m[i] = kNegInf;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int u = 0; u < NCH; ++u) acc[i][u] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  for (int it = 0; it < steps; ++it) {
+    if (it + 1 < steps) {
+      stage(it + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile it (and q) is in every thread's view
+    const float* k_s = kv_s + (it & 1) * 2 * CK * P;
+    const float* v_s = k_s + CK * P;
+    const int k0 = kbeg + it * CK;
+
+    float s[TM][4];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
+#pragma unroll 2
+    for (int d = 0; d < hd4; d += 4) {
+      float4 qa[TM], kb[4];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) qa[i] = ld4(q_s + (tr + TR * i) * P + d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kb[j] = ld4(k_s + (tc + TC * j) * P + d);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = dot4(qa[i], kb[j], s[i][j]);
+    }
+
+    // the online softmax: masked scores -1e30 and weight exactly 0; a
+    // row's TC lanes meet by shuffles (xor 1 .. TC / 2) in a fixed order
+    float alpha[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kj = k0 + tc + TC * j;
+        const bool in = live[i] && kj < S &&
+                        f32_sees(qi[i], kj, S, a.window, true);
+        s[i][j] = in ? s[i][j] * a.scale : kNegInf;
+        mx = fmaxf(mx, s[i][j]);
+      }
+#pragma unroll
+      for (int off = 1; off < TC; off *= 2)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float mn = fmaxf(m[i], mx);
+      alpha[i] = expf(m[i] - mn);
+      float ps = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float pj = s[i][j] > kNegInf ? expf(s[i][j] - mn) : 0.0f;
+        p_s[(tr + TR * i) * (CK + 1) + tc + TC * j] = pj;
+        ps += pj;
+      }
+#pragma unroll
+      for (int off = 1; off < TC; off *= 2)
+        ps += __shfl_xor_sync(0xffffffffu, ps, off);
+      l[i] = l[i] * alpha[i] + ps;
+      m[i] = mn;
+    }
+    __syncwarp();  // a row's P is written and read by its TC lanes
+
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int u = 0; u < NCH; ++u) acc[i][u] = scale4(acc[i][u], alpha[i]);
+    const int keys = min(CK, kend - k0);  // keys past the walk weigh 0
+    for (int c = 0; c < keys; ++c) {
+      float pv[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) pv[i] = p_s[(tr + TR * i) * (CK + 1) + c];
+#pragma unroll
+      for (int u = 0; u < NCH; ++u) {
+        const float4 vb = ld4(v_s + c * P + 4 * chs[u]);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) axpy4(pv[i], vb, acc[i][u]);
+      }
+    }
+    __syncthreads();  // this stage and P are read: the next copy may land
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int p = p0 + tr + TR * i;
+    if (p >= n) continue;
+    const float ls = fmaxf(l[i], 1e-30f), inv = 1.0f / ls;
+    float* orow = a.o + qrows.off(p);
+#pragma unroll
+    for (int u = 0; u < NCH; ++u)
+      if (tc + TC * u < nch)
+        f32_put(orow, tc + TC * u, a.hd, scale4(acc[i][u], inv), vec);
+    if (a.lse != nullptr && tc == 0)
+      a.lse[(static_cast<long long>(b) * a.H + kvh * G + p % G) * S + p / G] =
+          m[i] + logf(ls);
+  }
+}
+
+template <int TM, int CK>
+int launch_f32_fwd(const F32FwdArgs& a, int dev, cudaStream_t stream) {
+  using L = F32Fwd<TM, CK>;
+  static unsigned attr_set = 0;
+  const auto kernel = f32_fwd_kernel<TM, CK>;
+  const cudaError_t err =
+      smem_attr_once(kernel, L::bytes(f32_pitch(128)), attr_set, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long n = static_cast<long long>(a.S) * (a.H / a.KV);
+  const long long blocks =
+      static_cast<long long>(a.B) * a.KV * ((n + L::kR - 1) / L::kR);
+  if (n > 2147483647LL || blocks > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(blocks), kF32Threads,
+           L::bytes(f32_pitch(a.hd)), stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int S, int H, int KV, int hd, int window,
+               float scale, cudaStream_t stream) {
+  F32FwdArgs a;
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.o = static_cast<float*>(o);
+  a.lse = lse;
+  a.B = B;
+  a.S = S;
+  a.H = H;
+  a.KV = KV;
+  a.hd = hd;
+  a.window = window;
+  a.scale = scale;
+  a.vec = hd % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
+          aligned16(o);
+  // the tiles: 16 keys up to S 16, else 32; 64 rows a block where that
+  // grid has a block for every SM, else 32, else 16 (fewer rows a thread:
+  // a shorter chain of products on a grid that leaves SMs idle)
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = sm_count(dev, sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long n = static_cast<long long>(S) * (H / KV);
+  const auto fills = [&](int rows) {
+    return static_cast<long long>(B) * KV * ((n + rows - 1) / rows) >= sms;
+  };
+  if (S <= 16)
+    return fills(64) ? launch_f32_fwd<2, 16>(a, dev, stream)
+                     : launch_f32_fwd<1, 16>(a, dev, stream);
+  return fills(64)   ? launch_f32_fwd<4, 32>(a, dev, stream)
+         : fills(32) ? launch_f32_fwd<2, 32>(a, dev, stream)
+                     : launch_f32_fwd<1, 32>(a, dev, stream);
+}
+
+// ---------------------------------------------------------------------------
+// f32, the non-causal mode: CUDA cores, a warp a query row (the tensor
+// cores take f32 only as TF32, which the port keeps off). A
 // block's 8 warps share 32-key tiles of k and v staged in shared memory,
 // the next tile loaded into registers while this one is computed; a lane
 // scores one key of a tile (four fmaf chains over hd), the warp meets by
@@ -505,26 +785,97 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
 // waited on each row's loads to stage a tile: PERF.md).
 // ---------------------------------------------------------------------------
 
+constexpr int kRowWarps = 8;    // rows a block
+constexpr int kRowTile = 32;    // keys (dQ) or queries (dK/dV) a tile
+constexpr int kRowCols = 4;     // output columns a lane: hd <= 128
+
+// the staged tiles' row pitch: odd, so 32 lanes reading 32 rows at one
+// column hit 32 banks
+__host__ __device__ inline int row_pitch(int hd) { return hd | 1; }
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// rows row0 .. row0 + 31 of a (S, stride) f32 operand in registers, on
+// their way to a tile in shared memory: warp w holds rows w + kRowWarps i,
+// a lane columns lane + 32 u. Every load of a tile is issued before the
+// first is used, and a walk loads its next tile before it computes on
+// this one: one memory latency a tile, hidden under the tile before
+struct RowTile {
+  float x[kRowTile / kRowWarps][kRowCols];
+};
+
+// rows >= S are zeros
+__device__ __forceinline__ void row_load(RowTile& t, const float* src,
+                                         long long stride, int row0, int S,
+                                         int hd) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int i = 0; i < kRowTile / kRowWarps; ++i) {
+    const int gr = row0 + warp + kRowWarps * i;
+#pragma unroll
+    for (int u = 0; u < kRowCols; ++u) {
+      const int c = lane + 32 * u;
+      t.x[i][u] = gr < S && c < hd ? src[gr * stride + c] : 0.0f;
+    }
+  }
+}
+
+// -> a tile of pitch row_pitch(hd)
+__device__ __forceinline__ void row_store(float* dst, const RowTile& t,
+                                          int hd) {
+  const int pitch = row_pitch(hd);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int i = 0; i < kRowTile / kRowWarps; ++i) {
+    const int r = warp + kRowWarps * i;
+#pragma unroll
+    for (int u = 0; u < kRowCols; ++u) {
+      const int c = lane + 32 * u;
+      if (c < hd) dst[r * pitch + c] = t.x[i][u];
+    }
+  }
+}
+
+// a . b over hd (a row of the warp's own, b a staged row): four fmaf
+// chains over d mod 4, added in a fixed order
+__device__ __forceinline__ float row_dot(const float* a, const float* b,
+                                         int hd) {
+  float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
+  int d = 0;
+  for (; d + 3 < hd; d += 4) {
+    s0 = fmaf(a[d], b[d], s0);
+    s1 = fmaf(a[d + 1], b[d + 1], s1);
+    s2 = fmaf(a[d + 2], b[d + 2], s2);
+    s3 = fmaf(a[d + 3], b[d + 3], s3);
+  }
+  for (; d < hd; ++d) s0 = fmaf(a[d], b[d], s0);
+  return (s0 + s1) + (s2 + s3);
+}
+
 __device__ __forceinline__ float warp_max(float v) {
   for (int off = 16; off > 0; off >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
 }
 
-__global__ void __launch_bounds__(32 * kF32Warps)
-    f32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+__global__ void __launch_bounds__(32 * kRowWarps)
+    rows_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, float* __restrict__ o,
                    float* __restrict__ lse, int S, int H, int KV, int hd,
                    float scale) {
   extern __shared__ float fsm[];
-  const int pitch = f32_pitch(hd);
+  const int pitch = row_pitch(hd);
   float* k_s = fsm;                       // [32][pitch]
-  float* v_s = k_s + kF32Tile * pitch;    // [32][pitch]
-  float* qr = v_s + kF32Tile * pitch + (threadIdx.x / 32) * hd;
+  float* v_s = k_s + kRowTile * pitch;    // [32][pitch]
+  float* qr = v_s + kRowTile * pitch + (threadIdx.x / 32) * hd;
   const int lane = threadIdx.x % 32;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const int kvh = h / (H / KV);
-  const int qi = blockIdx.x * kF32Warps + threadIdx.x / 32;
+  const int qi = blockIdx.x * kRowWarps + threadIdx.x / 32;
   const long long q_stride = static_cast<long long>(H) * hd;
   const long long kv_stride = static_cast<long long>(KV) * hd;
   const long long q_off = static_cast<long long>(b) * S * q_stride +
@@ -534,23 +885,23 @@ __global__ void __launch_bounds__(32 * kF32Warps)
   for (int c = lane; c < hd; c += 32)
     qr[c] = qi < S ? q[q_off + qi * q_stride + c] : 0.0f;
   float m = kNegInf, l = 0.0f;
-  float acc[kF32Cols];
+  float acc[kRowCols];
 #pragma unroll
-  for (int u = 0; u < kF32Cols; ++u) acc[u] = 0.0f;
+  for (int u = 0; u < kRowCols; ++u) acc[u] = 0.0f;
 
-  F32Rows nk, nv;  // the next tile of k and v
-  f32_load(nk, k + kv_off, kv_stride, 0, S, hd);
-  f32_load(nv, v + kv_off, kv_stride, 0, S, hd);
-  for (int k0 = 0; k0 < S; k0 += kF32Tile) {
+  RowTile nk, nv;  // the next tile of k and v
+  row_load(nk, k + kv_off, kv_stride, 0, S, hd);
+  row_load(nv, v + kv_off, kv_stride, 0, S, hd);
+  for (int k0 = 0; k0 < S; k0 += kRowTile) {
     __syncthreads();  // the last tile is read (and the rows are in)
-    f32_store(k_s, nk, hd);
-    f32_store(v_s, nv, hd);
+    row_store(k_s, nk, hd);
+    row_store(v_s, nv, hd);
     __syncthreads();
-    if (k0 + kF32Tile < S) {
-      f32_load(nk, k + kv_off, kv_stride, k0 + kF32Tile, S, hd);
-      f32_load(nv, v + kv_off, kv_stride, k0 + kF32Tile, S, hd);
+    if (k0 + kRowTile < S) {
+      row_load(nk, k + kv_off, kv_stride, k0 + kRowTile, S, hd);
+      row_load(nv, v + kv_off, kv_stride, k0 + kRowTile, S, hd);
     }
-    const float dot = f32_dot(qr, k_s + lane * pitch, hd);
+    const float dot = row_dot(qr, k_s + lane * pitch, hd);
     const float s = k0 + lane < S ? dot * scale : kNegInf;
     const float m_new = fmaxf(m, warp_max(s));
     const float alpha = expf(m - m_new);
@@ -558,11 +909,11 @@ __global__ void __launch_bounds__(32 * kF32Warps)
     l = l * alpha + warp_sum(p);
     m = m_new;
 #pragma unroll
-    for (int u = 0; u < kF32Cols; ++u) acc[u] *= alpha;
-    for (int j = 0; j < kF32Tile; ++j) {
+    for (int u = 0; u < kRowCols; ++u) acc[u] *= alpha;
+    for (int j = 0; j < kRowTile; ++j) {
       const float pj = __shfl_sync(0xffffffffu, p, j);
 #pragma unroll
-      for (int u = 0; u < kF32Cols; ++u) {
+      for (int u = 0; u < kRowCols; ++u) {
         const int c = lane + 32 * u;
         if (c < hd) acc[u] = fmaf(pj, v_s[j * pitch + c], acc[u]);
       }
@@ -571,7 +922,7 @@ __global__ void __launch_bounds__(32 * kF32Warps)
   if (qi < S) {
     const float l_safe = fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int u = 0; u < kF32Cols; ++u) {
+    for (int u = 0; u < kRowCols; ++u) {
       const int c = lane + 32 * u;
       if (c < hd) o[q_off + qi * q_stride + c] = acc[u] / l_safe;
     }
@@ -580,17 +931,20 @@ __global__ void __launch_bounds__(32 * kF32Warps)
   }
 }
 
-int launch_f32(const void* q, const void* k, const void* v, void* o,
-               float* lse, int B, int S, int H, int KV, int hd, float scale,
-               cudaStream_t stream) {
+int launch_rows(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int S, int H, int KV, int hd, float scale,
+                cudaStream_t stream) {
   const size_t smem =
-      sizeof(float) * (2 * kF32Tile * f32_pitch(hd) + kF32Warps * hd);
-  const cudaError_t err = cudaFuncSetAttribute(
-      f32_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      sizeof(float) * (2 * kRowTile * row_pitch(hd) + kRowWarps * hd);
+  static unsigned attr_set = 0;
+  const cudaError_t err = smem_attr_once(
+      rows_fwd_kernel,
+      static_cast<int>(sizeof(float) *
+                       (2 * kRowTile * row_pitch(128) + kRowWarps * 128)),
+      attr_set);
   if (err != cudaSuccess) return static_cast<int>(err);
-  f32_fwd_kernel<<<dim3((S + kF32Warps - 1) / kF32Warps, B * H),
-                   32 * kF32Warps, smem, stream>>>(
+  rows_fwd_kernel<<<dim3((S + kRowWarps - 1) / kRowWarps, B * H),
+                   32 * kRowWarps, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, S, H, KV, hd,
       scale);
@@ -600,20 +954,25 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 }  // namespace swa_full
 
-// q, k, v, o as swa_attention_fwd takes them, lse (B, H, S) f32 or null;
-// causal: 1 = the causal sliding window (bf16 only), 0 = every key (window
-// unused); is_bf16: 0 = float32 operands, 1 = bfloat16.
-extern "C" int swa_full_fwd(const void* q, const void* k, const void* v,
-                            void* o, void* lse, int B, int S, int H, int KV,
-                            int hd, int window, int causal, float scale,
-                            int is_bf16, void* stream) {
+// The forward's C entry point, every call (kernels/__init__.py).
+// q, k, v, o: (B, S, H or KV, hd), contiguous; lse: (B, H, S) f32
+// log-sum-exp of each row's scaled scores, or null. causal: 1 = the
+// causal sliding window, 0 = every key (window unused). bf16: 0 =
+// float32 operands (the CUDA cores: packed tiles causal, a warp a row
+// non-causal), 1 = bfloat16 (the tensor cores).
+extern "C" int swa_attention_fwd(const void* q, const void* k, const void* v,
+                                 void* o, void* lse, int B, int S, int H,
+                                 int KV, int hd, int window, int causal,
+                                 float scale, int bf16, void* stream) {
   using namespace swa_full;
-  if (hd < 1 || hd > 128 || KV < 1 || H % KV != 0 || window < 1 ||
-      (causal && !is_bf16))
+  if (hd < 1 || hd > 128 || KV < 1 || H % KV != 0 || window < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* lse_f = static_cast<float*>(lse);
-  if (!is_bf16) return launch_f32(q, k, v, o, lse_f, B, S, H, KV, hd, scale, s);
+  if (!bf16)
+    return causal ? launch_f32(q, k, v, o, lse_f, B, S, H, KV, hd, window,
+                               scale, s)
+                  : launch_rows(q, k, v, o, lse_f, B, S, H, KV, hd, scale, s);
   using Launch = int (*)(const void*, const void*, const void*, void*, float*,
                          int, int, int, int, int, int, float, cudaStream_t);
   constexpr Launch by_hdp[2][8] = {

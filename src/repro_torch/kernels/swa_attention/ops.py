@@ -4,19 +4,19 @@ or, with ``causal=False``, attention over every key (the encoder's).
 A CPU tensor goes to the plain version (``ref.swa_attention_ref``), any
 other tensor to the operators ``repro_torch::swa_attention`` and
 ``repro_torch::swa_attention_bwd``: on a CUDA tensor the hand kernels
-behind the entry points of ``csrc/swa_attention.cu`` and
-``csrc/swa_attention_bwd.cu``, on a meta tensor shapes only; nothing
-falls back from one to the other. The entry points pick the kernels by
-dtype: bf16 on the ``wgmma`` and TMA kernels of ``csrc/swa_full_fwd.cu``
-and ``csrc/swa_full_bwd.cu`` (both modes), f32 on the CUDA cores. q is
-(B, S, H, hd), k and v (B, S, KV, hd), all f32 or all bf16; the softmax
-and sums are f32 and the output has q's dtype.
+behind the C entry points of ``csrc/swa_full_fwd.cu`` and
+``csrc/swa_full_bwd.cu``, on a meta tensor shapes only; nothing falls
+back from one to the other. The entry points pick the kernels by dtype
+and mode: bf16 on the ``wgmma`` and TMA kernels, f32 on the CUDA cores
+(GQA-packed register tiles, but a warp a row for the non-causal
+forward). q is (B,
+S, H, hd), k and v (B, S, KV, hd), all f32 or all bf16; the softmax and
+sums are f32 and the output has q's dtype.
 On the CPU autograd differentiates the plain version. On the card a call
 that autograd records is a ``torch.autograd.Function``: its forward also
 writes each row's log-sum-exp, and its backward is the kernels of
-``csrc/swa_attention_bwd.cu`` (one ``swa_attention_bwd`` launch a call),
-in either mode (the non-causal mode's kernels are
-``csrc/swa_full_bwd.cu``'s); a call it does not record (serving, under
+``csrc/swa_full_bwd.cu`` (one ``swa_attention_bwd`` launch a call), in
+either mode; a call it does not record (serving, under
 ``torch.no_grad()``) passes the kernel a null log-sum-exp.
 """
 from __future__ import annotations

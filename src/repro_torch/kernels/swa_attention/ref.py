@@ -1,6 +1,6 @@
 """Plain PyTorch version of the sliding-window flash-attention kernel.
 
-The same function as ``csrc/swa_attention.cu`` and the reference's
+The same function as ``csrc/swa_full_fwd.cu`` and the reference's
 ``kernels/swa_attention/ref.py``, in the serving path's layouts:
 q (B, S, H, hd), k and v (B, S, KV, hd), query head h reading kv head
 h // (H / KV). Query i sees keys j with j <= i and i - j < window; the
@@ -64,7 +64,7 @@ def swa_attention_lse_ref(q, k, *, window: int, causal: bool = True):
 def swa_attention_bwd_ref(q, k, v, out, lse, dout, *, window: int,
                           causal: bool = True):
     """The backward in plain PyTorch, recomputed from the log-sum-exp as
-    ``csrc/swa_attention_bwd.cu`` does: P = exp(s − lse) inside the mask,
+    ``csrc/swa_full_bwd.cu`` does: P = exp(s − lse) inside the mask,
     D = rowsum(dout ∘ out), dS = P ∘ (dout·vᵀ − D); dq = scale·dS·k,
     dk = scale·dSᵀ·q and dv = Pᵀ·dout summed over each kv head's group;
     with ``causal=False`` over every key. f32 throughout (f64 for f64

@@ -274,6 +274,26 @@ def test_rmsnorm_kernel_matches_plain_on_card(cuda, shape, x_dt, s_dt):
         _close(got.cpu().numpy(), ref.cpu().numpy())
 
 
+# The f32 kernel's GQA-packed tiles (rows: query-major (query, head in
+# group) pairs, 64 a tile): at G 4, S 16 fills a tile exactly, S 15 is one
+# query short and S 17 one over (16-key tiles up to S 16, 32 beyond); G 1,
+# 6 and 8; windows of 1 and 5 inside one packed tile; hd 20, 72 and 128;
+# hd 30 and 38, not a multiple of 4: 4-byte copies and stores; the f32
+# parity path's lm_parity (B2 S16 H32/8) and elm_head (B4 S128 H32/8, also
+# the serving path's prefill below) shapes
+SWA_F32_TILE_SHAPES = [
+    (2, 16, 8, 2, 128, 16), (2, 15, 8, 2, 128, 15), (2, 17, 8, 2, 128, 17),
+    (2, 40, 4, 4, 64, 40), (1, 50, 12, 2, 72, 50), (2, 24, 16, 2, 20, 24),
+    (1, 11, 24, 4, 128, 11),
+    (1, 16, 8, 2, 128, 1), (1, 16, 8, 2, 128, 5), (1, 40, 8, 2, 64, 5),
+    (2, 16, 8, 2, 30, 16), (1, 50, 12, 2, 38, 7),
+    (2, 16, 32, 8, 128, 16)]
+# the same edges over every key (the non-causal mode: its f32 forward is the
+# warp-a-row kernel, its f32 backward the packed tiles): 64 packed rows
+# exactly and one query over, G 6 and G 8, hd 30
+SWA_F32_NON_CAUSAL_SHAPES = [
+    (2, 16, 8, 2, 128), (2, 17, 8, 2, 128), (1, 50, 12, 2, 72),
+    (2, 24, 16, 2, 20), (1, 40, 8, 2, 30)]
 # the LM zoo's causal heads at the prefill (B 4, S 128): OLMoE-1B-7B (G
 # 1), MiniCPM-2B (hd 64), Qwen3-MoE (G 16), Qwen3-32B; one 4,096-token
 # sequence of Qwen3-8B (the reference's train_4k shape, W = S) and a
@@ -309,7 +329,8 @@ SWA_ZOO_SHAPES = [
     (1, 200, 4, 2, 64, 1),         # window 1: the diagonal alone
     (1, 200, 4, 2, 64, 17),        # window 17: inside a tile, and across two
     (2, 96, 8, 1, 128, 96),        # G = 8: eight query heads per kv head
-    (1, 50, 2, 1, 20, 50)] + SWA_ZOO_SHAPES)   # hd 20: 2-byte staging
+    (1, 50, 2, 1, 20, 50)]         # hd 20: 2-byte staging
+    + SWA_ZOO_SHAPES + SWA_F32_TILE_SHAPES)
 def test_swa_kernel_matches_plain_on_card(cuda, dt, B, S, H, KV, hd, window):
     """The forward against the plain version, one launch a call, bitwise
     the same on a second call."""
@@ -367,7 +388,8 @@ def test_swa_kernel_large_scores_on_card(cuda, dt, window):
     (1, 127, 4, 2, 80), (2, 128, 4, 4, 64), (1, 129, 4, 2, 80),
     (1, 1, 4, 2, 80),
     (1, 200, 4, 2, 96), (1, 200, 4, 2, 112),
-    (4, 1024, 16, 16, 80)])        # HuBERT's grid: B·H = 64 at S 1024
+    (4, 1024, 16, 16, 80)]         # HuBERT's grid: B·H = 64 at S 1024
+    + SWA_F32_NON_CAUSAL_SHAPES)
 def test_swa_non_causal_kernel_matches_plain_on_card(cuda, dt, B, S, H, KV,
                                                      hd):
     """The non-causal mode (the encoder's attention over every key)
@@ -403,7 +425,7 @@ def test_swa_non_causal_kernel_matches_plain_on_card(cuda, dt, B, S, H, KV,
     # two 64-row warpgroup tiles over 64-row tiles; hd 96 and 112
     (1, 127, 4, 2, 80), (2, 128, 4, 4, 64), (1, 129, 4, 2, 80),
     (1, 1, 4, 2, 80),
-    (1, 200, 4, 2, 96), (1, 200, 4, 2, 112)])
+    (1, 200, 4, 2, 96), (1, 200, 4, 2, 112)] + SWA_F32_NON_CAUSAL_SHAPES)
 def test_swa_non_causal_bwd_matches_plain_on_card(cuda, dt, B, S, H, KV, hd):
     """The non-causal mode under autograd: one forward launch with its
     log-sum-exp (against the plain one) and one ``swa_attention_bwd``
@@ -601,7 +623,7 @@ def test_lm_serving_on_card_matches_cpu(cuda, window):
 
 
 # ---------------------------------------------------------------------------
-# The LM kernels' backward: rmsnorm_bwd.cu, swa_attention_bwd.cu
+# The LM kernels' backward: rmsnorm_bwd.cu, swa_full_bwd.cu
 # ---------------------------------------------------------------------------
 
 def _bf16_ulp(x: float) -> float:
@@ -742,7 +764,7 @@ SWA_BWD_SHAPES = [
     (1, 100, 8, 2, 64, 40),        # key-tile boundaries inside the window
     (2, 130, 4, 1, 128, 48),       # window ending mid-tile, G = 4
     (1, 64, 2, 2, 32, 16)          # S one dQ tile, window half a tile
-] + SWA_ZOO_SHAPES
+] + SWA_ZOO_SHAPES + SWA_F32_TILE_SHAPES
 
 
 @pytest.mark.cuda
@@ -785,25 +807,64 @@ def _off_by(a, elems):
     return out
 
 
+# unaligned operands: the f32 lm_parity shape (packed tiles exactly full)
+# and a non-causal f32 shape, each through the f32 kernels' 4-byte path
+UNALIGNED_SHAPES = [
+    (2, 37, 4, 2, 64, 37, True), (1, 100, 8, 2, 128, 40, True),
+    (2, 16, 32, 8, 128, 16, True), (2, 40, 8, 2, 64, 40, False)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,H,KV,hd,window", [
-    (2, 37, 4, 2, 64, 37), (1, 100, 8, 2, 128, 40)])
-def test_swa_bwd_unaligned_operands_on_card(cuda, B, S, H, KV, hd, window):
-    """bf16 operands 2 bytes past a 16-byte boundary take the 2-byte
-    staging of the tensor-core kernels: within the bars of
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,KV,hd,window,causal", UNALIGNED_SHAPES)
+def test_swa_unaligned_operands_on_card(cuda, dt, B, S, H, KV, hd, window,
+                                        causal):
+    """The forward on operands one element past a 16-byte boundary (f32:
+    4 bytes, the 4-byte copies and stores of the f32 kernels; bf16: 2
+    bytes, the thread copies of the tensor-core kernels): within the bars
+    of ``test_swa_kernel_matches_plain_on_card``, bitwise run to run."""
+    q, k, v, _ = (_off_by(a, 1) for a in
+                  _swa_inputs(cuda, dt, B, S, H, KV, hd, seed=5))
+    assert q.is_contiguous() and q.data_ptr() % 16 == q.element_size()
+    got = swa_ops.swa_attention(q, k, v, window=window, causal=causal)
+    ref = swa_ref.swa_attention_ref(q, k, v, window=window, causal=causal)
+    torch.cuda.synchronize()
+    if dt == "bf16":
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   ref.float().cpu().numpy(), rtol=2.0 ** -7,
+                                   atol=1e-5 * float(ref.abs().max()))
+    else:
+        _close(got.cpu().numpy(), ref.cpu().numpy())
+    assert torch.equal(got, swa_ops.swa_attention(q, k, v, window=window,
+                                                  causal=causal))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,KV,hd,window,causal", UNALIGNED_SHAPES)
+def test_swa_bwd_unaligned_operands_on_card(cuda, dt, B, S, H, KV, hd,
+                                            window, causal):
+    """Operands one element past a 16-byte boundary (f32: 4 bytes, the
+    4-byte copies and stores of the packed-tile kernel; bf16: 2 bytes, the
+    2-byte staging of the tensor-core kernels): within the bars of
     ``test_swa_bwd_kernel_matches_plain_on_card``, bitwise run to run."""
     q, k, v, do = (_off_by(a, 1) for a in
-                   _swa_inputs(cuda, "bf16", B, S, H, KV, hd, seed=5))
-    assert q.is_contiguous() and q.data_ptr() % 16 == 2
-    out, lse = swa_ops.swa_attention_fwd(q, k, v, window=window)
-    got = swa_ops.swa_attention_bwd(q, k, v, out, lse, do, window=window)
-    ref = swa_ref.swa_attention_bwd_ref(q, k, v, out, lse, do, window=window)
+                   _swa_inputs(cuda, dt, B, S, H, KV, hd, seed=5))
+    assert q.is_contiguous() and q.data_ptr() % 16 == q.element_size()
+    out, lse = swa_ops.swa_attention_fwd(q, k, v, window=window,
+                                         causal=causal)
+    got = swa_ops.swa_attention_bwd(q, k, v, out, lse, do, window=window,
+                                    causal=causal)
+    ref = swa_ref.swa_attention_bwd_ref(q, k, v, out, lse, do, window=window,
+                                        causal=causal)
     truth = swa_ref.swa_attention_bwd_ref(
-        *(a.double() for a in (q, k, v, out, lse, do)), window=window)
-    terms = _swa_bwd_terms(q, k, v, out, lse, do, window)
+        *(a.double() for a in (q, k, v, out, lse, do)), window=window,
+        causal=causal)
+    terms = _swa_bwd_terms(q, k, v, out, lse, do, window, causal=causal)
     for g, r, t, m in zip(got, ref, truth, terms):
         _grad_close(g, r, t, m)
-    again = swa_ops.swa_attention_bwd(q, k, v, out, lse, do, window=window)
+    again = swa_ops.swa_attention_bwd(q, k, v, out, lse, do, window=window,
+                                      causal=causal)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 

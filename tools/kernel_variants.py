@@ -5,8 +5,9 @@
                                      [--variants TAG ...]
 
 Each variant is a copy of a kernel's sources in ``src/repro_torch/csrc/``
-(swa_attention and swa_attention_bwd: the entry's file with the causal f32
-kernels, the wgmma ``swa_full_*.cu`` file and their header) with one edit
+(swa_attention and swa_attention_bwd: the ``swa_full_*.cu`` file with the
+C entry, the wgmma kernels and the f32 kernel, and their header) with one
+edit
 - elm_stats's stages or unrolls, the attention kernels' stages, copies,
 split or block order, conv2d's pixels per thread,
 tile size, instantiation or stores, the conv backward's splits, tiles and
@@ -18,8 +19,11 @@ plain version is reported but not a failure.
 in DIR as they stand (an earlier checkout's ``src/repro_torch/csrc``: the
 same C entry point; those of the kernel's files that DIR lacks are left out,
 as a checkout from before the non-causal files kept that mode in the causal
-file; swa_attention's gained its log-sum-exp argument with the backward
-kernels, so a baseline of that kernel must have it; a swa_attention or
+file, and a checkout from before the entries moved into ``swa_full_*.cu``
+adds its ``swa_attention.cu`` or ``swa_attention_bwd.cu``, which held them
+and the causal f32 kernels; swa_attention's gained its log-sum-exp
+argument with the backward kernels, so a baseline of that kernel must have
+it; a swa_attention or
 swa_attention_bwd source without the later causal argument is called without
 it and runs the causal shapes alone; the parent of the causal wgmma
 kernels, whose causal bf16 kernels were its mma.sync ones, takes the same
@@ -28,16 +32,19 @@ swa_attention build's output, and each swa_attention_bwd build's dq, dk
 and dv, are also compared bit for bit with the shipped source's
 (``bitwise_shipped``); both run the causal cases of chip_smoke.py's phase
 kernel (the prefill, a window of 256 at S 1024, q scaled by 8, Zamba2's
-shared block, OLMoE's prefill, a 4,096-token sequence; the backward
-without the scaled q), hd 40 and its non-causal ones (HuBERT's encoder,
-S 1000, a small f32 case). The attention variants copy tiles by threads,
-not TMA, round the hi part of the split weights to nearest, not down,
-run the causal blocks in the grid's order, not the longest walks first,
-or leave out (``probe_``) the lo products, the exponentials, the
-forward's output stores, a kernel, or the causal launch's dK/dV or dQ
-blocks; the backward's take the IEEE exp2f, the forward's the
-hardware's exp2, and the forward's also change its stages, keep Q in
-shared memory for S or truncate lo too;
+shared block, OLMoE's prefill, a 4,096-token sequence, the f32 parity path's
+B2 S16 and B4 S128; the backward without the scaled q), hd 40 and its
+non-causal ones (HuBERT's encoder, S 1000, a small f32 case). The attention
+variants copy tiles by threads, not TMA, round the hi part of the split
+weights to nearest, not down, run the causal blocks in the grid's order, not
+the longest walks first, or leave out (``probe_``) the lo products, the
+exponentials, the forward's output stores, a kernel, or the causal launch's
+dK/dV or dQ blocks; the backward's take the IEEE exp2f, the forward's the
+hardware's exp2, and the forward's also change its stages, keep Q in shared
+memory for S or truncate lo too; the f32 kernel's take the 32-key tiles at S
+<= 16 too or 64-row blocks on every grid, the backward's its first rule's
+32-key tiles or two stages of its dK/dV walk, and both leave out
+(``probe_``) a phase or (the backward) its dK/dV or dQ blocks;
 rmsnorm_bwd's change its chunks or leave out its dscale pass; its baseline
 (the first design) is called with the chunks it chose. elm_stats's builds
 run the Map's and the stream's batches, a whole shard, E²LM's shards, the
@@ -87,20 +94,24 @@ ENTRIES = {
                (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P)),
     "elm_stats": (("elm_stats.cu",), "elm_stats_f32",
                   (_P, _P, _P, _P, _L, _P, _I, _I, _I, _I, _I, _I, _P)),
-    "swa_attention": (("swa_attention.cu", "swa_full_fwd.cu",
-                       "swa_full.cuh"), "swa_attention_fwd",
+    "swa_attention": (("swa_full_fwd.cu", "swa_full.cuh"),
+                      "swa_attention_fwd",
                       (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                        _I, _P)),
     "rmsnorm_bwd": (("rmsnorm_bwd.cu",), "rmsnorm_bwd",
                     (_P,) * 6 + (_I, _I, _I, _F, _I, _I, _P)),
-    "swa_attention_bwd": (("swa_attention_bwd.cu", "swa_full_bwd.cu",
-                           "swa_full.cuh"), "swa_attention_bwd",
+    "swa_attention_bwd": (("swa_full_bwd.cu", "swa_full.cuh"),
+                          "swa_attention_bwd",
                           (_P,) * 10 + (_I,) * 7 + (_F, _I, _P)),
     "conv2d_wgrad": (("conv2d_wgrad.cu",), "conv2d_wgrad_f32",
                      (_P, _P, _P, _P) + (_I,) * 9 + (_P,)),
     "conv2d_dgrad": (("conv2d_dgrad.cu",), "conv2d_dgrad_f32",
                      (_P, _P, _P) + (_I,) * 8 + (_P,)),
 }
+# a baseline's files beyond the shipped ones: the C entries and causal f32
+# kernels of a checkout from before they moved into swa_full_*.cu
+BASELINE_FILES = {"swa_attention": ("swa_attention.cu",),
+                  "swa_attention_bwd": ("swa_attention_bwd.cu",)}
 # the non-causal kernels' hi + lo split: the shipped hi (truncated), hi
 # rounded to nearest by the bf16x2 conversion
 _SPLIT = (r"  const uint32_t h0 = __float_as_uint\(x0\) & 0xFFFF0000u;\n"
@@ -250,9 +261,23 @@ VARIANTS = {
         ("probe_full_hi_only", [("swa_full_fwd.cu",
                                  r"\n *wgmma_rs<HDP>\(o, pl \+ 4 \* kk, d\);",
                                  "")]),
-        # the f32 route with 4 warps (rows) a block, not 8
-        ("full_f32_warps4", [("swa_full.cuh", r"kF32Warps = \d+;",
-                              "kF32Warps = 4;")]),
+        # the f32 kernel's 32-key tiles at S <= 16 too, where the rule
+        # takes 16-key tiles; its 64-row blocks on every grid, where the
+        # rule takes fewer rows on a grid that does not fill the card
+        ("f32_no_small_tiles", [("swa_full_fwd.cu", r"if \(S <= 16\)\n",
+                                 "if (false)\n")]),
+        ("f32_rows_64", [("swa_full_fwd.cu",
+                          r"return static_cast<long long>\(B\) \* KV \* "
+                          r"\(\(n \+ rows - 1\) / rows\) >= sms;",
+                          "return true;")]),
+        # the f32 kernel without its scores' products (q.k over hd) or
+        # without its P.V products: what each phase costs (wrong output)
+        ("probe_f32_no_scores", [("swa_full_fwd.cu",
+                                  r"for \(int d = 0; d < hd4; d \+= 4\)",
+                                  "for (int d = 0; d < 0 * hd4; d += 4)")]),
+        ("probe_f32_no_pv", [("swa_full_fwd.cu",
+                              r"const int keys = min\(CK, kend - k0\);",
+                              "const int keys = 0 * min(CK, kend - k0);")]),
     ],
     "rmsnorm_bwd": [
         ("shipped", []),
@@ -331,13 +356,34 @@ VARIANTS = {
              "", 2),
             ("swa_full_bwd.cu", r"\n *wgmma_rs<HDP>\(dq, dl \+ 4 \* kk, d\);",
              "")]),
-        ("full_f32_warps4", [("swa_full.cuh", r"kF32Warps = \d+;",
-                              "kF32Warps = 4;")]),
+        # the f32 kernel's 32-key, 32-row tiles (the first rule's above S
+        # 16), where it ships 16 keys and 64 rows; its dK/dV walk with two
+        # stages of q and dO (one block an SM), where it ships one
+        ("f32_tiles_32", [("swa_full_bwd.cu",
+                           r"return launch_f32_bwd<16, 64>\(f, s\);",
+                           "return launch_f32_bwd<32, 32>(f, s);")]),
+        ("f32_dkdv_two_stages", [("swa_full_bwd.cu",
+                                  r"kF32DkdvStages = \d+;",
+                                  "kF32DkdvStages = 2;")]),
+        # the f32 kernel's dK/dV or dQ blocks return at once: what the other
+        # role's blocks and the D pre-pass take
         ("probe_f32_dkdv_off", [("swa_full_bwd.cu",
-                                 r"(\n  )(f32_dkdv_kernel<<<)",
-                                 r"\1if (false) \2")]),
-        ("probe_f32_dq_off", [("swa_full_bwd.cu", r"(\n  )(f32_dq_kernel<<<)",
-                               r"\1if (false) \2")]),
+                                 r"f32_dkdv_block<CK, RQ>\(a, fsm, x % nbkv, "
+                                 r"x / nbkv\);", ";")]),
+        ("probe_f32_dq_off", [("swa_full_bwd.cu",
+                               r"f32_dq_block<CK, RQ>\(a, fsm, y % nbkv,",
+                               "if (false) f32_dq_block<CK, RQ>(a, fsm, "
+                               "y % nbkv,")]),
+        # the f32 kernel without its S and dP products (over hd) or without
+        # its products into dK, dV and dQ: what each phase costs
+        ("probe_f32_no_scores", [("swa_full_bwd.cu",
+                                  r"d0 < hd4; d0 \+= 32\)",
+                                  "d0 < 0 * hd4; d0 += 32)")]),
+        ("probe_f32_no_outputs", [
+            ("swa_full_bwd.cu", r"const int rows = min\(RQ, pend - pb\);",
+             "const int rows = 0 * min(RQ, pend - pb);"),
+            ("swa_full_bwd.cu", r"const int keys = min\(CK, kend - k0\);",
+             "const int keys = 0 * min(CK, kend - k0);")]),
         # the causal wgmma kernels' grid order: dQ's query tiles first to
         # last, not the last (the longest walks) first; dK/dV's key tiles
         # last to first, not the first (the longest walks) first
@@ -471,6 +517,11 @@ SWA_SHAPES = [("prefill_causal", 4, 128, 32, 8, 128, 128, 1, 1, 1.0),
               ("zamba2_shared", 4, 128, 32, 32, 64, 128, 1, 1, 1.0),
               ("olmoe_prefill", 4, 128, 16, 16, 128, 128, 1, 1, 1.0),
               ("train4k_seq", 1, 4096, 32, 8, 128, 4096, 1, 1, 1.0),
+              # the f32 parity path: phase lm_parity's 2-layer Qwen3-8B and
+              # phase elm_head's 2-layer Qwen3-8B at the LM prefill
+              ("lm_parity_causal_f32", 2, 16, 32, 8, 128, 16, 1, 0, 1.0),
+              ("elm_head_parity_causal_f32", 4, 128, 32, 8, 128, 128, 1, 0,
+               1.0),
               ("prefill_hd40", 4, 128, 32, 8, 40, 128, 1, 1, 1.0),
               # rows TMA cannot copy: the tiles by threads, 2 bytes at a
               # time
@@ -517,7 +568,7 @@ def variants_of(name, baseline, only=None):
            if only is None or tag == "shipped" or tag in only]
     if baseline:
         base = {}
-        for src_name in ENTRIES[name][0]:
+        for src_name in ENTRIES[name][0] + BASELINE_FILES.get(name, ()):
             path = os.path.join(baseline, src_name)
             if os.path.exists(path):
                 with open(path) as f:
@@ -535,7 +586,7 @@ def build_all(names, baseline, only=None):
     procs, texts = {}, {}
     for name in names:
         for tag, files in variants_of(name, baseline, only):
-            texts[(name, tag)] = files[ENTRIES[name][0][0]]
+            texts[(name, tag)] = "".join(files.values())
             where = os.path.join(out, f"{name}_{tag}")
             shutil.rmtree(where, ignore_errors=True)
             os.makedirs(where)
