@@ -217,8 +217,10 @@ is non-zero and no result line is printed:
 16. train  — the LM training path (``repro_torch.launch.train``): qwen3_8b
              at full width cut to 4 layers, 2 members, AdamW, cosine, 4
              steps of 4 × 128 tokens, --rounds 2: losses finite, the
-             average's held-out loss beside the members', launches exact,
-             peak memory, step walls; member steps on one repeated batch
+             average's held-out loss beside the members', launches exact
+             (the layers recomputed in the backward), peak memory, step
+             walls; remat bitwise the kept activations (gradients and an
+             SGD step's params); member steps on one repeated batch
              (the loss falls step by step), one of them profiled; killed
              after step 2 and resumed, bitwise; reduced f32 SGD card vs
              CPU (1e-4 · max|leaf|, or twice the CPU's one-ulp twin's
@@ -660,7 +662,10 @@ def phase_kernels(torch, dev, rates):
     # and Zamba2-1.2B's norms at its width 2,048 (f32 scale)
     rms_cases = [("ln_d4096", (512, 4096), torch.float32),
                  ("qk_norm_d128", (16384, 128), torch.bfloat16),
-                 ("zamba2_ln_d2048", (512, 2048), torch.float32)]
+                 ("zamba2_ln_d2048", (512, 2048), torch.float32),
+                 # rank 0's ln1/ln2/final norm on phase pod's train_4k
+                 # step: 16 × 4,096 local tokens
+                 ("pod_train4k_ln_d4096", (65536, 4096), torch.float32)]
     for tag, shape, scale_dtype in rms_cases:
         x = (randn(*shape) * 3).to(torch.bfloat16)
         scale = (1 + 0.1 * randn(shape[-1])).to(scale_dtype)
@@ -712,6 +717,9 @@ def phase_kernels(torch, dev, rates):
                  ("olmoe_prefill", 4, 128, 16, 16, 128, 128, 1.0, bf16),
                  ("train4k_seq", 1, 4096, 32, 8, 128, 4096, 1.0, bf16),
                  ("pod_local_heads_s32k", 2, 32768, 2, 1, 128, 32768, 1.0,
+                  bf16),
+                 # rank 0's local heads on phase pod's train_4k step
+                 ("pod_train4k_local_heads", 16, 4096, 2, 1, 128, 4096, 1.0,
                   bf16),
                  ("lm_parity_causal_f32", 2, 16, 32, 8, 128, 16, 1.0,
                   torch.float32),
@@ -909,6 +917,9 @@ def phase_kernels(torch, dev, rates):
         ("window256_s1024", 1, 1024, 32, 8, 128, 256, True, torch.bfloat16),
         ("olmoe_prefill", 4, 128, 16, 16, 128, 128, True, torch.bfloat16),
         ("train4k_seq", 1, 4096, 32, 8, 128, 4096, True, torch.bfloat16),
+        # rank 0's local heads on phase pod's train_4k step
+        ("pod_train4k_local_heads", 16, 4096, 2, 1, 128, 4096, True,
+         torch.bfloat16),
         ("encoder_bidirectional", 4, 1024, 16, 16, 80, 1024, False,
          torch.bfloat16),
         ("encoder_ragged_s1000", 4, 1000, 16, 16, 80, 1000, False,
@@ -2339,8 +2350,9 @@ def phase_elm_head(torch, dev, rates, m, lm_layers=None, batch=500,
     lm_ft_ms = (time.perf_counter() - t0) * 1e3
     ft_launches = dict(kernels.LAUNCHES)
     pl = parity_layers
-    want = want_launches(rmsnorm=4 * pl + 1, rmsnorm_bwd=4 * pl + 1,
-                         swa_attention=pl, swa_attention_bwd=pl)
+    # remat: each layer's forward runs again in the backward
+    want = want_launches(rmsnorm=2 * 4 * pl + 1, rmsnorm_bwd=4 * pl + 1,
+                         swa_attention=2 * pl, swa_attention_bwd=pl)
     check(ft_launches == want,
           f"LM finetune launches {ft_launches} != {want}")
     new_h, ft_loss_h = elm_head.finetune_step(pfn, host, bh, fb_host,
@@ -2633,9 +2645,11 @@ def phase_lm_parity(torch, dev, batch=2, prompt=16, steps=4):
     return max(errs)
 
 
-def profile_once(torch, fn):
+def profile_once(torch, fn, groups=None):
     """One call of ``fn`` under torch.profiler: wall, device busy, idle
-    share and the 8 largest device activities."""
+    share and the 8 largest device activities; with ``groups`` (label ->
+    substrings of kernel names), each group's device ms and share of the
+    busy time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2645,11 +2659,17 @@ def profile_once(torch, fn):
         wall = (time.perf_counter() - t0) * 1e3
     rows = sorted(device_activity(torch, prof), reverse=True)
     busy = sum(us for us, _, _ in rows) / 1e3
-    return dict(wall_ms=wall, device_busy_ms=busy if rows else
-                "not measured",
-                idle_share=1 - busy / wall if rows else "not measured",
-                top=[{"name": name[:60], "ms": us / 1e3, "count": count}
-                     for us, name, count in rows[:8]])
+    out = dict(wall_ms=wall, device_busy_ms=busy if rows else
+               "not measured",
+               idle_share=1 - busy / wall if rows else "not measured",
+               top=[{"name": name[:60], "ms": us / 1e3, "count": count}
+                    for us, name, count in rows[:8]])
+    for label, keys in (groups or {}).items():
+        ms = sum(us for us, name, _ in rows
+                 if any(key in name for key in keys)) / 1e3
+        out[f"{label}_ms"] = ms if rows else "not measured"
+        out[f"{label}_share"] = ms / busy if rows else "not measured"
+    return out
 
 
 def lm_serving(torch, dev, arch, batch=4, prompt=128, gen=32):
@@ -2803,21 +2823,34 @@ def phase_lm_mesh(torch, dev, lm_first, lm_launches, batch=4, prompt=128,
     return launches
 
 
+POD_PEAK_LIMIT = 70e9     # a train combo deeper than fits is cut
+# kernel-name substrings of the hand kernels on phase pod's train step
+# (the attention's kernels live in namespace swa_full)
+POD_GROUPS = {"attention": ("swa_full::",), "norms": ("rmsnorm",)}
+
+
 def phase_pod(torch, dev):
     """Rank 0 of the reference's 16 × 16 (data, model) mesh on the card,
     under a fake process group of 256 ranks (its collectives send nothing;
-    what they leave in the gathered blocks is not checked), at three
-    combos, each held against the dry run's trace of the same combo
-    exactly: the kernel operators' calls against the launches, the
-    argument bytes against the storages the card's step takes, the FLOPs
-    against ``FlopCounterMode``'s count, and the collectives' calls and
-    bytes by axis. Printed: the trace's peak over the card's and the
-    device's busy time (one profiled step) over the roofline. Returns the
+    what they leave in the gathered blocks is not checked, so the values
+    are not compared: the sharded step's values are the gloo CPU tests'),
+    at four combos — Qwen3-8B's prefill and decode, OLMoE-1B-7B's prefill
+    and Qwen3-8B's train_4k step (its blocks of the params, AdamW's μ and
+    ν and 16 × 4,096 tokens; the layers recomputed in the backward;
+    full depth where the trace's peak is within ``POD_PEAK_LIMIT``, else
+    the fewest layers cut that fit, printed as a cut) — each held against
+    the dry run's trace of the same combo exactly: the kernel operators'
+    calls against the launches, the argument bytes against the storages
+    the card's step takes, the FLOPs against ``FlopCounterMode``'s count,
+    and the collectives' calls and bytes by axis. Printed: the trace's
+    peak over the card's, the step's wall, the device's busy time (one
+    profiled step) over the roofline, and (the train step) the
+    attention's and the norms' share of the busy time. Returns the
     launches."""
     from collections import Counter
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch import kernels
-    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.configs import INPUT_SHAPES, get_config, replace
     from repro_torch.distributed import collectives
     from repro_torch.launch import dryrun
     from repro_torch.tree import tree_leaves
@@ -2827,12 +2860,19 @@ def phase_pod(torch, dev):
     total = Counter()
     for arch, shape_name in (("qwen3_8b", "prefill_32k"),
                              ("qwen3_8b", "decode_32k"),
-                             ("olmoe_1b_7b", "prefill_32k")):
+                             ("olmoe_1b_7b", "prefill_32k"),
+                             ("qwen3_8b", "train_4k")):
         shape = INPUT_SHAPES[shape_name]
         cfg = dryrun.shape_cfg(get_config(arch), shape)
         t0 = time.perf_counter()
         dry = dryrun.trace_mesh_combo(cfg, shape, "pod")
+        cut = None
+        while dry["memory"]["peak_bytes_per_card"] > POD_PEAK_LIMIT:
+            cfg = replace(cfg, num_layers=cfg.num_layers - 4)
+            cut = f"{cfg.num_layers} of {get_config(arch).num_layers} layers"
+            dry = dryrun.trace_mesh_combo(cfg, shape, "pod")
         trace_s = time.perf_counter() - t0
+        train = shape.kind == "train"
         with dryrun.lm_mesh("pod") as frame:
             args = dryrun.mesh_step_args(cfg, shape, device=dev,
                                          generator=g)
@@ -2858,7 +2898,8 @@ def phase_pod(torch, dev):
                                                              - arg_bytes)
             flops = fc.get_total_flops()
             del out
-            prof = profile_once(torch, lambda: fn(*args))
+            prof = profile_once(torch, lambda: fn(*args),
+                                POD_GROUPS if train else None)
             coord = dict(frame.mesh.coord)
         tag = f"{arch} {shape_name}"
         check(launches == dry["kernels"], f"pod {tag}: kernel operator "
@@ -2875,6 +2916,17 @@ def phase_pod(torch, dev):
         roof_ms = 1e3 * max(roof["t_compute_s"], roof["t_memory_s"],
                             roof["t_collective_s"])
         busy = prof["device_busy_ms"]
+        extra = {}
+        if train:
+            extra = dict(
+                layers=cfg.num_layers, cut=cut or "none",
+                collectives_backward=dry["collectives_backward"],
+                step_wall_ms_profiled=prof["wall_ms"],
+                idle_share=prof["idle_share"],
+                attention_ms=prof["attention_ms"],
+                attention_share_of_busy=prof["attention_share"],
+                norms_ms=prof["norms_ms"],
+                norms_share_of_busy=prof["norms_share"], top=prof["top"])
         emit("pod", case=tag, mesh=dry["mesh_shape"], rank=0, coord=coord,
              arch=cfg.name, shape=[shape.global_batch, shape.seq_len],
              kind=shape.kind, kernels=dry["kernels"], launches=launches,
@@ -2891,7 +2943,7 @@ def phase_pod(torch, dev):
              busy_over_roofline=busy / roof_ms if isinstance(busy, float)
              else "not measured",
              card_step_s_host_clock=card_s, trace_s_host_clock=trace_s,
-             card=dry["card"])
+             card=dry["card"], **extra)
         del args
         torch.cuda.empty_cache()
     emit("pod_wall", seconds=time.perf_counter() - t_phase)
@@ -3030,8 +3082,9 @@ def phase_zoo(torch, dev, parity_layers=2, vlm_layers=8, vlm_patches=1024,
     torch.cuda.synchronize()
     ft_launches = dict(kernels.LAUNCHES)
     pl = parity_layers
-    want = want_launches(rmsnorm=2 * pl + 1, rmsnorm_bwd=2 * pl + 1,
-                         swa_attention=pl, swa_attention_bwd=pl)
+    # remat: each layer's forward runs again in the backward
+    want = want_launches(rmsnorm=2 * 2 * pl + 1, rmsnorm_bwd=2 * pl + 1,
+                         swa_attention=2 * pl, swa_attention_bwd=pl)
     check(ft_launches == want,
           f"zoo (a) hubert finetune launches {ft_launches} != {want}")
     add(ft_launches)
@@ -3160,8 +3213,8 @@ def phase_zoo(torch, dev, parity_layers=2, vlm_layers=8, vlm_patches=1024,
     torch.cuda.synchronize()
     ft_ms = (time.perf_counter() - t0) * 1e3
     ft_launches = dict(kernels.LAUNCHES)
-    want = want_launches(rmsnorm=2 * L + 1, rmsnorm_bwd=2 * L + 1,
-                         swa_attention=L, swa_attention_bwd=L)
+    want = want_launches(rmsnorm=2 * 2 * L + 1, rmsnorm_bwd=2 * L + 1,
+                         swa_attention=2 * L, swa_attention_bwd=L)
     check(ft_launches == want,
           f"hubert finetune launches {ft_launches} != {want}")
     add(ft_launches)
@@ -3475,11 +3528,13 @@ def phase_train(torch, dev, layers=4, members=2, steps=4, batch=4, seq=128,
     a fresh batch before the step trains on it, and over 151,936 tokens
     the synthetic streams hold nothing four steps can learn: they are
     reported, not held to fall), the average's held-out loss beside the
-    members', launches exact (per member step: rmsnorm forward and
-    backward 4 L + 1 each, swa_attention forward and backward L each; the
+    members', launches exact (per member step: rmsnorm forward 2 · 4 L + 1
+    and backward 4 L + 1, swa_attention forward 2 L and backward L — each
+    layer's forward runs again in the backward, the reference's remat; the
     held-out evaluation adds forwards), the peak device memory, each
-    step's wall; then, from a fresh state, member steps on one repeated
-    batch, whose loss must fall step by step, one of them under
+    step's wall; then, from a fresh state, the gradients and one SGD
+    step's params with remat bitwise those without, and member steps on
+    one repeated batch, whose loss must fall step by step, one of them under
     torch.profiler (device busy, idle share) beside unprofiled ones.
     (2) Resume: the same run with ``--ckpt-every 2`` killed right after
     its step-2 state files are written, then resumed to step 4
@@ -3562,10 +3617,12 @@ def phase_train(torch, dev, layers=4, members=2, steps=4, batch=4, seq=128,
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     member_steps, evals = steps * members, 4 * (members + 1)
+    # a member step runs each layer's forward twice (remat: again in the
+    # backward); the held-out evaluations once
     want = want_launches(
-        rmsnorm=(4 * L + 1) * (member_steps + evals),
+        rmsnorm=(2 * 4 * L + 1) * member_steps + (4 * L + 1) * evals,
         rmsnorm_bwd=(4 * L + 1) * member_steps,
-        swa_attention=L * (member_steps + evals),
+        swa_attention=2 * L * member_steps + L * evals,
         swa_attention_bwd=L * member_steps)
     check(launches == want, f"train launches {launches} != {want}")
     hist = np.array(res["history"])
@@ -3587,6 +3644,25 @@ def phase_train(torch, dev, layers=4, members=2, steps=4, batch=4, seq=128,
     toks = torch.randint(0, cfg.vocab_size, (batch, seq + 1), generator=gen,
                          device=dev)
     b = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    # remat (each layer recomputed in the backward) against the kept
+    # activations: the gradients and an SGD step's params bit for bit
+    remat = {}
+    for keep in (True, False):
+        def loss_of(q, bb, keep=keep):
+            return api.loss_fn(cfg, q, bb, remat=keep)
+        _, _, grads, _ = trainer.loss_and_grads(cfg, loss_of, p, b)
+        sgd_step = trainer.make_train_step(cfg, optim.sgd(),
+                                           optim.constant(1e-2),
+                                           loss_fn=loss_of)
+        remat[keep] = (grads, tree_leaves(sgd_step(p, (), 0, b)[0]))
+    check(all(torch.equal(x, y) for x, y in zip(remat[True][0],
+                                                remat[False][0])),
+          "train: the remat gradients differ from the kept activations'")
+    check(all(torch.equal(x, y) for x, y in zip(remat[True][1],
+                                                remat[False][1])),
+          "train: the remat step's params differ from the kept "
+          "activations'")
+    del remat, grads
     p, o, st, m_ = step_fn(p, o, st, b)                     # warm
     same_batch = [float(m_["loss"])]
     torch.cuda.synchronize()
@@ -3701,8 +3777,10 @@ def phase_train(torch, dev, layers=4, members=2, steps=4, batch=4, seq=128,
         deep_s = time.perf_counter() - t0
         dl = dict(kernels.LAUNCHES)
         DL = dcfg.num_layers
-        check(dl == want_launches(rmsnorm=4 * DL + 1, rmsnorm_bwd=4 * DL + 1,
-                                  swa_attention=DL, swa_attention_bwd=DL),
+        check(dl == want_launches(rmsnorm=2 * 4 * DL + 1,
+                                  rmsnorm_bwd=4 * DL + 1,
+                                  swa_attention=2 * DL,
+                                  swa_attention_bwd=DL),
               f"full-depth step launches {dl}")
         check(np.isfinite(loss), f"full-depth loss {loss}")
         deep = dict(arch=dcfg.name, layers=DL, dtype="bfloat16",
@@ -3727,6 +3805,7 @@ def phase_train(torch, dev, layers=4, members=2, steps=4, batch=4, seq=128,
              "swa_attention_bwd": launches["swa_attention_bwd"]
              // member_steps},
          peak_memory_bytes=peak, profile_member_step=profiled,
+         remat_bitwise_kept_activations=True,
          resume=dict(bitwise=True, killed_after_step=2,
                      state_files_bytes=state_bytes,
                      cut_s_host_clock=cut_s, resume_s_host_clock=resume_s),
@@ -4037,7 +4116,8 @@ def main():
     # the train path's forwards
     rms = [per_case[("rmsnorm", c)] for c in ("ln_d4096", "qk_norm_d128")]
     rms_err = max(per_case[("rmsnorm", c)]["max_abs_err"]
-                  for c in ("ln_d4096", "qk_norm_d128", "zamba2_ln_d2048"))
+                  for c in ("ln_d4096", "qk_norm_d128", "zamba2_ln_d2048",
+                            "pod_train4k_ln_d4096"))
     swa = per_case[("swa_attention", "prefill_causal")]
     line["kernels"] += [
         {"name": "rmsnorm", "route": "cuda",
@@ -4066,6 +4146,7 @@ def main():
                                       "prefill_large_scores", "zamba2_shared",
                                       "olmoe_prefill", "train4k_seq",
                                       "pod_local_heads_s32k",
+                                      "pod_train4k_local_heads",
                                       "lm_parity_causal_f32",
                                       "elm_head_parity_causal_f32",
                                       "encoder_bidirectional",
@@ -4081,18 +4162,21 @@ def main():
     # mode, reported on a line of its own) and Zamba2's gradient
     rb = [per_case[("rmsnorm_bwd", c)] for c in ("ln_d4096", "qk_norm_d128")]
     rb_err = max(per_case[("rmsnorm_bwd", c)]["max_abs_err"]
-                 for c in ("ln_d4096", "qk_norm_d128", "zamba2_ln_d2048"))
+                 for c in ("ln_d4096", "qk_norm_d128", "zamba2_ln_d2048",
+                           "pod_train4k_ln_d4096"))
     sb = per_case[("swa_attention_bwd", "prefill_causal")]
     emit("launches_by_mode", swa_attention_bwd_non_causal=zoo_launches[
         "swa_attention_bwd"], swa_attention_bwd_causal=train_launches[
-        "swa_attention_bwd"] + rec_launches["swa_attention_bwd"])
+        "swa_attention_bwd"] + rec_launches["swa_attention_bwd"]
+        + pod_launches.get("swa_attention_bwd", 0))
     line["kernels"] += [
         {"name": "rmsnorm_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/rmsnorm_bwd.cu",
          "replaces": "src/repro/kernels/rmsnorm/kernel.py:23 (the rmsnorm "
                      "TPU kernel; it has no Pallas backward)",
          "launches": train_launches["rmsnorm_bwd"]
-         + zoo_launches["rmsnorm_bwd"] + rec_launches["rmsnorm_bwd"],
+         + zoo_launches["rmsnorm_bwd"] + rec_launches["rmsnorm_bwd"]
+         + pod_launches.get("rmsnorm_bwd", 0),
          "max_abs_err": rb_err,
          "ms": sum(c["ms"] for c in rb),
          "plain_ms": sum(c["plain_ms"] for c in rb),
@@ -4106,10 +4190,12 @@ def main():
                      "swa_attention TPU kernel; it has no Pallas backward)",
          "launches": train_launches["swa_attention_bwd"]
          + zoo_launches["swa_attention_bwd"]
-         + rec_launches["swa_attention_bwd"],
+         + rec_launches["swa_attention_bwd"]
+         + pod_launches.get("swa_attention_bwd", 0),
          "max_abs_err": max(per_case[("swa_attention_bwd", c)]["max_abs_err"]
                             for c in ("prefill_causal", "window256_s1024",
                                       "olmoe_prefill", "train4k_seq",
+                                      "pod_train4k_local_heads",
                                       "lm_parity_causal_f32",
                                       "elm_head_parity_causal_f32",
                                       "encoder_bidirectional",

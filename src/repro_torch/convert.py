@@ -6,7 +6,10 @@ with a leading layer dim and a (L, B, T, KV, hd) KV cache — the port keeps
 the same layouts, so converting is a leaf-wise copy, never a transpose.
 CNN trees become f32 (``params_from_numpy``); LM trees keep each leaf's
 dtype (``lm_tree_from_numpy``), whole or cut to one rank's blocks of a
-mesh (``lm_shard_from_numpy``). This module takes and returns numpy arrays
+mesh (``lm_shard_from_numpy``): params, a cache, an optimizer's state
+(``sharding.opt_logical``) or any of them stacked on a leading member dim
+(``sharding.with_member_dim``), so the reference's weights and AdamW state
+carry over into each rank's blocks. This module takes and returns numpy arrays
 only (e.g. ``jax.tree.map(np.asarray, tree)`` on the reference's side) and
 never imports JAX.
 """
@@ -46,12 +49,16 @@ def lm_tree_from_numpy(tree, device="cuda"):
 
 def lm_shard_from_numpy(tree, logical_tree, mesh, coord, rules=None,
                         device="cuda"):
-    """The block of a whole LM tree (numpy: params, or a cache) that mesh
+    """The block of a whole LM tree (numpy: params, a cache, AdamW's
+    ``{"mu", "nu"}``, or any of them with a leading member dim) that mesh
     coordinate ``coord`` (axis -> index) holds on ``mesh`` (anything with
     ``.shape``, a dict of axis sizes) under ``rules``, as
-    ``sharding.resolve_spec`` lays out ``logical_tree`` (``api.logical_axes``
-    or ``api.cache_logical``): the port's tensors on ``device``, each leaf in
-    its own dtype. Only the block is copied."""
+    ``sharding.resolve_spec`` lays out ``logical_tree``
+    (``api.logical_axes``, ``api.cache_logical``,
+    ``sharding.opt_logical("adamw", ...)``, each under
+    ``sharding.with_member_dim`` for the member dim): the port's tensors
+    on ``device``, each leaf in its own dtype. Only the block is
+    copied."""
     from repro_torch.distributed import sharding
     return lm_tree_from_numpy(sharding.shard_tree(
         tree, logical_tree, mesh, coord, rules), device)

@@ -19,7 +19,34 @@ GSPMD's placement by hand, under the same two calls:
 
 Every collective goes through ``distributed.collectives`` under its axis's
 label. An axis of size 1 moves nothing, so over it every call here
-returns its input and sends nothing. With no context every spec entry is
+returns its input and sends nothing, in either direction.
+
+**Gradients.** Every move here is differentiable, under one convention:
+the gradient of a replicated activation (or leaf) is itself replicated,
+the same on every rank of the axis, and the gradient of a sharded one is
+this rank's block of the whole gradient. Under it:
+
+* ``reduce_partial`` (the all-reduce of a partial product) has the
+  identity as its backward: each rank's partial term takes the whole,
+  replicated gradient of the sum;
+* ``gather`` (sharded -> replicated) keeps this rank's block of the
+  gradient: a local slice, nothing sent;
+* ``local_slice`` (replicated -> sharded) all-gathers the blocks'
+  gradients into the whole one;
+* ``reduce_max`` is a shift only (the log-sum-exp's), and carries no
+  gradient: its input is detached;
+* ``into_sharded`` is the identity forward whose backward all-reduces the
+  gradient over the axis, the conjugate of ``reduce_partial``. It goes
+  wherever a replicated activation or leaf enters a computation sharded
+  over that axis (a product with column-sharded weights, a norm's scale
+  applied to this rank's heads only, a replicated KV head read by this
+  rank's q heads): there each rank's gradient of it is a partial sum.
+
+A parameter's gradient is then whole on its block, but for one sum the
+model cannot see: over the axes that shard the batch and not the leaf
+(``data``), each rank holds its tokens' share, which the train step
+all-reduces (``core/trainer.py``). A loss is a ``reduce_partial`` of the
+ranks' partial sums, so its gradient is 1 on every rank. With no context every spec entry is
 None and every call here is a no-op, so one code path serves a model run
 whole and one run on a mesh. A step's inputs are local blocks, so the
 context also holds the global sizes their layout depends on — the batch
@@ -100,8 +127,8 @@ def refuse(family: str):
         raise NotImplementedError(
             f"{family} under a mesh context: its logical axes resolve "
             f"(logical_axes, cache_logical), but its sharded execution "
-            f"comes with the slice after sharded training (ROADMAP "
-            f"queue 1); run it without use_mesh_rules")
+            f"comes with the next module slice (ROADMAP queue 1); run "
+            f"it without use_mesh_rules")
 
 
 def declare(**sizes):
@@ -156,22 +183,28 @@ def global_shape(local_shape: Sequence[int], have: Sequence) -> tuple:
     return tuple(d * size(e) for d, e in zip(local_shape, have))
 
 
+def _group(entry):
+    mesh = _frame().mesh
+    return mesh.group(entry), mesh.label(entry)
+
+
 def gather(x: torch.Tensor, dim: int, entry) -> torch.Tensor:
-    """The whole of ``x``'s dimension ``dim``, sharded over ``entry``."""
+    """The whole of ``x``'s dimension ``dim``, sharded over ``entry``;
+    the backward keeps this rank's block of the gradient."""
     if size(entry) == 1:
         return x
-    mesh = _frame().mesh
-    return collectives.all_gather(x, mesh.group(entry),
-                                  label=mesh.label(entry), dim=dim)
+    group, label = _group(entry)
+    return collectives.all_gather(x, group, label=label, dim=dim)
 
 
 def local_slice(x: torch.Tensor, dim: int, entry) -> torch.Tensor:
     """This rank's block of ``x``'s whole dimension ``dim`` under
-    ``entry``."""
+    ``entry``; the backward all-gathers the gradient over ``entry``."""
     if size(entry) == 1:
         return x
-    n = x.shape[dim] // size(entry)
-    return x.narrow(dim, index(entry) * n, n)
+    group, label = _group(entry)
+    return collectives.local_block(x, dim, index(entry), size(entry),
+                                   group, label)
 
 
 def relayout(x: torch.Tensor, have: Sequence, want: Sequence
@@ -202,23 +235,51 @@ def maybe_constrain(x: torch.Tensor, logical, have=None) -> torch.Tensor:
     return relayout(x, have, spec(global_shape(x.shape, have), logical))
 
 
-def _all_reduce(x: torch.Tensor, entry, op: str) -> torch.Tensor:
-    if size(entry) == 1:
-        return x
-    mesh = _frame().mesh
-    return collectives.all_reduce(x.contiguous(), mesh.group(entry),
-                                  label=mesh.label(entry), op=op)
-
-
 def reduce_partial(x: torch.Tensor, entry) -> torch.Tensor:
     """The sum over ``entry``'s ranks of a partial product (a contraction
-    over a dimension sharded by ``entry``); ``x`` itself for None."""
-    return _all_reduce(x, entry, "sum")
+    over a dimension sharded by ``entry``); ``x`` itself for None. The
+    backward is the identity (the module's convention)."""
+    if size(entry) == 1:
+        return x
+    group, label = _group(entry)
+    return collectives.all_reduce(x.contiguous(), group, label=label)
 
 
 def reduce_max(x: torch.Tensor, entry) -> torch.Tensor:
-    """The element-wise maximum over ``entry``'s ranks."""
-    return _all_reduce(x, entry, "max")
+    """The element-wise maximum over ``entry``'s ranks, of ``x``
+    detached: a shift that carries no gradient."""
+    x = x.detach()
+    if size(entry) == 1:
+        return x
+    group, label = _group(entry)
+    return collectives.all_reduce(x.contiguous(), group, label=label,
+                                  op="max")
+
+
+def into_sharded(x: torch.Tensor, entry) -> torch.Tensor:
+    """``x`` (replicated over ``entry``) as it enters a computation
+    sharded over ``entry``: the identity, whose backward all-reduces the
+    gradient over ``entry`` (each rank's is a partial sum); ``x`` itself
+    for None."""
+    if size(entry) == 1:
+        return x
+    group, label = _group(entry)
+    return collectives.grad_all_reduce(x, group, label)
+
+
+def leaf_entry(spec_: Sequence):
+    """The axes a leaf of spec ``spec_`` is sharded on, as one entry in
+    the mesh's order (None: replicated)."""
+    axes = {a for e in spec_ for a in sharding.entry_axes(e)}
+    order = tuple(a for a in _frame().mesh.shape if a in axes)
+    return None if not order else order[0] if len(order) == 1 else order
+
+
+def without(entry, axes) -> Optional[tuple]:
+    """``entry``'s axes other than ``axes``, as an entry (None: none)."""
+    drop = set(sharding.entry_axes(axes))
+    rest = tuple(a for a in sharding.entry_axes(entry) if a not in drop)
+    return None if not rest else rest[0] if len(rest) == 1 else rest
 
 
 def compact(t: torch.Tensor) -> torch.Tensor:

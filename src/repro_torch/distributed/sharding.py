@@ -126,6 +126,17 @@ def resolve_tree(shapes_tree, logical_tree, mesh, rules=None):
                        logical_tree, shapes_tree)
 
 
+def opt_logical(optimizer_name: str, p_logical):
+    """The logical axes of an optimizer's state, as the reference's dry run
+    lays it out (its ``_opt_logical``): AdamW's μ and ν and momentum's
+    trace take each leaf's layout; SGD has no state."""
+    if optimizer_name == "adamw":
+        return {"mu": p_logical, "nu": p_logical}
+    if optimizer_name == "momentum":
+        return p_logical
+    return ()
+
+
 def with_member_dim(logical_tree):
     """Prepend the 'member' logical axis (the distributed-averaging dim)."""
     return map_logical(lambda log: ("member",) + tuple(log), logical_tree)

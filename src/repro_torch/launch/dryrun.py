@@ -44,11 +44,19 @@ The step runs as rank 0 of a fake process group of the mesh's size, under
 ``distributed.ctx.use_mesh_rules``, on rank 0's blocks of the parameters,
 inputs and cache (``sharding.resolve_spec``'s layout, so its argument
 bytes are the reference's per-chip bytes); the collectives it sends are
-counted by mesh axis. Serving of the transformer families only: the
-train shapes (sharded training) and RWKV6 and Zamba2 (their sharded
-execution) write a skip note naming the slice that brings them. The
-roofline is priced at ``cost_analysis.CARD``'s data-sheet rates: the
-figures are build-host estimates from the trace, not card readings.
+counted by mesh axis, and those sent in the backward also apart
+(``collectives_backward``). The transformer families' train, prefill
+and decode steps: on ``pod`` the train step on the (data, model) blocks
+of the params, AdamW's μ and ν and the batch; on ``multipod`` the member
+step (``make_member_train_step``) on blocks stacked on a member dim over
+``pod`` (``MEMBERS`` members, ``MULTIPOD_RULES``), whose step runs under
+the default rules as the reference's ``spmd_axis_name="pod"`` lowering
+does, and beside it the Reduce over ``pod``
+(``make_average_step(group=...)``, ``average_step`` in the report).
+RWKV6 and Zamba2 (their sharded execution) write a skip note naming the
+slice that brings them. The roofline is priced at
+``cost_analysis.CARD``'s data-sheet rates: the figures are build-host
+estimates from the trace, not card readings.
 """
 from __future__ import annotations
 
@@ -90,11 +98,8 @@ MULTIPOD_RULES = {
     "member": ("pod",),
 }
 LM_RULES = {"pod": None, "multipod": MULTIPOD_RULES}
-MESH_TRAIN_NOTE = ("sharded training on the pod meshes (the collectives' "
-                   "backward, the member dim over 'pod') is the next slice "
-                   "of the port (ROADMAP queue 1)")
 MESH_FAMILY_NOTE = ("{family}'s sharded execution on the pod meshes is the "
-                    "slice after sharded training (ROADMAP queue 1); its "
+                    "next module slice of the port (ROADMAP queue 1); its "
                     "logical axes resolve already")
 META = torch.device("meta")
 _OPTS = {"adamw": optim.adamw, "sgd": optim.sgd, "momentum": optim.momentum}
@@ -230,6 +235,12 @@ def _stack(tree, k):
                     .contiguous(), tree)
 
 
+def _stack_specs(specs, k):
+    """A spec tree with a leading member dim of ``k``."""
+    return tree_map(lambda s: api.TensorSpec((k,) + tuple(s.shape),
+                                             s.dtype), specs)
+
+
 @contextmanager
 def fake_process_group(world: int):
     """A process group of ``world`` ranks that sends nothing (this process
@@ -243,23 +254,27 @@ def fake_process_group(world: int):
         dist.destroy_process_group()
 
 
-def _coll_growth(before_calls, before_bytes):
-    calls = Counter(collectives.CALLS)
-    calls.subtract(before_calls)
-    nbytes = Counter(collectives.BYTES)
-    nbytes.subtract(before_bytes)
-    return cost_analysis.collective_stats(calls, nbytes)
+def _coll_growth(before_calls, before_bytes, calls=collectives.CALLS,
+                 nbytes=collectives.BYTES):
+    """The collectives counted in ``calls`` / ``nbytes`` since the copies
+    ``before_calls`` / ``before_bytes`` were taken."""
+    grown = Counter(calls)
+    grown.subtract(before_calls)
+    sent = Counter(nbytes)
+    sent.subtract(before_bytes)
+    return cost_analysis.collective_stats(grown, sent)
 
 
 @dataclass
 class Traced:
     """One traced call: its ``Tracer``, argument and output bytes, its
-    collectives and its host wall."""
+    collectives (and the part sent in a backward) and its host wall."""
     tracer: Tracer
     arg_bytes: int
     out_bytes: int
     coll: cost_analysis.CollectiveStats
     wall_s: float
+    coll_backward: cost_analysis.CollectiveStats = None
 
 
 def trace(fn, *args) -> Traced:
@@ -268,6 +283,8 @@ def trace(fn, *args) -> Traced:
     tracer = Tracer()
     arg_bytes = tracer.hold(args)
     calls, nbytes = Counter(collectives.CALLS), Counter(collectives.BYTES)
+    bwd_calls = Counter(collectives.BACKWARD_CALLS)
+    bwd_bytes = Counter(collectives.BACKWARD_BYTES)
     t0 = time.perf_counter()
     with tracer:
         out = fn(*args)
@@ -279,7 +296,10 @@ def trace(fn, *args) -> Traced:
                      and id(t.untyped_storage()) not in before}.values())
     del out
     return Traced(tracer, arg_bytes, out_bytes,
-                  _coll_growth(calls, nbytes), wall)
+                  _coll_growth(calls, nbytes), wall,
+                  _coll_growth(bwd_calls, bwd_bytes,
+                               collectives.BACKWARD_CALLS,
+                               collectives.BACKWARD_BYTES))
 
 
 # ---------------------------------------------------------------------------
@@ -338,8 +358,6 @@ def mesh_skip(cfg, shape):
     """Why a combo is not traced on the pod meshes (None: it is)."""
     if cfg.family not in transformer.FAMILIES:
         return MESH_FAMILY_NOTE.format(family=cfg.family)
-    if shape.kind == "train":
-        return MESH_TRAIN_NOTE
     return None
 
 
@@ -364,18 +382,37 @@ def _blocks(specs, logical, device=META, generator=None, high=1):
 
 
 def mesh_step_args(cfg, shape, dtype=torch.bfloat16, device=META,
-                   generator=None):
-    """The arguments of ``step_fn``'s serving step on this rank of the
-    active mesh context: its blocks of the params, and of the prefill
-    batch, or of the cache and the token (``pos = S - 1``); the global
-    batch and cache length declared. Meta tensors, or drawn on a real
-    ``device`` from ``generator``, token ids below the vocab size."""
+                   generator=None, optimizer_name: str = "adamw",
+                   members: int = 0):
+    """The arguments of ``step_fn``'s step on this rank of the active mesh
+    context: its blocks of the params with the optimizer's state (zero, as
+    ``init`` makes it: AdamW's μ and ν take each leaf's layout), the step
+    and the train batch; or of the params and the prefill batch; or of
+    the params, the cache and the token (``pos = S - 1``); the global
+    batch and cache length declared. ``members``: the train step's
+    arguments stacked on a member dim of that many members (params,
+    state and batch; the steps one a local member), laid out by the
+    context's rules (``MULTIPOD_RULES``: over ``pod``). Meta tensors, or
+    drawn on a real ``device`` from ``generator``, token ids below the
+    vocab size."""
     def blocks(specs, logical):
         return _blocks(specs, logical, device, generator, cfg.vocab_size)
 
-    params = blocks(api.param_specs(cfg, dtype), api.logical_axes(cfg))
+    p_specs, p_log = api.param_specs(cfg, dtype), api.logical_axes(cfg)
     specs, logical = api.input_specs(cfg, shape, with_logical=True)
     ctx.declare(batch=shape.global_batch)
+    if shape.kind == "train":
+        if members:
+            p_specs, specs = (_stack_specs(t, members)
+                              for t in (p_specs, specs))
+            p_log, logical = (sharding.with_member_dim(t)
+                              for t in (p_log, logical))
+        params = blocks(p_specs, p_log)
+        opt_state = _OPTS[optimizer_name]().init(params)
+        batch = blocks(specs, logical)
+        lead = next(iter(tree_map(lambda t: t.shape[0], batch).values()))
+        return params, opt_state, [0] * lead if members else 0, batch
+    params = blocks(p_specs, p_log)
     if shape.kind == "prefill":
         return params, blocks(specs, logical)
     cache, c_logical = api.cache_specs(cfg, shape, dtype, with_logical=True)
@@ -396,14 +433,27 @@ def lm_mesh(name: str):
             yield frame
 
 
-def trace_mesh_combo(cfg, shape, mesh: str = "pod") -> dict:
-    """Trace rank 0's serving step of ``cfg`` at ``shape`` on the ``pod``
-    or ``multipod`` mesh and return the report (per-chip figures)."""
+def trace_mesh_combo(cfg, shape, mesh: str = "pod",
+                     optimizer_name: str = "adamw") -> dict:
+    """Trace rank 0's step of ``cfg`` at ``shape`` on the ``pod`` or
+    ``multipod`` mesh and return the report (per-chip figures); a train
+    step on ``multipod`` is the member step, its Reduce over ``pod``
+    traced beside it."""
+    members = MEMBERS if mesh == "multipod" and shape.kind == "train" \
+        else 0
     with lm_mesh(mesh) as frame:
-        traced = trace(step_fn(cfg, shape), *mesh_step_args(cfg, shape))
+        args = mesh_step_args(cfg, shape, optimizer_name=optimizer_name,
+                              members=members)
+        traced = trace(step_fn(cfg, shape, multi=bool(members),
+                               optimizer_name=optimizer_name), *args)
+        average = None
+        if members:
+            average = trace(trainer.make_average_step(
+                group=frame.mesh.group("pod")), args[0])
+        del args
         report = report_of(cfg, shape, traced,
                            cards=math.prod(frame.mesh.shape.values()),
-                           mesh=mesh)
+                           mesh=mesh, average=average)
         report["mesh_shape"] = dict(frame.mesh.shape)
         report["rules"] = {k: list(v) for k, v in
                            (frame.rules or {}).items()}
@@ -427,7 +477,7 @@ def report_of(cfg, shape, traced: Traced, *, cards: int, mesh: str,
         n_tokens = shape.global_batch     # decode: one token a sequence
     n_active = cfg.active_param_count()
     model_flops = (6 if shape.kind == "train" else 2) * n_active * n_tokens
-    if mesh == "multi" and shape.kind == "train":
+    if mesh in ("multi", "multipod") and shape.kind == "train":
         model_flops *= MEMBERS            # each member its own batch
     report = {
         "arch": cfg.name, "shape": shape.name, "mesh": mesh,
@@ -451,6 +501,7 @@ def report_of(cfg, shape, traced: Traced, *, cards: int, mesh: str,
             "accounting": "every layer traced",
         },
         "collectives": traced.coll.as_dict(),
+        "collectives_backward": traced.coll_backward.as_dict(),
         "roofline": terms,
         "model_flops": model_flops,
         "useful_flops_ratio": model_flops / (flops * cards) if flops
@@ -466,8 +517,10 @@ def report_of(cfg, shape, traced: Traced, *, cards: int, mesh: str,
             "collectives": average.coll.as_dict(),
             "t_collective_s": average.coll.per_card_bytes
             / rates.link_bytes_per_s,
+            "argument_bytes_per_card": average.arg_bytes,
             "peak_bytes_per_card": average.tracer.peak,
-            "note": "one all-reduce of the flat f32 member tree per "
+            "note": "one all-reduce of the flat f32 member tree (on a "
+                    "mesh: of this card's blocks, over 'pod') per "
                     "averaging event — the paper's entire communication "
                     "cost",
         }
@@ -496,7 +549,7 @@ def lower_combo(arch: str, shape_name: str, mesh: str,
     shape = INPUT_SHAPES[shape_name]
     cfg = shape_cfg(get_config(arch), shape)
     if mesh in LM_RULES:
-        return trace_mesh_combo(cfg, shape, mesh)
+        return trace_mesh_combo(cfg, shape, mesh, optimizer_name)
     return trace_combo(cfg, shape, mesh, optimizer_name)
 
 

@@ -18,6 +18,14 @@ head), ``wo``'s product is a partial sum over ``model``, all-reduced, and
 the decode cache sharded by sequence is scored rank by rank and combined
 exactly: an all-reduce max, then all-reduce sums of the exp-weighted values
 and of the exp sums.
+
+Under autograd (``distributed/ctx.py``'s convention: a replicated tensor's
+gradient is replicated) the replicated input of a projection whose
+columns are sharded enters it through ``ctx.into_sharded``, whose backward
+all-reduces its gradient; so do ``q_norm`` and ``k_norm``, replicated
+(head_dim,) leaves applied to this rank's heads only, and replicated KV
+heads read by this rank's q heads. ``wo``'s partial product keeps
+``reduce_partial`` (identity backward).
 """
 from __future__ import annotations
 
@@ -81,11 +89,18 @@ def _sdpa(cfg, q, k, v, mask):
     return out.reshape(B, S, H, hd).to(q.dtype)
 
 
+def _cols(cfg, x, n, logical):
+    """The entry of the columns of a projection to ``n`` heads."""
+    return ctx.spec((x.shape[-1], n * cfg.head_dim), ("embed", logical))[1]
+
+
 def _heads(cfg, w, x, n, logical, want):
     """``x @ w`` of a projection whose columns are sharded as
     ``(embed, logical)`` resolves, moved to the heads layout ``want`` (an
-    entry), as (B, S, local heads, hd) and the first local head."""
-    cols = ctx.spec((x.shape[-1], n * cfg.head_dim), ("embed", logical))[1]
+    entry), as (B, S, local heads, hd) and the first local head. ``x``
+    has entered the product already (``ctx.into_sharded`` over the
+    columns' entry)."""
+    cols = _cols(cfg, x, n, logical)
     y = ctx.relayout(x @ w, (None, None, cols), (None, None, want))
     B, S = x.shape[:2]
     return (y.reshape(B, S, -1, cfg.head_dim),
@@ -120,12 +135,27 @@ def _project_qkv(cfg, p, x, positions, q_want=None, kv_want=None):
     by ``kv_want`` (entries; None: all heads), each normed and rotated per
     head. Returns (q, q0, k, v, k0): q0 and k0 are the first local q and
     KV heads."""
-    q, q0 = _heads(cfg, p["wq"], x, cfg.num_heads, "heads", q_want)
-    k, k0 = _heads(cfg, p["wk"], x, cfg.num_kv_heads, "kv_heads", kv_want)
-    v, _ = _heads(cfg, p["wv"], x, cfg.num_kv_heads, "kv_heads", kv_want)
+    entered = {}
+
+    def into(entry):
+        # one entry of x a columns' entry: its backward one all-reduce
+        if entry not in entered:
+            entered[entry] = ctx.into_sharded(x, entry)
+        return entered[entry]
+
+    q_cols = _cols(cfg, x, cfg.num_heads, "heads")
+    kv_cols = _cols(cfg, x, cfg.num_kv_heads, "kv_heads")
+    q, q0 = _heads(cfg, p["wq"], into(q_cols), cfg.num_heads, "heads",
+                   q_want)
+    k, k0 = _heads(cfg, p["wk"], into(kv_cols), cfg.num_kv_heads,
+                   "kv_heads", kv_want)
+    v, _ = _heads(cfg, p["wv"], into(kv_cols), cfg.num_kv_heads,
+                  "kv_heads", kv_want)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        q = rms_norm(q, ctx.into_sharded(p["q_norm"], q_want),
+                     cfg.norm_eps)
+        k = rms_norm(k, ctx.into_sharded(p["k_norm"], kv_want),
+                     cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, q0, k, v, k0
@@ -155,6 +185,9 @@ def _attention(cfg, p, x, positions, window, causal):
                        ("batch", None, "kv_heads", None))[2]
     q, q0, k, v, k0 = _project_qkv(cfg, p, x, positions, q_want, kv_want)
     sl = _kv_for(cfg, q0, q.shape[2], k0, k.shape[2])
+    if kv_want is None:
+        # replicated KV heads, read by this rank's q heads only
+        k, v = ctx.into_sharded(k, q_want), ctx.into_sharded(v, q_want)
     y = swa_ops.swa_attention(q, _select(k, sl), _select(v, sl),
                               window=window or S, causal=causal)
     y = _out_proj(cfg, p, y.reshape(B, S, -1), q_want)

@@ -12,6 +12,17 @@ all-reduced over ``model``), and the MoE's experts (expert parallelism).
 The MoE's router logits are all-gathered over the experts before the
 softmax and top-k; x is whole on every rank, so each rank builds the
 dispatch itself and fills only its own experts' slots — no all-to-all.
+
+Under autograd (``distributed/ctx.py``'s convention) a replicated input
+enters each sharded computation through ``ctx.into_sharded``, whose
+backward all-reduces its gradient: SwiGLU's x before ``w_gate``/``w_up``,
+the router's x before its expert columns, the MoE's x before the dispatch
+to this rank's experts (and its buffer before ff-sharded products), and
+the router weights before the combine of this rank's experts. The partial
+products and combines keep ``reduce_partial`` (identity backward), and
+the gathered router logits' backward is this rank's columns. The aux
+loss's two means are over the global batch (one all-reduce over the
+batch's axis, ``moe_apply(..., aux=True)``).
 """
 from __future__ import annotations
 
@@ -48,9 +59,10 @@ def swiglu(p, x, d_ff: int | None = None):
     how the weights are sharded: ``h`` keeps this rank's ff columns and
     ``w_down``'s product is all-reduced over them."""
     d_ff = d_ff or p["w_down"].shape[-2]
+    ff = ctx.spec((d_ff, x.shape[-1]), ("ff", "embed"))[0]
+    x = ctx.into_sharded(x, ff)
     h = F.silu((x @ p["w_gate"]).float())
     h = h * (x @ p["w_up"]).float()
-    ff = ctx.spec((d_ff, x.shape[-1]), ("ff", "embed"))[0]
     h = ctx.maybe_constrain(h.to(x.dtype), ("batch", None, "ff"),
                             have=(ctx.batch_entry(), None, ff))
     return ctx.reduce_partial(h @ p["w_down"], ff)
@@ -98,6 +110,7 @@ def route(p, x, experts_per_token: int, num_experts: int | None = None):
     ``num_experts``), and the logits are all-gathered over them first."""
     E = num_experts or p["router"].shape[-1]
     cols = ctx.spec((x.shape[-1], E), ("embed", "expert"))[1]
+    x = ctx.into_sharded(x, cols)
     logits = ctx.relayout(x.float() @ p["router"].float(),
                           (None, None, cols), (None, None, None))
     probs = torch.softmax(logits, dim=-1)
@@ -109,7 +122,8 @@ def route(p, x, experts_per_token: int, num_experts: int | None = None):
 
 def moe_apply(p, x, experts_per_token: int, capacity_factor: float = 1.25,
               combine_sharding: str = "expert", *,
-              num_experts: int | None = None, d_ff: int | None = None):
+              num_experts: int | None = None, d_ff: int | None = None,
+              aux: bool = True):
     """Token-choice top-k MoE with per-row capacity dispatch, the
     reference's ``moe_apply`` (``layers/mlp.py:69-137``) op by op: each
     batch row's S·K choices are stably sorted by expert, the first C of
@@ -134,6 +148,8 @@ def moe_apply(p, x, experts_per_token: int, capacity_factor: float = 1.25,
     router's columns and ``w_down``'s rows, which are the whole with no
     mesh context); under a mesh they say how the weights are sharded.
     With no mesh context ``combine_sharding`` changes nothing.
+    ``aux=False`` skips the aux loss (None in its place): serving, whose
+    callers drop it, then sends nothing over the batch's axis for it.
 
     R6 (ROADMAP): the reference's ``.at[sorted_e, pos_in_e].set(vals,
     mode="drop")`` (``mlp.py:96-105``) sends a dropped slot to (e, 0) with
@@ -158,6 +174,7 @@ def moe_apply(p, x, experts_per_token: int, capacity_factor: float = 1.25,
 
     # dispatch: the reference's dispatch_row, over the batch dim; this
     # rank fills the slots of experts [e0, e0 + El)
+    xd = ctx.into_sharded(x, ex)
     flat_e = top_i.reshape(B, S * K)
     order = torch.argsort(flat_e, dim=-1, stable=True)
     counts = torch.zeros((B, E), dtype=torch.int64, device=x.device)
@@ -171,7 +188,7 @@ def moe_apply(p, x, experts_per_token: int, capacity_factor: float = 1.25,
     filled[..., 0] &= mine <= C                                # R6
     src = (starts[:, e0:e0 + El, None] + slot).clamp(max=S * K - 1)
     tok = torch.gather(token_idx, 1, src.reshape(B, El * C))
-    buf = torch.gather(x, 1, tok[..., None].expand(B, El * C, D))
+    buf = torch.gather(xd, 1, tok[..., None].expand(B, El * C, D))
     buf = torch.where(filled.reshape(B, El * C, 1), buf,
                       torch.zeros((), dtype=x.dtype, device=x.device))
 
@@ -180,6 +197,7 @@ def moe_apply(p, x, experts_per_token: int, capacity_factor: float = 1.25,
                               ("batch", "expert", None, None),
                               have=(be, ex, None, None))
     buf = buf.reshape(B, El, C, D).transpose(0, 1).reshape(El, B * C, D)
+    buf = ctx.into_sharded(buf, ff)
     h = F.silu(torch.bmm(buf, p["w_gate"]).float()).to(x.dtype)
     h = h * torch.bmm(buf, p["w_up"]).to(x.dtype)
     out = torch.bmm(h, p["w_down"]).reshape(El, B, C, D)
@@ -197,7 +215,8 @@ def moe_apply(p, x, experts_per_token: int, capacity_factor: float = 1.25,
     pos = torch.where(pos < C, pos, torch.zeros_like(pos)).reshape(B, S, K)
     e_sorted, perm = torch.sort(top_i, dim=-1)                 # ascending e
     pos = torch.gather(pos, -1, perm)
-    w = (torch.gather(top_w, -1, perm)
+    # the weights enter the combine of this rank's experts
+    w = (torch.gather(ctx.into_sharded(top_w, ex), -1, perm)
          * torch.gather(keep, -1, perm).float())
     b_idx = torch.arange(B, device=x.device)[:, None, None]
     if El < E:
@@ -213,8 +232,14 @@ def moe_apply(p, x, experts_per_token: int, capacity_factor: float = 1.25,
     y = ctx.reduce_partial(y, ex)
     y = ctx.maybe_constrain(y, ("batch", None, None), have=(be, None, None))
 
-    # router aux loss (Switch-style load balance)
-    frac = counts.float().mean(0) / (S * K)
-    mean_prob = probs.mean(dim=(0, 1))
-    aux = E * torch.sum(frac * mean_prob)
-    return y.to(x.dtype), aux
+    if not aux:
+        return y.to(x.dtype), None
+    # router aux loss (Switch-style load balance), its two means over the
+    # global batch: this rank's sums of counts and probs, all-reduced
+    # together over the batch's axis
+    Bg = ctx.global_size("batch", B)
+    sums = ctx.reduce_partial(torch.cat([counts.float().sum(0),
+                                         probs.sum(dim=(0, 1))]), be)
+    frac = sums[:E] / Bg / (S * K)
+    mean_prob = sums[E:] / (Bg * S)
+    return y.to(x.dtype), E * torch.sum(frac * mean_prob)

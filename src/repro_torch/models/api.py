@@ -48,12 +48,15 @@ def cache_logical(cfg):
     return module_of(cfg).cache_logical(cfg)
 
 
-def loss_fn(cfg, params, batch):
-    return module_of(cfg).loss_fn(cfg, params, batch)
+def loss_fn(cfg, params, batch, **kw):
+    """(loss, metrics); under a mesh context, this rank's blocks give the
+    global loss (the transformer families). ``kw``: the family's options
+    (the transformers' ``remat``)."""
+    return module_of(cfg).loss_fn(cfg, params, batch, **kw)
 
 
-def hidden_states(cfg, params, batch):
-    return module_of(cfg).hidden_states(cfg, params, batch)
+def hidden_states(cfg, params, batch, **kw):
+    return module_of(cfg).hidden_states(cfg, params, batch, **kw)
 
 
 def init_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,

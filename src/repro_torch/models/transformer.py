@@ -27,21 +27,28 @@ partial sums are all-reduced over ``model``, the unembedding gives this
 rank's vocab columns (prefill's and the forward's logits stay sharded as
 ``("batch", None, "vocab")``; decode's are all-gathered, as the reference
 returns them replicated), and the layers shard as ``layers/attention.py``
-and ``layers/mlp.py`` say. Serving sends nothing over ``data``. Training
-under a mesh (its collectives' backward) is the next slice:
-``loss_fn`` refuses a context.
+and ``layers/mlp.py`` say. Serving sends nothing over ``data``.
+Training runs under the context too (``distributed/ctx.py``'s gradient
+convention): ``loss_fn`` is a vocab-sharded cross-entropy whose logits are
+never gathered over the vocab, and its mean is over the global batch.
 
-The reference wraps each layer of the forward in ``jax.checkpoint``, a
-memory policy of its autodiff (recompute a layer's activations in the
-backward rather than keep them). PyTorch's autograd keeps them: at the
-sizes the port trains (Qwen3-8B at batch 4 × 128 tokens) they are a few GB
-beside the weights, gradients and optimizer state, so nothing stands in
-for it; the values are the same either way.
+The reference wraps each layer of the forward and of ``hidden_states`` in
+``jax.checkpoint`` (``remat=True``, its default): the backward recomputes
+a layer's activations rather than keep them. The port takes the same
+argument with the same default: while grad is enabled each layer runs
+under ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, so
+autograd keeps only each layer's input, and the backward runs each
+layer's forward again — its kernels launched, and under a mesh its
+collectives sent, a second time. Rank 0 of the 16 × 16 mesh at train_4k
+holds 65,536 tokens, whose d_model-wide bf16 activations are 0.54 GB
+each: kept whole, a layer's would not fit the card 36 times over. The
+values are the same either way.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.distributed import ctx
@@ -179,9 +186,12 @@ def _embed_tokens(cfg, p, tokens):
 
 
 def _unembed(cfg, p, x):
+    """This rank's vocab columns of the logits, f32, padded slots masked;
+    x (replicated) enters the vocab-sharded product."""
     unembed = p["embed"].T if cfg.tie_embeddings else p["unembed"]
     ve = _vocab_entry(cfg)
     off = ctx.index(ve) * unembed.shape[1]
+    x = ctx.into_sharded(x, ve)
     logits = _mask_padded_logits(cfg, (x @ unembed).float(), off)
     return ctx.maybe_constrain(logits, ("batch", None, "vocab"),
                                have=(ctx.batch_entry(), None, ve))
@@ -197,18 +207,20 @@ def _gathered_logits(cfg, logits):
 # blocks
 # ---------------------------------------------------------------------------
 
-def _ffn(cfg, lp, x):
-    """The block's feed-forward: (y, aux); aux is None but for the MoE."""
+def _ffn(cfg, lp, x, aux: bool = True):
+    """The block's feed-forward: (y, aux); aux is None but for the MoE
+    (and None there too without ``aux``: serving drops it)."""
     if cfg.family == "moe":
         return mlp_lib.moe_apply(lp["moe"], x, cfg.experts_per_token,
                                  capacity_factor=cfg.moe_capacity_factor,
                                  combine_sharding=cfg.moe_combine_sharding,
                                  num_experts=cfg.num_experts,
-                                 d_ff=cfg.moe_d_ff or cfg.d_ff)
+                                 d_ff=cfg.moe_d_ff or cfg.d_ff, aux=aux)
     return mlp_lib.swiglu(lp["mlp"], x, d_ff=cfg.d_ff), None
 
 
-def _block(cfg, lp, x, positions, window, bidirectional=False):
+def _block(cfg, lp, x, positions, window, bidirectional=False,
+           aux: bool = True):
     """One block; returns (x, (k, v), aux). ``bidirectional``: the
     encoder's attention over every position (the reference's forward and
     hidden states of an encoder-only config)."""
@@ -220,7 +232,7 @@ def _block(cfg, lp, x, positions, window, bidirectional=False):
         h, kv = attn.attn_forward(cfg, lp["attn"], h, positions,
                                   window=window)
     x = x + h
-    h, aux = _ffn(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps))
+    h, aux = _ffn(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps), aux)
     return x + h, kv, aux
 
 
@@ -247,55 +259,82 @@ def _embed_inputs(cfg, p, batch):
     return x, torch.arange(S, device=x.device).expand(B, S), offset
 
 
-def _encode(cfg, p, batch, window):
+def _encode(cfg, p, batch, window, remat: bool = True):
     """The layers and the final norm over the text positions: (x, the
-    per-layer aux losses of the MoE, else [])."""
+    per-layer aux losses of the MoE, else []). With ``remat`` and grad
+    enabled, each layer under ``torch.utils.checkpoint`` (the module's
+    docstring)."""
     window = cfg.sliding_window if window is None else window
     x, positions, offset = _embed_inputs(cfg, p, batch)
     x = ctx.maybe_constrain(x, ("batch", None, None),
                             have=(ctx.batch_entry(), None, None))
-    auxes = []
-    for lp in _unbound_layers(p["layers"], cfg.num_layers):
+
+    def layer(x, lp):
         x, _, aux = _block(cfg, lp, x, positions, window,
                            bidirectional=cfg.is_encoder_only)
+        return x, aux
+
+    auxes = []
+    for lp in _unbound_layers(p["layers"], cfg.num_layers):
+        if remat and torch.is_grad_enabled():
+            x, aux = checkpoint(layer, x, lp, use_reentrant=False)
+        else:
+            x, aux = layer(x, lp)
         if aux is not None:
             auxes.append(aux)
     x = rms_norm(x, p["final_norm"], cfg.norm_eps)
     return (x[:, offset:] if offset else x), auxes
 
 
-def forward(cfg, p, batch, *, window: int | None = None):
+def forward(cfg, p, batch, *, window: int | None = None,
+            remat: bool = True):
     """Full-sequence forward. Returns (logits f32, aux_loss): the mean of
-    the layers' router aux losses (0 but for the MoE)."""
-    x, auxes = _encode(cfg, p, batch, window)
+    the layers' router aux losses (0 but for the MoE). ``remat``: each
+    layer recomputed in the backward (the module's docstring)."""
+    x, auxes = _encode(cfg, p, batch, window, remat)
     aux = (torch.stack(auxes).mean() if auxes
            else torch.zeros((), device=x.device))
     return _unembed(cfg, p, x), aux
 
 
-def hidden_states(cfg, p, batch, *, window: int | None = None):
+def hidden_states(cfg, p, batch, *, window: int | None = None,
+                  remat: bool = True):
     """Final-norm hidden states (B, S, D) of the text positions, no
     unembed — the ELM head's H."""
-    return _encode(cfg, p, batch, window)[0]
+    return _encode(cfg, p, batch, window, remat)[0]
 
 
-def loss_fn(cfg, p, batch):
+def loss_fn(cfg, p, batch, *, remat: bool = True):
     """Next-token cross-entropy: (loss, {"ce", "aux"}), as the reference's
     ``loss_fn`` (transformer.py:215) — the mean over tokens of
     logsumexp(logits) minus the gold logit, padded vocab slots masked to
     -1e30 in the logits; the MoE adds ``router_aux_coef`` times the aux
-    loss. Not under a mesh context: sharded training (the collectives'
-    backward) is the next slice of the port."""
-    if ctx.current() is not None:
-        raise NotImplementedError(
-            "training under a mesh context (the collectives' backward) "
-            "comes with the sharded-training slice; serve (prefill, "
-            "decode_step) or run forward under the mesh")
-    logits, aux = forward(cfg, p, batch)
+    loss.
+
+    Under a mesh context the logits are this rank's vocab columns and are
+    never gathered (rank 0's f32 block at train_4k on the 16 × 16 mesh is
+    65,536 × 9,496, 2.49 GB): the log-sum-exp is the global maximum
+    (``reduce_max``, a shift with no gradient) plus the log of the
+    all-reduced local exp sums, the gold logit a masked local gather,
+    all-reduced, and the mean over the global batch's tokens, the ranks'
+    partial sums all-reduced over the batch's axis. With no context every
+    reduction is the identity and the same lines compute the whole."""
+    logits, aux = forward(cfg, p, batch, remat=remat)
+    ve, be = _vocab_entry(cfg), ctx.batch_entry()
     tgt = batch["targets"].long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, tgt[..., None])[..., 0]
-    ce = torch.mean(logz - gold)
+    m = ctx.reduce_max(logits.detach().amax(-1, keepdim=True), ve)
+    sumexp = ctx.reduce_partial(torch.sum(torch.exp(logits - m), dim=-1),
+                                ve)
+    logz = torch.log(sumexp) + m[..., 0]
+    Vl = logits.shape[-1]
+    idx = tgt - ctx.index(ve) * Vl
+    here = (idx >= 0) & (idx < Vl)
+    gold = torch.gather(logits, -1, idx.clamp(0, Vl - 1)[..., None])[..., 0]
+    gold = ctx.reduce_partial(torch.where(here, gold,
+                                          torch.zeros_like(gold)), ve)
+    B, S = tgt.shape
+    n = ctx.global_size("batch", B) * S
+    ce = ctx.reduce_partial(torch.sum(logz - gold), be) / n
     loss = ce + cfg.router_aux_coef * aux if cfg.family == "moe" else ce
     return loss, {"ce": ce, "aux": aux}
 
@@ -347,7 +386,7 @@ def prefill(cfg, p, batch, max_len: int | None = None):
 
     ks, vs = [], []
     for lp in _unbound_layers(p["layers"], cfg.num_layers):
-        x, (k, v), _ = _block(cfg, lp, x, positions, W)
+        x, (k, v), _ = _block(cfg, lp, x, positions, W, aux=False)
         ks.append(place(k))
         vs.append(place(v))
     ks, vs = torch.stack(ks), torch.stack(vs)
@@ -367,7 +406,7 @@ def decode_step(cfg, p, cache, token, pos: int):
                                 rms_norm(x, lp["ln1"], cfg.norm_eps),
                                 (cache["k"][i], cache["v"][i]), pos)
         x = x + h
-        h, _ = _ffn(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps))
+        h, _ = _ffn(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps), aux=False)
         x = x + h
     x = rms_norm(x, p["final_norm"], cfg.norm_eps)
     return _gathered_logits(cfg, _unembed(cfg, p, x)), cache

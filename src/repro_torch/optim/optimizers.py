@@ -19,6 +19,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch.distributed import ctx
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -101,16 +102,35 @@ def apply_updates(params, updates):
                     updates)
 
 
-def global_norm(tree):
+def global_norm(tree, entries=None):
     """sqrt of the sum over leaves of each leaf's f32 sum of squares, the
     leaves added in tree order from 0 as the reference's Python ``sum``.
     A leaf larger than SLICE_ELEMENTS is squared one slice at a time and
     its slices' sums added in order (a fixed order), so that no f32 copy
-    of a whole large leaf is made."""
-    total = 0
+    of a whole large leaf is made.
+
+    On blocks (under a mesh context): ``entries`` holds, leaf by leaf in
+    tree order, the axes the leaf is sharded on (``ctx.leaf_entry``; None
+    for a replicated leaf). Each sharded leaf's sum of squares is its
+    block's, all-reduced over its axes — the leaves of one entry in one
+    all-reduce — before the leaves are added in the same order, so a
+    replicated leaf counts once, never once a rank."""
+    sums = []
     for g in tree_leaves(tree):
+        leaf = 0
         for sl in _slices(g):
-            total = total + torch.sum(torch.square(g[sl].float()))
+            leaf = leaf + torch.sum(torch.square(g[sl].float()))
+        sums.append(leaf)
+    if entries is not None:
+        for entry in dict.fromkeys(e for e in entries if e is not None):
+            at = [i for i, e in enumerate(entries) if e == entry]
+            summed = ctx.reduce_partial(torch.stack([sums[i] for i in at]),
+                                        entry)
+            for j, i in enumerate(at):
+                sums[i] = summed[j]
+    total = 0
+    for leaf in sums:
+        total = total + leaf
     return torch.sqrt(total)
 
 

@@ -34,7 +34,7 @@ from repro_torch.configs import InputShape, get_config, get_reduced_config
 from repro_torch.configs import base as tbase
 from repro_torch.distributed import ctx, sharding
 from repro_torch.launch import dryrun
-from repro_torch.models import api
+from repro_torch.models import api, transformer
 
 with mock.patch.dict(os.environ):
     from repro.launch import dryrun as jdryrun
@@ -83,6 +83,23 @@ def _ref_specs(shapes, logical, mesh, rules):
     assert shp.keys() == log.keys()
     return {k: tuple(jsharding.resolve_spec(shp[k], log[k], mesh, rules))
             for k in shp}
+
+
+def _per_chip(shapes, logical, mesh, rules):
+    """The reference layout's per-chip bytes of a shape tree."""
+    specs = _ref_specs(shapes, logical, mesh, rules)
+    sizes = _flat(jax.tree.map(lambda s: (int(np.prod(s.shape)),
+                                          s.dtype.itemsize), shapes),
+                  leaf=lambda x: isinstance(x, tuple) and len(x) == 2
+                  and all(isinstance(e, int) for e in x))
+    total = 0
+    for k, (n, item) in sizes.items():
+        blocks = 1
+        for e in specs[k]:
+            for a in (e if isinstance(e, tuple) else (e,)):
+                blocks *= mesh.shape[a] if a else 1
+        total += n // blocks * item
+    return total
 
 
 def _port_specs(specs, logical, mesh, rules):
@@ -245,19 +262,7 @@ def test_dryrun_mesh_argument_bytes_are_the_reference_blocks(
     chips = int(np.prod(list(mesh.shape.values())))
 
     def per_chip(shapes, logical):
-        specs = _ref_specs(shapes, logical, mesh, rules)
-        sizes = _flat(jax.tree.map(lambda s: (int(np.prod(s.shape)),
-                                              s.dtype.itemsize), shapes),
-                      leaf=lambda x: isinstance(x, tuple) and len(x) == 2
-                      and all(isinstance(e, int) for e in x))
-        total = 0
-        for k, (n, item) in sizes.items():
-            blocks = 1
-            for e in specs[k]:
-                for a in (e if isinstance(e, tuple) else (e,)):
-                    blocks *= mesh.shape[a] if a else 1
-            total += n // blocks * item
-        return total
+        return _per_chip(shapes, logical, mesh, rules)
 
     params = jax.eval_shape(lambda: japi.init_params(
         jcfg, jax.random.PRNGKey(0)))
@@ -275,15 +280,104 @@ def test_dryrun_mesh_argument_bytes_are_the_reference_blocks(
 
 
 def test_dryrun_mesh_skips_training_and_the_recurrent_families():
-    assert dryrun.mesh_skip(get_config("qwen3_8b"),
-                            tbase.INPUT_SHAPES["train_4k"]) == \
-        dryrun.MESH_TRAIN_NOTE
+    """The recurrent families keep their note on every shape, training
+    included; the transformers' training is no longer skipped."""
     for arch in ("rwkv6_3b", "zamba2_1p2b"):
-        note = dryrun.mesh_skip(get_config(arch),
-                                tbase.INPUT_SHAPES["decode_32k"])
-        assert "slice" in note and get_config(arch).family in note
+        for shape in ("decode_32k", "train_4k"):
+            note = dryrun.mesh_skip(get_config(arch),
+                                    tbase.INPUT_SHAPES[shape])
+            assert note == dryrun.MESH_FAMILY_NOTE.format(
+                family=get_config(arch).family)
+            assert "slice" in note and get_config(arch).family in note
+    assert dryrun.mesh_skip(get_config("qwen3_8b"),
+                            tbase.INPUT_SHAPES["train_4k"]) is None
     assert dryrun.mesh_skip(get_config("qwen3_8b"),
                             tbase.INPUT_SHAPES["prefill_32k"]) is None
+    assert not hasattr(dryrun, "MESH_TRAIN_NOTE")
+
+
+@pytest.mark.parametrize("mesh_name", ["pod", "multipod"])
+def test_dryrun_traces_train_4k_for_every_transformer_family(mesh_name):
+    """train_4k on both meshes: no skip note for any arch of the
+    transformer families, and the step a user runs there (the member
+    step on multipod)."""
+    archs = [a for a in LM_ARCHS
+             if get_config(a).family in transformer.FAMILIES]
+    assert {get_config(a).family for a in archs} == \
+        set(transformer.FAMILIES)
+    shape = tbase.INPUT_SHAPES["train_4k"]
+    for arch in archs:
+        assert dryrun.mesh_skip(get_config(arch), shape) is None, arch
+    from repro_torch.core import trainer
+    member = dryrun.step_fn(get_config("qwen3_8b"), shape, multi=True)
+    plain = dryrun.step_fn(get_config("qwen3_8b"), shape)
+    assert member.__qualname__.startswith(
+        trainer.make_member_train_step.__name__)
+    assert plain.__qualname__.startswith(trainer.make_train_step.__name__)
+
+
+def _per_chip_train_bytes(arch, mesh_name, members):
+    """The reference layout's per-chip bytes of a train_4k step's
+    arguments (``resolve_spec`` on full-size trees, nothing allocated):
+    params, AdamW's μ and ν (f32, the params' layout: the reference's
+    ``_opt_logical``), the steps and the batch, on a member dim over
+    ``pod`` for ``members``; and the argument bytes of the Reduce
+    (the params alone)."""
+    mesh, rules = MESHES[mesh_name]
+    jshape = jbase.INPUT_SHAPES["train_4k"]
+    jcfg = jbase.get_config(arch)
+
+    def stack(tree):
+        return jax.tree.map(lambda s: jax.ShapeDtypeStruct(
+            (members,) + s.shape, s.dtype), tree) if members else tree
+
+    def log(tree):
+        return jsharding.with_member_dim(tree) if members else tree
+
+    def per_chip(shapes, logical):
+        return _per_chip(shapes, logical, mesh, rules)
+
+    params = jax.eval_shape(lambda: japi.init_params(
+        jcfg, jax.random.PRNGKey(0)))
+    p_log = japi.logical_axes(jcfg)
+    f32 = jax.tree.map(lambda s: jax.ShapeDtypeStruct(s.shape, np.float32),
+                       params)
+    io, iolog = japi.input_specs(jcfg, jshape)
+    p_bytes = per_chip(stack(params), log(p_log))
+    opt = 2 * per_chip(stack(f32), log(p_log))
+    batch = per_chip(stack(io), log(iolog))
+    return p_bytes, opt, batch
+
+
+@pytest.mark.parametrize("mesh_name,arch", [
+    ("pod", "qwen3_8b"), ("multipod", "qwen3_8b"),
+    ("multipod", "olmoe_1b_7b")])
+def test_dryrun_mesh_train_argument_bytes_are_the_reference_blocks(
+        mesh_name, arch):
+    """Rank 0's train_4k argument bytes equal the reference layout's
+    per-chip blocks of the params, AdamW's μ and ν and the batch (on
+    multipod with the member dim over 'pod': one member a card); the
+    collectives go both ways by axis, the backward's over 'model' only,
+    and on multipod the member step sends nothing over 'pod', while the
+    Reduce beside it is one all-reduce over 'pod' of the params' blocks
+    in f32."""
+    members = dryrun.MEMBERS if mesh_name == "multipod" else 0
+    p_bytes, opt, batch = _per_chip_train_bytes(arch, mesh_name, members)
+    rep = dryrun.lower_combo(arch, "train_4k", mesh_name)
+    assert rep["memory"]["argument_bytes_per_card"] == p_bytes + opt + batch
+    by_axis = rep["collectives"]["count_by_axis"]
+    assert by_axis["model"] and by_axis["data"] and "pod" not in by_axis
+    assert set(rep["collectives_backward"]["count_by_axis"]) == {"model"}
+    assert rep["kernels"]["swa_attention_bwd"] > 0
+    if members:
+        avg = rep["average_step"]
+        assert avg["collectives"]["count_by_axis"] == {"pod": 1}
+        assert avg["argument_bytes_per_card"] == p_bytes
+        # the blocks raveled into one f32 vector: μ's size
+        assert avg["collectives"]["raw_bytes_by_kind"] == \
+            {"all-reduce": opt // 2}
+    else:
+        assert "average_step" not in rep
 
 
 # no context
@@ -306,8 +400,41 @@ def test_recurrent_families_refuse_a_mesh_context():
 
 
 def test_training_refuses_a_mesh_context():
-    from repro_torch.models import transformer
-    cfg = get_reduced_config("qwen3_8b")
+    """The recurrent families' training still refuses a context (their
+    sharded execution is the next slice); the transformers' trains."""
+    from repro_torch.models import rwkv6, zamba2
     with ctx.use_mesh_rules(FakeMesh(data=1, model=1)):
-        with pytest.raises(NotImplementedError, match="slice"):
-            transformer.loss_fn(cfg, {}, {})
+        for mod, arch in ((rwkv6, "rwkv6_3b"), (zamba2, "zamba2_1p2b")):
+            cfg = get_reduced_config(arch)
+            with pytest.raises(NotImplementedError, match="slice"):
+                mod.loss_fn(cfg, {}, {"tokens": torch.zeros(1, 4).long()})
+    assert ctx.current() is None
+
+
+def test_transformer_loss_under_a_world_one_context_is_the_plain_one():
+    """Under a context whose axes are all of size 1 the vocab-sharded
+    cross-entropy and the remat'd layers compute the plain loss and
+    gradient bit for bit, sending nothing."""
+    from repro_torch.core import trainer
+    from repro_torch.distributed import collectives
+    cfg = get_reduced_config("olmoe_1b_7b")
+    params = api.init_params(cfg, torch.Generator().manual_seed(0),
+                             torch.float32, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 12), generator=gen)
+             for k in ("tokens", "targets")}
+
+    def loss_fn(p, b):
+        return api.loss_fn(cfg, p, b)
+
+    from repro_torch.launch.mesh import LMMesh
+    plain = trainer.loss_and_grads(cfg, loss_fn, params, batch)
+    collectives.reset()
+    with ctx.use_mesh_rules(LMMesh({"data": 1, "model": 1}, rank=0)):
+        ctx.declare(batch=2)
+        ranked = trainer.loss_and_grads(cfg, loss_fn, params, batch)
+    assert not collectives.CALLS
+    assert torch.equal(plain[0], ranked[0])
+    assert all(torch.equal(a, b) for a, b in zip(plain[2], ranked[2]))
+    # the leaves' entries name the axes, which at size 1 send nothing
+    assert plain[3] is None and set(ranked[3]) == {None, "model"}

@@ -37,6 +37,7 @@ from repro_torch.core import parallel_sgd, polyak, trainer
 from repro_torch.data import lm_data
 from repro_torch.launch import mesh as mesh_launch
 from repro_torch.launch import train as launch
+from repro_torch.models import api
 from repro_torch.tree import tree_leaves, tree_map
 
 import torch_mesh_ranks as ranks
@@ -599,3 +600,37 @@ def test_training_entry_points_default_to_the_card(monkeypatch):
     assert step == 0 and set(state) == {"mu", "nu"}
     assert params["embed"].dtype == torch.bfloat16
     assert state["mu"]["embed"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("arch", ["qwen3_8b", "olmoe_1b_7b",
+                                  "hubert_xlarge"])
+def test_remat_train_step_is_bitwise_the_kept_activations_step(arch):
+    """The reference's per-layer remat (``remat=True``, the default: each
+    layer under ``torch.utils.checkpoint``, recomputed in the backward):
+    the gradients and a step's AdamW update bit for bit those of
+    ``remat=False``, which keeps every activation."""
+    cfg = get_reduced_config(arch)
+    params = api.init_params(cfg, torch.Generator().manual_seed(0),
+                             torch.float32, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    shape = (2, 20)
+    batch = {"targets": torch.randint(0, cfg.vocab_size, shape,
+                                      generator=gen)}
+    if cfg.frontend == "audio":
+        batch["frames"] = torch.randn(shape + (512,), generator=gen)
+    else:
+        batch["tokens"] = torch.randint(0, cfg.vocab_size, shape,
+                                        generator=gen)
+    out = {}
+    for remat in (True, False):
+        def loss_fn(p, b, remat=remat):
+            return api.loss_fn(cfg, p, b, remat=remat)
+        _, _, grads, _ = trainer.loss_and_grads(cfg, loss_fn, params, batch)
+        step = trainer.make_train_step(cfg, optim.adamw(),
+                                       optim.constant(3e-3), loss_fn=loss_fn)
+        new, _, _, m = step(params, optim.adamw().init(params), 0, batch)
+        out[remat] = (grads, tree_leaves(new), m["loss"])
+    (ga, pa, la), (gb, pb, lb) = out[True], out[False]
+    assert torch.equal(la, lb)
+    assert all(torch.equal(a, b) for a, b in zip(ga, gb))
+    assert all(torch.equal(a, b) for a, b in zip(pa, pb))
