@@ -665,7 +665,11 @@ def phase_kernels(torch, dev, rates):
                  ("zamba2_ln_d2048", (512, 2048), torch.float32),
                  # rank 0's ln1/ln2/final norm on phase pod's train_4k
                  # step: 16 × 4,096 local tokens
-                 ("pod_train4k_ln_d4096", (65536, 4096), torch.float32)]
+                 ("pod_train4k_ln_d4096", (65536, 4096), torch.float32),
+                 # and Zamba2-1.2B's mamba ln, shared ln1/ln2 and final
+                 # norm on its train_4k step there
+                 ("pod_zamba2_train4k_ln_d2048", (65536, 2048),
+                  torch.float32)]
     for tag, shape, scale_dtype in rms_cases:
         x = (randn(*shape) * 3).to(torch.bfloat16)
         scale = (1 + 0.1 * randn(shape[-1])).to(scale_dtype)
@@ -721,6 +725,9 @@ def phase_kernels(torch, dev, rates):
                  # rank 0's local heads on phase pod's train_4k step
                  ("pod_train4k_local_heads", 16, 4096, 2, 1, 128, 4096, 1.0,
                   bf16),
+                 # and Zamba2-1.2B's shared block there (2 of 32 heads)
+                 ("pod_zamba2_train4k_local_heads", 16, 4096, 2, 2, 64,
+                  4096, 1.0, bf16),
                  ("lm_parity_causal_f32", 2, 16, 32, 8, 128, 16, 1.0,
                   torch.float32),
                  ("elm_head_parity_causal_f32", 4, 128, 32, 8, 128, 128,
@@ -917,8 +924,10 @@ def phase_kernels(torch, dev, rates):
         ("window256_s1024", 1, 1024, 32, 8, 128, 256, True, torch.bfloat16),
         ("olmoe_prefill", 4, 128, 16, 16, 128, 128, True, torch.bfloat16),
         ("train4k_seq", 1, 4096, 32, 8, 128, 4096, True, torch.bfloat16),
-        # rank 0's local heads on phase pod's train_4k step
+        # rank 0's local heads on phase pod's train_4k steps
         ("pod_train4k_local_heads", 16, 4096, 2, 1, 128, 4096, True,
+         torch.bfloat16),
+        ("pod_zamba2_train4k_local_heads", 16, 4096, 2, 2, 64, 4096, True,
          torch.bfloat16),
         ("encoder_bidirectional", 4, 1024, 16, 16, 80, 1024, False,
          torch.bfloat16),
@@ -2834,11 +2843,13 @@ def phase_pod(torch, dev):
     under a fake process group of 256 ranks (its collectives send nothing;
     what they leave in the gathered blocks is not checked, so the values
     are not compared: the sharded step's values are the gloo CPU tests'),
-    at four combos — Qwen3-8B's prefill and decode, OLMoE-1B-7B's prefill
-    and Qwen3-8B's train_4k step (its blocks of the params, AdamW's μ and
-    ν and 16 × 4,096 tokens; the layers recomputed in the backward;
+    at seven combos — Qwen3-8B's prefill and decode, OLMoE-1B-7B's
+    prefill, the train_4k steps of Qwen3-8B, RWKV6-3B and Zamba2-1.2B
+    (their blocks of the params, AdamW's μ and ν and 16 × 4,096 tokens;
+    the layers recomputed in the backward, Zamba2's shared block not;
     full depth where the trace's peak is within ``POD_PEAK_LIMIT``, else
-    the fewest layers cut that fit, printed as a cut) — each held against
+    the fewest layers cut that fit, printed as a cut) and Zamba2-1.2B's
+    decode (its KV slots split by sequence) — each held against
     the dry run's trace of the same combo exactly: the kernel operators'
     calls against the launches, the argument bytes against the storages
     the card's step takes, the FLOPs against ``FlopCounterMode``'s count,
@@ -2861,7 +2872,10 @@ def phase_pod(torch, dev):
     for arch, shape_name in (("qwen3_8b", "prefill_32k"),
                              ("qwen3_8b", "decode_32k"),
                              ("olmoe_1b_7b", "prefill_32k"),
-                             ("qwen3_8b", "train_4k")):
+                             ("qwen3_8b", "train_4k"),
+                             ("rwkv6_3b", "train_4k"),
+                             ("zamba2_1p2b", "train_4k"),
+                             ("zamba2_1p2b", "decode_32k")):
         shape = INPUT_SHAPES[shape_name]
         cfg = dryrun.shape_cfg(get_config(arch), shape)
         t0 = time.perf_counter()
@@ -3359,10 +3373,12 @@ def phase_recurrent(torch, dev, parity_layers=2, parity_prompt=32,
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
         if cfg.family == "hybrid_zamba2":
+            # each mamba block is recomputed in the backward (remat): its
+            # ln and gate norm launch a second time; the shared block is not
             L, I = cfg.num_layers, zamba2.num_attn_invocations(cfg)
             n = 2 * L + 2 * I + 1
-            want = want_launches(rmsnorm=n, rmsnorm_bwd=n, swa_attention=I,
-                                 swa_attention_bwd=I)
+            want = want_launches(rmsnorm=n + 2 * L, rmsnorm_bwd=n,
+                                 swa_attention=I, swa_attention_bwd=I)
         else:
             want = want_launches()
         check(launches == want, f"recurrent (a) {arch} gradient launches "
@@ -3536,8 +3552,11 @@ def phase_train(torch, dev, layers=4, members=2, steps=4, batch=4, seq=128,
     step's params with remat bitwise those without, and member steps on
     one repeated batch, whose loss must fall step by step, one of them under
     torch.profiler (device busy, idle share) beside unprofiled ones.
-    (2) Resume: the same run with ``--ckpt-every 2`` killed right after
-    its step-2 state files are written, then resumed to step 4
+    (2) Resume, on the reduced qwen3_8b in bf16 (the fewest bytes that
+    run the same launcher, checkpoint and kernel code; the full-width
+    4-layer run wrote 40.3 GB of state files): the run of (1)'s flags
+    uninterrupted, then with ``--ckpt-every 2`` killed right after its
+    step-2 state files are written and resumed to step 4
     (``--resume``): its final averaged model bitwise the uninterrupted
     run's (both taken as the launcher hands them to ``save_checkpoint``;
     see ``run``). (3) Reduced qwen3_8b in f32, ``parity_steps`` SGD steps at lr
@@ -3577,7 +3596,7 @@ def phase_train(torch, dev, layers=4, members=2, steps=4, batch=4, seq=128,
 
     averaged = {}
 
-    def run(argv, tag, kill_at=None):
+    def run(argv, tag, kill_at=None, run_cfg=cfg):
         """``launch.run`` with its checkpoint writes intercepted: the
         ``state-<m>`` files are written as the launcher writes them (and
         with ``kill_at`` the run is killed right after the last member's
@@ -3601,7 +3620,7 @@ def phase_train(torch, dev, layers=4, members=2, steps=4, batch=4, seq=128,
         try:
             # the launcher's log lines go to stderr: stdout keeps the JSON
             with contextlib.redirect_stdout(sys.stderr):
-                return launch.run(cfg, launch.parse_args(common + argv))
+                return launch.run(run_cfg, launch.parse_args(common + argv))
         finally:
             launch.save_checkpoint = real_save
 
@@ -3696,11 +3715,15 @@ def phase_train(torch, dev, layers=4, members=2, steps=4, batch=4, seq=128,
     del p, o, m_, b, prof
     torch.cuda.empty_cache()
 
-    # (2) killed after step 2 and resumed: bitwise the uninterrupted run
+    # (2) killed after step 2 and resumed: bitwise the uninterrupted run,
+    # on the reduced config
+    small = get_reduced_config("qwen3_8b")
     t0 = time.perf_counter()
+    run(["--steps", str(steps), "--rounds", "2", "--ckpt-dir",
+         os.path.join(root, "small")], "uninterrupted", run_cfg=small)
     try:
         run(["--steps", str(steps), "--rounds", "2", "--ckpt-every", "2",
-             "--ckpt-dir", d_cut], "cut", kill_at=2)
+             "--ckpt-dir", d_cut], "cut", kill_at=2, run_cfg=small)
         check(False, "the cut run was not killed at step 2")
     except Killed:
         pass
@@ -3710,9 +3733,9 @@ def phase_train(torch, dev, layers=4, members=2, steps=4, batch=4, seq=128,
                       for f in os.listdir(d_cut))
     t0 = time.perf_counter()
     run(["--steps", str(steps), "--rounds", "2", "--resume", "--ckpt-dir",
-         d_cut], "resumed")
+         d_cut], "resumed", run_cfg=small)
     resume_s = time.perf_counter() - t0
-    full_avg, cut_avg = averaged["full"], averaged["resumed"]
+    full_avg, cut_avg = averaged["uninterrupted"], averaged["resumed"]
     check(len(tree_leaves(full_avg)) == len(tree_leaves(cut_avg)) and all(
         a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(
             tree_leaves(full_avg), tree_leaves(cut_avg))),
@@ -3806,7 +3829,7 @@ def phase_train(torch, dev, layers=4, members=2, steps=4, batch=4, seq=128,
              // member_steps},
          peak_memory_bytes=peak, profile_member_step=profiled,
          remat_bitwise_kept_activations=True,
-         resume=dict(bitwise=True, killed_after_step=2,
+         resume=dict(bitwise=True, killed_after_step=2, arch=small.name,
                      state_files_bytes=state_bytes,
                      cut_s_host_clock=cut_s, resume_s_host_clock=resume_s),
          card_vs_cpu=parity, full_depth=deep)
@@ -4117,7 +4140,8 @@ def main():
     rms = [per_case[("rmsnorm", c)] for c in ("ln_d4096", "qk_norm_d128")]
     rms_err = max(per_case[("rmsnorm", c)]["max_abs_err"]
                   for c in ("ln_d4096", "qk_norm_d128", "zamba2_ln_d2048",
-                            "pod_train4k_ln_d4096"))
+                            "pod_train4k_ln_d4096",
+                            "pod_zamba2_train4k_ln_d2048"))
     swa = per_case[("swa_attention", "prefill_causal")]
     line["kernels"] += [
         {"name": "rmsnorm", "route": "cuda",
@@ -4147,6 +4171,7 @@ def main():
                                       "olmoe_prefill", "train4k_seq",
                                       "pod_local_heads_s32k",
                                       "pod_train4k_local_heads",
+                                      "pod_zamba2_train4k_local_heads",
                                       "lm_parity_causal_f32",
                                       "elm_head_parity_causal_f32",
                                       "encoder_bidirectional",
@@ -4163,7 +4188,8 @@ def main():
     rb = [per_case[("rmsnorm_bwd", c)] for c in ("ln_d4096", "qk_norm_d128")]
     rb_err = max(per_case[("rmsnorm_bwd", c)]["max_abs_err"]
                  for c in ("ln_d4096", "qk_norm_d128", "zamba2_ln_d2048",
-                           "pod_train4k_ln_d4096"))
+                           "pod_train4k_ln_d4096",
+                           "pod_zamba2_train4k_ln_d2048"))
     sb = per_case[("swa_attention_bwd", "prefill_causal")]
     emit("launches_by_mode", swa_attention_bwd_non_causal=zoo_launches[
         "swa_attention_bwd"], swa_attention_bwd_causal=train_launches[
@@ -4196,6 +4222,7 @@ def main():
                             for c in ("prefill_causal", "window256_s1024",
                                       "olmoe_prefill", "train4k_seq",
                                       "pod_train4k_local_heads",
+                                      "pod_zamba2_train4k_local_heads",
                                       "lm_parity_causal_f32",
                                       "elm_head_parity_causal_f32",
                                       "encoder_bidirectional",

@@ -21,7 +21,7 @@ whole f32 update tree in memory.
 Under ``distributed.ctx.use_mesh_rules`` the train steps run this rank's
 blocks of the params, the optimizer state (AdamW's μ and ν take each
 leaf's layout) and the batch, as the reference's steps run under GSPMD:
-the loss is the global one (``models/transformer.py`` ``loss_fn``), each
+the loss is the global one (``models/common.py`` ``cross_entropy``), each
 gradient block is all-reduced over the axes that shard the batch and not
 the leaf (``data``), the global norm adds each leaf's sum of squares once
 (``optim.global_norm`` with the leaves' entries), and the clip and AdamW
@@ -43,7 +43,7 @@ from repro_torch.core.averaging import (average_member_dim,
                                         psum_weighted_mean_members)
 from repro_torch.core.parallel_sgd import make_stacked_train_step
 from repro_torch.distributed import ctx, sharding
-from repro_torch.models import api, transformer
+from repro_torch.models import api
 from repro_torch.optim.optimizers import (clip_scale, global_norm,
                                           step_leafwise)
 from repro_torch.tree import tree_leaves, tree_map
@@ -105,12 +105,12 @@ def make_train_step(cfg, optimizer, lr_schedule, clip: float = 1.0,
     the loss function's own (``ce``, ``aux``). The inputs are not
     modified. ``step`` is a Python int.
 
-    Under a mesh context (the transformer families) the arguments are this
+    Under a mesh context (every LM family) the arguments are this
     rank's blocks, the gradient blocks are all-reduced over the batch's
     axes the leaf is not sharded on, before the global norm (the module's
     docstring); the new params and state are this rank's blocks."""
     loss_fn = loss_fn or (lambda p, b: api.loss_fn(cfg, p, b))
-    if getattr(cfg, "family", None) in transformer.FAMILIES:
+    if getattr(cfg, "family", None) in api.LM_FAMILIES:
         _param_shapes(cfg)     # built here, outside any step's trace
 
     def train_step(params, opt_state, step, batch):

@@ -120,17 +120,6 @@ def _frame() -> Frame:
     return _STACK[-1] if _STACK else _NONE
 
 
-def refuse(family: str):
-    """Raise under a mesh context: ``family`` has its logical axes but not
-    yet its sharded execution."""
-    if current() is not None:
-        raise NotImplementedError(
-            f"{family} under a mesh context: its logical axes resolve "
-            f"(logical_axes, cache_logical), but its sharded execution "
-            f"comes with the next module slice (ROADMAP queue 1); run "
-            f"it without use_mesh_rules")
-
-
 def declare(**sizes):
     """Record global sizes of the step's inputs (``batch``, ``cache_len``)
     in the active context."""

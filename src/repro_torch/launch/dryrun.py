@@ -45,16 +45,16 @@ The step runs as rank 0 of a fake process group of the mesh's size, under
 inputs and cache (``sharding.resolve_spec``'s layout, so its argument
 bytes are the reference's per-chip bytes); the collectives it sends are
 counted by mesh axis, and those sent in the backward also apart
-(``collectives_backward``). The transformer families' train, prefill
-and decode steps: on ``pod`` the train step on the (data, model) blocks
+(``collectives_backward``). Every LM family's train, prefill and decode
+steps: on ``pod`` the train step on the (data, model) blocks
 of the params, AdamW's μ and ν and the batch; on ``multipod`` the member
 step (``make_member_train_step``) on blocks stacked on a member dim over
 ``pod`` (``MEMBERS`` members, ``MULTIPOD_RULES``), whose step runs under
 the default rules as the reference's ``spmd_axis_name="pod"`` lowering
 does, and beside it the Reduce over ``pod``
 (``make_average_step(group=...)``, ``average_step`` in the report).
-RWKV6 and Zamba2 (their sharded execution) write a skip note naming the
-slice that brings them. The roofline is priced at
+RWKV6's chunked WKV loops over S / 32 chunks a layer in Python, so its
+prefill_32k traces take longest. The roofline is priced at
 ``cost_analysis.CARD``'s data-sheet rates: the figures are build-host
 estimates from the trace, not card readings.
 """
@@ -85,7 +85,7 @@ from repro_torch.core import trainer
 from repro_torch.distributed import collectives, ctx, sharding
 from repro_torch.launch import cost_analysis
 from repro_torch.launch.mesh import PRODUCTION_MESHES, make_production_mesh
-from repro_torch.models import api, transformer
+from repro_torch.models import api
 from repro_torch.tree import tree_map
 
 MEMBERS = 2          # multi: one distributed-averaging member a card
@@ -98,9 +98,6 @@ MULTIPOD_RULES = {
     "member": ("pod",),
 }
 LM_RULES = {"pod": None, "multipod": MULTIPOD_RULES}
-MESH_FAMILY_NOTE = ("{family}'s sharded execution on the pod meshes is the "
-                    "next module slice of the port (ROADMAP queue 1); its "
-                    "logical axes resolve already")
 META = torch.device("meta")
 _OPTS = {"adamw": optim.adamw, "sgd": optim.sgd, "momentum": optim.momentum}
 # kernels whose arithmetic is f32 on the CUDA cores whatever x's dtype
@@ -354,13 +351,6 @@ def trace_average(cfg, dtype=torch.bfloat16) -> Traced:
         return trace(trainer.make_average_step(group=group), params)
 
 
-def mesh_skip(cfg, shape):
-    """Why a combo is not traced on the pod meshes (None: it is)."""
-    if cfg.family not in transformer.FAMILIES:
-        return MESH_FAMILY_NOTE.format(family=cfg.family)
-    return None
-
-
 def _blocks(specs, logical, device=META, generator=None, high=1):
     """This rank's blocks of a spec tree under the active mesh context:
     meta tensors, or on a real ``device`` drawn from ``generator``
@@ -416,7 +406,9 @@ def mesh_step_args(cfg, shape, dtype=torch.bfloat16, device=META,
     if shape.kind == "prefill":
         return params, blocks(specs, logical)
     cache, c_logical = api.cache_specs(cfg, shape, dtype, with_logical=True)
-    ctx.declare(cache_len=cache["k"].shape[2])
+    for name, log in c_logical.items():
+        if "kv_seq" in log:
+            ctx.declare(cache_len=cache[name].shape[log.index("kv_seq")])
     token = blocks({"token": specs["token"]},
                    {"token": logical["token"]})["token"]
     return params, blocks(cache, c_logical), token, shape.seq_len - 1
@@ -608,16 +600,6 @@ def main(argv=None):
                               f, indent=1)
                 print(f"[skip] {tag} (encoder-only, documented)",
                       flush=True)
-                n_skip += 1
-                continue
-            reason = mesh_skip(get_config(arch), INPUT_SHAPES[shape_name]) \
-                if mesh in LM_RULES else None
-            if reason:
-                with open(path, "w") as f:
-                    json.dump({"arch": arch, "shape": shape_name,
-                               "mesh": mesh, "skipped": True,
-                               "reason": reason}, f, indent=1)
-                print(f"[skip] {tag} ({reason})", flush=True)
                 n_skip += 1
                 continue
             try:

@@ -30,6 +30,7 @@ heads read by this rank's q heads. ``wo``'s partial product keeps
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.distributed import ctx
 from repro_torch.kernels.swa_attention import ops as swa_ops
@@ -242,6 +243,25 @@ def cache_entries(cfg, T: int, batch: int | None = None):
                      cfg.num_kv_heads, cfg.head_dim),
                     kv_cache_logical(cfg)["k"])
     return spec[1], spec[2], spec[3]
+
+
+def cache_block(cfg, t, T: int):
+    """A prefill's k or v (B, S, KV, hd), in the layout ``attn_forward``
+    returns it, as this rank's block of one layer of a (B, T, KV, hd)
+    cache: its last T positions, or zero-padded to T, moved to the
+    cache's layout (under a mesh context gathered over the heads, then
+    this rank's positions kept) in a storage of its own."""
+    B, S = t.shape[:2]
+    if T < S:
+        t = t[:, -T:]
+    elif T > S:
+        t = F.pad(t, (0, 0, 0, 0, 0, T - S))
+    Bg = ctx.global_size("batch", B)
+    have = (ctx.batch_entry(), None,
+            ctx.spec((Bg, S, cfg.num_kv_heads, cfg.head_dim),
+                     ("batch", None, "kv_heads", None))[2], None)
+    want = cache_entries(cfg, T, B) + (None,)
+    return ctx.compact(ctx.relayout(t, have, want))
 
 
 def _slot(cfg, pos: int, T: int) -> int:

@@ -12,6 +12,18 @@ applied to the x branch only (decode carries a 3-step conv state). The
 gate norm ``rms_norm(y·silu(z), gate_norm)`` goes through the rmsnorm
 kernel on the card; the rest is plain PyTorch, as the reference leaves it
 to XLA.
+
+Under a mesh context (``distributed/ctx.py``) the mixer runs over
+``ssm_heads``, as the reference's constraint on the conv's output lays it
+out: each rank runs the SSD of its heads (whole heads, or all of them
+where the heads do not divide the axis), with the whole of B and C.
+``conv_w``, ``A_log``, ``dt_bias``, ``D_skip``, ``gate_norm`` and the
+state (h, the conv's) are this rank's heads' blocks; ``in_proj``'s
+columns are gathered and this rank's taken (``_project``); the gate
+norm's mean over d_inner all-reduces the blocks' sums of squares
+(``_gate``); and ``out_proj``'s rows are sharded, so its partial product
+is all-reduced. With no context every move is a no-op and the same lines
+run the whole mixer.
 """
 from __future__ import annotations
 
@@ -19,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
+from repro_torch.distributed import ctx
 from repro_torch.layers.init import normal
 from repro_torch.layers.norms import rms_norm
 
@@ -81,6 +94,69 @@ def _split_proj(cfg, proj):
     return torch.split(proj, [din, din, N, N, H], dim=-1)
 
 
+def _spec(cfg, name):
+    """The spec of one (unstacked) mixer leaf under the active context."""
+    D, H, P, N = cfg.d_model, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    din = H * P
+    shape = {"in_proj": (D, 2 * din + 2 * N + H), "conv_w": (CONV_W, din),
+             "A_log": (H,), "dt_bias": (H,), "D_skip": (H,),
+             "gate_norm": (din,), "out_proj": (din, D)}[name]
+    return ctx.spec(shape, mamba2_logical()[name])
+
+
+def _heads_entry(cfg, x):
+    """The entry of the mixer's heads: the reference's constraint on the
+    conv's output, ("batch", None, "ssm_heads"), taken at head
+    granularity. None where the heads do not divide the axis: every rank
+    then runs all of them."""
+    B, S = x.shape[:2]
+    return ctx.spec((ctx.global_size("batch", B), S, cfg.ssm_heads,
+                     cfg.ssm_head_dim), ("batch", None, "ssm_heads", None))[2]
+
+
+def _conv_entry(cfg, x):
+    """The entry of the conv state's channels in the cache's layout (h is
+    laid out over the heads as ``_heads_entry``; the channels are cut
+    into blocks of d_inner that need not be whole heads)."""
+    return ctx.spec((ctx.global_size("batch", x.shape[0]), CONV_W - 1,
+                     d_inner_of(cfg)), mamba2_state_logical()["conv"])[2]
+
+
+def _on_heads(cfg, p, he):
+    """conv_w, A_log, dt_bias, D_skip and gate_norm on this rank's heads
+    (their last dim moved from the leaf's layout to ``he``)."""
+    out = {}
+    for name in ("conv_w", "A_log", "dt_bias", "D_skip", "gate_norm"):
+        spec = _spec(cfg, name)
+        out[name] = ctx.relayout(p[name], spec, spec[:-1] + (he,))
+    return out
+
+
+def _project(cfg, p, x, he):
+    """(z, x, B, C, dt) of ``x @ in_proj`` for this rank's heads, B and C
+    whole. ``in_proj``'s columns ([z | x | B | C | dt], 2·din + 2N + H)
+    are cut into blocks that do not line up with z, x or dt, so under a
+    mesh context the weight's columns are gathered (34 MB a layer at
+    Zamba2-1.2B's width, where the projection of rank 0's 16 × 4,096
+    tokens would be 1.1 GB), and the product is taken with this rank's
+    heads' columns of z, x and dt and the whole of B and C. Each rank's
+    gradient of the gathered weight (and of x) is then a partial sum:
+    both enter through ``ctx.into_sharded``."""
+    w = ctx.gather(p["in_proj"], 1, _spec(cfg, "in_proj")[1])
+    if ctx.size(he) == 1:
+        return _split_proj(cfg, x @ w)
+    H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    din, Hl = H * P, H // ctx.size(he)
+    h0 = ctx.index(he) * Hl
+    w = ctx.into_sharded(w, he)
+    cols = ((h0 * P, (h0 + Hl) * P), (din + h0 * P, din + (h0 + Hl) * P),
+            (2 * din, 2 * din + 2 * N),
+            (2 * din + 2 * N + h0, 2 * din + 2 * N + h0 + Hl))
+    w = torch.cat([w[:, a:b] for a, b in cols], dim=1)
+    proj = ctx.into_sharded(x, he) @ w
+    return torch.split(proj, [Hl * P, Hl * P, N, N, Hl], dim=-1)
+
+
 def _causal_conv(xs, conv_w, conv_state=None):
     """Depthwise causal conv, width CONV_W. xs: (B, S, din). Each product
     and sum rounds in xs's dtype, in the reference's order."""
@@ -96,19 +172,48 @@ def _causal_conv(xs, conv_w, conv_state=None):
     return F.silu(out.float()).to(xs.dtype), new_state
 
 
-def _gate(cfg, p, y, z, dtype):
-    """rms_norm(y·silu(z), gate_norm), the products in the model's dtype."""
-    return rms_norm(y.to(dtype) * F.silu(z.float()).to(dtype),
-                    p["gate_norm"], cfg.norm_eps)
+def _gate(cfg, p, y, z, dtype, he):
+    """rms_norm(y·silu(z), gate_norm), the products in the model's dtype.
+    The mean is over the whole d_inner: where this rank holds a block of
+    it (``he``), the local sums of squares are all-reduced over ``he``
+    and the block scaled by the whole row's factor, in plain PyTorch —
+    the rmsnorm kernel normalises whole rows, so this function of a block
+    is not its function. The sum is replicated and each rank's gradient
+    of it a partial one, so it enters the sharded scale through
+    ``ctx.into_sharded``."""
+    t = y.to(dtype) * F.silu(z.float()).to(dtype)
+    if ctx.size(he) == 1:
+        return rms_norm(t, p["gate_norm"], cfg.norm_eps)
+    tf = t.float()
+    ss = ctx.reduce_partial(torch.sum(tf * tf, dim=-1, keepdim=True), he)
+    var = ctx.into_sharded(ss, he) / d_inner_of(cfg)
+    out = tf * torch.reciprocal(torch.sqrt(var + cfg.norm_eps)) * \
+        p["gate_norm"].float()
+    return out.to(dtype)
+
+
+def _out_proj(cfg, p, y, he):
+    """``y`` (this rank's heads, ``he``) through ``out_proj``, whose rows
+    are sharded: the partial product all-reduced over them."""
+    rows = _spec(cfg, "out_proj")[0]
+    y = ctx.relayout(y, (None, None, he), (None, None, rows))
+    y = ctx.reduce_partial(y @ p["out_proj"], rows)
+    return ctx.maybe_constrain(y, ("batch", None, None),
+                               have=(ctx.batch_entry(), None, None))
 
 
 def mamba2_forward(cfg, p, x, h0=None):
     """Full-sequence chunked SSD. x: (B, S, D). Returns
     (y, {"h": h_final, "conv": conv_state}), the state that seeds decoding.
     S is padded to a multiple of cfg.ssm_chunk with dt = 0 (decay 1, no
-    state contribution), so the final state is exact."""
+    state contribution), so the final state is exact. Under a mesh
+    context this rank runs its heads (the module's docstring) and the
+    state comes out in the cache's layout."""
     B_, S, D = x.shape
     H, P, N, Q = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk
+    he = _heads_entry(cfg, x)
+    H = H // ctx.size(he)
+    hp = _on_heads(cfg, p, he)
     S_orig = S
     if S % Q:
         pad = Q - S % Q
@@ -116,15 +221,14 @@ def mamba2_forward(cfg, p, x, h0=None):
         S = S + pad
     M = S // Q
 
-    proj = x @ p["in_proj"]
-    z, xs, Bm, Cm, dt_raw = _split_proj(cfg, proj)
-    xs, conv_state = _causal_conv(xs, p["conv_w"])
+    z, xs_raw, Bm, Cm, dt_raw = _project(cfg, p, x, he)
+    xs, conv_state = _causal_conv(xs_raw, hp["conv_w"])
 
-    dt = softplus(dt_raw.float() + p["dt_bias"])                   # (B,S,H)
+    dt = softplus(dt_raw.float() + hp["dt_bias"])                  # (B,S,H)
     if S != S_orig:
         valid = (torch.arange(S, device=x.device) < S_orig)[None, :, None]
         dt = torch.where(valid, dt, torch.zeros_like(dt))
-    a = -torch.exp(p["A_log"])                                     # (H,)
+    a = -torch.exp(hp["A_log"])                                    # (H,)
     g = dt * a                                                     # < 0
 
     xh = xs.reshape(B_, M, Q, H, P).float()
@@ -164,16 +268,18 @@ def mamba2_forward(cfg, p, x, h0=None):
                            h_prevs)
 
     y = (y_intra + y_inter).reshape(B_, S, H, P)
-    y = y + p["D_skip"][:, None] * xh.reshape(B_, S, H, P)
-    y = _gate(cfg, p, y.reshape(B_, S, H * P), z, x.dtype)
+    y = y + hp["D_skip"][:, None] * xh.reshape(B_, S, H, P)
+    y = _gate(cfg, hp, y.reshape(B_, S, H * P), z, x.dtype, he)
     if S != S_orig:
         y = y[:, :S_orig]
         # the conv state holds the last real (pre-conv) inputs, not padding
-        raw = _split_proj(cfg, x[:, :S_orig] @ p["in_proj"])[1]
+        raw = xs_raw[:, :S_orig]
         lead = torch.zeros((B_, max(CONV_W - 1 - S_orig, 0), raw.shape[-1]),
                            dtype=raw.dtype, device=raw.device)
         conv_state = torch.cat([lead, raw], dim=1)[:, -(CONV_W - 1):]
-    return y @ p["out_proj"], {"h": h_final, "conv": conv_state}
+    return _out_proj(cfg, p, y, he), {
+        "h": h_final, "conv": ctx.relayout(conv_state, (None, None, he),
+                                           (None, None, _conv_entry(cfg, x)))}
 
 
 def mamba2_init_state(cfg, batch: int, device="cuda"):
@@ -187,14 +293,20 @@ def mamba2_init_state(cfg, batch: int, device="cuda"):
 
 
 def mamba2_decode(cfg, p, x, state):
-    """Single-token step. x: (B, 1, D). Returns (y, new_state)."""
+    """Single-token step. x: (B, 1, D). Returns (y, new_state); under a
+    mesh context on this rank's heads, the state in the cache's layout."""
     H, P = cfg.ssm_heads, cfg.ssm_head_dim
-    proj = x @ p["in_proj"]
-    z, xs, Bm, Cm, dt_raw = _split_proj(cfg, proj)
-    xs, conv_state = _causal_conv(xs, p["conv_w"], state["conv"])
+    he = _heads_entry(cfg, x)
+    H = H // ctx.size(he)
+    hp = _on_heads(cfg, p, he)
+    conv_ent = _conv_entry(cfg, x)
+    z, xs, Bm, Cm, dt_raw = _project(cfg, p, x, he)
+    xs, conv_state = _causal_conv(
+        xs, hp["conv_w"], ctx.relayout(state["conv"], (None, None, conv_ent),
+                                       (None, None, he)))
 
-    dt = softplus(dt_raw.float() + p["dt_bias"])                   # (B,1,H)
-    a = -torch.exp(p["A_log"])
+    dt = softplus(dt_raw.float() + hp["dt_bias"])                  # (B,1,H)
+    a = -torch.exp(hp["A_log"])
     decay = torch.exp(dt * a)[:, 0]                                # (B,H)
 
     xh = xs.reshape(-1, H, P).float()
@@ -204,6 +316,8 @@ def mamba2_decode(cfg, p, x, state):
     h = decay[:, :, None, None] * state["h"] + torch.einsum(
         "bhp,bn->bhpn", dx, Bv)
     y = torch.einsum("bn,bhpn->bhp", Cv, h)
-    y = y + p["D_skip"][:, None] * xh
-    y = _gate(cfg, p, y.reshape(x.shape[0], 1, H * P), z, x.dtype)
-    return y @ p["out_proj"], {"h": h, "conv": conv_state}
+    y = y + hp["D_skip"][:, None] * xh
+    y = _gate(cfg, hp, y.reshape(x.shape[0], 1, H * P), z, x.dtype, he)
+    return _out_proj(cfg, p, y, he), {
+        "h": h, "conv": ctx.relayout(conv_state, (None, None, he),
+                                     (None, None, conv_ent))}

@@ -26,6 +26,9 @@ from repro_torch.models import rwkv6, transformer, zamba2
 from repro_torch.tree import tree_map
 
 
+LM_FAMILIES = transformer.FAMILIES + ("ssm_rwkv6", "hybrid_zamba2")
+
+
 def module_of(cfg):
     if cfg.family in transformer.FAMILIES:
         return transformer
@@ -50,8 +53,8 @@ def cache_logical(cfg):
 
 def loss_fn(cfg, params, batch, **kw):
     """(loss, metrics); under a mesh context, this rank's blocks give the
-    global loss (the transformer families). ``kw``: the family's options
-    (the transformers' ``remat``)."""
+    global loss. ``kw``: the family's options (``remat``; RWKV6's
+    ``mode``)."""
     return module_of(cfg).loss_fn(cfg, params, batch, **kw)
 
 

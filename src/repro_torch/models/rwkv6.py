@@ -23,12 +23,14 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.distributed import ctx
 from repro_torch.layers.init import normal
 from repro_torch.layers.norms import layer_norm
-from repro_torch.models.transformer import _unbound_layers
+from repro_torch.models import common
+from repro_torch.models.common import unbound_layers
 
 HEAD_DIM = 64
 DECAY_LORA = 64
@@ -110,8 +112,7 @@ def init_params(cfg, generator, dtype=torch.bfloat16, device="cuda"):
 
 def logical_axes(cfg):
     """The logical axes of every leaf of ``init_params(cfg)``, the
-    reference's. Under a mesh context the forward paths refuse: RWKV6's
-    sharded execution is a later slice."""
+    reference's."""
     lead = ("layers",)
     layers = {
         "mu": lead + (None, "embed"),
@@ -151,24 +152,67 @@ def _shift(x, prev=None):
     return torch.cat([prev.to(x.dtype), x[:, :-1]], dim=1)
 
 
-def _time_mix_projections(cfg, lp, x, x_prev):
-    """r, k, v (f32), g, and the per-step log-decay lw; (B, S, Hp, P)."""
+def _spec(cfg, name):
+    """The spec of one (unstacked) layer leaf under the active context."""
+    D, F_, Dp = cfg.d_model, cfg.d_ff, _heads_padded(cfg) * HEAD_DIM
+    shape = {"mu": (5, D), "w_r": (D, Dp), "w_k": (D, Dp), "w_v": (D, Dp),
+             "w_g": (D, Dp), "w_o": (Dp, D), "w_ck": (D, F_),
+             "w_cr": (D, D)}[name]
+    return ctx.spec(shape, logical_axes(cfg)["layers"][name][1:])
+
+
+def _wkv_entry(cfg, x):
+    """The entry of the WKV's heads for ``x``'s batch: the layout
+    ``ctx.spec`` gives (B, S, Hp, P). None where the heads do not divide
+    the axis (RWKV6-3B's 40 over model 16): every rank then runs all of
+    them."""
+    return ctx.spec((ctx.global_size("batch", x.shape[0]), x.shape[1],
+                     _heads_padded(cfg), HEAD_DIM),
+                    ("batch", None, "heads", None))[2]
+
+
+def _head_cols(t, he):
+    """This rank's heads' block of the last dim of ``t``, a replicated
+    leaf that enters the heads-sharded computation (``ln_x``): each
+    rank's gradient of it is a partial one, so it enters through
+    ``ctx.into_sharded``."""
+    n = ctx.size(he)
+    if n == 1:
+        return t
+    c = t.shape[-1] // n
+    i = ctx.index(he)
+    return ctx.into_sharded(t, he)[..., i * c:(i + 1) * c]
+
+
+def _time_mix_projections(cfg, lp, x, x_prev, he):
+    """r, k, v (f32), g, and the per-step log-decay lw of this rank's
+    heads (``he``); (B, S, local Hp, P). The four projections' columns
+    are cut at 160 columns a rank at RWKV6-3B's width on model 16, two
+    and a half heads: where the heads do not divide the axis their
+    columns are gathered (13 MB a weight, where a projection of rank 0's
+    tokens would be 335 MB) and every head computed; where they do, the
+    rank's column block is its heads. ``lw`` is computed whole (its
+    weights are replicated) and sliced."""
     B, S, D = x.shape
-    H = _heads_padded(cfg)
+    H = _heads_padded(cfg) // ctx.size(he)
     xs = _shift(x, x_prev)
     mu = lp["mu"].to(x.dtype)                                  # (5, D)
 
     def lerp(i):
         return x + (xs - x) * mu[i]
 
-    r = lerp(0) @ lp["w_r"]
-    k = lerp(1) @ lp["w_k"]
-    v = lerp(2) @ lp["w_v"]
-    g = lerp(3) @ lp["w_g"]
+    def proj(i, name):
+        w = ctx.relayout(lp[name], _spec(cfg, name), (None, he))
+        return ctx.into_sharded(lerp(i), he) @ w
+
+    r = proj(0, "w_r")
+    k = proj(1, "w_k")
+    v = proj(2, "w_v")
+    g = proj(3, "w_g")
     xw = lerp(4).float()
     dec = lp["decay_base"] + torch.tanh(xw @ lp["decay_A"].float()) \
         @ lp["decay_B"].float()
-    lw = -torch.exp(dec)                                       # < 0
+    lw = ctx.local_slice(-torch.exp(dec), 2, he)               # < 0
     shp = (B, S, H, HEAD_DIM)
     return (r.reshape(shp).float(), k.reshape(shp).float(),
             v.reshape(shp).float(), g, lw.reshape(shp))
@@ -253,23 +297,37 @@ def _group_norm_heads(y, scale, eps):
     return (y.reshape(B, S, H * P) * scale).to(torch.bfloat16)
 
 
-def _channel_mix(lp, x, x_prev=None):
+def _channel_mix(cfg, lp, x, x_prev=None):
+    """The channel mix: ``w_ck``/``w_cv`` over ``ff`` as
+    ``layers/mlp.py``'s SwiGLU, ``w_cv``'s partial product all-reduced;
+    ``w_cr``'s columns are sharded (``("embed", "heads")``), so its gate
+    is gathered back before it scales ``w_cv``'s replicated output."""
     xs = _shift(x, x_prev)
     mu = lp["mu_cm"].to(x.dtype)
     xk = x + (xs - x) * mu[0]
     xr = x + (xs - x) * mu[1]
-    kk = torch.square(torch.relu((xk @ lp["w_ck"]).float()))
-    out = kk.to(x.dtype) @ lp["w_cv"]
-    return torch.sigmoid((xr @ lp["w_cr"]).float()).to(x.dtype) * out
+    ff = _spec(cfg, "w_ck")[1]
+    kk = torch.square(torch.relu((ctx.into_sharded(xk, ff)
+                                  @ lp["w_ck"]).float()))
+    kk = ctx.maybe_constrain(kk, ("batch", None, "ff"),
+                             have=(ctx.batch_entry(), None, ff))
+    out = ctx.reduce_partial(kk.to(x.dtype) @ lp["w_cv"], ff)
+    cr = _spec(cfg, "w_cr")[1]
+    gate = torch.sigmoid((ctx.into_sharded(xr, cr) @ lp["w_cr"]).float())
+    return ctx.gather(gate.to(x.dtype), 2, cr) * out
 
 
 def _layer(cfg, lp, x, mode, chunk, states=None):
     """One RWKV6 block. states=None for training (zero carries); else
-    (x, {"S", "x_tm", "x_cm"}) of the block's new state."""
-    H = _heads_padded(cfg)
+    (x, {"S", "x_tm", "x_cm"}) of the block's new state. Under a mesh
+    context the WKV runs this rank's heads (``_wkv_entry``), the heads
+    ``bonus_u`` and the cache's S are laid out over."""
+    he = _wkv_entry(cfg, x)
+    H = _heads_padded(cfg) // ctx.size(he)
     xin = layer_norm(x, lp["ln1_s"], lp["ln1_b"], cfg.norm_eps)
     r, k, v, g, lw = _time_mix_projections(
-        cfg, lp, xin, None if states is None else states["x_tm"][:, None])
+        cfg, lp, xin, None if states is None else states["x_tm"][:, None],
+        he)
     s0 = (torch.zeros((x.shape[0], H, HEAD_DIM, HEAD_DIM),
                       dtype=torch.float32, device=x.device)
           if states is None else states["S"])
@@ -278,14 +336,20 @@ def _layer(cfg, lp, x, mode, chunk, states=None):
         y, s_final = _wkv_scan(r, k, v, lw, u, s0)
     else:
         y, s_final = _wkv_chunked(r, k, v, lw, u, s0, chunk)
-    y = _group_norm_heads(y, lp["ln_x"], cfg.norm_eps)
+    y = _group_norm_heads(y, _head_cols(lp["ln_x"], he), cfg.norm_eps)
     y = y * F.silu(g.float()).to(y.dtype)
     # the group norm's output is bf16 in every precision; against an f32
-    # w_o the product is f32, as JAX promotes it
-    y = y.to(torch.promote_types(y.dtype, lp["w_o"].dtype)) @ lp["w_o"]
-    x = x + y
+    # w_o the product is f32, as JAX promotes it. w_o's rows are sharded:
+    # its partial product is all-reduced
+    rows = _spec(cfg, "w_o")[0]
+    y = ctx.relayout(y, (None, None, he), (None, None, rows))
+    y = ctx.reduce_partial(
+        y.to(torch.promote_types(y.dtype, lp["w_o"].dtype)) @ lp["w_o"],
+        rows)
+    x = ctx.maybe_constrain(x + y, ("batch", None, None),
+                            have=(ctx.batch_entry(), None, None))
     xin2 = layer_norm(x, lp["ln2_s"], lp["ln2_b"], cfg.norm_eps)
-    cm = _channel_mix(lp, xin2,
+    cm = _channel_mix(cfg, lp, xin2,
                       None if states is None else states["x_cm"][:, None])
     x = x + cm
     new_states = None
@@ -299,38 +363,56 @@ def _final_norm(cfg, p, x):
                       cfg.norm_eps)
 
 
-def _unembed(p, x):
-    return (x @ p["unembed"]).float()
+def _embed(cfg, p, tokens):
+    x = common.embed_tokens(p["embed"], tokens, cfg.vocab_size)
+    return ctx.maybe_constrain(x, ("batch", None, None),
+                               have=(ctx.batch_entry(), None, None))
 
 
-def _layers(cfg, p, x, mode):
-    for lp in _unbound_layers(p["layers"], cfg.num_layers):
-        x, _ = _layer(cfg, lp, x, mode, cfg.ssm_chunk)
+def _vocab_entry(cfg):
+    return common.vocab_entry(cfg.vocab_size, cfg.d_model)
+
+
+def _unembed(cfg, p, x):
+    return common.unembed(x, p["unembed"], _vocab_entry(cfg))
+
+
+def _layers(cfg, p, x, mode, remat: bool = True):
+    """The layers, each under ``torch.utils.checkpoint`` with ``remat``
+    and grad enabled (the module's docstring)."""
+    def layer(x, lp):
+        return _layer(cfg, lp, x, mode, cfg.ssm_chunk)[0]
+
+    for lp in unbound_layers(p["layers"], cfg.num_layers):
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(layer, x, lp, use_reentrant=False)
+        else:
+            x = layer(x, lp)
     return x
 
 
-def forward(cfg, p, batch, *, mode: str | None = None):
-    """Full-sequence forward: (logits f32, aux 0)."""
-    ctx.refuse("RWKV6")
-    x = _layers(cfg, p, p["embed"][batch["tokens"]], mode or cfg.rwkv_mode)
-    logits = _unembed(p, _final_norm(cfg, p, x))
+def forward(cfg, p, batch, *, mode: str | None = None, remat: bool = True):
+    """Full-sequence forward: (logits f32, aux 0); under a mesh context
+    this rank's vocab columns."""
+    x = _layers(cfg, p, _embed(cfg, p, batch["tokens"]),
+                mode or cfg.rwkv_mode, remat)
+    logits = _unembed(cfg, p, _final_norm(cfg, p, x))
     return logits, torch.zeros((), device=logits.device)
 
 
-def loss_fn(cfg, p, batch, mode: str | None = None):
-    ctx.refuse("RWKV6")
-    logits, _ = forward(cfg, p, batch, mode=mode)
-    tgt = batch["targets"].long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, tgt[..., None])[..., 0]
-    ce = torch.mean(logz - gold)
+def loss_fn(cfg, p, batch, mode: str | None = None, *, remat: bool = True):
+    """The mean next-token cross-entropy (over the global batch, on this
+    rank's vocab columns under a mesh context: ``common.cross_entropy``)."""
+    logits, _ = forward(cfg, p, batch, mode=mode, remat=remat)
+    ce = common.cross_entropy(logits, batch["targets"], _vocab_entry(cfg))
     return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
 
 
-def hidden_states(cfg, p, batch, *, mode: str | None = None):
+def hidden_states(cfg, p, batch, *, mode: str | None = None,
+                  remat: bool = True):
     """The final-norm hidden states (B, S, D) — the ELM head's H."""
-    ctx.refuse("RWKV6")
-    x = _layers(cfg, p, p["embed"][batch["tokens"]], mode or cfg.rwkv_mode)
+    x = _layers(cfg, p, _embed(cfg, p, batch["tokens"]),
+                mode or cfg.rwkv_mode, remat)
     return _final_norm(cfg, p, x)
 
 
@@ -340,26 +422,30 @@ def hidden_states(cfg, p, batch, *, mode: str | None = None):
 
 def init_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
                device="cuda"):
-    ctx.refuse("RWKV6")
+    """The zero state of a global ``batch``; under a mesh context this
+    rank's blocks of it (and the global batch declared)."""
     del seq_len  # constant-size state
     dev = resolve_device(device)
     L, D, H = cfg.num_layers, cfg.d_model, _heads_padded(cfg)
-    return {"S": torch.zeros((L, batch, H, HEAD_DIM, HEAD_DIM),
-                             dtype=torch.float32, device=dev),
-            "x_tm": torch.zeros((L, batch, D), dtype=dtype, device=dev),
-            "x_cm": torch.zeros((L, batch, D), dtype=dtype, device=dev)}
+    ctx.declare(batch=batch)
+    shapes = {"S": ((L, batch, H, HEAD_DIM, HEAD_DIM), torch.float32),
+              "x_tm": ((L, batch, D), dtype), "x_cm": ((L, batch, D), dtype)}
+    logical = cache_logical(cfg)
+    return {name: torch.zeros(ctx.block_shape(shape, logical[name]),
+                              dtype=dt, device=dev)
+            for name, (shape, dt) in shapes.items()}
 
 
 def prefill(cfg, p, batch, *, mode: str | None = None):
-    """Encode a prompt; returns (last-position logits, per-layer state)."""
-    ctx.refuse("RWKV6")
+    """Encode a prompt; returns (last-position logits, per-layer state);
+    under a mesh context this rank's vocab columns and state blocks."""
     mode = mode or cfg.rwkv_mode
-    x = p["embed"][batch["tokens"]]
+    x = _embed(cfg, p, batch["tokens"])
     B = x.shape[0]
-    H = _heads_padded(cfg)
+    Hs = _heads_padded(cfg) // ctx.size(_wkv_entry(cfg, x))
     S, x_tm, x_cm = [], [], []
-    for lp in _unbound_layers(p["layers"], cfg.num_layers):
-        states0 = {"S": torch.zeros((B, H, HEAD_DIM, HEAD_DIM),
+    for lp in unbound_layers(p["layers"], cfg.num_layers):
+        states0 = {"S": torch.zeros((B, Hs, HEAD_DIM, HEAD_DIM),
                                     dtype=torch.float32, device=x.device),
                    "x_tm": torch.zeros((B, cfg.d_model), dtype=x.dtype,
                                        device=x.device),
@@ -369,7 +455,7 @@ def prefill(cfg, p, batch, *, mode: str | None = None):
         S.append(ns["S"])
         x_tm.append(ns["x_tm"])
         x_cm.append(ns["x_cm"])
-    logits = _unembed(p, _final_norm(cfg, p, x[:, -1:]))
+    logits = _unembed(cfg, p, _final_norm(cfg, p, x[:, -1:]))
     return logits, {"S": torch.stack(S), "x_tm": torch.stack(x_tm),
                     "x_cm": torch.stack(x_cm)}
 
@@ -377,18 +463,19 @@ def prefill(cfg, p, batch, *, mode: str | None = None):
 def decode_step(cfg, p, cache, token, pos):
     """One token through the exact recurrence. Returns (logits, cache); the
     cache's tensors are updated in place (the reference donates its cache
-    to the step, so nothing reads the old one) and returned."""
-    ctx.refuse("RWKV6")
+    to the step, so nothing reads the old one) and returned. Under a mesh
+    context the cache and the token are this rank's blocks and the logits
+    come out whole over the vocab."""
     del pos  # the recurrent state carries position implicitly
-    x = p["embed"][token]  # (B, 1, D)
-    for i, lp in enumerate(_unbound_layers(p["layers"], cfg.num_layers)):
+    x = _embed(cfg, p, token)  # (B, 1, D)
+    for i, lp in enumerate(unbound_layers(p["layers"], cfg.num_layers)):
         states = {"S": cache["S"][i], "x_tm": cache["x_tm"][i],
                   "x_cm": cache["x_cm"][i]}
         x, ns = _layer(cfg, lp, x, "scan", cfg.ssm_chunk, states)
         for name in ("S", "x_tm", "x_cm"):
             cache[name][i] = ns[name]
-    logits = _unembed(p, _final_norm(cfg, p, x))
-    return logits, cache
+    logits = _unembed(cfg, p, _final_norm(cfg, p, x))
+    return common.gathered_logits(logits, _vocab_entry(cfg)), cache
 
 
 def pad_head_params(params, cfg_from, cfg_to):

@@ -56,9 +56,9 @@ from repro_torch.layers import attention as attn
 from repro_torch.layers import mlp as mlp_lib
 from repro_torch.layers.init import normal
 from repro_torch.layers.norms import rms_norm
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.models import common
+from repro_torch.models.common import unbound_layers as _unbound_layers
 
-NEG_INF = -1e30
 AUDIO_FRONTEND_DIM = 512    # wav2vec2/HuBERT conv-extractor output dim
 VISION_FRONTEND_DIM = 1024  # InternViT patch-embedding dim (stub)
 FAMILIES = ("dense", "moe", "encoder", "vlm")
@@ -134,73 +134,23 @@ def logical_axes(cfg):
     return p
 
 
-def _mask_padded_logits(cfg, logits, offset: int = 0):
-    """-1e30 on padded vocab slots (``offset``: the first column's vocab
-    id)."""
-    if cfg.padded_vocab == cfg.vocab_size:
-        return logits
-    idx = torch.arange(offset, offset + logits.shape[-1],
-                       device=logits.device)
-    return torch.where(idx < cfg.vocab_size, logits,
-                       torch.full_like(logits, NEG_INF))
-
-
-def _unbound_layers(layers, num_layers: int):
-    """The per-layer trees of the stacked ``layers``: views from one
-    ``unbind`` of each leaf. Under autograd each leaf's gradient is then
-    stacked once, where a view ``a[i]`` per layer would hand every layer a
-    zero tensor of the whole leaf's size to add into it."""
-    leaves = tree_leaves(layers)
-    parts = [a.unbind(0) for a in leaves]
-    out = []
-    for i in range(num_layers):
-        it = iter([part[i] for part in parts])
-        out.append(tree_map(lambda _: next(it), layers))
-    return out
-
-
 def _vocab_entry(cfg):
     """The entry of the vocab dim of the (un)embedding under the active
     context."""
-    V, D = cfg.padded_vocab, cfg.d_model
-    if cfg.tie_embeddings:
-        return ctx.spec((V, D), ("vocab", "embed"))[0]
-    return ctx.spec((D, V), ("embed", "vocab"))[1]
+    return common.vocab_entry(cfg.padded_vocab, cfg.d_model,
+                              cfg.tie_embeddings)
 
 
 def _embed_tokens(cfg, p, tokens):
-    """The embedding rows of ``tokens``. Under a mesh context with the
-    vocab sharded: this rank's rows where the token is its own, zero
-    elsewhere, all-reduced over the vocab's axis (one term is nonzero, so
-    the sum is exact)."""
-    ve = ctx.spec((cfg.padded_vocab, cfg.d_model), ("vocab", "embed"))[0]
-    if ctx.size(ve) == 1:
-        return p["embed"][tokens]
-    Vl = p["embed"].shape[0]
-    idx = tokens.long() - ctx.index(ve) * Vl
-    here = (idx >= 0) & (idx < Vl)
-    x = p["embed"][idx.clamp(0, Vl - 1)]
-    x = torch.where(here[..., None], x, torch.zeros((), dtype=x.dtype,
-                                                    device=x.device))
-    return ctx.reduce_partial(x, ve)
+    return common.embed_tokens(p["embed"], tokens, cfg.padded_vocab)
 
 
 def _unembed(cfg, p, x):
-    """This rank's vocab columns of the logits, f32, padded slots masked;
-    x (replicated) enters the vocab-sharded product."""
+    """This rank's vocab columns of the logits, f32, padded slots
+    masked."""
     unembed = p["embed"].T if cfg.tie_embeddings else p["unembed"]
-    ve = _vocab_entry(cfg)
-    off = ctx.index(ve) * unembed.shape[1]
-    x = ctx.into_sharded(x, ve)
-    logits = _mask_padded_logits(cfg, (x @ unembed).float(), off)
-    return ctx.maybe_constrain(logits, ("batch", None, "vocab"),
-                               have=(ctx.batch_entry(), None, ve))
-
-
-def _gathered_logits(cfg, logits):
-    """Decode's logits whole over the vocab (replicated over ``model``)."""
-    return ctx.relayout(logits, (None, None, _vocab_entry(cfg)),
-                        (None, None, None))
+    pad = cfg.vocab_size if cfg.padded_vocab != cfg.vocab_size else None
+    return common.unembed(x, unembed, _vocab_entry(cfg), pad)
 
 
 # ---------------------------------------------------------------------------
@@ -309,32 +259,11 @@ def loss_fn(cfg, p, batch, *, remat: bool = True):
     ``loss_fn`` (transformer.py:215) — the mean over tokens of
     logsumexp(logits) minus the gold logit, padded vocab slots masked to
     -1e30 in the logits; the MoE adds ``router_aux_coef`` times the aux
-    loss.
-
-    Under a mesh context the logits are this rank's vocab columns and are
-    never gathered (rank 0's f32 block at train_4k on the 16 × 16 mesh is
-    65,536 × 9,496, 2.49 GB): the log-sum-exp is the global maximum
-    (``reduce_max``, a shift with no gradient) plus the log of the
-    all-reduced local exp sums, the gold logit a masked local gather,
-    all-reduced, and the mean over the global batch's tokens, the ranks'
-    partial sums all-reduced over the batch's axis. With no context every
-    reduction is the identity and the same lines compute the whole."""
+    loss. Under a mesh context the logits are this rank's vocab columns,
+    never gathered, and the mean is over the global batch
+    (``common.cross_entropy``)."""
     logits, aux = forward(cfg, p, batch, remat=remat)
-    ve, be = _vocab_entry(cfg), ctx.batch_entry()
-    tgt = batch["targets"].long()
-    m = ctx.reduce_max(logits.detach().amax(-1, keepdim=True), ve)
-    sumexp = ctx.reduce_partial(torch.sum(torch.exp(logits - m), dim=-1),
-                                ve)
-    logz = torch.log(sumexp) + m[..., 0]
-    Vl = logits.shape[-1]
-    idx = tgt - ctx.index(ve) * Vl
-    here = (idx >= 0) & (idx < Vl)
-    gold = torch.gather(logits, -1, idx.clamp(0, Vl - 1)[..., None])[..., 0]
-    gold = ctx.reduce_partial(torch.where(here, gold,
-                                          torch.zeros_like(gold)), ve)
-    B, S = tgt.shape
-    n = ctx.global_size("batch", B) * S
-    ce = ctx.reduce_partial(torch.sum(logz - gold), be) / n
+    ce = common.cross_entropy(logits, batch["targets"], _vocab_entry(cfg))
     loss = ce + cfg.router_aux_coef * aux if cfg.family == "moe" else ce
     return loss, {"ce": ce, "aux": aux}
 
@@ -371,24 +300,12 @@ def prefill(cfg, p, batch, max_len: int | None = None):
     if max_len is not None and not W:
         T = max(T, max_len)
     ctx.declare(cache_len=T)
-    Bg, be = ctx.global_size("batch", B), ctx.batch_entry()
-    kv_have = (be, None, ctx.spec((Bg, S, cfg.num_kv_heads, cfg.head_dim),
-                                  ("batch", None, "kv_heads", None))[2],
-               None)
-    kv_want = attn.cache_entries(cfg, T, B) + (None,)
-
-    def place(t):
-        if T < S:
-            t = t[:, -T:]
-        elif T > S:
-            t = F.pad(t, (0, 0, 0, 0, 0, T - S))
-        return ctx.compact(ctx.relayout(t, kv_have, kv_want))
 
     ks, vs = [], []
     for lp in _unbound_layers(p["layers"], cfg.num_layers):
         x, (k, v), _ = _block(cfg, lp, x, positions, W, aux=False)
-        ks.append(place(k))
-        vs.append(place(v))
+        ks.append(attn.cache_block(cfg, k, T))
+        vs.append(attn.cache_block(cfg, v, T))
     ks, vs = torch.stack(ks), torch.stack(vs)
     x = rms_norm(x[:, -1:], p["final_norm"], cfg.norm_eps)
     return _unembed(cfg, p, x), {"k": ks, "v": vs}
@@ -409,4 +326,5 @@ def decode_step(cfg, p, cache, token, pos: int):
         h, _ = _ffn(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps), aux=False)
         x = x + h
     x = rms_norm(x, p["final_norm"], cfg.norm_eps)
-    return _gathered_logits(cfg, _unembed(cfg, p, x)), cache
+    return common.gathered_logits(_unembed(cfg, p, x),
+                                  _vocab_entry(cfg)), cache

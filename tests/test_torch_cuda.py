@@ -531,7 +531,9 @@ def test_recurrent_families_on_card_match_cpu(cuda, arch):
     CPU's two one-ulp twins, ``chip_smoke.greedy_parity``'s twin rule);
     Zamba2 launches rmsnorm 2 L + 2 I + 1 times and swa_attention I times
     over its I shared invocations, RWKV6 no kernel. Its loss gradient
-    launches each backward kernel as often."""
+    launches each backward kernel as often, and rmsnorm 2 L more times:
+    each mamba block's ln and gate norm again when the backward recomputes
+    it (remat; the shared block is not recomputed)."""
     from repro_torch.models import zamba2
     cfg = replace(get_reduced_config(arch), ssm_chunk=8)
     params = api.init_params(cfg, torch.Generator().manual_seed(0),
@@ -565,6 +567,9 @@ def test_recurrent_families_on_card_match_cpu(cuda, arch):
     loss, _ = api.loss_fn(cfg, on_card, batch)
     grads = torch.autograd.grad(loss, leaves)
     torch.cuda.synchronize()
+    assert kernels.LAUNCHES["rmsnorm"] == (n + 2 * cfg.num_layers if I
+                                           else 0)
+    assert kernels.LAUNCHES["swa_attention"] == I
     assert kernels.LAUNCHES["rmsnorm_bwd"] == n
     assert kernels.LAUNCHES["swa_attention_bwd"] == I
     assert all(bool(torch.isfinite(g).all()) for g in grads)

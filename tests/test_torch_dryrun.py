@@ -185,10 +185,11 @@ def _recomputed_calls(cfg):
     the transformers' layers run under ``torch.utils.checkpoint``
     (``remat``), so each layer's norms and attention run again (they all
     come before the layer's last saved tensor, where the recomputation
-    stops); the final norm is outside the layers. Zamba2 keeps its
-    layers' activations."""
+    stops); the final norm is outside the layers. Zamba2 recomputes its
+    mamba blocks (their ln and gate norm, before ``out_proj``'s product)
+    and keeps its shared block's activations, as the reference does."""
     if cfg.family == "hybrid_zamba2":
-        return {}
+        return {"rmsnorm": 2 * cfg.num_layers}
     fwd = _forward_calls(cfg)
     return {"rmsnorm": fwd["rmsnorm"] - 1,
             "swa_attention": fwd["swa_attention"]}

@@ -280,20 +280,16 @@ def test_dryrun_mesh_argument_bytes_are_the_reference_blocks(
 
 
 def test_dryrun_mesh_skips_training_and_the_recurrent_families():
-    """The recurrent families keep their note on every shape, training
-    included; the transformers' training is no longer skipped."""
-    for arch in ("rwkv6_3b", "zamba2_1p2b"):
-        for shape in ("decode_32k", "train_4k"):
-            note = dryrun.mesh_skip(get_config(arch),
-                                    tbase.INPUT_SHAPES[shape])
-            assert note == dryrun.MESH_FAMILY_NOTE.format(
-                family=get_config(arch).family)
-            assert "slice" in note and get_config(arch).family in note
-    assert dryrun.mesh_skip(get_config("qwen3_8b"),
-                            tbase.INPUT_SHAPES["train_4k"]) is None
-    assert dryrun.mesh_skip(get_config("qwen3_8b"),
-                            tbase.INPUT_SHAPES["prefill_32k"]) is None
+    """No LM combo is skipped on the pod meshes any more: the dry run has
+    no family skip note (the recurrent families run sharded, training
+    included), and its only skip is the encoder-only note, which holds
+    on every mesh."""
+    assert not hasattr(dryrun, "mesh_skip")
+    assert not hasattr(dryrun, "MESH_FAMILY_NOTE")
     assert not hasattr(dryrun, "MESH_TRAIN_NOTE")
+    skipped = {(a, s) for a, s, ok in dryrun.combos() if not ok}
+    assert skipped and all(get_config(a).is_encoder_only
+                           for a, _ in skipped)
 
 
 @pytest.mark.parametrize("mesh_name", ["pod", "multipod"])
@@ -306,8 +302,8 @@ def test_dryrun_traces_train_4k_for_every_transformer_family(mesh_name):
     assert {get_config(a).family for a in archs} == \
         set(transformer.FAMILIES)
     shape = tbase.INPUT_SHAPES["train_4k"]
-    for arch in archs:
-        assert dryrun.mesh_skip(get_config(arch), shape) is None, arch
+    assert all(supported for a, s, supported in dryrun.combos()
+               if a in archs and s == "train_4k")
     from repro_torch.core import trainer
     member = dryrun.step_fn(get_config("qwen3_8b"), shape, multi=True)
     plain = dryrun.step_fn(get_config("qwen3_8b"), shape)
@@ -386,29 +382,6 @@ def test_no_context_is_a_no_op():
     x = torch.arange(6.0).reshape(2, 3)
     assert ctx.current() is None
     assert ctx.maybe_constrain(x, ("batch", None)) is x
-    ctx.refuse("RWKV6")          # no context: nothing to refuse
-
-
-def test_recurrent_families_refuse_a_mesh_context():
-    from repro_torch.models import rwkv6, zamba2
-    with ctx.use_mesh_rules(FakeMesh(data=1, model=1)):
-        for mod, arch in ((rwkv6, "rwkv6_3b"), (zamba2, "zamba2_1p2b")):
-            cfg = get_reduced_config(arch)
-            with pytest.raises(NotImplementedError, match="slice"):
-                mod.prefill(cfg, {}, {"tokens": torch.zeros(1, 4).long()})
-    assert ctx.current() is None
-
-
-def test_training_refuses_a_mesh_context():
-    """The recurrent families' training still refuses a context (their
-    sharded execution is the next slice); the transformers' trains."""
-    from repro_torch.models import rwkv6, zamba2
-    with ctx.use_mesh_rules(FakeMesh(data=1, model=1)):
-        for mod, arch in ((rwkv6, "rwkv6_3b"), (zamba2, "zamba2_1p2b")):
-            cfg = get_reduced_config(arch)
-            with pytest.raises(NotImplementedError, match="slice"):
-                mod.loss_fn(cfg, {}, {"tokens": torch.zeros(1, 4).long()})
-    assert ctx.current() is None
 
 
 def test_transformer_loss_under_a_world_one_context_is_the_plain_one():
