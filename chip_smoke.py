@@ -667,9 +667,14 @@ def phase_kernels(torch, dev, rates):
                  # step: 16 × 4,096 local tokens
                  ("pod_train4k_ln_d4096", (65536, 4096), torch.float32),
                  # and Zamba2-1.2B's mamba ln, shared ln1/ln2 and final
-                 # norm on its train_4k step there
+                 # norm on its train_4k step there (OLMoE-1B-7B's ln1/ln2
+                 # and final norm under C1 too)
                  ("pod_zamba2_train4k_ln_d2048", (65536, 2048),
-                  torch.float32)]
+                  torch.float32),
+                 # Qwen3-MoE-235B-A22B's q_norm/k_norm on its train_4k
+                 # step under A2: 16 × 4,096 tokens × 4 local heads
+                 ("pod_qwen3_moe_train4k_qk_norm_d128", (262144, 128),
+                  torch.bfloat16)]
     for tag, shape, scale_dtype in rms_cases:
         x = (randn(*shape) * 3).to(torch.bfloat16)
         scale = (1 + 0.1 * randn(shape[-1])).to(scale_dtype)
@@ -698,6 +703,26 @@ def phase_kernels(torch, dev, rates):
                    library_call_ms=call_ms(torch, library),
                    bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
         keep("rmsnorm", tag, rec)
+        if tag == "pod_zamba2_train4k_ln_d2048":
+            # row 3d against F.rms_norm read again five times in turns
+            # (kernel, library, library, kernel, ...): whether the kernel's
+            # 1.01x of the library holds beyond the spread of the readings
+            reads = {"kernel": [], "library": []}
+            for r in range(5):
+                for side in (("kernel", "library") if r % 2 == 0
+                             else ("library", "kernel")):
+                    reads[side].append(device_ms(
+                        torch, kernel if side == "kernel" else library))
+            ratios = [a / b for a, b in zip(reads["kernel"],
+                                            reads["library"])]
+            emit("kernel_spread", name="rmsnorm", case=tag,
+                 ms=reads["kernel"], library_ms=reads["library"],
+                 ratio=ratios, ratio_min=min(ratios), ratio_max=max(ratios),
+                 kernel_spread_ms=max(reads["kernel"]) - min(reads["kernel"]),
+                 library_spread_ms=max(reads["library"])
+                 - min(reads["library"]),
+                 loses_beyond_spread=min(reads["kernel"])
+                 > max(reads["library"]))
 
     # the prefill's attention (B 4, S 128, 32 heads over 8 kv heads, hd 128,
     # window = S), one windowed case, the prefill with q scaled by 8 (scores
@@ -727,6 +752,13 @@ def phase_kernels(torch, dev, rates):
                   bf16),
                  # and Zamba2-1.2B's shared block there (2 of 32 heads)
                  ("pod_zamba2_train4k_local_heads", 16, 4096, 2, 2, 64,
+                  4096, 1.0, bf16),
+                 # OLMoE-1B-7B's under C1 (1 of 16 heads) and
+                 # Qwen3-MoE-235B-A22B's under A2 (4 of 64 q heads, their
+                 # one KV head)
+                 ("pod_olmoe_train4k_local_heads", 16, 4096, 1, 1, 128,
+                  4096, 1.0, bf16),
+                 ("pod_qwen3_moe_train4k_local_heads", 16, 4096, 4, 1, 128,
                   4096, 1.0, bf16),
                  ("lm_parity_causal_f32", 2, 16, 32, 8, 128, 16, 1.0,
                   torch.float32),
@@ -929,6 +961,10 @@ def phase_kernels(torch, dev, rates):
          torch.bfloat16),
         ("pod_zamba2_train4k_local_heads", 16, 4096, 2, 2, 64, 4096, True,
          torch.bfloat16),
+        ("pod_olmoe_train4k_local_heads", 16, 4096, 1, 1, 128, 4096, True,
+         torch.bfloat16),
+        ("pod_qwen3_moe_train4k_local_heads", 16, 4096, 4, 1, 128, 4096,
+         True, torch.bfloat16),
         ("encoder_bidirectional", 4, 1024, 16, 16, 80, 1024, False,
          torch.bfloat16),
         ("encoder_ragged_s1000", 4, 1000, 16, 16, 80, 1000, False,
@@ -2833,6 +2869,24 @@ def phase_lm_mesh(torch, dev, lm_first, lm_launches, batch=4, prompt=128,
 
 
 POD_PEAK_LIMIT = 70e9     # a train combo deeper than fits is cut
+# Qwen3-MoE-235B-A22B's train_4k step under A2 starts at the depth that
+# its trace found to fit on the build host (40 layers: peak 68.35 GB; 44:
+# 71.06 GB), so the cut loop traces it once
+POD_A2_LAYERS = 40
+# (arch, input shape, the hillclimb variant's name, rule override,
+# configuration override, starting depth) of phase pod's combos
+POD_COMBOS = (("qwen3_8b", "prefill_32k", None, None, None, None),
+              ("qwen3_8b", "decode_32k", None, None, None, None),
+              ("olmoe_1b_7b", "prefill_32k", None, None, None, None),
+              ("qwen3_8b", "train_4k", None, None, None, None),
+              ("rwkv6_3b", "train_4k", None, None, None, None),
+              ("zamba2_1p2b", "train_4k", None, None, None, None),
+              ("zamba2_1p2b", "decode_32k", None, None, None, None),
+              ("olmoe_1b_7b", "train_4k", "C1-fsdp-ff", {"ff": ("data",)},
+               None, None),
+              ("qwen3_moe_235b_a22b", "train_4k", "A2-fsdp-combine",
+               {"ff": ("data",)}, {"moe_combine_sharding": "batch"},
+               POD_A2_LAYERS))
 # kernel-name substrings of the hand kernels on phase pod's train step
 # (the attention's kernels live in namespace swa_full)
 POD_GROUPS = {"attention": ("swa_full::",), "norms": ("rmsnorm",)}
@@ -2843,17 +2897,22 @@ def phase_pod(torch, dev):
     under a fake process group of 256 ranks (its collectives send nothing;
     what they leave in the gathered blocks is not checked, so the values
     are not compared: the sharded step's values are the gloo CPU tests'),
-    at seven combos — Qwen3-8B's prefill and decode, OLMoE-1B-7B's
-    prefill, the train_4k steps of Qwen3-8B, RWKV6-3B and Zamba2-1.2B
-    (their blocks of the params, AdamW's μ and ν and 16 × 4,096 tokens;
-    the layers recomputed in the backward, Zamba2's shared block not;
-    full depth where the trace's peak is within ``POD_PEAK_LIMIT``, else
-    the fewest layers cut that fit, printed as a cut) and Zamba2-1.2B's
-    decode (its KV slots split by sequence) — each held against
-    the dry run's trace of the same combo exactly: the kernel operators'
-    calls against the launches, the argument bytes against the storages
-    the card's step takes, the FLOPs against ``FlopCounterMode``'s count,
-    and the collectives' calls and bytes by axis. Printed: the trace's
+    at nine combos (``POD_COMBOS``) — Qwen3-8B's prefill and decode,
+    OLMoE-1B-7B's prefill, the train_4k steps of Qwen3-8B, RWKV6-3B and
+    Zamba2-1.2B (their blocks of the params, AdamW's μ and ν and 16 ×
+    4,096 tokens; the layers recomputed in the backward, Zamba2's shared
+    block not; full depth where the trace's peak is within
+    ``POD_PEAK_LIMIT``, else the fewest layers cut that fit, printed as a
+    cut), Zamba2-1.2B's decode (its KV slots split by sequence), and two
+    train_4k steps under the hillclimb's rule overrides: OLMoE-1B-7B's
+    under C1 (``{"ff": ("data",)}``: the expert weights' ff over data,
+    gathered at use) and Qwen3-MoE-235B-A22B's under A2 (C1's rule and
+    ``moe_combine_sharding="batch"``, from ``POD_A2_LAYERS`` layers) —
+    each held against the dry run's trace of the same combo exactly: the
+    kernel operators' calls against the launches, the argument bytes
+    against the storages the card's step takes, the FLOPs against
+    ``FlopCounterMode``'s count, and the collectives' calls and bytes by
+    axis, all of them and those sent in the backward. Printed: the trace's
     peak over the card's, the step's wall, the device's busy time (one
     profiled step) over the roofline, and (the train step) the
     attention's and the norms' share of the busy time. Returns the
@@ -2869,25 +2928,26 @@ def phase_pod(torch, dev):
     t_phase = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(4)
     total = Counter()
-    for arch, shape_name in (("qwen3_8b", "prefill_32k"),
-                             ("qwen3_8b", "decode_32k"),
-                             ("olmoe_1b_7b", "prefill_32k"),
-                             ("qwen3_8b", "train_4k"),
-                             ("rwkv6_3b", "train_4k"),
-                             ("zamba2_1p2b", "train_4k"),
-                             ("zamba2_1p2b", "decode_32k")):
+    for arch, shape_name, variant, rules, over, layers in POD_COMBOS:
         shape = INPUT_SHAPES[shape_name]
-        cfg = dryrun.shape_cfg(get_config(arch), shape)
+        cfg = replace(dryrun.shape_cfg(get_config(arch), shape),
+                      **(over or {}))
+        full = cfg.num_layers
+        if layers:
+            cfg = replace(cfg, num_layers=layers)
         t0 = time.perf_counter()
-        dry = dryrun.trace_mesh_combo(cfg, shape, "pod")
-        cut = None
+        dry = dryrun.trace_mesh_combo(cfg, shape, "pod", rules_override=rules)
+        n_traces = 1
         while dry["memory"]["peak_bytes_per_card"] > POD_PEAK_LIMIT:
             cfg = replace(cfg, num_layers=cfg.num_layers - 4)
-            cut = f"{cfg.num_layers} of {get_config(arch).num_layers} layers"
-            dry = dryrun.trace_mesh_combo(cfg, shape, "pod")
+            dry = dryrun.trace_mesh_combo(cfg, shape, "pod",
+                                          rules_override=rules)
+            n_traces += 1
+        cut = f"{cfg.num_layers} of {full} layers" \
+            if cfg.num_layers < full else None
         trace_s = time.perf_counter() - t0
         train = shape.kind == "train"
-        with dryrun.lm_mesh("pod") as frame:
+        with dryrun.lm_mesh("pod", rules) as frame:
             args = dryrun.mesh_step_args(cfg, shape, device=dev,
                                          generator=g)
             fn = dryrun.step_fn(cfg, shape)
@@ -2901,6 +2961,8 @@ def phase_pod(torch, dev):
             kernels.reset_launches()
             calls0 = Counter(collectives.CALLS)
             bytes0 = Counter(collectives.BYTES)
+            bcalls0 = Counter(collectives.BACKWARD_CALLS)
+            bbytes0 = Counter(collectives.BACKWARD_BYTES)
             t0 = time.perf_counter()
             with FlopCounterMode(display=False) as fc:
                 out = fn(*args)
@@ -2908,6 +2970,9 @@ def phase_pod(torch, dev):
             card_s = time.perf_counter() - t0
             launches = {k: n for k, n in kernels.LAUNCHES.items() if n}
             coll = dryrun._coll_growth(calls0, bytes0).as_dict()
+            coll_bwd = dryrun._coll_growth(
+                bcalls0, bbytes0, collectives.BACKWARD_CALLS,
+                collectives.BACKWARD_BYTES).as_dict()
             step_peak = torch.cuda.max_memory_allocated() - (resident
                                                              - arg_bytes)
             flops = fc.get_total_flops()
@@ -2915,7 +2980,7 @@ def phase_pod(torch, dev):
             prof = profile_once(torch, lambda: fn(*args),
                                 POD_GROUPS if train else None)
             coord = dict(frame.mesh.coord)
-        tag = f"{arch} {shape_name}"
+        tag = f"{arch} {shape_name}" + (f" {variant}" if variant else "")
         check(launches == dry["kernels"], f"pod {tag}: kernel operator "
               f"calls {dry['kernels']} != the card's launches {launches}")
         check(arg_bytes == dry["memory"]["argument_bytes_per_card"],
@@ -2925,6 +2990,9 @@ def phase_pod(torch, dev):
               f"{dry['cost']['flops_per_card']} != the card's {flops}")
         check(coll == dry["collectives"], f"pod {tag}: collectives "
               f"{dry['collectives']} != the card's {coll}")
+        check(coll_bwd == dry["collectives_backward"], f"pod {tag}: "
+              f"backward collectives {dry['collectives_backward']} != the "
+              f"card's {coll_bwd}")
         total.update(launches)
         roof = dry["roofline"]
         roof_ms = 1e3 * max(roof["t_compute_s"], roof["t_memory_s"],
@@ -2933,7 +3001,7 @@ def phase_pod(torch, dev):
         extra = {}
         if train:
             extra = dict(
-                layers=cfg.num_layers, cut=cut or "none",
+                layers=cfg.num_layers, cut=cut or "none", traces=n_traces,
                 collectives_backward=dry["collectives_backward"],
                 step_wall_ms_profiled=prof["wall_ms"],
                 idle_share=prof["idle_share"],
@@ -2942,6 +3010,7 @@ def phase_pod(torch, dev):
                 norms_ms=prof["norms_ms"],
                 norms_share_of_busy=prof["norms_share"], top=prof["top"])
         emit("pod", case=tag, mesh=dry["mesh_shape"], rank=0, coord=coord,
+             rules=dry["rules"], cfg_override=over or {},
              arch=cfg.name, shape=[shape.global_batch, shape.seq_len],
              kind=shape.kind, kernels=dry["kernels"], launches=launches,
              argument_bytes=arg_bytes, flops=flops,
@@ -4141,7 +4210,8 @@ def main():
     rms_err = max(per_case[("rmsnorm", c)]["max_abs_err"]
                   for c in ("ln_d4096", "qk_norm_d128", "zamba2_ln_d2048",
                             "pod_train4k_ln_d4096",
-                            "pod_zamba2_train4k_ln_d2048"))
+                            "pod_zamba2_train4k_ln_d2048",
+                            "pod_qwen3_moe_train4k_qk_norm_d128"))
     swa = per_case[("swa_attention", "prefill_causal")]
     line["kernels"] += [
         {"name": "rmsnorm", "route": "cuda",
@@ -4172,6 +4242,8 @@ def main():
                                       "pod_local_heads_s32k",
                                       "pod_train4k_local_heads",
                                       "pod_zamba2_train4k_local_heads",
+                                      "pod_olmoe_train4k_local_heads",
+                                      "pod_qwen3_moe_train4k_local_heads",
                                       "lm_parity_causal_f32",
                                       "elm_head_parity_causal_f32",
                                       "encoder_bidirectional",
@@ -4189,7 +4261,8 @@ def main():
     rb_err = max(per_case[("rmsnorm_bwd", c)]["max_abs_err"]
                  for c in ("ln_d4096", "qk_norm_d128", "zamba2_ln_d2048",
                            "pod_train4k_ln_d4096",
-                           "pod_zamba2_train4k_ln_d2048"))
+                           "pod_zamba2_train4k_ln_d2048",
+                           "pod_qwen3_moe_train4k_qk_norm_d128"))
     sb = per_case[("swa_attention_bwd", "prefill_causal")]
     emit("launches_by_mode", swa_attention_bwd_non_causal=zoo_launches[
         "swa_attention_bwd"], swa_attention_bwd_causal=train_launches[
@@ -4223,6 +4296,8 @@ def main():
                                       "olmoe_prefill", "train4k_seq",
                                       "pod_train4k_local_heads",
                                       "pod_zamba2_train4k_local_heads",
+                                      "pod_olmoe_train4k_local_heads",
+                                      "pod_qwen3_moe_train4k_local_heads",
                                       "lm_parity_causal_f32",
                                       "elm_head_parity_causal_f32",
                                       "encoder_bidirectional",

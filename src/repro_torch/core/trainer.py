@@ -23,12 +23,15 @@ blocks of the params, the optimizer state (AdamW's μ and ν take each
 leaf's layout) and the batch, as the reference's steps run under GSPMD:
 the loss is the global one (``models/common.py`` ``cross_entropy``), each
 gradient block is all-reduced over the axes that shard the batch and not
-the leaf (``data``), the global norm adds each leaf's sum of squares once
-(``optim.global_norm`` with the leaves' entries), and the clip and AdamW
-run on the blocks unchanged. The member step runs each of this rank's
-members under the default rules (the reference's ``spmd_axis_name``
-lowering leaves ``pod`` to the member dim), and the Reduce is one
-all-reduce of the rank's blocks over the ``pod`` axis's group.
+the leaf (``data``; a leaf a rule override shards over them, FSDP, has
+its gradient whole from its gather's reduce-scatter or its fetch's
+reduce, and gets nothing more), the global norm adds each leaf's sum of
+squares once (``optim.global_norm`` with the leaves' entries), and the
+clip and AdamW run on the blocks unchanged. The member step runs each of
+this rank's members under the default rules and the override (the
+reference's ``spmd_axis_name`` lowering leaves ``pod`` to the member
+dim), and the Reduce is one all-reduce of the rank's blocks over the
+``pod`` axis's group.
 """
 from __future__ import annotations
 
@@ -66,7 +69,7 @@ def _leaf_entries(cfg, n_leaves: int):
     if len(shapes) != n_leaves:
         raise ValueError(f"{n_leaves} gradient blocks for the {len(shapes)} "
                          f"leaves of {cfg.name}'s params")
-    return [ctx.leaf_entry(ctx.spec(shape, log)) for shape, log in shapes]
+    return [ctx.leaf_entry(ctx.layout(shape, log)) for shape, log in shapes]
 
 
 def loss_and_grads(cfg, loss_fn: Callable, params, batch):
@@ -137,20 +140,20 @@ def make_member_train_step(cfg, optimizer, lr_schedule, clip: float = 1.0):
 
     Under a mesh context the arguments are this rank's blocks, laid out
     with the member dim over ``pod`` (``sharding.with_member_dim`` under
-    the dry run's ``MULTIPOD_RULES``): each of this pod slot's members
-    steps under the default rules on the same mesh, as the reference's
-    ``spmd_axis_name="pod"`` lowering traces its step with no rules of
-    its own, so its collectives run over ``data`` and ``model`` within
-    the pod and none over ``pod``."""
+    the dry run's ``MULTIPOD_RULES``, and any rule override over them):
+    each of this pod slot's members steps on the same mesh under the
+    default rules and the override without its ``pod`` candidates
+    (``ctx.member_step``), as the reference's ``spmd_axis_name="pod"``
+    lowering traces its step with no rules of its own, so its
+    collectives run over ``data`` and ``model`` within the pod and none
+    over ``pod``."""
     stacked = make_stacked_train_step(
         make_train_step(cfg, optimizer, lr_schedule, clip))
 
     def member_step(params, opt_state, steps, batch):
-        frame = ctx.current()
-        if frame is None:
+        if ctx.current() is None:
             return stacked(params, opt_state, steps, batch)
-        with ctx.use_mesh_rules(frame.mesh) as inner:
-            inner.sizes.update(frame.sizes)
+        with ctx.member_step():
             return stacked(params, opt_state, steps, batch)
 
     return member_step

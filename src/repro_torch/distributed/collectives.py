@@ -12,6 +12,11 @@ Kinds:
 * ``all_reduce``    — an in-place sum (or max) over a group;
 * ``all_gather``    — every rank's tensor, stacked in group-rank order
   (with ``dim``: concatenated along one dimension);
+* ``reduce_scatter`` — the sum over a group, of which each rank keeps
+  its block along one dimension;
+* ``broadcast`` / ``reduce`` — one rank's tensor to every rank of a
+  group, and the sum over the group to one rank (a layer held by one
+  rank fetched where it is used, and its gradient summed back to it);
 * ``ring_exchange`` — one ``batch_isend_irecv`` of one send to a
   neighbour and one receive from the other (half a gossip mixing round);
 * ``barrier``       — a one-element sum that only orders the ranks (a
@@ -20,8 +25,9 @@ Kinds:
 ``CALLS`` counts calls by ``(kind, group label)`` since ``reset``, as
 ``kernels.LAUNCHES`` counts launches, and ``BYTES`` adds up what each call
 sends, by the same key: an all-reduce's tensor, an all-gather's result
-(every rank's tensor), a ring exchange's one send, a barrier's one
-element — the bytes the reference's ``hlo_analysis.collective_stats``
+(every rank's tensor), a reduce-scatter's input (every rank's block), a
+broadcast's or a reduce's tensor, a ring exchange's one send, a
+barrier's one element — the bytes the reference's ``hlo_analysis.collective_stats``
 reads off a collective's shape, before its ring multiplier. ``span(label)`` isolates the calls
 made inside it and appends ``(label, counts)`` to ``LOG`` when it closes,
 so a run's log reads epoch by epoch and sync by sync; the ``check_*``
@@ -30,16 +36,23 @@ On an LM mesh (``launch.mesh.LMMesh``) a call's label is the mesh axis
 it runs over (``"model"``, ``"data"``, or ``"pod+model"`` for a tuple of
 axes), so a step's traffic reads axis by axis.
 
-**Under autograd.** ``all_reduce`` (a sum) and ``all_gather`` are
-differentiable where their input requires grad and grad mode is on, and
-two more moves send a collective only in the backward
-(``grad_all_reduce``, ``local_block``). Their backward follows one
-convention, the one ``distributed/ctx.py`` writes down: the gradient of a
-replicated tensor is itself replicated, the same on every rank of the
-group. So an all-reduce's backward is the gradient as it is, an
-all-gather's is this rank's block of it, ``grad_all_reduce`` (identity
-forward) all-reduces the gradient, and ``local_block`` (this rank's block
-of a replicated tensor) all-gathers it. A collective sent in a backward
+**Under autograd.** ``all_reduce`` (a sum), ``all_gather`` and
+``reduce_scatter`` are differentiable where their input requires grad
+and grad mode is on, and two more moves send a collective only in the
+backward (``grad_all_reduce``, ``local_block``). Their backward follows
+one convention, the one ``distributed/ctx.py`` writes down: the gradient
+of a replicated tensor is itself replicated, the same on every rank of
+the group. So an all-reduce's backward is the gradient as it is, an
+all-gather's is this rank's block of it, a reduce-scatter's all-gathers
+the blocks' gradients, ``grad_all_reduce`` (identity forward) all-reduces
+the gradient, and ``local_block`` (this rank's block of a replicated
+tensor) all-gathers it. Two moves of a weight break the convention on
+purpose, since the weight's gradient is not replicated but each rank's
+share of it, over tokens of its own: ``gather_weight`` (a block of a
+weight sharded over the batch's axes, all-gathered where it is used)
+reduce-scatters its gradient, so each rank keeps its block of the sum,
+and ``broadcast`` (a layer fetched from the rank that holds it) reduces
+its gradient to that rank. A collective sent in a backward
 is counted in ``CALLS`` and ``BYTES`` as a forward one is, and also in
 ``BACKWARD_CALLS`` / ``BACKWARD_BYTES`` by the same key, so a step's
 traffic reads by direction too. A forward recomputed in the backward
@@ -124,6 +137,19 @@ def _gather(t: torch.Tensor, group, label: str, dim: Optional[int],
     return torch.stack(out) if dim is None else torch.cat(out, dim=dim)
 
 
+def _scatter_sum(t: torch.Tensor, group, label: str, dim: int,
+                 backward: bool = False) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of ``t`` over the
+    group (one reduce-scatter; ``t``'s dimension divides by the group's
+    size)."""
+    parts = [c.contiguous() for c in
+             t.chunk(dist.get_world_size(group), dim=dim)]
+    out = torch.empty_like(parts[0])
+    _count("reduce_scatter", label, _nbytes(t), backward)
+    dist.reduce_scatter(out, parts, group=group)
+    return out
+
+
 def _block(g: torch.Tensor, dim: Optional[int], index: int,
            n: int) -> torch.Tensor:
     """Block ``index`` (of ``n`` rows along ``dim``; None: the stacked
@@ -158,6 +184,66 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def backward(fctx, g):
         return _block(g, fctx.dim, fctx.index, fctx.n), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """This rank's block of the sum; the backward all-gathers the blocks'
+    gradients into the whole (replicated) one."""
+
+    @staticmethod
+    def forward(fctx, t, group, label, dim):
+        fctx.group, fctx.label, fctx.dim = group, label, dim
+        return _scatter_sum(t, group, label, dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        return (_gather(g, fctx.group, fctx.label, fctx.dim, backward=True),
+                None, None, None)
+
+
+class _GatherWeight(torch.autograd.Function):
+    """Every rank's block of a weight; the backward reduce-scatters the
+    gradient, each rank's being its own tokens' share of the whole."""
+
+    @staticmethod
+    def forward(fctx, t, group, label, dim):
+        fctx.group, fctx.label, fctx.dim = group, label, dim
+        return _gather(t, group, label, dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        return (_scatter_sum(g, fctx.group, fctx.label, fctx.dim,
+                             backward=True), None, None, None)
+
+
+def _bcast(t: torch.Tensor, src: int, group, label: str) -> torch.Tensor:
+    """Group rank ``src``'s ``t`` in a tensor of its own on every rank
+    (the others' ``t`` gives only the shape)."""
+    out = t.clone(memory_format=torch.contiguous_format) \
+        if dist.get_rank(group) == src \
+        else torch.empty_like(t, memory_format=torch.contiguous_format)
+    _count("broadcast", label, _nbytes(out))
+    dist.broadcast(out, src=dist.get_global_rank(group, src), group=group)
+    return out
+
+
+class _Broadcast(torch.autograd.Function):
+    """Group rank ``src``'s tensor on every rank; the backward sums the
+    ranks' gradients onto ``src`` (the others' inputs get none)."""
+
+    @staticmethod
+    def forward(fctx, t, src, group, label):
+        fctx.src, fctx.group, fctx.label = src, group, label
+        fctx.mine = dist.get_rank(group) == src
+        return _bcast(t, src, group, label)
+
+    @staticmethod
+    def backward(fctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        _count("reduce", fctx.label, _nbytes(g), backward=True)
+        dist.reduce(g, dst=dist.get_global_rank(fctx.group, fctx.src),
+                    group=fctx.group)
+        return (g if fctx.mine else None), None, None, None
 
 
 class _GradAllReduce(torch.autograd.Function):
@@ -215,6 +301,39 @@ def all_gather(t: torch.Tensor, group=None, label: str = "world",
     if _tracked(t):
         return _AllGather.apply(t, group, label, dim)
     return _gather(t, group, label, dim)
+
+
+def reduce_scatter(t: torch.Tensor, group=None, label: str = "world",
+                   dim: int = 0) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of ``t`` over ``group``
+    (the dimension divides by the group's size). Where autograd records
+    ``t``, its backward all-gathers the gradient."""
+    if _tracked(t):
+        return _ReduceScatter.apply(t, group, label, dim)
+    return _scatter_sum(t, group, label, dim)
+
+
+def gather_weight(t: torch.Tensor, group=None, label: str = "world",
+                  dim: int = 0) -> torch.Tensor:
+    """The whole of a weight's dimension ``dim``, of which each rank of
+    ``group`` holds a block (an all-gather). Where autograd records
+    ``t``, its backward is one reduce-scatter: each rank's gradient of
+    the whole weight is its own tokens' share, and their sum's block is
+    the gradient of its block."""
+    if _tracked(t):
+        return _GatherWeight.apply(t, group, label, dim)
+    return _gather(t, group, label, dim)
+
+
+def broadcast(t: torch.Tensor, src: int, group=None,
+              label: str = "world") -> torch.Tensor:
+    """Group rank ``src``'s ``t`` on every rank of ``group``, in a
+    tensor of its own (the others' ``t`` gives only the shape). Where
+    autograd records ``t``, the backward reduces the gradients onto
+    ``src``."""
+    if _tracked(t):
+        return _Broadcast.apply(t, src, group, label)
+    return _bcast(t, src, group, label)
 
 
 def grad_all_reduce(t: torch.Tensor, group=None,

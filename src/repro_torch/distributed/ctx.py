@@ -53,6 +53,33 @@ context also holds the global sizes their layout depends on — the batch
 and the cache's length — which ``place``, ``init_cache`` and prefill
 record (``declare``); with no context a block is the whole, and
 ``global_size`` returns the local size it is given.
+
+**Rule overrides** (the reference's ``rules_override``, its hillclimb's
+lever). ``use_mesh_rules`` takes rules laid over ``DEFAULT_RULES`` and
+accepts three kinds of entry, refusing any other by name
+(``check_rules``): a weight's logical axis with no candidates
+(``{"heads": ()}``: tensor parallelism off); a weight's logical axis
+(``sharding.WEIGHT_AXES``) on the axes the batch is sharded over
+(``{"ff": ("data",)}``, ``{"layers": ("data",)}``, or ``("pod",
+"data")`` where ``MULTIPOD_RULES`` shard the batch so): FSDP; and
+``MULTIPOD_RULES`` beneath either. Under FSDP a leaf's block is laid out
+as ``layout`` resolves its spec, and it is made whole where it is used:
+
+* ``gather_weights`` all-gathers each dimension of a leaf whose entry
+  shares an axis with the batch's (``batch_entry``); the backward is one
+  reduce-scatter over the same axes, each rank's gradient of the whole
+  weight being its own tokens' share, so the leaf's gradient block is
+  whole over the batch's axes and the train step adds nothing over them;
+* ``fetch`` brings a layer of a stack whose layer dim is sharded over
+  the batch's axes from the rank that holds it (a broadcast; the
+  backward reduces the gradient onto that rank).
+
+Inside the model ``spec`` then reads a weight's axes as the gathered leaf
+lies: an entry of a weight's logical axis that shares an axis with the
+batch's reads None (an activation names "batch" first, so such an entry
+falls back to replicated on it already, as ``resolve_spec`` does in the
+reference), while ``layout`` reads the blocks as they are held. With no
+override neither moves anything, and ``spec`` is ``layout``.
 """
 from __future__ import annotations
 
@@ -62,28 +89,108 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch.distributed import collectives, sharding
+from repro_torch.tree import tree_map
 
 
 class Frame:
     """One active context: the mesh (a ``launch.mesh.LMMesh``), the rules
     laid over ``sharding.DEFAULT_RULES`` and the declared global sizes.
-    With no mesh it stands for no context: every entry None."""
+    With no mesh it stands for no context: every entry None.
+    ``gathers``: some weight's logical axis has a candidate on the
+    batch's axes (FSDP; the module's docstring)."""
 
     def __init__(self, mesh, rules=None):
         self.mesh = mesh
         self.rules = rules
         self.sizes = {}
+        self._layouts = {}
         self._specs = {}
+        merged, batch = _merged(rules)
+        self.gathers = mesh is not None and any(
+            batch & set(sharding.entry_axes(c)) for name in
+            sharding.WEIGHT_AXES for c in merged[name])
 
-    def spec(self, shape: Sequence[int], logical) -> tuple:
+    def layout(self, shape: Sequence[int], logical) -> tuple:
+        """The spec of a global ``shape`` as its blocks are held."""
         if self.mesh is None:
             return (None,) * len(logical)
         # a decode step resolves ~400 specs, most of them again and again
         key = (tuple(shape), tuple(logical))
+        if key not in self._layouts:
+            self._layouts[key] = sharding.resolve_spec(shape, logical,
+                                                       self.mesh, self.rules)
+        return self._layouts[key]
+
+    def batch_axes(self) -> set:
+        """The axes of the declared global batch's entry."""
+        if "batch" not in self.sizes:
+            raise RuntimeError("the mesh context has no global 'batch': "
+                               "place the inputs (ctx.place, init_cache) "
+                               "or declare it")
+        return set(sharding.entry_axes(
+            self.layout((self.sizes["batch"],), ("batch",))[0]))
+
+    def spec(self, shape: Sequence[int], logical) -> tuple:
+        """The spec of a global ``shape`` as the model reads it: a
+        weight's axes as the gathered leaf lies (the module's
+        docstring)."""
+        out = self.layout(shape, logical)
+        if not self.gathers:
+            return out
+        key = (tuple(shape), tuple(logical), self.sizes.get("batch"))
         if key not in self._specs:
-            self._specs[key] = sharding.resolve_spec(shape, logical,
-                                                     self.mesh, self.rules)
+            batch = self.batch_axes()
+            self._specs[key] = tuple(
+                None if name in sharding.WEIGHT_AXES
+                and batch & set(sharding.entry_axes(e)) else e
+                for name, e in zip(logical, out))
         return self._specs[key]
+
+
+def _merged(rules):
+    """``rules`` laid over ``DEFAULT_RULES``, and the axes of every
+    candidate of the batch's rule."""
+    merged = {**sharding.DEFAULT_RULES, **(rules or {})}
+    return merged, {a for c in merged["batch"]
+                    for a in sharding.entry_axes(c)}
+
+
+def check_rules(rules):
+    """Raise ``ValueError``, naming the entry, for a rule the port does
+    not run (the module's docstring): one that is not an empty or FSDP
+    rule of a weight's axis, its default, nor ``MULTIPOD_RULES``' own;
+    and, with the layer dim on the batch's axes, a weight's rule that
+    puts a candidate on them ahead of one off them. A layer's spec is
+    resolved without the layer dim, which takes those axes in the
+    stacked leaf: the first candidate then reads gathered (None) in the
+    layer while the held block lies on the later one."""
+    _, batch = _merged(rules)
+    layers_over_batch = bool((rules or {}).get("layers"))
+    for name, cands in (rules or {}).items():
+        if name not in sharding.DEFAULT_RULES:
+            raise ValueError(f"rule {name!r}: {cands!r}: no such logical "
+                             f"axis")
+        if name in sharding.WEIGHT_AXES:
+            over = [set(sharding.entry_axes(c)) <= batch for c in cands]
+            for c, fsdp in zip(cands, over):
+                if not (fsdp or c in sharding.DEFAULT_RULES[name]):
+                    raise ValueError(
+                        f"rule {name!r}: {cands!r}: candidate {c!r} is "
+                        f"neither its default {sharding.DEFAULT_RULES[name]}"
+                        f" nor on the batch's axes {sorted(batch)} (FSDP): "
+                        f"the port does not run it")
+            if layers_over_batch and name != "layers" and \
+                    over != sorted(over):
+                raise ValueError(
+                    f"rule {name!r}: {cands!r}: with 'layers' on the "
+                    f"batch's axes a candidate on them must not come "
+                    f"before one off them: the port does not run it")
+        elif cands not in (sharding.DEFAULT_RULES[name],
+                           sharding.MULTIPOD_RULES.get(name)):
+            raise ValueError(f"rule {name!r}: {cands!r}: an activation's "
+                             f"or a cache's axis keeps its default or its "
+                             f"MULTIPOD_RULES candidates; the port does not "
+                             f"move it elsewhere")
 
 
 _STACK = []
@@ -92,7 +199,10 @@ _NONE = Frame(None)
 
 @contextmanager
 def use_mesh_rules(mesh, rules=None):
-    """Run the models on ``mesh`` (this rank's blocks) under ``rules``."""
+    """Run the models on ``mesh`` (this rank's blocks) under ``rules``
+    (checked: ``check_rules``)."""
+    rules = sharding.normalize_rules(rules)
+    check_rules(rules)
     frame = Frame(mesh, rules)
     _STACK.append(frame)
     try:
@@ -110,6 +220,24 @@ def suspended():
         yield
     finally:
         _STACK[:] = saved
+
+
+@contextmanager
+def member_step():
+    """The context of one member's step inside a member step: the same
+    mesh and declared sizes, under the rules without ``MULTIPOD_RULES``'
+    entries and without any candidate on ``pod``, which the member dim
+    holds (the reference's ``spmd_axis_name="pod"`` lowering traces its
+    step with no rules of its own: an override's FSDP over ``data`` is
+    then the same leaves laid out the same way)."""
+    frame = current()
+    rules = {name: tuple(c for c in cands
+                         if "pod" not in sharding.entry_axes(c))
+             for name, cands in (frame.rules or {}).items()
+             if name not in sharding.MULTIPOD_RULES}
+    with use_mesh_rules(frame.mesh, rules) as inner:
+        inner.sizes.update(frame.sizes)
+        yield inner
 
 
 def current() -> Optional[Frame]:
@@ -143,8 +271,20 @@ def global_size(name: str, local: Optional[int] = None) -> Optional[int]:
 
 
 def spec(shape: Sequence[int], logical) -> tuple:
-    """The active context's spec of a global ``shape``."""
+    """The active context's spec of a global ``shape``, as the model reads
+    it (a weight's as it lies gathered)."""
     return _frame().spec(shape, logical)
+
+
+def layout(shape: Sequence[int], logical) -> tuple:
+    """The active context's spec of a global ``shape``, as its blocks are
+    held."""
+    return _frame().layout(shape, logical)
+
+
+def gathers() -> bool:
+    """Whether the active context shards a weight over the batch's axes."""
+    return _frame().gathers
 
 
 def batch_entry():
@@ -164,7 +304,7 @@ def index(entry) -> int:
 
 def block_shape(shape: Sequence[int], logical) -> tuple:
     """This rank's block of a global ``shape`` laid out by ``logical``."""
-    return tuple(d // size(e) for d, e in zip(shape, spec(shape, logical)))
+    return tuple(d // size(e) for d, e in zip(shape, layout(shape, logical)))
 
 
 def global_shape(local_shape: Sequence[int], have: Sequence) -> tuple:
@@ -256,6 +396,41 @@ def into_sharded(x: torch.Tensor, entry) -> torch.Tensor:
     return collectives.grad_all_reduce(x, group, label)
 
 
+def gather_weights(tree, logical_tree, layout_tree):
+    """``tree`` (this rank's blocks of weights, laid out by
+    ``logical_tree`` as the specs ``layout_tree`` say) with every
+    dimension whose entry shares an axis with the batch's all-gathered;
+    the backward reduce-scatters (the module's docstring). ``tree``
+    itself where nothing is sharded so."""
+    frame = current()
+    if frame is None or not frame.gathers:
+        return tree
+    batch = frame.batch_axes()
+
+    def whole(log, x, lay):
+        for dim, (name, e) in enumerate(zip(log, lay)):
+            if name in sharding.WEIGHT_AXES and \
+                    batch & set(sharding.entry_axes(e)):
+                group, label = _group(e)
+                x = collectives.gather_weight(x, group, label, dim)
+        return x
+
+    return sharding.map_logical(whole, logical_tree, tree, layout_tree)
+
+
+def fetch(tree, owner: int, entry):
+    """Every leaf of ``tree`` as the rank of index ``owner`` along
+    ``entry`` holds it: a layer of a stack whose layer dim is sharded
+    over ``entry`` fetched from its rank, where every rank passes its own
+    block of the same local index (a broadcast a leaf; the backward
+    reduces the gradient onto the owner)."""
+    if size(entry) == 1:
+        return tree
+    group, label = _group(entry)
+    return tree_map(lambda x: collectives.broadcast(x, owner, group, label),
+                    tree)
+
+
 def leaf_entry(spec_: Sequence):
     """The axes a leaf of spec ``spec_`` is sharded on, as one entry in
     the mesh's order (None: replicated)."""
@@ -290,7 +465,7 @@ def shard_params(tree, logical_tree):
         return tree
     return sharding.map_logical(
         lambda log, a: compact(sharding.shard_tensor(
-            a, frame.spec(tuple(a.shape), log), frame.mesh,
+            a, frame.layout(tuple(a.shape), log), frame.mesh,
             frame.mesh.coord)), logical_tree, tree)
 
 

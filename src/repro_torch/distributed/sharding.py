@@ -50,6 +50,27 @@ DEFAULT_RULES = {
     "classes": (),
     "feature": (),
 }
+# the reference's rules on two pods (its launch/dryrun.py:50): serving
+# shards the batch over (pod, data) where it divides, and the decode
+# cache's sequence may spill onto the pod axis
+MULTIPOD_RULES = {
+    "batch": (("pod", "data"), "data"),
+    "kv_seq": (("pod", "model"), "model"),
+    "member": ("pod",),
+}
+# the logical axes of the weights' dimensions (an activation or a cache
+# names "batch" too, ahead of them)
+WEIGHT_AXES = frozenset({"vocab", "heads", "kv_heads", "ff", "expert",
+                         "embed", "layers", "ssm_heads"})
+
+
+def normalize_rules(rules):
+    """``rules`` with each candidate an axis name or a tuple of names (a
+    rule read from JSON has lists); None for no rules."""
+    if not rules:
+        return None
+    return {name: tuple(c if isinstance(c, str) else tuple(c)
+                        for c in cands) for name, cands in rules.items()}
 
 
 def entry_axes(entry) -> Tuple[str, ...]:

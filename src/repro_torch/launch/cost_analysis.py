@@ -20,7 +20,9 @@ table.
 The collective multipliers are the reference's ring-algorithm traffic
 factors (all-reduce 2x: a reduce-scatter and an all-gather; the others
 1x), applied to the port's kinds: a ring exchange is a
-collective-permute, a barrier a one-element all-reduce. On an LM mesh
+collective-permute, a barrier a one-element all-reduce, and the port's
+broadcast and reduce, which the reference's programs do not emit, are
+priced 1x. On an LM mesh
 each call's group label is its mesh axis (``"model"``, ``"data"``,
 ``"pod+model"``), so ``CollectiveStats`` also splits the bytes and calls
 per chip by axis; the reference prices the sum (its per-chip link time).
@@ -53,17 +55,24 @@ CARDS: Dict[str, CardRates] = {
 }
 CARD = "H100"
 
-# the reference's ring-algorithm traffic multipliers, by HLO kind
+# the reference's ring-algorithm traffic multipliers, by HLO kind; and the
+# port's broadcast and reduce (a layer fetched from the rank that holds
+# it, its gradient summed back), 1x: a pipelined ring passes the tensor
+# once over each link, as an all-gather passes its result
 _MULT = {
     "all-reduce": 2.0,
     "all-gather": 1.0,
     "reduce-scatter": 1.0,
     "all-to-all": 1.0,
     "collective-permute": 1.0,
+    "broadcast": 1.0,
+    "reduce": 1.0,
 }
 # the port's collective kinds (``distributed.collectives``) as HLO kinds
 HLO_KIND = {"all_reduce": "all-reduce", "all_gather": "all-gather",
-            "ring_exchange": "collective-permute", "barrier": "all-reduce"}
+            "reduce_scatter": "reduce-scatter", "broadcast": "broadcast",
+            "reduce": "reduce", "ring_exchange": "collective-permute",
+            "barrier": "all-reduce"}
 _TENSOR_CORE_DTYPES = ("bfloat16", "float16")
 
 

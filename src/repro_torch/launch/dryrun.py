@@ -4,7 +4,7 @@ counterpart of ``repro.launch.dryrun``.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A]
         [--shape S] [--mesh single|multi|both|pod|multipod] [--out DIR]
-        [--optimizer adamw|sgd|momentum]
+        [--optimizer adamw|sgd|momentum] [--rules JSON] [--set KEY=VALUE]
 
 The reference lowers and compiles each step on shape stand-ins and reads
 XLA's memory and cost analyses. The port runs eagerly, so it runs the
@@ -53,6 +53,12 @@ step (``make_member_train_step``) on blocks stacked on a member dim over
 the default rules as the reference's ``spmd_axis_name="pod"`` lowering
 does, and beside it the Reduce over ``pod``
 (``make_average_step(group=...)``, ``average_step`` in the report).
+``--rules`` lays a rule override over them, as the reference's
+``build_lowered(..., rules_override=)`` does (its hillclimb's lever:
+``'{"ff": ["data"]}'`` is FSDP of the ff dim, ``'{"heads": []}'`` turns
+tensor parallelism off; ``distributed/ctx.py`` says which the port
+runs), and ``--set`` a configuration field (``moe_combine_sharding=batch``);
+the report's ``rules`` is the merged set.
 RWKV6's chunked WKV loops over S / 32 chunks a layer in Python, so its
 prefill_32k traces take longest. The roofline is priced at
 ``cost_analysis.CARD``'s data-sheet rates: the figures are build-host
@@ -89,15 +95,7 @@ from repro_torch.models import api
 from repro_torch.tree import tree_map
 
 MEMBERS = 2          # multi: one distributed-averaging member a card
-# the reference's rules on two pods (its launch/dryrun.py:50): serving
-# shards the batch over (pod, data) where it divides, and the decode
-# cache's sequence may spill onto the pod axis
-MULTIPOD_RULES = {
-    "batch": (("pod", "data"), "data"),
-    "kv_seq": (("pod", "model"), "model"),
-    "member": ("pod",),
-}
-LM_RULES = {"pod": None, "multipod": MULTIPOD_RULES}
+LM_RULES = {"pod": None, "multipod": sharding.MULTIPOD_RULES}
 META = torch.device("meta")
 _OPTS = {"adamw": optim.adamw, "sgd": optim.sgd, "momentum": optim.momentum}
 # kernels whose arithmetic is f32 on the CUDA cores whatever x's dtype
@@ -358,7 +356,7 @@ def _blocks(specs, logical, device=META, generator=None, high=1):
     frame = ctx.current()
 
     def block(log, s):
-        shape = sharding.block_shape(s.shape, frame.spec(s.shape, log),
+        shape = sharding.block_shape(s.shape, frame.layout(s.shape, log),
                                      frame.mesh.shape)
         if device == META:
             return torch.empty(shape, dtype=s.dtype, device=META)
@@ -414,26 +412,41 @@ def mesh_step_args(cfg, shape, dtype=torch.bfloat16, device=META,
     return params, blocks(cache, c_logical), token, shape.seq_len - 1
 
 
+def mesh_rules(name: str, rules_override=None):
+    """The rules of the ``pod`` or ``multipod`` mesh with
+    ``rules_override`` laid over them (None: none), as the reference's
+    ``build_lowered`` merges them."""
+    rules = dict(LM_RULES[name] or {})
+    rules.update(sharding.normalize_rules(rules_override) or {})
+    return rules or None
+
+
 @contextmanager
-def lm_mesh(name: str):
+def lm_mesh(name: str, rules_override=None):
     """Rank 0 of the reference's ``pod`` or ``multipod`` mesh under a fake
-    process group of its size, with its rules in force; yields the
-    context's frame."""
+    process group of its size, with its rules (and ``rules_override``
+    over them) in force; yields the context's frame."""
     with fake_process_group(math.prod(PRODUCTION_MESHES[name].values())):
         mesh = make_production_mesh(multi_pod=name == "multipod")
-        with ctx.use_mesh_rules(mesh, LM_RULES[name]) as frame:
+        with ctx.use_mesh_rules(mesh, mesh_rules(name, rules_override)) \
+                as frame:
             yield frame
 
 
 def trace_mesh_combo(cfg, shape, mesh: str = "pod",
-                     optimizer_name: str = "adamw") -> dict:
+                     optimizer_name: str = "adamw", rules_override=None,
+                     cfg_override=None) -> dict:
     """Trace rank 0's step of ``cfg`` at ``shape`` on the ``pod`` or
     ``multipod`` mesh and return the report (per-chip figures); a train
     step on ``multipod`` is the member step, its Reduce over ``pod``
-    traced beside it."""
+    traced beside it. ``rules_override`` and ``cfg_override`` are the
+    reference's ``build_lowered`` and hillclimb arguments: logical axes
+    remapped over the mesh's rules, and configuration fields replaced."""
+    if cfg_override:
+        cfg = replace(cfg, **cfg_override)
     members = MEMBERS if mesh == "multipod" and shape.kind == "train" \
         else 0
-    with lm_mesh(mesh) as frame:
+    with lm_mesh(mesh, rules_override) as frame:
         args = mesh_step_args(cfg, shape, optimizer_name=optimizer_name,
                               members=members)
         traced = trace(step_fn(cfg, shape, multi=bool(members),
@@ -536,13 +549,34 @@ def trace_combo(cfg, shape, mesh: str = "single",
 
 
 def lower_combo(arch: str, shape_name: str, mesh: str,
-                optimizer_name: str = "adamw") -> dict:
-    """The report of one (arch, shape, mesh) combo of the sweep."""
+                optimizer_name: str = "adamw", rules_override=None,
+                cfg_override=None) -> dict:
+    """The report of one (arch, shape, mesh) combo of the sweep; the
+    overrides on the ``pod`` and ``multipod`` meshes only."""
     shape = INPUT_SHAPES[shape_name]
     cfg = shape_cfg(get_config(arch), shape)
     if mesh in LM_RULES:
-        return trace_mesh_combo(cfg, shape, mesh, optimizer_name)
+        return trace_mesh_combo(cfg, shape, mesh, optimizer_name,
+                                rules_override, cfg_override)
+    if rules_override or cfg_override:
+        raise ValueError(f"overrides run on the pod meshes, not {mesh!r}")
     return trace_combo(cfg, shape, mesh, optimizer_name)
+
+
+def parse_set(items) -> dict:
+    """``KEY=VALUE`` strings -> configuration fields, each value read as
+    JSON where it parses (numbers, true/false) and as a string where it
+    does not."""
+    out = {}
+    for item in items or ():
+        key, sep, value = item.partition("=")
+        if not sep:
+            raise ValueError(f"--set takes KEY=VALUE, got {item!r}")
+        try:
+            out[key] = json.loads(value)
+        except json.JSONDecodeError:
+            out[key] = value
+    return out
 
 
 def combos():
@@ -576,7 +610,16 @@ def main(argv=None):
                                        "multipod"], default="both")
     ap.add_argument("--out", default="experiments/dryrun_torch")
     ap.add_argument("--optimizer", choices=sorted(_OPTS), default="adamw")
+    ap.add_argument("--rules", type=json.loads, default=None,
+                    help="a rule override on the pod meshes, JSON: "
+                         "logical axis -> candidate mesh axes, e.g. "
+                         "'{\"ff\": [\"data\"]}'")
+    ap.add_argument("--set", action="append", default=[],
+                    metavar="KEY=VALUE",
+                    help="a configuration field on the pod meshes, e.g. "
+                         "moe_combine_sharding=batch (repeatable)")
     args = ap.parse_args(argv)
+    cfg_override = parse_set(args.set)
 
     os.makedirs(args.out, exist_ok=True)
     meshes = {"single": ["single"], "multi": ["multi"],
@@ -603,7 +646,8 @@ def main(argv=None):
                 n_skip += 1
                 continue
             try:
-                report = lower_combo(arch, shape_name, mesh, args.optimizer)
+                report = lower_combo(arch, shape_name, mesh, args.optimizer,
+                                     args.rules, cfg_override)
                 with open(path, "w") as f:
                     json.dump(report, f, indent=1)
                 print(f"[ok] {tag} {summary(report)}", flush=True)

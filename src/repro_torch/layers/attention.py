@@ -173,6 +173,16 @@ def _out_proj(cfg, p, y, y_entry):
                                have=(ctx.batch_entry(), None, None))
 
 
+def _q_layout(q_want, kv_want):
+    """The entry of q's heads: the rule's, or where it leaves them whole
+    and the KV heads are sharded (a rule override's ``{"heads": ()}``, or
+    the q heads on the batch's axis), the KV heads' entry: each rank then
+    scores the q heads of its own KV heads, and ``wo``'s input is
+    gathered back. Under the default rules q is sharded wherever the KV
+    heads are."""
+    return kv_want if q_want is None else q_want
+
+
 def _attention(cfg, p, x, positions, window, causal):
     """q, k and v constrained as the reference's ``attn_forward``
     constrains them, the kernel on this rank's q heads and the KV heads
@@ -184,6 +194,7 @@ def _attention(cfg, p, x, positions, window, causal):
                       ("batch", None, "heads", None))[2]
     kv_want = ctx.spec((Bg, S, cfg.num_kv_heads, hd),
                        ("batch", None, "kv_heads", None))[2]
+    q_want = _q_layout(q_want, kv_want)
     q, q0, k, v, k0 = _project_qkv(cfg, p, x, positions, q_want, kv_want)
     sl = _kv_for(cfg, q0, q.shape[2], k0, k.shape[2])
     if kv_want is None:
@@ -230,8 +241,12 @@ def init_kv_cache(cfg, batch: int, seq_len: int, num_layers: int,
 
 def kv_cache_logical(cfg):
     # resolve_spec walks the dims in order, so kv_seq takes 'model' before
-    # kv_heads is reached: the cache is sharded by sequence where it divides
-    spec = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+    # kv_heads is reached: the cache is sharded by sequence where it
+    # divides. The stacked layer dim is unnamed (the reference's "layers",
+    # replicated by its rules): a cache is its batch rows' state, and a
+    # rule override that puts the weights' layer dim on the batch's axis
+    # leaves it sharded by batch
+    spec = (None, "batch", "kv_seq", "kv_heads", "head_dim")
     return {"k": spec, "v": spec}
 
 
@@ -297,8 +312,9 @@ def attn_decode(cfg, p, x, layer_cache, pos: int):
     if split:
         q_want = None
     else:
-        q_want = ctx.spec((ctx.global_size("batch", B), 1, cfg.num_heads,
-                           cfg.head_dim), ("batch", None, "heads", None))[2]
+        q_want = _q_layout(ctx.spec(
+            (ctx.global_size("batch", B), 1, cfg.num_heads, cfg.head_dim),
+            ("batch", None, "heads", None))[2], kvh)
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
     q, q0, k, v, k0 = _project_qkv(cfg, p, x, positions, q_want, kvh)
     slot, t0 = _slot(cfg, pos, T), ctx.index(seq) * Tl

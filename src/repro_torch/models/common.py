@@ -12,15 +12,103 @@ rank's vocab columns, and the cross-entropy is computed on those columns
 without gathering them (a plain ``logsumexp`` over a block would be
 wrong). With no context the vocab is whole, every reduction is the
 identity and the same lines compute the whole model's.
+
+Under a rule override that shards weights over the batch's axes (FSDP,
+``distributed/ctx.py``) each family makes a weight whole where it is
+used: a layer's inside the function the backward recomputes
+(``LayerStack.whole``), so that autograd keeps no gathered layer and the
+recomputation gathers it again, and the ends' (the embedding, the
+unembedding, the final norm, a frontend's projection) where they are
+applied (``weights``).
 """
 from __future__ import annotations
 
-import torch
+import functools
 
-from repro_torch.distributed import ctx
+import torch
+from torch.utils._python_dispatch import _disable_current_modes
+
+from repro_torch.distributed import ctx, sharding
 from repro_torch.tree import tree_leaves, tree_map
 
 NEG_INF = -1e30
+
+
+@functools.lru_cache(maxsize=None)
+def param_layout(cfg):
+    """(logical axes, global shapes) of ``cfg``'s params, two trees of
+    the params' structure: what a block's layout is resolved from. Built
+    with the dispatch modes set aside, so that a dry run's trace counts
+    none of it, whenever it is first asked for."""
+    from repro_torch.models import api     # api imports the families
+    with _disable_current_modes():
+        shapes = tree_map(lambda s: tuple(s.shape), api.param_specs(cfg))
+    return api.logical_axes(cfg), shapes
+
+
+def _layouts(logical, shapes):
+    """The spec of each leaf's blocks under the active context."""
+    return sharding.map_logical(lambda log, s: ctx.layout(s, log), logical,
+                                shapes)
+
+
+def weights(cfg, p, *path):
+    """``p``'s subtree (or leaf) at ``path``, whole over the batch's axes
+    under a rule override that shards it over them (``ctx.gather_weights``);
+    as it is otherwise."""
+    tree = p
+    for key in path:
+        tree = tree[key]
+    if not ctx.gathers():
+        return tree
+    logical, shapes = param_layout(cfg)
+    for key in path:
+        logical, shapes = logical[key], shapes[key]
+    return ctx.gather_weights(tree, logical, _layouts(logical, shapes))
+
+
+class LayerStack:
+    """The stacked layers ``p[key]`` as this rank holds them, layer by
+    layer. ``stack[i]`` is this rank's per-layer tree for layer i (a view
+    of one ``unbind``); ``stack.whole(lp, i)`` makes it layer i, whole,
+    and belongs inside the function ``checkpoint`` recomputes
+    (``stack.layer(i)`` where nothing is recomputed). Under a
+    rule override that puts the layer dim on the batch's axes
+    (``{"layers": ("data",)}``) each rank holds L / n layers, layer i on
+    the rank of index i // (L / n), and every rank passes its own of the
+    same local index, which ``ctx.fetch`` replaces by the owner's; the
+    weights sharded over the batch's axes are then gathered
+    (``ctx.gather_weights``). Otherwise both are the identity."""
+
+    def __init__(self, cfg, p, key: str = "layers"):
+        n = cfg.num_layers
+        self.entry = ctx.layout((n,), ("layers",))[0]
+        self.local = n // ctx.size(self.entry)
+        self.views = unbound_layers(p[key], self.local)
+        self.layer_layout = None
+        if ctx.gathers():
+            logical, shapes = param_layout(cfg)
+            logical, shapes = logical[key], shapes[key]
+            # one layer's: the stacked leaf's, its layer dim dropped (a
+            # layer's own spec resolved again could put a dim on the axes
+            # the layer dim takes in the stack)
+            self.layer_layout = (
+                sharding.map_logical(lambda log: log[1:], logical),
+                sharding.map_logical(lambda log, lay: lay[1:], logical,
+                                     _layouts(logical, shapes)))
+
+    def __getitem__(self, i: int):
+        return self.views[i % self.local]
+
+    def whole(self, lp, i: int):
+        lp = ctx.fetch(lp, i // self.local, self.entry)
+        if self.layer_layout is None:
+            return lp
+        return ctx.gather_weights(lp, *self.layer_layout)
+
+    def layer(self, i: int):
+        """Layer i, whole, where no ``checkpoint`` recomputes it."""
+        return self.whole(self[i], i)
 
 
 def unbound_layers(layers, num_layers: int):

@@ -30,7 +30,6 @@ from repro_torch.distributed import ctx
 from repro_torch.layers.init import normal
 from repro_torch.layers.norms import layer_norm
 from repro_torch.models import common
-from repro_torch.models.common import unbound_layers
 
 HEAD_DIM = 64
 DECAY_LORA = 64
@@ -140,9 +139,11 @@ def logical_axes(cfg):
 
 
 def cache_logical(cfg):
-    return {"S": ("layers", "batch", "heads", None, None),
-            "x_tm": ("layers", "batch", "embed"),
-            "x_cm": ("layers", "batch", "embed")}
+    """The state's logical axes; its stacked layer dim is unnamed, as the
+    KV cache's (``layers/attention.py`` ``kv_cache_logical``)."""
+    return {"S": (None, "batch", "heads", None, None),
+            "x_tm": (None, "batch", "embed"),
+            "x_cm": (None, "batch", "embed")}
 
 
 def _shift(x, prev=None):
@@ -359,12 +360,13 @@ def _layer(cfg, lp, x, mode, chunk, states=None):
 
 
 def _final_norm(cfg, p, x):
-    return layer_norm(x, p["ln_out"], torch.zeros_like(p["ln_out"]),
-                      cfg.norm_eps)
+    scale = common.weights(cfg, p, "ln_out")
+    return layer_norm(x, scale, torch.zeros_like(scale), cfg.norm_eps)
 
 
 def _embed(cfg, p, tokens):
-    x = common.embed_tokens(p["embed"], tokens, cfg.vocab_size)
+    x = common.embed_tokens(common.weights(cfg, p, "embed"), tokens,
+                            cfg.vocab_size)
     return ctx.maybe_constrain(x, ("batch", None, None),
                                have=(ctx.batch_entry(), None, None))
 
@@ -374,20 +376,23 @@ def _vocab_entry(cfg):
 
 
 def _unembed(cfg, p, x):
-    return common.unembed(x, p["unembed"], _vocab_entry(cfg))
+    return common.unembed(x, common.weights(cfg, p, "unembed"),
+                          _vocab_entry(cfg))
 
 
 def _layers(cfg, p, x, mode, remat: bool = True):
     """The layers, each under ``torch.utils.checkpoint`` with ``remat``
     and grad enabled (the module's docstring)."""
-    def layer(x, lp):
-        return _layer(cfg, lp, x, mode, cfg.ssm_chunk)[0]
+    stack = common.LayerStack(cfg, p)
 
-    for lp in unbound_layers(p["layers"], cfg.num_layers):
+    def layer(x, lp, i):
+        return _layer(cfg, stack.whole(lp, i), x, mode, cfg.ssm_chunk)[0]
+
+    for i in range(cfg.num_layers):
         if remat and torch.is_grad_enabled():
-            x = checkpoint(layer, x, lp, use_reentrant=False)
+            x = checkpoint(layer, x, stack[i], i, use_reentrant=False)
         else:
-            x = layer(x, lp)
+            x = layer(x, stack[i], i)
     return x
 
 
@@ -444,14 +449,16 @@ def prefill(cfg, p, batch, *, mode: str | None = None):
     B = x.shape[0]
     Hs = _heads_padded(cfg) // ctx.size(_wkv_entry(cfg, x))
     S, x_tm, x_cm = [], [], []
-    for lp in unbound_layers(p["layers"], cfg.num_layers):
+    stack = common.LayerStack(cfg, p)
+    for i in range(cfg.num_layers):
         states0 = {"S": torch.zeros((B, Hs, HEAD_DIM, HEAD_DIM),
                                     dtype=torch.float32, device=x.device),
                    "x_tm": torch.zeros((B, cfg.d_model), dtype=x.dtype,
                                        device=x.device),
                    "x_cm": torch.zeros((B, cfg.d_model), dtype=x.dtype,
                                        device=x.device)}
-        x, ns = _layer(cfg, lp, x, mode, cfg.ssm_chunk, states0)
+        x, ns = _layer(cfg, stack.layer(i), x, mode,
+                       cfg.ssm_chunk, states0)
         S.append(ns["S"])
         x_tm.append(ns["x_tm"])
         x_cm.append(ns["x_cm"])
@@ -468,10 +475,12 @@ def decode_step(cfg, p, cache, token, pos):
     come out whole over the vocab."""
     del pos  # the recurrent state carries position implicitly
     x = _embed(cfg, p, token)  # (B, 1, D)
-    for i, lp in enumerate(unbound_layers(p["layers"], cfg.num_layers)):
+    stack = common.LayerStack(cfg, p)
+    for i in range(cfg.num_layers):
         states = {"S": cache["S"][i], "x_tm": cache["x_tm"][i],
                   "x_cm": cache["x_cm"][i]}
-        x, ns = _layer(cfg, lp, x, "scan", cfg.ssm_chunk, states)
+        x, ns = _layer(cfg, stack.layer(i), x, "scan",
+                       cfg.ssm_chunk, states)
         for name in ("S", "x_tm", "x_cm"):
             cache[name][i] = ns[name]
     logits = _unembed(cfg, p, _final_norm(cfg, p, x))

@@ -142,13 +142,15 @@ def _vocab_entry(cfg):
 
 
 def _embed_tokens(cfg, p, tokens):
-    return common.embed_tokens(p["embed"], tokens, cfg.padded_vocab)
+    return common.embed_tokens(common.weights(cfg, p, "embed"), tokens,
+                               cfg.padded_vocab)
 
 
 def _unembed(cfg, p, x):
     """This rank's vocab columns of the logits, f32, padded slots
     masked."""
-    unembed = p["embed"].T if cfg.tie_embeddings else p["unembed"]
+    unembed = common.weights(cfg, p, "embed").T if cfg.tie_embeddings \
+        else common.weights(cfg, p, "unembed")
     pad = cfg.vocab_size if cfg.padded_vocab != cfg.vocab_size else None
     return common.unembed(x, unembed, _vocab_entry(cfg), pad)
 
@@ -191,13 +193,14 @@ def _embed_inputs(cfg, p, batch):
     tokens). Returns (x, positions, text_offset): where the loss-bearing
     text starts in the sequence."""
     if cfg.frontend == "audio":
-        proj = p["frontend_proj"]
+        proj = common.weights(cfg, p, "frontend_proj")
         x = batch["frames"].to(proj.dtype) @ proj
         B, S = x.shape[:2]
         return x, torch.arange(S, device=x.device).expand(B, S), 0
     tok = _embed_tokens(cfg, p, batch["tokens"])
     if cfg.frontend == "vision":
-        w1, w2 = p["projector"]["w1"], p["projector"]["w2"]
+        proj = common.weights(cfg, p, "projector")
+        w1, w2 = proj["w1"], proj["w2"]
         patches = batch["patches"].to(w1.dtype)
         # jax.nn.gelu's default is the tanh form
         pref = F.gelu((patches @ w1).float(), approximate="tanh")
@@ -219,20 +222,22 @@ def _encode(cfg, p, batch, window, remat: bool = True):
     x = ctx.maybe_constrain(x, ("batch", None, None),
                             have=(ctx.batch_entry(), None, None))
 
-    def layer(x, lp):
-        x, _, aux = _block(cfg, lp, x, positions, window,
+    stack = common.LayerStack(cfg, p)
+
+    def layer(x, lp, i):
+        x, _, aux = _block(cfg, stack.whole(lp, i), x, positions, window,
                            bidirectional=cfg.is_encoder_only)
         return x, aux
 
     auxes = []
-    for lp in _unbound_layers(p["layers"], cfg.num_layers):
+    for i in range(cfg.num_layers):
         if remat and torch.is_grad_enabled():
-            x, aux = checkpoint(layer, x, lp, use_reentrant=False)
+            x, aux = checkpoint(layer, x, stack[i], i, use_reentrant=False)
         else:
-            x, aux = layer(x, lp)
+            x, aux = layer(x, stack[i], i)
         if aux is not None:
             auxes.append(aux)
-    x = rms_norm(x, p["final_norm"], cfg.norm_eps)
+    x = rms_norm(x, common.weights(cfg, p, "final_norm"), cfg.norm_eps)
     return (x[:, offset:] if offset else x), auxes
 
 
@@ -302,12 +307,15 @@ def prefill(cfg, p, batch, max_len: int | None = None):
     ctx.declare(cache_len=T)
 
     ks, vs = [], []
-    for lp in _unbound_layers(p["layers"], cfg.num_layers):
-        x, (k, v), _ = _block(cfg, lp, x, positions, W, aux=False)
+    stack = common.LayerStack(cfg, p)
+    for i in range(cfg.num_layers):
+        x, (k, v), _ = _block(cfg, stack.layer(i), x, positions,
+                              W, aux=False)
         ks.append(attn.cache_block(cfg, k, T))
         vs.append(attn.cache_block(cfg, v, T))
     ks, vs = torch.stack(ks), torch.stack(vs)
-    x = rms_norm(x[:, -1:], p["final_norm"], cfg.norm_eps)
+    x = rms_norm(x[:, -1:], common.weights(cfg, p, "final_norm"),
+                 cfg.norm_eps)
     return _unembed(cfg, p, x), {"k": ks, "v": vs}
 
 
@@ -318,13 +326,15 @@ def decode_step(cfg, p, cache, token, pos: int):
     the token are this rank's blocks and the logits come out whole over
     the vocab."""
     x = _embed_tokens(cfg, p, token)
-    for i, lp in enumerate(_unbound_layers(p["layers"], cfg.num_layers)):
+    stack = common.LayerStack(cfg, p)
+    for i in range(cfg.num_layers):
+        lp = stack.layer(i)
         h, _ = attn.attn_decode(cfg, lp["attn"],
                                 rms_norm(x, lp["ln1"], cfg.norm_eps),
                                 (cache["k"][i], cache["v"][i]), pos)
         x = x + h
         h, _ = _ffn(cfg, lp, rms_norm(x, lp["ln2"], cfg.norm_eps), aux=False)
         x = x + h
-    x = rms_norm(x, p["final_norm"], cfg.norm_eps)
+    x = rms_norm(x, common.weights(cfg, p, "final_norm"), cfg.norm_eps)
     return common.gathered_logits(_unembed(cfg, p, x),
                                   _vocab_entry(cfg)), cache

@@ -31,7 +31,6 @@ from repro_torch.layers import ssm
 from repro_torch.layers.init import normal
 from repro_torch.layers.norms import rms_norm
 from repro_torch.models import common
-from repro_torch.models.common import unbound_layers
 
 
 def _plan(cfg):
@@ -98,18 +97,22 @@ def logical_axes(cfg):
 
 
 def cache_logical(cfg):
-    return {"h": ("layers", "batch", "ssm_heads", None, None),
-            "conv": ("layers", "batch", None, "ssm_heads"),
+    """The cache's logical axes; its stacked layer and invocation dims
+    are unnamed, as the KV cache's (``layers/attention.py``
+    ``kv_cache_logical``)."""
+    return {"h": (None, "batch", "ssm_heads", None, None),
+            "conv": (None, "batch", None, "ssm_heads"),
             "k": (None, "batch", "kv_seq", "kv_heads", "head_dim"),
             "v": (None, "batch", "kv_seq", "kv_heads", "head_dim")}
 
 
-def _stages(cfg, p):
-    """(start, size, the stage's per-layer trees) for each stage."""
-    layers = unbound_layers(p["mamba"], cfg.num_layers)
+def _stages(cfg):
+    """(the stage's layer indices, whether the shared block follows it)
+    for each stage."""
     start, out = 0, []
     for size in _plan(cfg):
-        out.append((start, size, layers[start:start + size]))
+        out.append((range(start, start + size),
+                    size == cfg.shared_attn_every))
         start += size
     return out
 
@@ -120,7 +123,8 @@ def _positions(x):
 
 
 def _embed(cfg, p, tokens):
-    x = common.embed_tokens(p["embed"], tokens, cfg.vocab_size)
+    x = common.embed_tokens(common.weights(cfg, p, "embed"), tokens,
+                            cfg.vocab_size)
     return ctx.maybe_constrain(x, ("batch", None, None),
                                have=(ctx.batch_entry(), None, None))
 
@@ -132,8 +136,11 @@ def _mamba_block(cfg, lp, x):
     return x + h, state
 
 
-def _shared_block(cfg, sp, x, positions):
-    """The shared attention + SwiGLU block: (x, (k, v))."""
+def _shared_block(cfg, p, x, positions):
+    """The shared attention + SwiGLU block: (x, (k, v)); its weights made
+    whole where it is applied (``common.weights``: a rule override's
+    FSDP), and dropped after, but for what autograd keeps."""
+    sp = common.weights(cfg, p, "shared")
     h, kv = attn.attn_forward(cfg, sp["attn"],
                               rms_norm(x, sp["ln1"], cfg.norm_eps),
                               positions, window=cfg.sliding_window)
@@ -151,18 +158,20 @@ def _encode(cfg, p, batch, remat: bool = True):
     x = _embed(cfg, p, batch["tokens"])
     positions = _positions(x)
 
-    def mamba(x, lp):
-        return _mamba_block(cfg, lp, x)[0]
+    stack = common.LayerStack(cfg, p, "mamba")
 
-    for _, size, stage in _stages(cfg, p):
-        for lp in stage:
+    def mamba(x, lp, i):
+        return _mamba_block(cfg, stack.whole(lp, i), x)[0]
+
+    for stage, shared in _stages(cfg):
+        for i in stage:
             if remat and torch.is_grad_enabled():
-                x = checkpoint(mamba, x, lp, use_reentrant=False)
+                x = checkpoint(mamba, x, stack[i], i, use_reentrant=False)
             else:
-                x = mamba(x, lp)
-        if size == cfg.shared_attn_every:
-            x, _ = _shared_block(cfg, p["shared"], x, positions)
-    return rms_norm(x, p["final_norm"], cfg.norm_eps)
+                x = mamba(x, stack[i], i)
+        if shared:
+            x, _ = _shared_block(cfg, p, x, positions)
+    return rms_norm(x, common.weights(cfg, p, "final_norm"), cfg.norm_eps)
 
 
 def _vocab_entry(cfg):
@@ -170,7 +179,8 @@ def _vocab_entry(cfg):
 
 
 def _unembed(cfg, p, x):
-    return common.unembed(x, p["unembed"], _vocab_entry(cfg))
+    return common.unembed(x, common.weights(cfg, p, "unembed"),
+                          _vocab_entry(cfg))
 
 
 def forward(cfg, p, batch, *, remat: bool = True):
@@ -204,16 +214,18 @@ def prefill(cfg, p, batch):
     W = min(S, cfg.sliding_window) if cfg.sliding_window else S
     ctx.declare(cache_len=W)
     hs, convs, kss, vss = [], [], [], []
-    for _, size, stage in _stages(cfg, p):
-        for lp in stage:
-            x, st = _mamba_block(cfg, lp, x)
+    stack = common.LayerStack(cfg, p, "mamba")
+    for stage, shared in _stages(cfg):
+        for i in stage:
+            x, st = _mamba_block(cfg, stack.layer(i), x)
             hs.append(st["h"])
             convs.append(st["conv"])
-        if size == cfg.shared_attn_every:
-            x, (k, v) = _shared_block(cfg, p["shared"], x, positions)
+        if shared:
+            x, (k, v) = _shared_block(cfg, p, x, positions)
             kss.append(attn.cache_block(cfg, k, W))
             vss.append(attn.cache_block(cfg, v, W))
-    x = rms_norm(x[:, -1:], p["final_norm"], cfg.norm_eps)
+    x = rms_norm(x[:, -1:], common.weights(cfg, p, "final_norm"),
+                 cfg.norm_eps)
     logits = _unembed(cfg, p, x)
     if kss:
         k_cache, v_cache = torch.stack(kss), torch.stack(vss)
@@ -262,9 +274,10 @@ def decode_step(cfg, p, cache, token, pos):
     whole over the vocab."""
     x = _embed(cfg, p, token)  # (B, 1, D)
     inv = 0
-    for start, size, stage in _stages(cfg, p):
-        for j, lp in enumerate(stage):
-            i = start + j
+    stack = common.LayerStack(cfg, p, "mamba")
+    for stage, shared in _stages(cfg):
+        for i in stage:
+            lp = stack.layer(i)
             y, ns = ssm.mamba2_decode(cfg, lp["mix"],
                                       rms_norm(x, lp["ln"], cfg.norm_eps),
                                       {"h": cache["h"][i],
@@ -272,8 +285,8 @@ def decode_step(cfg, p, cache, token, pos):
             x = x + y
             cache["h"][i] = ns["h"]
             cache["conv"][i] = ns["conv"]
-        if size == cfg.shared_attn_every:
-            sp = p["shared"]
+        if shared:
+            sp = common.weights(cfg, p, "shared")
             y, _ = attn.attn_decode(cfg, sp["attn"],
                                     rms_norm(x, sp["ln1"], cfg.norm_eps),
                                     (cache["k"][inv], cache["v"][inv]), pos)
@@ -283,6 +296,6 @@ def decode_step(cfg, p, cache, token, pos):
                                d_ff=cfg.d_ff)
             x = x + y
             inv += 1
-    x = rms_norm(x, p["final_norm"], cfg.norm_eps)
+    x = rms_norm(x, common.weights(cfg, p, "final_norm"), cfg.norm_eps)
     return common.gathered_logits(_unembed(cfg, p, x),
                                   _vocab_entry(cfg)), cache

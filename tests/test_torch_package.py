@@ -76,7 +76,9 @@ def test_no_source_imports_jax_or_repro():
              os.path.join(ROOT, "tools", "kernel_variants.py"),
              os.path.join(ROOT, "tools", "sgd_sensitivity.py"),
              os.path.join(ROOT, "tools", "train_step_turns.py"),
-             os.path.join(ROOT, "tests", "torch_mesh_ranks.py")]
+             os.path.join(ROOT, "tests", "torch_mesh_ranks.py"),
+             os.path.join(ROOT, "tests", "torch_mesh_overrides_ranks.py"),
+             os.path.join(ROOT, "scripts", "hillclimb_torch.py")]
     files += glob.glob(os.path.join(ROOT, "examples", "*_torch.py"))
     for dirpath, _, names in os.walk(PKG):
         files += [os.path.join(dirpath, n) for n in names

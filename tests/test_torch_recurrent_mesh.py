@@ -239,7 +239,7 @@ def _run(mesh_name):
              if mesh_name in SERVE_MESHES else [])
     train = ([_train_reference(i, members)[0] for i in range(len(TRAIN))]
              if mesh_name in TRAIN_MESHES else [])
-    rules = dryrun.MULTIPOD_RULES if members else None
+    rules = sharding.MULTIPOD_RULES if members else None
     return run_ranks(ranks.mesh_cases, int(np.prod(list(mesh.values()))),
                      device="cpu", args=(mesh, serve, train, rules),
                      timeout_s=300)

@@ -44,11 +44,11 @@ class _Shape:
 
 
 def _shapes_and_specs(tree, logical):
-    """[(global shape, spec under the active context)] of a numpy tree, in
-    tree order."""
+    """[(global shape, spec of its blocks under the active context)] of a
+    numpy tree, in tree order."""
     out = []
     sharding.map_logical(lambda log, a: out.append(
-        (a.shape, ctx.spec(a.shape, log))), logical, tree)
+        (a.shape, ctx.layout(a.shape, log))), logical, tree)
     return out
 
 
@@ -84,7 +84,7 @@ def train_case(mesh, case, rules=None):
         p_log, o_log, b_log = (sharding.with_member_dim(t)
                                for t in (p_log, o_log, b_log))
     out = {}
-    with ctx.use_mesh_rules(mesh, rules) as frame:
+    with ctx.use_mesh_rules(mesh, rules):
         params = convert.lm_shard_from_numpy(
             case["params"], p_log, mesh, mesh.coord, rules, device="cpu")
         opt = convert.lm_shard_from_numpy(
@@ -102,8 +102,7 @@ def train_case(mesh, case, rules=None):
             k_local = tree_leaves(params)[0].shape[0]
             m0 = mesh.index(ctx.spec((k,), ("member",))[0]) * k_local
             losses, grads = [], []
-            with ctx.use_mesh_rules(mesh) as inner:
-                inner.sizes.update(frame.sizes)
+            with ctx.member_step():
                 inner_layout = _shapes_and_specs(
                     tree_map(lambda a: a[0], case["params"]),
                     api.logical_axes(cfg))
